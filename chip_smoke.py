@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``quiver_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases:
+1. set-up: the card's name and power limit, the kernel build (timed),
+   a products-scale synthetic graph made on the card from a seed
+   (2.45M nodes, lognormal degrees with median 25 clipped to 10,000,
+   about 100M edges) and 100-dim features, int8-quantized;
+2. every CUDA kernel of the served path against its plain PyTorch
+   version at the shapes the path gives it, requiring exact equality of
+   every output, with the kernel's and the plain version's times and the
+   least time the card could take (bytes moved at 3.35 TB/s);
+3. the slice: ``ServeEngine(fused_hot_hop=True)`` serving GraphSAGE
+   100 -> 256 -> 256 -> 47, fanout [15, 10, 5], batch 1024, random
+   weights from a seed, on 16 batches; the launch counts prove the path
+   ran through the kernels, and one batch is held against the plain
+   walk within 1e-4 (``index_add_`` atomics sum in another order);
+4. a JSON line of the kernels, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero without that last line; with no CUDA device
+the script exits 2 at once. TF32 is switched off for matrix products and
+cuDNN, so the model runs in full fp32.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+SEED = 0
+NODES = 2_450_000
+MEDIAN_DEG = 25
+MAX_DEG = 10_000
+DIM, HIDDEN, CLASSES = 100, 256, 47
+SIZES = [15, 10, 5]
+BATCH = 1024
+ROW_CAP = 2048
+BATCHES = 16
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+FP32_OPS_PER_S = 67e12         # H100 SXM, outside the tensor cores
+SOURCE = "quiver_tpu_torch/csrc/fused_hop.cu"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Median device time of ``fn`` over ``iters`` runs, CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def make_graph(dev, gen, nodes):
+    import torch
+    ln = torch.randn(nodes, generator=gen, device=dev) + math.log(MEDIAN_DEG)
+    deg = torch.exp(ln).to(torch.int32).clamp_(0, MAX_DEG)
+    indptr = torch.zeros(nodes + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(deg, 0)
+    edges = int(indptr[-1])
+    check(edges < 2**31, "edge count exceeds int32")
+    indices = torch.randint(0, nodes, (edges,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    return indptr.to(torch.int32), indices, deg
+
+
+def make_seeds(dev, gen, nodes, bs, deg):
+    """``bs`` distinct ids with the rows the kernel must get right: the
+    highest-degree rows (above row_cap), isolated rows and -1 seeds."""
+    import torch
+    seeds = torch.randperm(nodes, generator=gen, device=dev)[:bs]
+    top = torch.argsort(deg, descending=True)[:8]
+    zero = torch.nonzero(deg == 0)[:4, 0]
+    seeds = seeds[~torch.isin(seeds, torch.cat([top, zero]))][:bs - 12]
+    seeds = torch.cat([top, zero, seeds]).to(torch.int32)
+    seeds[20::97] = -1
+    return seeds.contiguous()
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def sample_hop_bytes(seeds, k, counts) -> int:
+    """Least bytes: the seeds, each valid seed's indptr pair, each pick's
+    index entry, and the outputs."""
+    bs = seeds.shape[0]
+    valid = int((seeds >= 0).sum())
+    return 4 * bs + 8 * valid + 4 * int(counts.long().sum()) \
+        + 4 * bs * k + 4 * bs
+
+
+def hot_hop_cost(seeds, k, counts, nbrs, feat, forder, hot_rows):
+    """(bytes, fp32 ops) the leaf hop needs on this run's data: the
+    sampling bytes, each distinct hot storage row once (codes and
+    sidecars), the order entries of the distinct ids, and the fp32 rows
+    written for every seed and pick."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    ids = torch.cat([seeds, nbrs.reshape(-1)]).long()
+    ids = torch.unique(ids[ids >= 0])
+    rows = ids
+    extra = 0
+    if forder is not None:
+        rows = forder.long()[ids]
+        rows = rows[rows < hot_rows]
+        extra = 4 * ids.numel()
+    nrows = int(torch.unique(rows).numel())
+    dim = quant.tier_dim(feat)
+    bs = seeds.shape[0]
+    nbytes = sample_hop_bytes(seeds, k, counts) + extra \
+        + nrows * quant.row_read_bytes(feat) + 4 * dim * bs * (1 + k)
+    ops = 2 * dim * bs * (1 + k) if quant.is_quantized(feat) else 0
+    return nbytes, ops
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
+                  iters):
+    """Each kernel against its plain version at the served shapes."""
+    from quiver_tpu_torch.ops.kernels import fused
+    results = {}
+    shapes = [BATCH]
+    for k in SIZES:
+        shapes.append(shapes[-1] * (1 + k))
+    # interior hops: hop 0 (1,024 seeds x 15) and hop 1 (16,384 x 10)
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    for hop in range(len(SIZES) - 1):
+        bs, k = shapes[hop], SIZES[hop]
+        seeds = make_seeds(dev, gen, nodes, bs, deg)
+        hs = 1000 + hop
+        got = fused.fused_sample_hop(indptr, indices, seeds, k, hs, ROW_CAP)
+        want = fused.sample_hop_plain(indptr, indices, seeds, k, hs, ROW_CAP)
+        for g, w, name in zip(got, want, ("nbrs", "counts")):
+            check(same_bits(g, w), f"fused_sample_hop hop {hop}: {name} "
+                  "differs from the plain version")
+        check(int(got[1].max()) == k, "no seed reached the fanout")
+        ms = cuda_ms(lambda: fused.fused_sample_hop(
+            indptr, indices, seeds, k, hs, ROW_CAP), iters)
+        plain_ms = cuda_ms(lambda: fused.sample_hop_plain(
+            indptr, indices, seeds, k, hs, ROW_CAP), 3)
+        nbytes = sample_hop_bytes(seeds, k, got[1])
+        b_ms, _ = bound(nbytes, 0)
+        print(f"fused_sample_hop hop{hop} bs={bs} k={k}: kernel {ms:.4f} ms,"
+              f" plain {plain_ms:.4f} ms, moves {nbytes} B, bound "
+              f"{b_ms:.4f} ms, exact", flush=True)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bound_ms"] += b_ms
+        rec["err"] = max(rec["err"], max_abs(got[0], want[0]))
+    results["fused_sample_hop"] = rec
+
+    # the leaf hop (180,224 seeds x 5) over every table variant; the
+    # int8 table without an order is the served one and gives the times
+    bs, k = shapes[-2], SIZES[-1]
+    seeds = make_seeds(dev, gen, nodes, bs, deg)
+    hot_rows = (nodes * 3) // 4
+    err = 0.0
+    for name, feat in feats.items():
+        for fo in (None, forder):
+            hr = None if fo is None else hot_rows
+            got = fused.fused_hot_hop(indptr, indices, seeds, feat, k, 77,
+                                      ROW_CAP, fo, hr)
+            want = fused.hot_hop_plain(indptr, indices, seeds, feat, k, 77,
+                                       ROW_CAP, fo, hr)
+            for g, w, out in zip(got, want, ("nbrs", "counts", "seed_rows",
+                                            "pick_rows")):
+                check(same_bits(g, w), f"fused_hot_hop {name} forder="
+                      f"{fo is not None}: {out} differs from the plain "
+                      "version")
+                err = max(err, max_abs(g, w))
+            tag = f"{name}{'+forder' if fo is not None else ''}"
+            ms = cuda_ms(lambda: fused.fused_hot_hop(
+                indptr, indices, seeds, feat, k, 77, ROW_CAP, fo, hr), iters)
+            plain_ms = cuda_ms(lambda: fused.hot_hop_plain(
+                indptr, indices, seeds, feat, k, 77, ROW_CAP, fo, hr), 3)
+            nbytes, ops = hot_hop_cost(seeds, k, got[1], got[0], feat, fo,
+                                       hot_rows)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"fused_hot_hop leaf {tag} bs={bs} k={k}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, moves {nbytes} B,"
+                  f" bound {b_ms:.4f} ms ({b_by}), exact", flush=True)
+            if name == "int8" and fo is None:
+                results["fused_hot_hop"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by}
+    results["fused_hot_hop"]["err"] = err
+    return results
+
+
+def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
+    """Serve full-width batches through the kernels; return latencies
+    and the launch counts of the served run."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.parallel import layers_to_adjs
+
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES))
+    params = flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED))
+    eng = ServeEngine(model, params, topo, featq, [SIZES], BATCH,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP, seed=SEED,
+                      device=dev).warmup()
+    requests = [torch.randperm(nodes, generator=gen, device=dev)[:BATCH]
+                for _ in range(batches)]
+    torch.cuda.synchronize()
+
+    fused.reset_launches()
+    lat, outs = [], []
+    for ids in requests:
+        t0 = time.perf_counter()
+        outs.append(eng.run(ids))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fused.LAUNCHES)
+
+    for o in outs:
+        check(tuple(o.shape) == (BATCH, CLASSES), "logits shape")
+        check(bool(torch.isfinite(o).all()), "non-finite logits")
+    check(launches["fused_sample_hop"] == (len(SIZES) - 1) * batches,
+          f"fused_sample_hop launches {launches}")
+    check(launches["fused_hot_hop"] == batches,
+          f"fused_hot_hop launches {launches}")
+
+    # one batch against the plain walk with the same hop seeds
+    hs = [12345, -67890, 2**31 - 7]
+    seeds = eng.pad_seeds(requests[0])
+    got = eng.run(requests[0], hop_seeds=hs)
+    n_id, layers, x = fused.fused_multihop(
+        eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP)
+    rn, rl, rx = fused.fused_multihop_reference(
+        eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP)
+    check(torch.equal(n_id, rn), "frontier differs from the plain walk")
+    for a, b in zip(layers, rl):
+        check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
+              "layer COO differs from the plain walk")
+    valid = n_id >= 0
+    check(same_bits(x[valid], rx[valid]), "frontier rows differ")
+    with torch.inference_mode():
+        want = eng.model(rx, layers_to_adjs(rl, BATCH, SIZES))[:BATCH]
+    err = max_abs(got, want)
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+          f"logits differ from the plain path by {err}")
+    frontier = int(valid.sum())
+    print(f"slice: frontier {frontier} of {n_id.shape[0]} slots, logits "
+          f"max |kernel - plain| = {err:.3g} (tolerance 1e-4)", flush=True)
+    breakdown(eng, requests, x, layers)
+    return lat, launches
+
+
+def breakdown(eng, requests, x, layers):
+    """Where a served batch spends its time: the walk and the model
+    timed apart with CUDA events, then a ``torch.profiler`` trace of
+    four batches for the device's busy share and its top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.parallel import layers_to_adjs
+    seeds = eng.pad_seeds(requests[0])
+    hs = [1, 2, 3]
+    walk_ms = cuda_ms(lambda: fused.fused_multihop(
+        eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP), 10)
+    adjs = layers_to_adjs(layers, BATCH, SIZES)
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: eng.model(x, adjs), 10)
+    print(f"breakdown: walk {walk_ms:.3f} ms, model {model_ms:.3f} ms "
+          "(CUDA events, one batch each)", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ids in requests[:4]:
+            eng.run(ids)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("breakdown: torch.profiler saw no device time: device busy "
+              "share not measured", flush=True)
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0, None
+    for a, b in spans:                   # union of kernel intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    print(f"breakdown: 4 batches, wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}",
+          flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (t, n) in top:
+        print(f"breakdown: {t / 4e3:9.4f} ms/batch {n // 4:5d}x/batch "
+              f"{name[:110]}", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    # full fp32 for the model's products: no TF32 in matmul or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import _build, fused
+
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    fused.build_kernels()
+    build_s = time.perf_counter() - t0
+    for name, log in _build.build_logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"nvcc {name}: {ln.strip()}", flush=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, deg = make_graph(dev, gen, NODES)
+    feat = torch.randn(NODES, DIM, generator=gen, device=dev)
+    featq = quant.quantize(feat, "int8")
+    forder = torch.randperm(NODES, generator=gen, device=dev) \
+        .to(torch.int32)
+    torch.cuda.synchronize()
+    print(f"setup: kernel build {build_s:.2f} s, graph {NODES} nodes "
+          f"{indices.numel()} edges (max degree {int(deg.max())}), "
+          f"features {tuple(feat.shape)} made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    kern = phase_kernels(dev, gen, NODES, indptr, indices, deg,
+                         {"int8": featq, "fp32": feat}, forder, iters=20)
+    del feat, forder
+    lat, launches = phase_slice(dev, gen, NODES, indptr, indices, featq,
+                                BATCHES)
+    lat_sorted = sorted(lat)
+    p50 = lat_sorted[len(lat) // 2]
+    p99 = lat_sorted[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+    print(f"slice: {len(lat)} batches of {BATCH}, per-batch latency p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms on {card}", flush=True)
+
+    replaces = {"fused_sample_hop": "quiver_tpu/ops/pallas/fused.py:513",
+                "fused_hot_hop": "quiver_tpu/ops/pallas/fused.py:411"}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
+         "plain_ms": kern[name]["plain_ms"],
+         "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name].get("bound_by", "bytes"),
+         "library_ms": None}
+        for name in ("fused_sample_hop", "fused_hot_hop")]}
+    print(card, flush=True)
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""quiver_tpu_torch: the PyTorch and CUDA port of ``quiver_tpu``.
+
+A package of its own beside the JAX one, laid out like it (``ops/``,
+``ops/kernels/``, ``models/``, ``parallel/``, ``utils/``, ``pyg/``,
+``serving.py``). It imports neither JAX nor ``quiver_tpu``. Entry points
+put their tensors on the card unless the caller passes ``device="cpu"``;
+the TPU kernels of the served path are CUDA kernels for Hopper
+(``csrc/``), built at first use.
+"""
+
+__version__ = "0.1.0"
+
+from .models import GraphSAGE
+from .ops.quant import quantize
+from .serving import ServeEngine, build_serve_step
+from .utils import CSRTopo
+
+__all__ = ["CSRTopo", "GraphSAGE", "ServeEngine", "build_serve_step",
+           "quantize"]

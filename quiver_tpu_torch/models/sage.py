@@ -1,0 +1,63 @@
+"""GraphSAGE over the static-shape masked layer format (counterpart of
+``quiver_tpu/models/sage.py``).
+
+Message passing is a masked mean: -1-filled (invalid) edges contribute
+nothing because their mask zeroes the message and the count. Sums use
+``index_add_``, whose order on the card follows its atomics, so logits
+agree with the JAX model to a float tolerance, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def masked_mean_aggregate(x_src: torch.Tensor, edge_index: torch.Tensor,
+                          num_targets: int) -> torch.Tensor:
+    """Mean of neighbour features per target node. ``edge_index`` [2, E]
+    with row 0 = source local id, row 1 = target local id, -1 fill."""
+    src, dst = edge_index[0].long(), edge_index[1].long()
+    valid = (src >= 0) & (dst >= 0)
+    s = torch.where(valid, src, 0)
+    d = torch.where(valid, dst, 0)
+    w = valid.to(x_src.dtype)
+    msg = x_src[s] * w[:, None]
+    agg = x_src.new_zeros((num_targets, x_src.shape[1])).index_add_(0, d, msg)
+    cnt = x_src.new_zeros((num_targets,)).index_add_(0, d, w)
+    return agg / torch.clamp(cnt, min=1.0)[:, None]
+
+
+class SAGEConv(nn.Module):
+    """h_t' = W_root h_t + W_nbr mean_{s in N(t)} h_s"""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        self.lin_root = nn.Linear(in_dim, out_dim, bias=bias)
+        self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
+
+    def forward(self, x_src, x_dst, edge_index):
+        mean_nbr = masked_mean_aggregate(x_src, edge_index, x_dst.shape[0])
+        return self.lin_root(x_dst) + self.lin_nbr(mean_nbr)
+
+
+class GraphSAGE(nn.Module):
+    """Layer-wise minibatch GraphSAGE (PyG NeighborSampler pattern:
+    ``x_target = x[:size[1]]`` per hop, adjs outermost first). Unlike the
+    flax model, which infers it, the input width is given."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int, dropout: float = 0.5):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.convs = nn.ModuleList(
+            SAGEConv(dims[i], dims[i + 1]) for i in range(num_layers))
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x, adjs):
+        last = len(self.convs) - 1
+        for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
+            x = conv(x, x[:adj.size[1]], adj.edge_index)
+            if i != last:
+                x = self.dropout(torch.relu(x))
+        return x

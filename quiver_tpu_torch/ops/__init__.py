@@ -1,0 +1,4 @@
+from . import quant
+from .sample import LayerSample, compact_ids, compact_layer
+
+__all__ = ["quant", "LayerSample", "compact_ids", "compact_layer"]

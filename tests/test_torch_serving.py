@@ -1,0 +1,182 @@
+"""The port's serve path against the JAX package's
+``build_serve_step(fused_hot_hop=True)`` (``quiver_tpu/serving.py``),
+with the per-hop kernel seeds JAX derives from its key, plus the guards
+that keep the port apart from JAX and off the CPU unless asked."""
+
+import os
+import re
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quiver_tpu.models import GraphSAGE as FlaxSAGE
+from quiver_tpu.ops import quant as jquant
+from quiver_tpu.ops.pallas.fused import _hop_seed
+from quiver_tpu.ops.sample import compact_layer as jcompact
+from quiver_tpu.parallel.train import layers_to_adjs as jadjs
+from quiver_tpu.serving import build_serve_step as jbuild_serve_step
+from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine, quantize
+from quiver_tpu_torch.models import flax_to_state_dict
+from quiver_tpu_torch.serving import build_serve_step
+
+REPO = Path(__file__).resolve().parents[1]
+ROW_CAP = 16
+N, DIM, HIDDEN, OUT = 300, 12, 16, 5
+SIZES = [4, 3, 2]
+CAP = 8
+
+
+@pytest.fixture(scope="module")
+def setup():
+    g = np.random.default_rng(3)
+    deg = g.integers(0, 30, N)
+    indptr = np.zeros(N + 1, np.int32)
+    indptr[1:] = np.cumsum(deg)
+    indices = g.integers(0, N, indptr[-1]).astype(np.int32)
+    feat = g.standard_normal((N, DIM)).astype(np.float32)
+    perm = g.permutation(N).astype(np.int32)
+    forder = np.empty(N, np.int32)
+    forder[perm] = np.arange(N, dtype=np.int32)
+    fmodel = FlaxSAGE(hidden_dim=HIDDEN, out_dim=OUT,
+                      num_layers=len(SIZES), dropout=0.0)
+    layers, cur = [], jnp.full((CAP,), -1, jnp.int32)
+    for k in SIZES:
+        layers.append(jcompact(cur, jnp.full((cur.shape[0], k), -1,
+                                             jnp.int32), seeds_dense=True))
+        cur = layers[-1].n_id
+    variables = fmodel.init(jax.random.key(0),
+                            jnp.zeros((cur.shape[0], DIM)),
+                            jadjs(layers, CAP, SIZES))
+    return dict(indptr=indptr, indices=indices, feat=feat, forder=forder,
+                fmodel=fmodel, variables=variables)
+
+
+def _torch_model(setup):
+    return GraphSAGE(DIM, HIDDEN, OUT, len(SIZES), dropout=0.0)
+
+
+def _state(setup):
+    return flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, setup["variables"]))
+
+
+@pytest.mark.parametrize("kind", ["int8", "f32_forder"])
+def test_engine_matches_jax_serve_step(setup, kind):
+    s = setup
+    if kind == "int8":
+        jfeat = jquant.quantize(jnp.asarray(s["feat"]), "int8")
+        feat, forder, jforder = quantize(s["feat"], "int8"), None, None
+    else:
+        jfeat, feat = jnp.asarray(s["feat"]), s["feat"]
+        forder, jforder = s["forder"], jnp.asarray(s["forder"])
+    seeds = np.full((CAP,), -1, np.int32)
+    seeds[:6] = [3, 7, 11, 250, 0, 42]
+    step = jbuild_serve_step(s["fmodel"], SIZES, CAP, fused_hot_hop=True,
+                             fused_row_cap=ROW_CAP)
+    key = jax.random.key(5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # JAX pads D=12 to 128 lanes
+        _, want = step(s["variables"], key, jfeat, jforder,
+                       jnp.asarray(s["indptr"]), jnp.asarray(s["indices"]),
+                       jnp.asarray(seeds))
+    _, sub = jax.random.split(jax.random.key(5))
+    hop_seeds = [int(_hop_seed(sub, i)) for i in range(len(SIZES))]
+
+    topo = CSRTopo(indptr=s["indptr"], indices=s["indices"], device="cpu")
+    eng = ServeEngine(_torch_model(s), _state(s), topo, feat, [SIZES], CAP,
+                      forder=forder, fused_hot_hop=True,
+                      fused_row_cap=ROW_CAP, device="cpu")
+    got = eng.run(seeds[:6], hop_seeds=hop_seeds)
+    assert got.shape == (CAP, OUT) and got.device.type == "cpu"
+    np.testing.assert_allclose(got[:6].numpy(), np.asarray(want)[:6],
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_engine_seeds_its_own_hops(setup):
+    s = setup
+    mk = lambda seed: ServeEngine(
+        _torch_model(s), _state(s), (s["indptr"], s["indices"]), s["feat"],
+        [SIZES, [2, 2, 1]], CAP, fused_hot_hop=True, fused_row_cap=ROW_CAP,
+        seed=seed, device="cpu")
+    a, b = mk(1).warmup(), mk(1).warmup()
+    ids = np.array([5, 9, 13], np.int32)
+    for variant in (0, 1):
+        ra, rb = a.run(ids, variant), b.run(ids, variant)
+        assert torch.equal(ra, rb) and torch.isfinite(ra).all()
+    # an explicit replay of the drawn seeds reproduces the batch
+    c = mk(4)
+    hs = torch.randint(-2**31, 2**31 - 1, (3,),
+                       generator=torch.Generator().manual_seed(4)).tolist()
+    assert torch.equal(c.run(ids), mk(4).run(ids, hop_seeds=hs))
+    with pytest.raises(ValueError, match="batch_cap"):
+        a.run(np.arange(CAP + 1))
+
+
+def test_deferred_pieces_raise(setup):
+    s = setup
+    args = (_torch_model(s), None, (s["indptr"], s["indices"]), s["feat"],
+            [SIZES], CAP)
+    with pytest.raises(NotImplementedError, match="split path"):
+        ServeEngine(*args, device="cpu")
+    with pytest.raises(NotImplementedError, match="dedup_gather"):
+        ServeEngine(*args, fused_hot_hop=True, dedup_gather=True,
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="collect_metrics"):
+        ServeEngine(*args, fused_hot_hop=True, collect_metrics=True,
+                    device="cpu")
+
+    class Store:
+        def lookup_tiered(self, ids):
+            return ids
+
+    with pytest.raises(NotImplementedError, match="Feature store"):
+        ServeEngine(*args[:3], Store(), [SIZES], CAP, fused_hot_hop=True,
+                    device="cpu")
+    with pytest.raises(ValueError, match="exact"):
+        build_serve_step(args[0], SIZES, CAP, method="rotation",
+                         fused_hot_hop=True)
+    with pytest.raises(ValueError, match="hop count"):
+        ServeEngine(*args[:4], [SIZES, [2]], CAP, fused_hot_hop=True,
+                    device="cpu")
+
+
+def test_no_card_means_raise_not_cpu(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is used")
+    s = setup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(_torch_model(s), None, (s["indptr"], s["indices"]),
+                    s["feat"], [SIZES], CAP, fused_hot_hop=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CSRTopo(indptr=s["indptr"], indices=s["indices"])
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = ("import sys, quiver_tpu_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'quiver_tpu' or "
+            "m.startswith('quiver_tpu.')]\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sources_never_name_jax():
+    files = [p for p in (REPO / "quiver_tpu_torch").rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(REPO / "chip_smoke.py")
+    bad = re.compile(r"\bjax\b|quiver_tpu\.")
+    hits = [f"{p.relative_to(REPO)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if bad.search(line)]
+    assert not hits, hits
