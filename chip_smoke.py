@@ -6,20 +6,31 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases:
-1. set-up: the card's name and power limit, the kernel build (timed),
-   a products-scale synthetic graph made on the card from a seed
-   (2.45M nodes, lognormal degrees with median 25 clipped to 10,000,
-   about 100M edges) and 100-dim features, int8-quantized;
-2. every CUDA kernel of the served path against its plain PyTorch
-   version at the shapes the path gives it, requiring exact equality of
-   every output, with the kernel's and the plain version's times and the
-   least time the card could take (bytes moved at 3.35 TB/s);
-3. the slice: ``ServeEngine(fused_hot_hop=True)`` serving GraphSAGE
-   100 -> 256 -> 256 -> 47, fanout [15, 10, 5], batch 1024, random
-   weights from a seed, on 16 batches; the launch counts prove the path
-   ran through the kernels, and one batch is held against the plain
-   walk within 1e-4 (``index_add_`` atomics sum in another order);
-4. a JSON line of the kernels, then the last line
+1. set-up: the card's name and power limit, the build of the three
+   kernel sources (one ``nvcc`` each, all at once; each timed, with its
+   register and spill lines), a products-scale synthetic graph made on
+   the card from a seed (2.45M nodes, lognormal degrees with median 25
+   clipped to 10,000, about 100M edges) and 100-dim features,
+   int8-quantized;
+2. the fused kernels and the split walk's sampler against their plain
+   PyTorch versions at the shapes the walks give them, requiring exact equality of every
+   output, with the kernel's and the plain version's times and the least
+   time the card could take (bytes moved at 3.35 TB/s); the split walk's
+   ``sample_layer_kernel`` is also held equal to ``fused_sample_hop``;
+3. the served path: ``ServeEngine(fused_hot_hop=True)`` serving
+   GraphSAGE 100 -> 256 -> 256 -> 47, fanout [15, 10, 5], batch 1024,
+   random weights from a seed, on 16 batches; the launch counts prove
+   the path ran through the fused kernels, and one batch is held
+   against the plain walk within 1e-4 (``index_add_`` atomics sum in
+   another order);
+4. the split walk (``fused_multihop_reference``: ``sample_layer_kernel``
+   on every hop) on that batch: 3 launches, equal to the fused walk bit
+   for bit, its logits within 1e-4 of the served ones, and both walks
+   (and both leaf hops) timed; then ``gather_rows`` driven at the
+   batch's valid frontier, equal to ``feat[ids]``, to
+   ``torch.index_select`` (timed as the library's yardstick) and to the
+   fused walk's rows, for fp32 and bf16 tables;
+5. a JSON line of the four kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -46,7 +57,16 @@ ROW_CAP = 2048
 BATCHES = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 FP32_OPS_PER_S = 67e12         # H100 SXM, outside the tensor cores
-SOURCE = "quiver_tpu_torch/csrc/fused_hop.cu"
+CSRC = "quiver_tpu_torch/csrc/"
+SOURCES = {"fused_sample_hop": CSRC + "fused_hop.cu",
+           "fused_hot_hop": CSRC + "fused_hop.cu",
+           "sample_layer": CSRC + "sample_kernel.cu",
+           "gather_rows": CSRC + "gather.cu"}
+REPLACES = {"fused_sample_hop": "quiver_tpu/ops/pallas/fused.py:513",
+            "fused_hot_hop": "quiver_tpu/ops/pallas/fused.py:411",
+            "sample_layer": "quiver_tpu/ops/pallas/sample_kernel.py:174",
+            "gather_rows": "quiver_tpu/ops/pallas/gather.py:92"}
+SPLIT_HOP_SEEDS = [12345, -67890, 2**31 - 7]
 
 
 class SmokeFailure(RuntimeError):
@@ -114,7 +134,8 @@ def same_bits(a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.is_floating_point():
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
     return torch.equal(a, b)
 
 
@@ -163,8 +184,9 @@ def bound(nbytes, ops):
 
 def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
                   iters):
-    """Each kernel against its plain version at the served shapes."""
-    from quiver_tpu_torch.ops.kernels import fused
+    """The fused kernels and the split walk's sampler against their
+    plain versions at the shapes the walks give them."""
+    from quiver_tpu_torch.ops.kernels import fused, sample_kernel
     results = {}
     shapes = [BATCH]
     for k in SIZES:
@@ -231,16 +253,52 @@ def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by}
     results["fused_hot_hop"]["err"] = err
+
+    # the split walk's sampler on all three hops, against its plain
+    # version and against the fused sampler on the same seeds and seed
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    for hop, k in enumerate(SIZES):
+        bs = shapes[hop]
+        seeds = make_seeds(dev, gen, nodes, bs, deg)
+        hs = 2000 + hop
+        args = (indptr, indices, seeds, k, hs, ROW_CAP)
+        got = sample_kernel.sample_layer_kernel(*args)
+        want = sample_kernel.sample_layer_plain(*args)
+        hop_out = fused.fused_sample_hop(*args)
+        for g, w, h, name in zip(got, want, hop_out, ("nbrs", "counts")):
+            check(same_bits(g, w), f"sample_layer_kernel hop {hop}: {name} "
+                  "differs from the plain version")
+            check(same_bits(g, h), f"sample_layer_kernel hop {hop}: {name} "
+                  "differs from fused_sample_hop")
+        check(int(got[1].max()) == k, "no seed reached the fanout")
+        ms = cuda_ms(lambda: sample_kernel.sample_layer_kernel(*args), iters)
+        plain_ms = cuda_ms(lambda: sample_kernel.sample_layer_plain(*args),
+                           3)
+        nbytes = sample_hop_bytes(seeds, k, got[1])
+        b_ms, _ = bound(nbytes, 0)
+        edges = int(got[1].long().sum())
+        print(f"sample_layer_kernel hop{hop} bs={bs} k={k}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, moves {nbytes} B, "
+              f"bound {b_ms:.4f} ms, {edges} edges = "
+              f"{edges / ms * 1e3:.4g} sampled edges/s, exact, equal to "
+              "fused_sample_hop", flush=True)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bound_ms"] += b_ms
+        rec["err"] = max(rec["err"], max_abs(got[0], want[0]))
+    results["sample_layer"] = rec
     return results
 
 
 def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
-    """Serve full-width batches through the kernels; return latencies
-    and the launch counts of the served run."""
+    """Serve full-width batches through the kernels; return the engine,
+    the requests, the logits of the batch held against the plain walk,
+    the latencies and the launch counts of the served run."""
     import torch
     from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine
     from quiver_tpu_torch.models.convert import (flax_to_state_dict,
                                                  random_flax_params)
+    from quiver_tpu_torch.ops import kernels
     from quiver_tpu_torch.ops.kernels import fused
     from quiver_tpu_torch.parallel import layers_to_adjs
 
@@ -255,14 +313,14 @@ def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
                 for _ in range(batches)]
     torch.cuda.synchronize()
 
-    fused.reset_launches()
+    kernels.reset_launches()
     lat, outs = [], []
     for ids in requests:
         t0 = time.perf_counter()
         outs.append(eng.run(ids))
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(fused.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
 
     for o in outs:
         check(tuple(o.shape) == (BATCH, CLASSES), "logits shape")
@@ -271,14 +329,16 @@ def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
           f"fused_sample_hop launches {launches}")
     check(launches["fused_hot_hop"] == batches,
           f"fused_hot_hop launches {launches}")
+    check(launches["sample_layer"] == launches["gather_rows"] == 0,
+          f"the served path launched split-walk kernels: {launches}")
 
     # one batch against the plain walk with the same hop seeds
-    hs = [12345, -67890, 2**31 - 7]
+    hs = SPLIT_HOP_SEEDS
     seeds = eng.pad_seeds(requests[0])
     got = eng.run(requests[0], hop_seeds=hs)
     n_id, layers, x = fused.fused_multihop(
         eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP)
-    rn, rl, rx = fused.fused_multihop_reference(
+    rn, rl, rx = fused.multihop_plain(
         eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP)
     check(torch.equal(n_id, rn), "frontier differs from the plain walk")
     for a, b in zip(layers, rl):
@@ -295,7 +355,109 @@ def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
     print(f"slice: frontier {frontier} of {n_id.shape[0]} slots, logits "
           f"max |kernel - plain| = {err:.3g} (tolerance 1e-4)", flush=True)
     breakdown(eng, requests, x, layers)
-    return lat, launches
+    return eng, requests, got, lat, launches
+
+
+def phase_split(eng, requests, served, feat, iters):
+    """The split walk and the row gather on one served batch: each path
+    driven with the launch counts set to 0 just before it and read just
+    after; every output held against the fused walk's."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import fused, gather
+    from quiver_tpu_torch.parallel import layers_to_adjs
+
+    hs = SPLIT_HOP_SEEDS
+    seeds = eng.pad_seeds(requests[0])
+    walk = (eng._indptr, eng._indices, seeds, eng._feat, SIZES, hs, ROW_CAP)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sn, sl, sx = fused.fused_multihop_reference(*walk)
+    torch.cuda.synchronize()
+    split_launches = dict(kernels.LAUNCHES)
+    check(split_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
+                             "sample_layer": len(SIZES), "gather_rows": 0},
+          f"split walk launches {split_launches}")
+
+    n_id, layers, x = fused.fused_multihop(*walk)
+    check(torch.equal(n_id, sn), "split walk: frontier differs from the "
+          "fused walk")
+    for a, b in zip(layers, sl):
+        check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
+              "split walk: layer COO differs from the fused walk")
+    valid = n_id >= 0
+    check(same_bits(x[valid], sx[valid]), "split walk: frontier rows "
+          "differ from the fused walk")
+    with torch.inference_mode():
+        logits = eng.model(sx, layers_to_adjs(sl, BATCH, SIZES))[:BATCH]
+    err = max_abs(served, logits)
+    check(torch.allclose(served, logits, atol=1e-4, rtol=1e-4),
+          f"split walk logits differ from the served ones by {err}")
+    print(f"split walk: 3 sample_layer launches, n_id, layer COOs and "
+          f"{int(valid.sum())} frontier rows equal to the fused walk bit "
+          f"for bit, logits max |split - served| = {err:.3g} (tolerance "
+          "1e-4)", flush=True)
+
+    # the card's counterparts of bench.py's fused-against-split figures
+    split_ms = cuda_ms(lambda: fused.fused_multihop_reference(*walk), 10)
+    fused_ms = cuda_ms(lambda: fused.fused_multihop(*walk), 10)
+    leaf = (eng._indptr, eng._indices, layers[-2].n_id, eng._feat,
+            SIZES[-1], hs[-1], ROW_CAP)
+    got = fused.fused_hot_hop(*leaf)
+    want = fused.fused_hot_hop_reference(*leaf)
+    for g, w, name in zip(got, want, ("nbrs", "counts", "seed_rows",
+                                      "pick_rows")):
+        check(same_bits(g, w), f"fused_hot_hop: {name} differs from the "
+              "split hop")
+    hot_split_ms = cuda_ms(lambda: fused.fused_hot_hop_reference(*leaf), 10)
+    hot_fused_ms = cuda_ms(lambda: fused.fused_hot_hop(*leaf), 10)
+    print(f"split vs fused walk: {split_ms:.4f} ms vs {fused_ms:.4f} ms, "
+          f"fused_multihop_vs_split {split_ms / fused_ms:.3f}x; leaf hop "
+          f"bs={leaf[2].shape[0]} k={SIZES[-1]}: split {hot_split_ms:.4f} "
+          f"ms vs fused {hot_fused_ms:.4f} ms, fused_vs_split "
+          f"{hot_split_ms / hot_fused_ms:.3f}x (CUDA events, median of 10)",
+          flush=True)
+
+    # gather_rows at the batch's valid frontier, fp32 table (no order)
+    _, _, xf = fused.fused_multihop(eng._indptr, eng._indices, seeds, feat,
+                                    SIZES, hs, ROW_CAP)
+    ids = n_id[valid]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = gather.gather_rows(feat, ids)
+    torch.cuda.synchronize()
+    gather_launches = dict(kernels.LAUNCHES)
+    check(gather_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
+                              "sample_layer": 0, "gather_rows": 1},
+          f"gather path launches {gather_launches}")
+    check(same_bits(out, xf[valid]), "gather_rows differs from the fused "
+          "walk's rows")
+    rec = None
+    for name, table in (("fp32", feat), ("bf16", feat.to(torch.bfloat16))):
+        got = gather.gather_rows(table, ids)
+        want = gather.gather_rows_plain(table, ids)
+        lib = torch.index_select(table, 0, ids)
+        check(same_bits(got, want), f"gather_rows {name}: differs from "
+              "feat[ids]")
+        check(same_bits(got, lib), f"gather_rows {name}: differs from "
+              "index_select")
+        ms = cuda_ms(lambda: gather.gather_rows(table, ids), iters)
+        plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, ids), 3)
+        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, ids), iters)
+        nbytes = ids.shape[0] * (4 + 2 * table.shape[1]
+                                 * table.element_size())
+        b_ms, _ = bound(nbytes, 0)
+        print(f"gather_rows {name} ids={ids.shape[0]} D={table.shape[1]} "
+              f"({gather.word_bytes(table, got)}-byte words): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+              f"{lib_ms:.4f} ms, moves {nbytes} B, bound {b_ms:.4f} ms, "
+              "exact", flush=True)
+        if rec is None:
+            rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "library_ms": lib_ms, "err": max_abs(got, want)}
+    launches = {"sample_layer": split_launches["sample_layer"],
+                "gather_rows": gather_launches["gather_rows"]}
+    return rec, launches
 
 
 def breakdown(eng, requests, x, layers):
@@ -359,17 +521,19 @@ def main() -> int:
     # full fp32 for the model's products: no TF32 in matmul or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from quiver_tpu_torch.ops import quant
-    from quiver_tpu_torch.ops.kernels import _build, fused
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.ops.kernels import _build
 
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    fused.build_kernels()
+    kernels.build_kernels()
     build_s = time.perf_counter() - t0
     for name, log in _build.build_logs.items():
+        print(f"nvcc {name}.cu: {_build.build_seconds[name]:.2f} s",
+              flush=True)
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"nvcc {name}: {ln.strip()}", flush=True)
@@ -388,26 +552,27 @@ def main() -> int:
 
     kern = phase_kernels(dev, gen, NODES, indptr, indices, deg,
                          {"int8": featq, "fp32": feat}, forder, iters=20)
-    del feat, forder
-    lat, launches = phase_slice(dev, gen, NODES, indptr, indices, featq,
-                                BATCHES)
+    del forder
+    eng, requests, served, lat, launches = phase_slice(
+        dev, gen, NODES, indptr, indices, featq, BATCHES)
     lat_sorted = sorted(lat)
     p50 = lat_sorted[len(lat) // 2]
     p99 = lat_sorted[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
     print(f"slice: {len(lat)} batches of {BATCH}, per-batch latency p50 "
           f"{p50:.3f} ms p99 {p99:.3f} ms on {card}", flush=True)
+    kern["gather_rows"], split_launches = phase_split(
+        eng, requests, served, feat, iters=20)
+    launches.update(split_launches)
 
-    replaces = {"fused_sample_hop": "quiver_tpu/ops/pallas/fused.py:513",
-                "fused_hot_hop": "quiver_tpu/ops/pallas/fused.py:411"}
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name].get("bound_by", "bytes"),
-         "library_ms": None}
-        for name in ("fused_sample_hop", "fused_hot_hop")]}
+         "library_ms": kern[name].get("library_ms")}
+        for name in SOURCES]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
 // Fused neighbour-sampling hop and fused sample+gather leaf hop for Hopper.
+// The sampling itself, shared with sample_kernel.cu, is in
+// sample_common.cuh.
 //
 // Replaces the two Pallas TPU kernels of quiver_tpu/ops/pallas/fused.py:
 //   qt_fused_sample_hop  <- _fused_sample_hop (_make_fused_kernel,
@@ -32,31 +34,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sample_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;  // seeds per block = the hash's lane count
-constexpr int kMaxK = 64;    // register/local write-log bound
+using qt::block_base;
+using qt::kBlock;
+using qt::kMaxK;
 
-__device__ __forceinline__ uint32_t mix_u32(uint32_t x) {
-  x = (x ^ 61u) ^ (x >> 16);
-  x = x * 9u;
-  x = x ^ (x >> 4);
-  x = x * 0x27D4EB2Du;
-  x = x ^ (x >> 15);
-  return x;
-}
-
-__device__ __forceinline__ uint32_t block_base(int seed, uint32_t blk) {
-  return mix_u32(static_cast<uint32_t>(seed) ^ (0x9E3779B9u * (blk + 1u)));
-}
-
-__device__ __forceinline__ uint32_t draw(uint32_t base, uint32_t lane,
-                                         uint32_t step) {
-  return mix_u32(mix_u32(base ^ (lane * 0x85EBCA6Bu) ^ (step * 0x9E3779B9u)));
-}
-
-// Samples one seed; writes k entries to nbrs_row (and to picks_row when
-// given) and returns the count.
+// Reads one seed's indptr pair (seed clipped to [0, n-1]; a -1 seed has
+// degree 0 at start 0), then samples it (sample_common.cuh).
 __device__ int sample_one(const int* __restrict__ indptr,
                           const int* __restrict__ indices, int n_nodes,
                           int s, int k, int row_cap, uint32_t base,
@@ -68,29 +55,8 @@ __device__ int sample_one(const int* __restrict__ indptr,
     start = indptr[p];
     deg = indptr[p + 1] - start;
   }
-  const int pool = min(deg, row_cap);
-  const int count = min(deg, k);
-  int pos_log[kMaxK];
-  int val_log[kMaxK];
-  for (int i = 0; i < k; ++i) {
-    int v = -1;
-    if (i < count) {
-      const uint32_t bits = draw(base, lane, static_cast<uint32_t>(i));
-      const uint32_t span = static_cast<uint32_t>(max(pool - i, 1));
-      const int j = i + static_cast<int>(bits % span);
-      int a_j = j, a_i = i;
-      for (int t = 0; t < i; ++t) {  // last write wins, as in the log
-        if (pos_log[t] == j) a_j = val_log[t];
-        if (pos_log[t] == i) a_i = val_log[t];
-      }
-      pos_log[i] = j;
-      val_log[i] = a_i;
-      v = indices[static_cast<int64_t>(start) + a_j];
-    }
-    nbrs_row[i] = v;
-    if (picks_row != nullptr) picks_row[i] = v;
-  }
-  return count;
+  return qt::sample_from(indices, start, deg, k, row_cap, base, lane,
+                         nbrs_row, picks_row);
 }
 
 __global__ void __launch_bounds__(kBlock)

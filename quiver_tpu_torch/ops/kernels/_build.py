@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and count their launches.
 
 Each source under ``quiver_tpu_torch/csrc/`` is compiled by ``nvcc`` into
 a shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). The build happens at
 first use, into ``build/quiver_tpu_torch/`` beside the package; the file
-name carries a hash of the source and the flags, so an edited source
-never loads a stale library. Importing this module builds nothing.
+name carries a hash of the source, the ``*.cuh`` headers beside it and
+the flags, so an edited source or header never loads a stale library.
+Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -26,8 +28,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict = {}
-# what ``nvcc -Xptxas -v`` said for each source (registers, spills)
+# what ``nvcc -Xptxas -v`` said for each source (registers, spills), and
+# the seconds its ``nvcc`` ran
 build_logs: dict = {}
+build_seconds: dict = {}
+
+# launches of each kernel since the last reset_launches(); a wrapper adds
+# one exactly where it launches its kernel
+LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0, "sample_layer": 0,
+            "gather_rows": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launched(err: int, name: str) -> None:
+    """Called by a wrapper right after its launch with the C function's
+    ``cudaGetLastError()``: raises if the launch failed, else counts it."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
 
 
 def find_nvcc() -> str:
@@ -42,10 +64,14 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source and its library's path. The hash covers the source,
+    every header beside it and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -58,26 +84,32 @@ def _start(name: str):
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, lib
+    return proc, tmp, lib, time.perf_counter()
 
 
-def _finish(name: str, job) -> None:
+def _finish(name: str, job):
+    """Wait for one ``nvcc``; the error message if it failed."""
     if job is None:
-        return
-    proc, tmp, lib = job
+        return None
+    proc, tmp, lib, t0 = job
     out, _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
     build_logs[name] = out
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        return f"nvcc failed for {name}.cu:\n{out}"
     os.replace(tmp, lib)
+    return None
 
 
 def build(names) -> None:
-    """Compile the named sources, one ``nvcc`` each, all at once."""
+    """Compile the named sources, one ``nvcc`` each, all at once; every
+    ``nvcc`` has ended when this returns or raises."""
     with _lock:
         jobs = {n: _start(n) for n in names}
-        for n, job in jobs.items():
-            _finish(n, job)
+        errors = [_finish(n, job) for n, job in jobs.items()]
+    errors = [e for e in errors if e is not None]
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:

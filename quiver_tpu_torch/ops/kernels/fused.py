@@ -17,6 +17,13 @@ random bits are the counter hash of ``_rng``, so both versions, and the
 JAX package's Pallas kernels with ``rng="hash"``, pick the same
 neighbours bit for bit given the same int32 seed.
 
+The walks: :func:`fused_multihop` (the fused walk of the served path)
+and its plain version :func:`multihop_plain`; and, as in the JAX
+package, the split walk :func:`fused_multihop_reference` (with its one
+hop :func:`fused_hot_hop_reference`), which samples every hop with
+``sample_kernel.sample_layer_kernel`` and is the fused walk's
+acceptance oracle.
+
 Unlike the JAX functions these take the plain CSR ``indices`` (no
 ``pad_indices`` window padding: the CUDA kernel reads
 ``indices[start + pos]`` directly) and, for the walk, explicit int32
@@ -33,18 +40,11 @@ import torch
 from .. import quant
 from ..sample import compact_layer
 from . import _build
-from ._rng import BLOCK, block_base, rand_bits
+from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from .sample_kernel import (_check_1d_int32, _check_common, _i32,
+                            sample_layer_kernel, sample_layer_plain)
 
 _LIB = "fused_hop"
-
-# launches of each kernel since the last reset_launches(); a wrapper adds
-# one exactly where it launches its kernel
-LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _lib():
@@ -62,87 +62,12 @@ def _lib():
     return lib
 
 
-def build_kernels() -> None:
-    """Compile the kernels now (``chip_smoke.py`` times this as set-up)."""
-    _build.build([_LIB])
-    _lib()
-
-
-def _check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 # -- plain PyTorch versions ---------------------------------------------------
 
 
-def _seed_rows(indptr, seeds):
-    """(start, deg) per seed: clipped to [0, n-1], -1 seeds read degree
-    0 at start 0 (``fused.py:144-185``)."""
-    n = indptr.shape[0] - 1
-    valid = seeds >= 0
-    if n <= 0:
-        z = torch.zeros_like(seeds, dtype=torch.int64)
-        return z, z
-    p = seeds.long().clamp(0, n - 1)
-    lo = indptr.long()[p]
-    hi = indptr.long()[p + 1]
-    zero = torch.zeros_like(lo)
-    return torch.where(valid, lo, zero), torch.where(valid, hi - lo, zero)
-
-
-def fy_positions(degs: torch.Tensor, k: int, row_cap: int,
-                 seed: int) -> torch.Tensor:
-    """Partial Fisher-Yates with a k-entry write log (counterpart of
-    ``sample_kernel._fy_positions``): positions ``[bs, k]`` without
-    replacement in ``[0, min(deg, row_cap))``. Seed ``s`` draws as lane
-    ``s % 128`` of block ``s // 128``, one draw per step."""
-    bs = degs.shape[0]
-    dev = degs.device
-    sidx = torch.arange(bs, dtype=torch.int64, device=dev)
-    base = block_base(seed, sidx // BLOCK)
-    lane = sidx % BLOCK
-    pool = torch.clamp(degs.long(), max=row_cap)
-    pos_log = torch.full((bs, k), -1, dtype=torch.int64, device=dev)
-    val_log = torch.zeros((bs, k), dtype=torch.int64, device=dev)
-    steps = torch.arange(k, dtype=torch.int64, device=dev)
-
-    def lookup(x):
-        match = pos_log == x[:, None]
-        last = torch.where(match, steps, -1).amax(dim=1)
-        logged = val_log.gather(1, last.clamp(min=0)[:, None])[:, 0]
-        return torch.where(last >= 0, logged, x)
-
-    outs = []
-    for i in range(k):
-        span = torch.clamp(pool - i, min=1)
-        j = i + rand_bits(base, lane, i) % span
-        a_j = lookup(j)
-        a_i = lookup(torch.full_like(j, i))
-        outs.append(a_j)
-        pos_log[:, i] = j
-        val_log[:, i] = a_i
-    if not outs:
-        return torch.zeros((bs, 0), dtype=torch.int64, device=dev)
-    return torch.stack(outs, dim=1)
-
-
-def sample_hop_plain(indptr, indices, seeds, k: int, seed: int,
-                     row_cap: int = 2048):
-    """Plain version of :func:`fused_sample_hop`: ``(nbrs [bs, k] int32
-    -1 filled, counts [bs] int32)``."""
-    start, deg = _seed_rows(indptr, seeds)
-    counts = torch.clamp(deg, max=k)
-    bs = seeds.shape[0]
-    if indices.numel() == 0 or bs == 0:
-        return (torch.full((bs, k), -1, dtype=torch.int32,
-                           device=seeds.device),
-                counts.to(torch.int32))
-    pos = fy_positions(deg, k, row_cap, seed)
-    take = torch.arange(k, device=seeds.device)[None, :] < counts[:, None]
-    at = torch.where(take, start[:, None] + pos, 0)
-    nbrs = torch.where(take, indices.long()[at], -1)
-    return nbrs.to(torch.int32), counts.to(torch.int32)
+# B3 computes B1's function and only reads the indptr pair inside the
+# kernel, so the two kernels share one plain version
+sample_hop_plain = sample_layer_plain
 
 
 def _oracle_rows(feat, ids, feature_order=None,
@@ -167,8 +92,8 @@ def _oracle_rows(feat, ids, feature_order=None,
 def hot_hop_plain(indptr, indices, seeds, feat, k: int, seed: int,
                   row_cap: int = 2048, feature_order=None,
                   hot_rows: Optional[int] = None):
-    """Plain version of :func:`fused_hot_hop` (the JAX package's split
-    oracle ``fused_hot_hop_reference``: sample, then look the rows up)."""
+    """Plain version of :func:`fused_hot_hop`: the plain sampler, then
+    the plain lookup of the seeds' and picks' rows."""
     nbrs, counts = sample_hop_plain(indptr, indices, seeds, k, seed,
                                     row_cap)
     return (nbrs, counts,
@@ -176,55 +101,17 @@ def hot_hop_plain(indptr, indices, seeds, feat, k: int, seed: int,
             _oracle_rows(feat, nbrs.reshape(-1), feature_order, hot_rows))
 
 
-fused_hot_hop_reference = hot_hop_plain
-
-
 # -- wrappers ------------------------------------------------------------------
-
-
-def _check_1d_int32(t, name, dev):
-    if not torch.is_tensor(t) or t.dtype != torch.int32 or t.dim() != 1 \
-            or not t.is_contiguous() or t.device != dev:
-        raise ValueError(
-            f"{name} must be a contiguous 1-D int32 tensor on {dev}, got "
-            f"{getattr(t, 'dtype', type(t))} "
-            f"{tuple(getattr(t, 'shape', ()))} on "
-            f"{getattr(t, 'device', None)}")
-
-
-def _check_common(indptr, indices, seeds, k, row_cap):
-    dev = seeds.device
-    for t, name in ((indptr, "indptr"), (indices, "indices"),
-                    (seeds, "seeds")):
-        _check_1d_int32(t, name, dev)
-    if indptr.shape[0] < 1:
-        raise ValueError("indptr must hold at least one entry")
-    if not 1 <= k <= row_cap:
-        raise ValueError(f"need 1 <= k <= row_cap, got k={k}, "
-                         f"row_cap={row_cap}")
-    if dev.type == "cuda":
-        kmax = _lib().qt_max_k()
-        if k > kmax:
-            raise ValueError(f"the CUDA kernels take k <= {kmax}, got {k}")
-    return dev
-
-
-def _i32(seed) -> int:
-    """A Python int seed as the kernel sees it (int32, two's complement)."""
-    s = int(seed) & 0xFFFFFFFF
-    return s - (1 << 32) if s >= 1 << 31 else s
 
 
 def fused_sample_hop(indptr, indices, seeds, k: int, seed,
                      row_cap: int = 2048):
     """One sampling hop: ``(nbrs [bs, k] int32, counts [bs] int32)``.
     Every tensor is int32, contiguous and on one device."""
-    dev = _check_common(indptr, indices, seeds, k, row_cap)
+    dev = _check_common(indptr, indices, seeds, k, row_cap, _lib)
     seed = _i32(seed)
     if dev.type == "cpu":
         return sample_hop_plain(indptr, indices, seeds, k, seed, row_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_sample_hop runs on cuda or cpu, not {dev}")
     bs = seeds.shape[0]
     nbrs = torch.empty((bs, k), dtype=torch.int32, device=dev)
     counts = torch.empty((bs,), dtype=torch.int32, device=dev)
@@ -236,8 +123,7 @@ def fused_sample_hop(indptr, indices, seeds, k: int, seed,
             indptr.data_ptr(), indices.data_ptr(), seeds.data_ptr(), bs,
             indptr.shape[0] - 1, k, row_cap, seed, nbrs.data_ptr(),
             counts.data_ptr(), stream)
-    _check_launch(err, "fused_sample_hop")
-    LAUNCHES["fused_sample_hop"] += 1
+    _build.launched(err, "fused_sample_hop")
     return nbrs, counts
 
 
@@ -271,7 +157,7 @@ def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
     ``feature_order`` (old id -> storage row) is optional, and
     ``hot_rows`` (default: every row) bounds the hot tier only together
     with it."""
-    dev = _check_common(indptr, indices, seeds, k, row_cap)
+    dev = _check_common(indptr, indices, seeds, k, row_cap, _lib)
     data, scale, zero = _check_feat(feat, dev)
     if feature_order is not None:
         _check_1d_int32(feature_order, "feature_order", dev)
@@ -281,8 +167,6 @@ def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
     if dev.type == "cpu":
         return hot_hop_plain(indptr, indices, seeds, feat, k, seed, row_cap,
                              feature_order, hot_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_hot_hop runs on cuda or cpu, not {dev}")
     bs = seeds.shape[0]
     tier_n, dim = data.shape
     hot = tier_n if hot_rows is None else int(hot_rows)
@@ -305,8 +189,7 @@ def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
             0 if feature_order is None else feature_order.shape[0], hot,
             nbrs.data_ptr(), counts.data_ptr(), seed_rows.data_ptr(),
             pick_rows.data_ptr(), stream)
-    _check_launch(err, "fused_hot_hop")
-    LAUNCHES["fused_hot_hop"] += 1
+    _build.launched(err, "fused_hot_hop")
     return nbrs, counts, seed_rows, pick_rows
 
 
@@ -321,20 +204,29 @@ def _check_walk(sizes, hop_seeds):
                          f"{len(hop_seeds)} seeds")
 
 
+def _sample_walk(sample, indptr, indices, seeds, sizes, hop_seeds,
+                 row_cap):
+    """Walk the fanout ladder with ``sample`` (a sampling layer's
+    signature), compacting each hop's frontier into the next hop's
+    static seed budget. Returns ``(n_id, layers)``."""
+    _check_walk(sizes, hop_seeds)
+    cur = seeds
+    layers = []
+    for k, s in zip(sizes, hop_seeds):
+        nbrs, _ = sample(indptr, indices, cur, int(k), _i32(s), row_cap)
+        layers.append(compact_layer(cur, nbrs, seeds_dense=True))
+        cur = layers[-1].n_id
+    return cur, layers
+
+
 def fused_sample_multihop(indptr, indices, seeds, sizes: Sequence[int],
                           hop_seeds: Sequence[int], row_cap: int = 2048):
     """Walk the fanout ladder with the sampling kernel, compacting each
     hop's frontier into the next hop's static seed budget. ``seeds``
     must be dense (distinct valid ids, -1 tail only). Returns
     ``(n_id, layers)``."""
-    _check_walk(sizes, hop_seeds)
-    cur = seeds
-    layers = []
-    for k, s in zip(sizes, hop_seeds):
-        nbrs, _ = fused_sample_hop(indptr, indices, cur, int(k), s, row_cap)
-        layers.append(compact_layer(cur, nbrs, seeds_dense=True))
-        cur = layers[-1].n_id
-    return cur, layers
+    return _sample_walk(fused_sample_hop, indptr, indices, seeds, sizes,
+                        hop_seeds, row_cap)
 
 
 def fused_multihop(indptr, indices, seeds, feat, sizes: Sequence[int],
@@ -378,20 +270,45 @@ def fused_multihop(indptr, indices, seeds, feat, sizes: Sequence[int],
     return leaf.n_id, layers, x[:cap]
 
 
+def multihop_plain(indptr, indices, seeds, feat, sizes: Sequence[int],
+                   hop_seeds: Sequence[int], row_cap: int = 2048,
+                   feature_order=None, hot_rows: Optional[int] = None):
+    """Plain version of :func:`fused_multihop`, on any device: the plain
+    sampler on every hop, compaction, and one plain lookup over the
+    final frontier. Matches :func:`fused_multihop` bit for bit on
+    ``n_id``, the layer COOs and every valid row of ``x``."""
+    n_id, layers = _sample_walk(sample_hop_plain, indptr, indices, seeds,
+                                sizes, hop_seeds, row_cap)
+    return n_id, layers, _oracle_rows(feat, n_id, feature_order, hot_rows)
+
+
+# -- the split walk (the JAX package's acceptance oracle) ----------------------
+
+
+def fused_hot_hop_reference(indptr, indices, seeds, feat, k: int, seed,
+                            row_cap: int = 2048, feature_order=None,
+                            hot_rows: Optional[int] = None):
+    """The split two-program hop (``fused.py: fused_hot_hop_reference``):
+    :func:`sample_layer_kernel`, its picks going through device memory,
+    then the plain lookup of the seeds' and picks' rows. Equals
+    :func:`fused_hot_hop` bit for bit."""
+    nbrs, counts = sample_layer_kernel(indptr, indices, seeds, k, seed,
+                                       row_cap)
+    return (nbrs, counts,
+            _oracle_rows(feat, seeds, feature_order, hot_rows),
+            _oracle_rows(feat, nbrs.reshape(-1), feature_order, hot_rows))
+
+
 def fused_multihop_reference(indptr, indices, seeds, feat,
                              sizes: Sequence[int], hop_seeds: Sequence[int],
                              row_cap: int = 2048, feature_order=None,
                              hot_rows: Optional[int] = None):
-    """The plain multi-hop walk: per-hop plain sampling, compaction and
-    one plain lookup over the final frontier, on any device. Matches
-    :func:`fused_multihop` bit for bit on ``n_id``, the layer COOs and
-    every valid row of ``x``."""
-    _check_walk(sizes, hop_seeds)
-    cur = seeds
-    layers = []
-    for k, s in zip(sizes, hop_seeds):
-        nbrs, _ = sample_hop_plain(indptr, indices, cur, int(k), _i32(s),
-                                   row_cap)
-        layers.append(compact_layer(cur, nbrs, seeds_dense=True))
-        cur = layers[-1].n_id
-    return cur, layers, _oracle_rows(feat, cur, feature_order, hot_rows)
+    """The split walk (``fused.py: fused_multihop_reference``):
+    :func:`sample_layer_kernel` on every hop, the frontier ids going
+    through device memory between hops, compaction, and one plain lookup
+    over the final frontier. :func:`fused_multihop` equals it bit for bit
+    on ``n_id``, the layer COOs and every valid row of ``x``: the
+    acceptance gate of the fused walk."""
+    n_id, layers = _sample_walk(sample_layer_kernel, indptr, indices, seeds,
+                                sizes, hop_seeds, row_cap)
+    return n_id, layers, _oracle_rows(feat, n_id, feature_order, hot_rows)

@@ -160,11 +160,62 @@ def test_multihop_bit_exact(graph, kind):
     assert x.shape == jx.shape and x.dtype == torch.float32
     assert x.numpy()[valid].tobytes() == np.asarray(jx)[valid].tobytes()
     assert not x.numpy()[~valid].any()
-    # the plain walk (one lookup over the final frontier) agrees too
-    rn, rl, rx = fused.fused_multihop_reference(
-        *args, row_cap=ROW_CAP, feature_order=tfo, hot_rows=hot)
-    assert torch.equal(rn, n_id)
-    assert rx.numpy()[valid].tobytes() == x.numpy()[valid].tobytes()
+    # the plain walk and the split walk (one lookup over the final
+    # frontier each) agree too
+    for walk in (fused.multihop_plain, fused.fused_multihop_reference):
+        rn, rl, rx = walk(*args, row_cap=ROW_CAP, feature_order=tfo,
+                          hot_rows=hot)
+        assert torch.equal(rn, n_id)
+        assert rx.numpy()[valid].tobytes() == x.numpy()[valid].tobytes()
+
+
+@pytest.mark.parametrize("kind", ["int8", "f32_forder"])
+def test_hot_hop_reference_bit_exact(graph, kind):
+    """The split hop (sampling layer, then the plain lookup) against the
+    JAX package's, and against the fused hop: the acceptance gate."""
+    jf, tf, jfo, tfo, hot = _feats(graph, kind)
+    idx = jfused.pad_indices(jnp.asarray(graph["indices"]), ROW_CAP)
+    want = _jax(jfused.fused_hot_hop_reference,
+                jnp.asarray(graph["indptr"]), idx,
+                jnp.asarray(graph["seeds"]), jf, K, jnp.int32(-13),
+                row_cap=ROW_CAP, rng="hash", interpret=True,
+                feature_order=jfo, hot_rows=hot)
+    args = (_t(graph["indptr"]), _t(graph["indices"]), _t(graph["seeds"]),
+            tf, K, -13)
+    kw = dict(row_cap=ROW_CAP, feature_order=tfo, hot_rows=hot)
+    got = fused.fused_hot_hop_reference(*args, **kw)
+    fused_out = fused.fused_hot_hop(*args, **kw)
+    for g, w, f, name in zip(got, want, fused_out,
+                             ("nbrs", "counts", "seed_rows", "pick_rows")):
+        _bitwise(g, w, name)
+        _bitwise(f, w, name)
+
+
+@pytest.mark.parametrize("kind", ["int8", "f32_forder"])
+def test_multihop_reference_bit_exact(graph, kind):
+    """The split walk against the JAX package's, every output and every
+    slot of ``x``; the plain walk equals both."""
+    sizes = [4, 3, 2]
+    jf, tf, jfo, tfo, hot = _feats(graph, kind)
+    seeds = np.concatenate([graph["seeds"][6:12], [-1, -1]]) \
+        .astype(np.int32)
+    key = jax.random.key(5)
+    idx = jfused.pad_indices(jnp.asarray(graph["indices"]), ROW_CAP)
+    jn, jl, jx = _jax(jfused.fused_multihop_reference,
+                      jnp.asarray(graph["indptr"]), idx, jnp.asarray(seeds),
+                      jf, sizes, key, row_cap=ROW_CAP, rng="hash",
+                      interpret=True, feature_order=jfo, hot_rows=hot)
+    args = (_t(graph["indptr"]), _t(graph["indices"]), _t(seeds), tf,
+            sizes, _hop_seeds(key, len(sizes)))
+    kw = dict(row_cap=ROW_CAP, feature_order=tfo, hot_rows=hot)
+    for walk in (fused.fused_multihop_reference, fused.multihop_plain):
+        n_id, layers, x = walk(*args, **kw)
+        _bitwise(n_id, jn, "n_id")
+        assert len(layers) == len(jl) == len(sizes)
+        for lay, ref in zip(layers, jl):
+            for f in ("n_id", "n_count", "row", "col", "edge_count"):
+                _bitwise(getattr(lay, f), getattr(ref, f), f)
+        _bitwise(x, jx, "x")
 
 
 def test_sample_multihop_bit_exact(graph):
@@ -224,4 +275,8 @@ def test_cpu_tensors_take_the_plain_version(graph):
     fused.fused_hot_hop(_t(graph["indptr"]), _t(graph["indices"]),
                         _t(graph["seeds"]), _t(graph["featf"]), K, 3,
                         row_cap=ROW_CAP)
-    assert fused.LAUNCHES == {"fused_sample_hop": 0, "fused_hot_hop": 0}
+    fused.fused_hot_hop_reference(_t(graph["indptr"]), _t(graph["indices"]),
+                                  _t(graph["seeds"]), _t(graph["featf"]), K,
+                                  3, row_cap=ROW_CAP)
+    assert fused.LAUNCHES == {"fused_sample_hop": 0, "fused_hot_hop": 0,
+                              "sample_layer": 0, "gather_rows": 0}
