@@ -7,14 +7,17 @@ Run from the root of a checkout, with no arguments:
 
 Phases:
 1. set-up: the card's name and power limit, the build of the three
-   kernel sources (one ``nvcc`` each, all at once; each timed, with its
-   register and spill lines), a products-scale synthetic graph made on
+   kernel sources (one ``nvcc`` each, all at once; each timed, with one
+   line per kernel of registers, stack frame and spills from ``nvcc
+   -Xptxas -v``), a products-scale synthetic graph made on
    the card from a seed (2.45M nodes, lognormal degrees with median 25
    clipped to 10,000, about 100M edges) and 100-dim features,
    int8-quantized;
 2. the fused kernels and the split walk's sampler against their plain
    PyTorch versions at the shapes the walks give them, requiring exact equality of every
-   output, with the kernel's and the plain version's times and the least
+   output, with the wrapper's and the plain version's times (CUDA events
+   around the call), the kernel's own device time (the median of its
+   ``torch.profiler`` kernel events over 20 launches) and the least
    time the card could take (bytes moved at 3.35 TB/s); the split walk's
    ``sample_layer_kernel`` is also held equal to ``fused_sample_hop``;
 3. the served path: ``ServeEngine(fused_hot_hop=True)`` serving
@@ -22,15 +25,17 @@ Phases:
    random weights from a seed, on 16 batches; the launch counts prove
    the path ran through the fused kernels, and one batch is held
    against the plain walk within 1e-4 (``index_add_`` atomics sum in
-   another order);
+   another order), its frontier rows bit for bit and the padding rows
+   of ``x`` +0.0 by their bits;
 4. the split walk (``fused_multihop_reference``: ``sample_layer_kernel``
    on every hop) on that batch: 3 launches, equal to the fused walk bit
    for bit, its logits within 1e-4 of the served ones, and both walks
    (and both leaf hops) timed; then ``gather_rows`` driven at the
    batch's valid frontier, equal to ``feat[ids]``, to
    ``torch.index_select`` (timed as the library's yardstick) and to the
-   fused walk's rows, for fp32 and bf16 tables;
-5. a JSON line of the four kernels, then the last line
+   fused walk's rows, for fp32 and bf16 tables, with its own time;
+5. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+   the kernel's own), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -101,6 +106,52 @@ def cuda_ms(fn, iters: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def own_ms(fn, kernel: str, iters: int):
+    """Median device duration of the ``torch.profiler`` CUDA kernel
+    events whose name holds ``kernel`` over ``iters`` calls of ``fn``:
+    the kernel's own time, without the wrapper's allocations, launch
+    and tensor ops. None when the profiler saw fewer such events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    durs = sorted(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.name)
+    if len(durs) < iters:
+        return None
+    return durs[len(durs) // 2] / 1e3
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def add_ms(a, b):
+    return None if a is None or b is None else a + b
+
+
+def ptxas_kernels(log: str):
+    """``(name, registers, stack frame, spill stores, spill loads)`` of
+    every kernel in one ``nvcc -Xptxas -v`` log."""
+    out, name, frame = [], None, (0, 0, 0)
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+        elif "bytes stack frame" in ln:
+            frame = tuple(int(w) for w in ln.split() if w.isdigit())[:3]
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = int(ln.split("Used", 1)[1].split()[0])
+            out.append((name, regs) + frame)
+            name, frame = None, (0, 0, 0)
+    return out
 
 
 def make_graph(dev, gen, nodes):
@@ -192,7 +243,8 @@ def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
     for k in SIZES:
         shapes.append(shapes[-1] * (1 + k))
     # interior hops: hop 0 (1,024 seeds x 15) and hop 1 (16,384 x 10)
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    rec = {"ms": 0.0, "own_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "err": 0.0}
     for hop in range(len(SIZES) - 1):
         bs, k = shapes[hop], SIZES[hop]
         seeds = make_seeds(dev, gen, nodes, bs, deg)
@@ -205,14 +257,18 @@ def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
         check(int(got[1].max()) == k, "no seed reached the fanout")
         ms = cuda_ms(lambda: fused.fused_sample_hop(
             indptr, indices, seeds, k, hs, ROW_CAP), iters)
+        own = own_ms(lambda: fused.fused_sample_hop(
+            indptr, indices, seeds, k, hs, ROW_CAP),
+            "fused_sample_hop_kernel", iters)
         plain_ms = cuda_ms(lambda: fused.sample_hop_plain(
             indptr, indices, seeds, k, hs, ROW_CAP), 3)
         nbytes = sample_hop_bytes(seeds, k, got[1])
         b_ms, _ = bound(nbytes, 0)
-        print(f"fused_sample_hop hop{hop} bs={bs} k={k}: kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms, moves {nbytes} B, bound "
-              f"{b_ms:.4f} ms, exact", flush=True)
+        print(f"fused_sample_hop hop{hop} bs={bs} k={k}: wrapper {ms:.4f} "
+              f"ms, kernel own {fmt_ms(own)}, plain {plain_ms:.4f} ms, "
+              f"moves {nbytes} B, bound {b_ms:.4f} ms, exact", flush=True)
         rec["ms"] += ms
+        rec["own_ms"] = add_ms(rec["own_ms"], own)
         rec["plain_ms"] += plain_ms
         rec["bound_ms"] += b_ms
         rec["err"] = max(rec["err"], max_abs(got[0], want[0]))
@@ -240,23 +296,30 @@ def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
             tag = f"{name}{'+forder' if fo is not None else ''}"
             ms = cuda_ms(lambda: fused.fused_hot_hop(
                 indptr, indices, seeds, feat, k, 77, ROW_CAP, fo, hr), iters)
+            own = own_ms(lambda: fused.fused_hot_hop(
+                indptr, indices, seeds, feat, k, 77, ROW_CAP, fo, hr),
+                "fused_hot_hop_kernel", iters)
             plain_ms = cuda_ms(lambda: fused.hot_hop_plain(
                 indptr, indices, seeds, feat, k, 77, ROW_CAP, fo, hr), 3)
             nbytes, ops = hot_hop_cost(seeds, k, got[1], got[0], feat, fo,
                                        hot_rows)
             b_ms, b_by = bound(nbytes, ops)
-            print(f"fused_hot_hop leaf {tag} bs={bs} k={k}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, moves {nbytes} B,"
-                  f" bound {b_ms:.4f} ms ({b_by}), exact", flush=True)
+            share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+            print(f"fused_hot_hop leaf {tag} bs={bs} k={k} "
+                  f"({fused.hot_hop_vec(feat, got[2], got[3])}-value "
+                  f"words): wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}"
+                  f"{share}, plain {plain_ms:.4f} ms, moves {nbytes} B, "
+                  f"bound {b_ms:.4f} ms ({b_by}), exact", flush=True)
             if name == "int8" and fo is None:
                 results["fused_hot_hop"] = {
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by}
+                    "ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
     results["fused_hot_hop"]["err"] = err
 
     # the split walk's sampler on all three hops, against its plain
     # version and against the fused sampler on the same seeds and seed
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    rec = {"ms": 0.0, "own_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "err": 0.0}
     for hop, k in enumerate(SIZES):
         bs = shapes[hop]
         seeds = make_seeds(dev, gen, nodes, bs, deg)
@@ -272,17 +335,21 @@ def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
                   "differs from fused_sample_hop")
         check(int(got[1].max()) == k, "no seed reached the fanout")
         ms = cuda_ms(lambda: sample_kernel.sample_layer_kernel(*args), iters)
+        own = own_ms(lambda: sample_kernel.sample_layer_kernel(*args),
+                     "sample_layer_kernel", iters)
         plain_ms = cuda_ms(lambda: sample_kernel.sample_layer_plain(*args),
                            3)
         nbytes = sample_hop_bytes(seeds, k, got[1])
         b_ms, _ = bound(nbytes, 0)
         edges = int(got[1].long().sum())
-        print(f"sample_layer_kernel hop{hop} bs={bs} k={k}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, moves {nbytes} B, "
-              f"bound {b_ms:.4f} ms, {edges} edges = "
-              f"{edges / ms * 1e3:.4g} sampled edges/s, exact, equal to "
-              "fused_sample_hop", flush=True)
+        print(f"sample_layer_kernel hop{hop} bs={bs} k={k}: wrapper "
+              f"{ms:.4f} ms, kernel own {fmt_ms(own)}, plain "
+              f"{plain_ms:.4f} ms, moves {nbytes} B, bound {b_ms:.4f} ms, "
+              f"{edges} edges = {edges / ms * 1e3:.4g} sampled edges/s "
+              "through the wrapper, exact, equal to fused_sample_hop",
+              flush=True)
         rec["ms"] += ms
+        rec["own_ms"] = add_ms(rec["own_ms"], own)
         rec["plain_ms"] += plain_ms
         rec["bound_ms"] += b_ms
         rec["err"] = max(rec["err"], max_abs(got[0], want[0]))
@@ -346,6 +413,8 @@ def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
               "layer COO differs from the plain walk")
     valid = n_id >= 0
     check(same_bits(x[valid], rx[valid]), "frontier rows differ")
+    check(not x[~valid].view(torch.int32).any(),
+          "padding rows of x are not +0.0")
     with torch.inference_mode():
         want = eng.model(rx, layers_to_adjs(rl, BATCH, SIZES))[:BATCH]
     err = max_abs(got, want)
@@ -442,19 +511,23 @@ def phase_split(eng, requests, served, feat, iters):
         check(same_bits(got, lib), f"gather_rows {name}: differs from "
               "index_select")
         ms = cuda_ms(lambda: gather.gather_rows(table, ids), iters)
+        own = own_ms(lambda: gather.gather_rows(table, ids),
+                     "gather_rows_kernel", iters)
         plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, ids), 3)
         lib_ms = cuda_ms(lambda: torch.index_select(table, 0, ids), iters)
         nbytes = ids.shape[0] * (4 + 2 * table.shape[1]
                                  * table.element_size())
         b_ms, _ = bound(nbytes, 0)
         print(f"gather_rows {name} ids={ids.shape[0]} D={table.shape[1]} "
-              f"({gather.word_bytes(table, got)}-byte words): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+              f"({gather.word_bytes(table, got)}-byte words): wrapper "
+              f"{ms:.4f} ms, kernel own {fmt_ms(own)}, plain "
+              f"{plain_ms:.4f} ms, index_select "
               f"{lib_ms:.4f} ms, moves {nbytes} B, bound {b_ms:.4f} ms, "
               "exact", flush=True)
         if rec is None:
-            rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "library_ms": lib_ms, "err": max_abs(got, want)}
+            rec = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "library_ms": lib_ms,
+                   "err": max_abs(got, want)}
     launches = {"sample_layer": split_launches["sample_layer"],
                 "gather_rows": gather_launches["gather_rows"]}
     return rec, launches
@@ -534,9 +607,10 @@ def main() -> int:
     for name, log in _build.build_logs.items():
         print(f"nvcc {name}.cu: {_build.build_seconds[name]:.2f} s",
               flush=True)
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"nvcc {name}: {ln.strip()}", flush=True)
+        for kname, regs, stack, st, ld in ptxas_kernels(log):
+            print(f"nvcc {name}: {kname[:72]}: {regs} registers, {stack} "
+                  f"bytes stack frame, {st} bytes spill stores, {ld} bytes "
+                  "spill loads", flush=True)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     indptr, indices, deg = make_graph(dev, gen, NODES)
@@ -568,6 +642,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
+         "own_ms": kern[name]["own_ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name].get("bound_by", "bytes"),

@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""The sampling kernels of the port, an older commit's against this
+tree's, in one process on one NVIDIA card.
+
+    git archive <commit> quiver_tpu_torch/csrc | tar -x -C DIR
+    python3 kernel_ab.py --old DIR
+
+The older sources (``DIR/quiver_tpu_torch/csrc``) are built with this
+tree's ``nvcc`` flags and launched through the C interface they had
+before the group sampler (``OLD_ARGS``: one thread per seed, the hot
+hop's seed rows in their own block); this tree's kernels run through
+their wrappers. At the served walk's shapes, on ``chip_smoke.py``'s
+graph and seeds: ``fused_sample_hop`` at hop 0 (1,024 x 15) and hop 1
+(16,384 x 10), ``fused_hot_hop`` at the leaf (180,224 x 5, int8), and
+``sample_layer`` at all three. Every old output is held equal to the new
+one bit for bit, then each shape is timed old, new, new, old: each turn
+the median of the kernel's own ``torch.profiler`` events over 20
+launches. Last, the fused walk of one served batch, old (the older
+kernels, compaction, the seed scatter and the pick scatter) against new
+(``fused_multihop``), timed the same way with CUDA events around the
+walk, its outputs held equal. Prints the card, one line per case and a
+JSON line; exits non-zero on any failure.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+ITERS = 20
+WALK_ITERS = 10
+BUILD = Path(__file__).resolve().parent / "build" / "kernel_ab"
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+OLD_ARGS = {
+    "qt_fused_sample_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
+    "qt_fused_hot_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _i,
+                         _i, _i, _p, _i, _i, _p, _p, _p, _p, _p],
+    "qt_sample_layer": [_p, _p, _p, _i, _i, _i, _i, _p, _p, _p],
+}
+
+
+def build_old(csrc: Path):
+    """Build the older ``fused_hop.cu`` and ``sample_kernel.cu``, both at
+    once, and bind their C functions; prints their ptxas lines."""
+    from quiver_tpu_torch.ops.kernels import _build
+    BUILD.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in ("fused_hop", "sample_kernel"):
+        out = BUILD / f"libold_{name}.so"
+        jobs[name] = (out, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in jobs.items():
+        log, _ = proc.communicate()
+        cs.check(proc.returncode == 0, f"old {name}.cu did not build:\n{log}")
+        for kname, regs, stack, st, ld in cs.ptxas_kernels(log):
+            print(f"nvcc old {name}: {kname[:72]}: {regs} registers, {stack} "
+                  f"bytes stack frame, {st} bytes spill stores, {ld} bytes "
+                  "spill loads", flush=True)
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in OLD_ARGS.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _i
+        libs[name] = lib
+    return libs
+
+
+def _stream():
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def old_sample_hop(lib, indptr, indices, seeds, k, seed):
+    import torch
+    bs = seeds.shape[0]
+    nbrs = torch.empty((bs, k), dtype=torch.int32, device=seeds.device)
+    counts = torch.empty((bs,), dtype=torch.int32, device=seeds.device)
+    err = lib.qt_fused_sample_hop(
+        indptr.data_ptr(), indices.data_ptr(), seeds.data_ptr(), bs,
+        indptr.shape[0] - 1, k, cs.ROW_CAP, seed, nbrs.data_ptr(),
+        counts.data_ptr(), _stream())
+    cs.check(err == 0, f"old fused_sample_hop launch failed: {err}")
+    return nbrs, counts
+
+
+def old_hot_hop(lib, indptr, indices, seeds, featq, k, seed):
+    import torch
+    bs = seeds.shape[0]
+    data, scale, zero = featq
+    tier_n, dim = data.shape
+    dev = seeds.device
+    nbrs = torch.empty((bs, k), dtype=torch.int32, device=dev)
+    counts = torch.empty((bs,), dtype=torch.int32, device=dev)
+    seed_rows = torch.empty((bs, dim), dtype=torch.float32, device=dev)
+    pick_rows = torch.empty((bs * k, dim), dtype=torch.float32, device=dev)
+    err = lib.qt_fused_hot_hop(
+        indptr.data_ptr(), indices.data_ptr(), seeds.data_ptr(), bs,
+        indptr.shape[0] - 1, k, cs.ROW_CAP, seed, data.data_ptr(),
+        scale.data_ptr(), zero.data_ptr(), 1, tier_n, dim, None, 0, tier_n,
+        nbrs.data_ptr(), counts.data_ptr(), seed_rows.data_ptr(),
+        pick_rows.data_ptr(), _stream())
+    cs.check(err == 0, f"old fused_hot_hop launch failed: {err}")
+    return nbrs, counts, seed_rows, pick_rows
+
+
+def old_sample_layer(lib, indptr, indices, seeds, k, seed):
+    import torch
+    from quiver_tpu_torch.ops.kernels.sample_kernel import _seed_rows
+    bs = seeds.shape[0]
+    nbrs = torch.empty((bs, k), dtype=torch.int32, device=seeds.device)
+    counts = torch.empty((bs,), dtype=torch.int32, device=seeds.device)
+    start, deg = _seed_rows(indptr, seeds)
+    err = lib.qt_sample_layer(
+        indices.data_ptr(), start.data_ptr(), deg.data_ptr(), bs, k,
+        cs.ROW_CAP, seed, nbrs.data_ptr(), counts.data_ptr(), _stream())
+    cs.check(err == 0, f"old sample_layer launch failed: {err}")
+    return nbrs, counts
+
+
+def old_walk(lib, indptr, indices, seeds, featq, hop_seeds):
+    """The fused walk as the older tree ran it: the older kernels, and
+    the seed rows and pick rows scattered into a zeroed block."""
+    import torch
+    from quiver_tpu_torch.ops.sample import compact_layer
+    cur, layers = seeds, []
+    for i, (k, s) in enumerate(zip(cs.SIZES, hop_seeds)):
+        if i < len(cs.SIZES) - 1:
+            nbrs, _ = old_sample_hop(lib, indptr, indices, cur, k, s)
+        else:
+            leaf_seeds = cur
+            nbrs, _, seed_rows, pick_rows = old_hot_hop(
+                lib, indptr, indices, cur, featq, k, s)
+        layers.append(compact_layer(cur, nbrs, seeds_dense=True))
+        cur = layers[-1].n_id
+    leaf = layers[-1]
+    n, cap, dev = leaf_seeds.shape[0], leaf.n_id.shape[0], seeds.device
+    x = torch.zeros((cap + 1, seed_rows.shape[1]), device=dev)
+    x.index_copy_(0, torch.where(leaf_seeds >= 0,
+                                 torch.arange(n, device=dev), cap), seed_rows)
+    x.index_copy_(0, torch.where(leaf.col >= 0, leaf.col.long(), cap),
+                  pick_rows)
+    return leaf.n_id, layers, x[:cap]
+
+
+def abba(old, new, timer):
+    """Times old, new, new, old; the two readings of each side."""
+    t = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        t[side].append(timer(old if side == "old" else new))
+    return t
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True,
+                    help="directory holding quiver_tpu_torch/csrc of the "
+                         "older commit")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import (build_kernels, fused,
+                                              sample_kernel)
+
+    card = cs.card_line()
+    print(card, flush=True)
+    build_kernels()
+    libs = build_old(Path(args.old) / "quiver_tpu_torch" / "csrc")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    indptr, indices, deg = cs.make_graph(dev, gen, cs.NODES)
+    featq = quant.quantize(
+        torch.randn(cs.NODES, cs.DIM, generator=gen, device=dev), "int8")
+    shapes = [cs.BATCH]
+    for k in cs.SIZES:
+        shapes.append(shapes[-1] * (1 + k))
+
+    # (kernel, label, seeds, k, new call, old call, profiler name)
+    cases = []
+    fh, sk = libs["fused_hop"], libs["sample_kernel"]
+    for hop in range(len(cs.SIZES)):
+        bs, k = shapes[hop], cs.SIZES[hop]
+        seeds = cs.make_seeds(dev, gen, cs.NODES, bs, deg)
+        hs = 3000 + hop
+        label = f"hop{hop} bs={bs} k={k}"
+        if hop < len(cs.SIZES) - 1:
+            cases.append((
+                "fused_sample_hop", label, seeds, k,
+                lambda s=seeds, k=k, hs=hs: fused.fused_sample_hop(
+                    indptr, indices, s, k, hs, cs.ROW_CAP),
+                lambda s=seeds, k=k, hs=hs: old_sample_hop(
+                    fh, indptr, indices, s, k, hs),
+                "fused_sample_hop_kernel"))
+        else:
+            cases.append((
+                "fused_hot_hop", label + " int8", seeds, k,
+                lambda s=seeds, k=k, hs=hs: fused.fused_hot_hop(
+                    indptr, indices, s, featq, k, hs, cs.ROW_CAP),
+                lambda s=seeds, k=k, hs=hs: old_hot_hop(
+                    fh, indptr, indices, s, featq, k, hs),
+                "fused_hot_hop_kernel"))
+        cases.append((
+            "sample_layer", label, seeds, k,
+            lambda s=seeds, k=k, hs=hs: sample_kernel.sample_layer_kernel(
+                indptr, indices, s, k, hs, cs.ROW_CAP),
+            lambda s=seeds, k=k, hs=hs: old_sample_layer(
+                sk, indptr, indices, s, k, hs),
+            "sample_layer_kernel"))
+
+    rows = []
+    for kernel, label, seeds, k, new, old, pname in cases:
+        got, want = new(), old()
+        for g, w in zip(got, want):
+            cs.check(cs.same_bits(g, w), f"{kernel} {label}: the old and "
+                     "the new kernel disagree")
+        if kernel == "fused_hot_hop":
+            b_ms, _ = cs.bound(*cs.hot_hop_cost(seeds, k, got[1], got[0],
+                                                featq, None, 0))
+        else:
+            b_ms, _ = cs.bound(cs.sample_hop_bytes(seeds, k, got[1]), 0)
+        t = abba(old, new, lambda fn: cs.own_ms(fn, pname, ITERS))
+        rows.append({"kernel": kernel, "shape": label, "old_ms": t["old"],
+                     "new_ms": t["new"], "bound_ms": b_ms})
+        print(f"{kernel} {label}: own device time old "
+              f"{' / '.join(cs.fmt_ms(x) for x in t['old'])}, new "
+              f"{' / '.join(cs.fmt_ms(x) for x in t['new'])} (torch.profiler,"
+              f" median of {ITERS} launches per turn, order old new new "
+              f"old), bound {b_ms:.5f} ms, outputs equal", flush=True)
+
+    seeds = cs.make_seeds(dev, gen, cs.NODES, cs.BATCH, deg)
+    seeds = torch.cat([seeds[seeds >= 0],
+                       seeds[seeds < 0]]).contiguous()   # dense
+    hs = [11, -12, 13]
+    got = fused.fused_multihop(indptr, indices, seeds, featq, cs.SIZES, hs,
+                               cs.ROW_CAP)
+    want = old_walk(fh, indptr, indices, seeds, featq, hs)
+    cs.check(torch.equal(got[0], want[0]), "walk: n_id differs")
+    for a, b in zip(got[1], want[1]):
+        cs.check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
+                 "walk: layer COO differs")
+    valid = got[0] >= 0
+    cs.check(cs.same_bits(got[2][valid], want[2][valid]),
+             "walk: frontier rows differ")
+    t = abba(lambda: old_walk(fh, indptr, indices, seeds, featq, hs),
+             lambda: fused.fused_multihop(indptr, indices, seeds, featq,
+                                          cs.SIZES, hs, cs.ROW_CAP),
+             lambda fn: cs.cuda_ms(fn, WALK_ITERS))
+    rows.append({"kernel": "walk", "shape": f"batch {cs.BATCH} "
+                 f"{cs.SIZES}", "old_ms": t["old"], "new_ms": t["new"]})
+    print(f"fused walk batch {cs.BATCH} {cs.SIZES}: old "
+          f"{t['old'][0]:.4f} / {t['old'][1]:.4f} ms, new "
+          f"{t['new'][0]:.4f} / {t['new'][1]:.4f} ms (CUDA events, median "
+          f"of {WALK_ITERS} per turn, order old new new old), outputs "
+          "equal", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "cases": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,11 +15,11 @@
 //
 // Bound on an H100: bytes. Per seed it reads 12 B (the seed, by the
 // wrapper; the start and the degree, here) and 4 B of neighbour index per
-// pick, and writes 4*(k+1) B. The design is the simple one: one thread per
-// seed, blockDim 128 so blockIdx/threadIdx are the hash's block/lane (a
-// ragged last block keeps that numbering: no padding of the seeds), the
-// write log in registers, direct reads of indices[start + pos] (no
-// 128-aligned windows, no index padding: those were Mosaic DMA rules).
+// pick, and writes 4*(k+1) B. At the walk's sizes that is latency: each
+// seed runs on a group of lanes (sample_common.cuh), its draws at once
+// and its log resolved in registers, then one round of neighbour reads.
+// The seed index, not the launch, numbers the hash's block and lane, so a
+// ragged last block needs no padding of the seeds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,19 +28,22 @@
 
 namespace {
 
-using qt::kBlock;
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kBlock)
+template <int S>
+__global__ void __launch_bounds__(kThreads)
 sample_layer_kernel(const int* __restrict__ indices,
                     const int* __restrict__ starts,
                     const int* __restrict__ degs, int bs, int k, int row_cap,
                     int seed, int* __restrict__ nbrs,
                     int* __restrict__ counts) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  if (g >= bs) return;
-  const uint32_t base = qt::block_base(seed, blockIdx.x);
-  counts[g] = qt::sample_from(indices, starts[g], degs[g], k, row_cap, base,
-                              threadIdx.x, nbrs + g * k, nullptr);
+  const int shift = qt::group_shift(k);
+  const int64_t g =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> shift;
+  const bool live = g < bs;
+  qt::sample_group<S>(indices, live ? starts[g] : 0, live ? degs[g] : 0, k,
+                      row_cap, seed, g, 1 << shift,
+                      threadIdx.x & ((1 << shift) - 1), live, nbrs, counts);
 }
 
 }  // namespace
@@ -52,12 +55,15 @@ int qt_max_k() { return qt::kMaxK; }
 int qt_sample_layer(const void* indices, const void* starts, const void* degs,
                     int bs, int k, int row_cap, int seed, void* nbrs,
                     void* counts, void* stream) {
-  sample_layer_kernel<<<(bs + kBlock - 1) / kBlock, kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indices), static_cast<const int*>(starts),
-      static_cast<const int*>(degs), bs, k, row_cap, seed,
-      static_cast<int*>(nbrs), static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
+  return qt::with_steps(k, [&](auto steps) {
+    sample_layer_kernel<decltype(steps)::value>
+        <<<qt::grid_for(bs, k, kThreads), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(indices), static_cast<const int*>(starts),
+            static_cast<const int*>(degs), bs, k, row_cap, seed,
+            static_cast<int*>(nbrs), static_cast<int*>(counts));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // extern "C"

@@ -50,14 +50,17 @@ _LIB = "fused_hop"
 def _lib():
     lib = _build.load(_LIB)
     if not getattr(lib, "_qt_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qt_fused_sample_hop.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
         lib.qt_fused_sample_hop.restype = i
         lib.qt_fused_hot_hop.argtypes = [p, p, p, i, i, i, i, i, p, p, p, i,
-                                         i, i, p, i, i, p, p, p, p, p]
+                                         i, i, p, i, i, p, p, p, ll, i, p, p]
         lib.qt_fused_hot_hop.restype = i
+        lib.qt_hot_hop_vec.argtypes = [p, i, i, p, ll, p]
+        lib.qt_hot_hop_vec.restype = i
         lib.qt_max_k.argtypes = []
         lib.qt_max_k.restype = i
+        lib._qt_max_k = lib.qt_max_k()
         lib._qt_bound = True
     return lib
 
@@ -147,32 +150,66 @@ def _check_feat(feat, dev):
     return data, scale, zero
 
 
+def _check_seed_rows_out(out, bs, dim, dev):
+    if not torch.is_tensor(out) or out.dtype != torch.float32 \
+            or tuple(out.shape) != (bs, dim) or out.device != dev \
+            or (dim > 1 and out.stride(1) != 1) \
+            or (bs > 1 and out.stride(0) < dim):
+        raise ValueError(
+            f"seed_rows_out must be an fp32 [{bs}, {dim}] tensor on {dev} "
+            "with contiguous rows that do not overlap")
+
+
+def hot_hop_vec(feat, seed_rows, pick_rows) -> int:
+    """The values one thread of :func:`fused_hot_hop`'s kernel moves per
+    gather word for ``feat`` into these outputs: 4 (4 int8 codes or
+    16 B of fp32 in, 16 B out) when the width, the seed rows' stride and
+    every base pointer are aligned for it, else 1."""
+    data, scale, _ = quant.tier_parts(feat)
+    return _lib().qt_hot_hop_vec(
+        data.data_ptr(), int(scale is not None), data.shape[1],
+        seed_rows.data_ptr(), seed_rows.stride(0), pick_rows.data_ptr())
+
+
 def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
                   row_cap: int = 2048, feature_order=None,
-                  hot_rows: Optional[int] = None):
+                  hot_rows: Optional[int] = None, seed_rows_out=None):
     """One fused hop: sample ``k`` neighbours per seed AND gather the
     rows of seeds and picks. Returns ``(nbrs [bs, k], counts [bs],
     seed_rows [bs, D], pick_rows [bs*k, D])``, ``pick_rows`` row-major
     over ``nbrs``, invalid (-1) and cold rows multiplied by zero.
     ``feature_order`` (old id -> storage row) is optional, and
     ``hot_rows`` (default: every row) bounds the hot tier only together
-    with it."""
+    with it. Given ``seed_rows_out`` (fp32 ``[bs, D]``, rows contiguous,
+    on the seeds' device), the rows of the valid (``>= 0``) seeds are
+    written there, the slots of -1 seeds keep what they hold, and it is
+    returned as ``seed_rows``."""
     dev = _check_common(indptr, indices, seeds, k, row_cap, _lib)
     data, scale, zero = _check_feat(feat, dev)
     if feature_order is not None:
         _check_1d_int32(feature_order, "feature_order", dev)
         if feature_order.shape[0] < 1:
             raise ValueError("feature_order must not be empty")
-    seed = _i32(seed)
-    if dev.type == "cpu":
-        return hot_hop_plain(indptr, indices, seeds, feat, k, seed, row_cap,
-                             feature_order, hot_rows)
     bs = seeds.shape[0]
     tier_n, dim = data.shape
+    if seed_rows_out is not None:
+        _check_seed_rows_out(seed_rows_out, bs, dim, dev)
+    seed = _i32(seed)
+    if dev.type == "cpu":
+        nbrs, counts, seed_rows, pick_rows = hot_hop_plain(
+            indptr, indices, seeds, feat, k, seed, row_cap, feature_order,
+            hot_rows)
+        if seed_rows_out is not None:
+            valid = seeds >= 0
+            seed_rows_out[valid] = seed_rows[valid]
+            seed_rows = seed_rows_out
+        return nbrs, counts, seed_rows, pick_rows
     hot = tier_n if hot_rows is None else int(hot_rows)
     nbrs = torch.empty((bs, k), dtype=torch.int32, device=dev)
     counts = torch.empty((bs,), dtype=torch.int32, device=dev)
-    seed_rows = torch.empty((bs, dim), dtype=torch.float32, device=dev)
+    seed_rows = seed_rows_out
+    if seed_rows is None:
+        seed_rows = torch.empty((bs, dim), dtype=torch.float32, device=dev)
     pick_rows = torch.empty((bs * k, dim), dtype=torch.float32, device=dev)
     if bs == 0:
         return nbrs, counts, seed_rows, pick_rows
@@ -188,6 +225,7 @@ def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
             None if feature_order is None else feature_order.data_ptr(),
             0 if feature_order is None else feature_order.shape[0], hot,
             nbrs.data_ptr(), counts.data_ptr(), seed_rows.data_ptr(),
+            seed_rows.stride(0), int(seed_rows_out is not None),
             pick_rows.data_ptr(), stream)
     _build.launched(err, "fused_hot_hop")
     return nbrs, counts, seed_rows, pick_rows
@@ -236,9 +274,10 @@ def fused_multihop(indptr, indices, seeds, feat, sizes: Sequence[int],
     :func:`fused_sample_hop`, the leaf hop :func:`fused_hot_hop`, and
     ``compact_layer`` dedups between hops. Each compacted frontier keeps
     its predecessor as its slot-[0, v) prefix, so the leaf hop's seeds
-    are the whole interior and two scatters assemble the ``[cap, D]``
-    block. Returns ``(n_id, layers, x)``; padding slots of ``x`` are
-    +0.0. ``hop_seeds`` are the per-hop int32 kernel seeds."""
+    are the whole interior: the leaf kernel writes their rows straight
+    into slots ``[0, v)`` of the ``[cap, D]`` block, and one scatter adds
+    the new picks' rows. Returns ``(n_id, layers, x)``; padding slots of
+    ``x`` are +0.0. ``hop_seeds`` are the per-hop int32 kernel seeds."""
     _check_walk(sizes, hop_seeds)
     cur = seeds
     layers = []
@@ -248,23 +287,20 @@ def fused_multihop(indptr, indices, seeds, feat, sizes: Sequence[int],
             nbrs, _ = fused_sample_hop(indptr, indices, cur, int(k), s,
                                        row_cap)
         else:
-            leaf_seeds = cur
-            nbrs, _, seed_rows, pick_rows = fused_hot_hop(
+            # the leaf frontier's capacity is compact_layer's n + n*k; one
+            # spare row takes every -1 pick and is cut off afterwards
+            n = cur.shape[0]
+            cap = n * (1 + int(k))
+            x = torch.zeros((cap + 1, quant.tier_dim(feat)),
+                            dtype=torch.float32, device=cur.device)
+            nbrs, _, _, pick_rows = fused_hot_hop(
                 indptr, indices, cur, feat, int(k), s, row_cap,
-                feature_order, hot_rows)
+                feature_order, hot_rows, seed_rows_out=x[:n])
         layers.append(compact_layer(cur, nbrs, seeds_dense=True))
         cur = layers[-1].n_id
     leaf = layers[-1]
-    n = leaf_seeds.shape[0]
-    cap = leaf.n_id.shape[0]
-    dev = seed_rows.device
-    # one spare row takes every -1 slot and is cut off afterwards;
-    # duplicate picks carry identical bits, so write order is irrelevant
-    x = torch.zeros((cap + 1, seed_rows.shape[1]), dtype=seed_rows.dtype,
-                    device=dev)
-    slot = torch.where(leaf_seeds >= 0,
-                       torch.arange(n, device=dev), cap)
-    x.index_copy_(0, slot, seed_rows)
+    # duplicate picks (and a pick of a seed) carry identical bits, so
+    # write order is irrelevant
     x.index_copy_(0, torch.where(leaf.col >= 0, leaf.col.long(), cap),
                   pick_rows)
     return leaf.n_id, layers, x[:cap]

@@ -39,6 +39,7 @@ def _lib():
         lib.qt_sample_layer.restype = i
         lib.qt_max_k.argtypes = []
         lib.qt_max_k.restype = i
+        lib._qt_max_k = lib.qt_max_k()
         lib._qt_bound = True
     return lib
 
@@ -131,7 +132,8 @@ def _check_1d_int32(t, name, dev):
 
 def _check_common(indptr, indices, seeds, k, row_cap, lib):
     """Checks the CSR, the seeds and ``k``; ``lib`` loads the library
-    whose ``qt_max_k`` bounds ``k`` on the card."""
+    whose ``qt_max_k`` (read once, when the library is bound) bounds
+    ``k`` on the card."""
     dev = seeds.device
     for t, name in ((indptr, "indptr"), (indices, "indices"),
                     (seeds, "seeds")):
@@ -142,7 +144,7 @@ def _check_common(indptr, indices, seeds, k, row_cap, lib):
         raise ValueError(f"need 1 <= k <= row_cap, got k={k}, "
                          f"row_cap={row_cap}")
     if dev.type == "cuda":
-        kmax = lib().qt_max_k()
+        kmax = lib()._qt_max_k
         if k > kmax:
             raise ValueError(f"the CUDA kernels take k <= {kmax}, got {k}")
     elif dev.type != "cpu":

@@ -2,7 +2,15 @@
 
 These need an NVIDIA card with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere. Run them on the card with
-``python -m pytest tests/test_torch_cuda.py -q -m cuda``."""
+``python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda``.
+
+The sampling cases cover one seed per group of 8, 16 and 32 lanes and a
+second step per lane (``k`` 1, 4, 31, 33, 64); the hot-hop cases every
+table (int8, fp32, each with and without ``feature_order`` +
+``hot_rows``) at widths 3, 7, 20 and 100 (the scalar and the 4-value
+gather words), a table whose base is not 16-byte aligned, and the
+``seed_rows_out`` destination. Every seed list has a ragged last
+128-seed block, seeds of degree 0 and above ``row_cap``, and -1 seeds."""
 
 import numpy as np
 import pytest
@@ -15,6 +23,8 @@ from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
 pytestmark = pytest.mark.cuda
 
 N, DIM, K, ROW_CAP = 3000, 20, 4, 32
+WIDE = 100                         # the served feature width
+HUBS = np.arange(10, 20)           # degree 200: above every row_cap here
 
 
 @pytest.fixture
@@ -29,13 +39,17 @@ def graph(card):
     g = np.random.default_rng(0)
     deg = g.integers(0, 60, N)
     deg[:10] = 0
+    deg[HUBS] = 200
     indptr = np.zeros(N + 1, np.int32)
     indptr[1:] = np.cumsum(deg)
     indices = g.integers(0, N, indptr[-1]).astype(np.int32)
-    seeds = g.choice(N, 1000, replace=False).astype(np.int32)
-    seeds[::37] = -1
+    # 1,000 seeds: a ragged last block of 104, -1 holes, an isolated row
+    # and the hubs
+    seeds = g.choice(np.arange(20, N), 1000, replace=False).astype(np.int32)
     seeds[1] = 3
-    feat = g.standard_normal((N, DIM)).astype(np.float32)
+    seeds[2:2 + HUBS.size] = HUBS
+    seeds[::37] = -1
+    feat = g.standard_normal((N, WIDE)).astype(np.float32)
     perm = g.permutation(N).astype(np.int32)
     on = lambda a: torch.from_numpy(a).to(card)
     return dict(indptr=on(indptr), indices=on(indices), seeds=on(seeds),
@@ -46,33 +60,92 @@ def _bits(t):
     return t.view(torch.int32) if t.is_floating_point() else t
 
 
-def test_sample_hop_kernel_equals_plain(graph):
-    args = (graph["indptr"], graph["indices"], graph["seeds"], K, -77,
-            ROW_CAP)
+def _offset(t, by):
+    """``t`` copied into a flat buffer ``by`` elements past its start:
+    the same values with a base that is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = buf[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _table(graph, kind, dim, offset=0):
+    """The feature table of a case and its ``(feature_order, hot_rows)``."""
+    f = graph["feat"][:, :dim].contiguous()
+    if kind.startswith("int8"):
+        q = quant.quantize(f, "int8")
+        feat = q._replace(data=_offset(q.data, offset)) if offset else q
+    else:
+        feat = _offset(f, offset) if offset else f
+    fo = (graph["forder"], N // 2) if kind.endswith("forder") else (None, None)
+    return feat, fo
+
+
+# (k, row_cap): groups of 8, 16 and 32 lanes, then two steps per lane
+SAMPLE_CASES = [(1, 32), (4, 32), (31, 32), (33, 40), (64, 80)]
+
+
+@pytest.mark.parametrize("k,row_cap", SAMPLE_CASES)
+def test_sample_hop_kernel_equals_plain(graph, k, row_cap):
+    args = (graph["indptr"], graph["indices"], graph["seeds"], k, -77,
+            row_cap)
     before = fused.LAUNCHES["fused_sample_hop"]
     got = fused.fused_sample_hop(*args)
     assert fused.LAUNCHES["fused_sample_hop"] == before + 1
     want = fused.sample_hop_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert int(got[1].max()) == k and int(got[1].min()) == 0
 
 
-@pytest.mark.parametrize("kind", ["int8", "fp32", "int8_forder"])
-def test_hot_hop_kernel_equals_plain(graph, kind):
-    feat = quant.quantize(graph["feat"], "int8") \
-        if kind.startswith("int8") else graph["feat"]
-    fo, hot = (graph["forder"], N // 2) if "forder" in kind else (None, None)
-    args = (graph["indptr"], graph["indices"], graph["seeds"], feat, K, 5,
-            ROW_CAP, fo, hot)
+# (kind, dim, k, offset, vec): every table at widths 3, 7, 20 and 100,
+# fanouts across the group sizes, and tables with a misaligned base
+HOT_CASES = [(kind, dim, K, 0, 4 if dim % 4 == 0 else 1)
+             for kind in ("int8", "fp32", "int8_forder", "fp32_forder")
+             for dim in (3, 7, DIM, WIDE)]
+HOT_CASES += [("int8", WIDE, k, 0, 4) for k in (1, 5, 31, 33, 64)]
+HOT_CASES += [("int8", WIDE, 5, 1, 1), ("fp32", WIDE, 5, 1, 1),
+              ("int8_forder", DIM, 33, 2, 1)]
+
+
+@pytest.mark.parametrize("kind,dim,k,offset,vec", HOT_CASES)
+def test_hot_hop_kernel_equals_plain(graph, kind, dim, k, offset, vec):
+    feat, (fo, hot) = _table(graph, kind, dim, offset)
+    row_cap = max(ROW_CAP, k)
+    args = (graph["indptr"], graph["indices"], graph["seeds"], feat, k, 5,
+            row_cap, fo, hot)
     got = fused.fused_hot_hop(*args)
     want = fused.hot_hop_plain(*args)
+    assert fused.hot_hop_vec(feat, got[2], got[3]) == vec
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
 
 
-def test_sample_layer_kernel_equals_plain_and_fused_hop(graph):
-    args = (graph["indptr"], graph["indices"], graph["seeds"], K, -77,
-            ROW_CAP)
+@pytest.mark.parametrize("kind,dim", [("int8", WIDE), ("fp32_forder", 7)])
+def test_hot_hop_writes_seed_rows_into_a_destination(graph, kind, dim):
+    """``seed_rows_out`` (the walk's ``x[:n]``): the valid seeds' rows
+    land there, row-strided, and a -1 seed's slot keeps its bits."""
+    feat, (fo, hot) = _table(graph, kind, dim)
+    seeds = graph["seeds"]
+    bs = seeds.shape[0]
+    block = torch.full((bs, dim + 4), 7.5, device=seeds.device)
+    out = block[:, :dim]
+    args = (graph["indptr"], graph["indices"], seeds, feat, K, 9, ROW_CAP,
+            fo, hot)
+    got = fused.fused_hot_hop(*args, seed_rows_out=out)
+    want = fused.hot_hop_plain(*args)
+    assert got[2] is out
+    valid = seeds >= 0
+    assert torch.equal(_bits(out[valid]), _bits(want[2][valid]))
+    assert (out[~valid] == 7.5).all() and (block[:, dim:] == 7.5).all()
+    for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("k,row_cap", [(K, ROW_CAP), (33, 40), (64, 80)])
+def test_sample_layer_kernel_equals_plain_and_fused_hop(graph, k, row_cap):
+    args = (graph["indptr"], graph["indices"], graph["seeds"], k, -77,
+            row_cap)
     before = fused.LAUNCHES["sample_layer"]
     got = sample_kernel.sample_layer_kernel(*args)
     assert fused.LAUNCHES["sample_layer"] == before + 1
@@ -101,7 +174,7 @@ def test_gather_rows_kernel_equals_plain(graph, dtype, dim, word):
 
 
 def test_split_walk_equals_fused_walk(graph):
-    feat = quant.quantize(graph["feat"], "int8")
+    feat = quant.quantize(graph["feat"][:, :DIM].contiguous(), "int8")
     # dense: distinct valid ids, then a -1 tail
     seeds = torch.cat([graph["seeds"][2:30],
                        torch.full((4,), -1, dtype=torch.int32,
@@ -119,12 +192,14 @@ def test_split_walk_equals_fused_walk(graph):
         assert torch.equal(a.row, b.row) and torch.equal(a.col, b.col)
     valid = n_id >= 0
     assert torch.equal(_bits(x[valid]), _bits(rx[valid]))
+    assert (~valid).any() and not _bits(x[~valid]).any()   # +0.0 padding
 
 
 def test_engine_serves_through_the_kernels(graph):
     topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
     eng = ServeEngine(GraphSAGE(DIM, 16, 5, 2), None, topo,
-                      quant.quantize(graph["feat"], "int8"), [[4, 3]], 64,
+                      quant.quantize(graph["feat"][:, :DIM].contiguous(),
+                                     "int8"), [[4, 3]], 64,
                       fused_hot_hop=True, fused_row_cap=ROW_CAP)
     fused.reset_launches()
     out = eng.run(torch.arange(40, dtype=torch.int32))

@@ -169,6 +169,60 @@ def test_multihop_bit_exact(graph, kind):
         assert rx.numpy()[valid].tobytes() == x.numpy()[valid].tobytes()
 
 
+@pytest.mark.parametrize("kind,isolated", [
+    ("int8", False), ("f32", False), ("int8_forder", False),
+    ("f32", True)])
+def test_multihop_x_bit_exact_with_positive_zero_padding(graph, kind,
+                                                         isolated):
+    """``fused_multihop``'s ``x`` (seed rows written into ``x[:n]`` by the
+    leaf hop, pick rows scattered) against the JAX walk's on every valid
+    row, bit for bit, and every padding row +0.0 by its bits: the
+    features have negative values, so a masked row written into the
+    padding would leave -0.0 there. With isolated seeds no pick fills
+    the leaf's -1 seed slots, which stay padding."""
+    sizes = [3, 2]
+    jf, tf, jfo, tfo, hot = _feats(graph, kind)
+    first = [0, 1, 2, 3] if isolated else graph["seeds"][:7]
+    seeds = np.concatenate([first, [-1, -1, -1]]).astype(np.int32)
+    key = jax.random.key(8)
+    idx = jfused.pad_indices(jnp.asarray(graph["indices"]), ROW_CAP)
+    jn, _, jx = _jax(jfused.fused_multihop, jnp.asarray(graph["indptr"]),
+                     idx, jnp.asarray(seeds), jf, sizes, key,
+                     row_cap=ROW_CAP, rng="hash", interpret=True,
+                     feature_order=jfo, hot_rows=hot)
+    n_id, _, x = fused.fused_multihop(
+        _t(graph["indptr"]), _t(graph["indices"]), _t(seeds), tf, sizes,
+        _hop_seeds(key, len(sizes)), row_cap=ROW_CAP, feature_order=tfo,
+        hot_rows=hot)
+    _bitwise(n_id, jn, "n_id")
+    valid = n_id.numpy() >= 0
+    assert (~valid).any()
+    assert x.numpy()[valid].tobytes() == np.asarray(jx)[valid].tobytes()
+    assert not x.view(torch.int32).numpy()[~valid].any()
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8_forder"])
+def test_hot_hop_seed_rows_out(graph, kind):
+    """With ``seed_rows_out`` the valid seeds' rows land in the given
+    (row-strided) block and the slots of -1 seeds keep their bits; the
+    other outputs are those of the call without it."""
+    _, tf, _, tfo, hot = _feats(graph, kind)
+    args = (_t(graph["indptr"]), _t(graph["indices"]), _t(graph["seeds"]),
+            tf, K, 21)
+    kw = dict(row_cap=ROW_CAP, feature_order=tfo, hot_rows=hot)
+    block = torch.full((130, DIM + 4), -7.5)
+    out = block[:, :DIM]
+    got = fused.fused_hot_hop(*args, seed_rows_out=out, **kw)
+    want = fused.fused_hot_hop(*args, **kw)
+    assert got[2] is out
+    valid = _t(graph["seeds"]) >= 0
+    _bitwise(out[valid], want[2][valid].numpy(), "seed_rows")
+    assert (out[~valid] == -7.5).all() and (block[:, DIM:] == -7.5).all()
+    for g, w, name in zip(got[:2] + got[3:], want[:2] + want[3:],
+                          ("nbrs", "counts", "pick_rows")):
+        _bitwise(g, w.numpy(), name)
+
+
 @pytest.mark.parametrize("kind", ["int8", "f32_forder"])
 def test_hot_hop_reference_bit_exact(graph, kind):
     """The split hop (sampling layer, then the plain lookup) against the
@@ -266,6 +320,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(graph):
     with pytest.raises(ValueError, match="fp32"):
         fused.fused_hot_hop(ip, ix, seeds, feat.double(), K, 1,
                             row_cap=ROW_CAP)
+    with pytest.raises(ValueError, match="seed_rows_out"):
+        fused.fused_hot_hop(ip, ix, seeds, feat, K, 1, row_cap=ROW_CAP,
+                            seed_rows_out=torch.zeros(seeds.shape[0],
+                                                      DIM + 1))
     with pytest.raises(ValueError, match="one seed per hop"):
         fused.fused_multihop(ip, ix, seeds, feat, [2, 2], [1])
 
