@@ -34,9 +34,24 @@ Phases:
    batch's valid frontier, equal to ``feat[ids]``, to
    ``torch.index_select`` (timed as the library's yardstick) and to the
    fused walk's rows, for fp32 and bf16 tables, with its own time;
-5. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
-   the kernel's own), then the last line
-   ``{"ok": true, "device": {...}}``.
+5. training: ``build_train_step(fused_hot_hop=True)`` on the graph of
+   phase 1 with ``examples/train_products_synthetic.py``'s data (labels
+   from the seed, features ``centers[labels] + 0.5 * noise``, fp32),
+   GraphSAGE 100 -> 256 -> 256 -> 47 with dropout 0.5, fanout
+   [15, 10, 5], batch 1024, Adam lr 3e-3, one warm-up step and then 32
+   steps on distinct batches, counted and timed:
+   2 ``fused_sample_hop`` and 1 ``fused_hot_hop`` launches per step and
+   no other kernel, every loss finite, the mean of the last 8 losses
+   below 0.7 of the first 8's; step p50/p99, sampled edges and seeds
+   per second, the device time per step and idle share over 4 more
+   steps (``torch.profiler``) and its top kernels; then one step's loss
+   and gradients through the kernel walk held against the plain walk
+   (fp32 and int8 tables; loss within 1e-4, each gradient within 1e-4
+   of its tensor's largest entry), and one step of the split route
+   (``fused_hot_hop=False``) with a finite loss and no kernel launched;
+6. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+   the kernel's own, ``launches_per_train_step`` from phase 5), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
 the script exits 2 at once. TF32 is switched off for matrix products and
@@ -45,6 +60,7 @@ cuDNN, so the model runs in full fp32.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -72,6 +88,11 @@ REPLACES = {"fused_sample_hop": "quiver_tpu/ops/pallas/fused.py:513",
             "sample_layer": "quiver_tpu/ops/pallas/sample_kernel.py:174",
             "gather_rows": "quiver_tpu/ops/pallas/gather.py:92"}
 SPLIT_HOP_SEEDS = [12345, -67890, 2**31 - 7]
+TRAIN_STEPS = 32
+LR = 3e-3
+DROPOUT = 0.5
+LOSS_TOL = 1e-4
+GRAD_TOL = 1e-4                # of the largest |gradient| of each tensor
 
 
 class SmokeFailure(RuntimeError):
@@ -533,12 +554,206 @@ def phase_split(eng, requests, served, feat, iters):
     return rec, launches
 
 
+def make_train_data(dev, gen, nodes):
+    """``examples/train_products_synthetic.py``'s data on the card:
+    labels from the seed, features ``centers[labels] + 0.5 * noise``."""
+    import torch
+    labels = torch.randint(0, CLASSES, (nodes,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    centers = torch.randn(CLASSES, DIM, generator=gen, device=dev)
+    feat = centers[labels.long()] + 0.5 * torch.randn(
+        nodes, DIM, generator=gen, device=dev)
+    return feat, labels
+
+
+def new_trainer(model, fused_hot_hop=True):
+    """``model``'s train state with a fresh Adam (``optax.adam(LR)``'s
+    counterpart) and a train step for it."""
+    import torch
+    from quiver_tpu_torch.parallel import build_train_step, init_state
+    opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    step = build_train_step(model, opt, SIZES, BATCH,
+                            fused_hot_hop=fused_hot_hop,
+                            fused_row_cap=ROW_CAP)
+    return init_state(model, opt), step
+
+
+def grads_of(model, loss_fn):
+    """The loss and every parameter's gradient of ``loss_fn(model)``."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
+                      hop_seeds, dropout_seed):
+    """One train step's loss and gradients from the same parameters,
+    hop seeds and dropout seed, once through the kernel walk (the step's
+    own loss) and once through the plain walk: equal frontier and COOs,
+    the loss within ``LOSS_TOL``, each gradient within ``GRAD_TOL`` of
+    its tensor's largest entry (``index_add_`` and the backward of
+    ``x_src[s]`` sum with atomics in another order on each run)."""
+    import torch
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.parallel import layers_to_adjs, train
+    _, layers = train._fused_multihop_x(table, None, indptr, indices, seeds,
+                                        SIZES, hop_seeds, ROW_CAP)
+    rn, rl, rx = fused.multihop_plain(indptr, indices, seeds, table, SIZES,
+                                      hop_seeds, ROW_CAP)
+    check(torch.equal(layers[-1].n_id, rn), f"train {name}: frontier differs "
+          "from the plain walk")
+    for a, b in zip(layers, rl):
+        check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
+              f"train {name}: layer COO differs from the plain walk")
+    loss_k, grads_k = grads_of(copy.deepcopy(model), lambda m: (
+        train._fused_loss(m, SIZES, BATCH, table, None, indptr, indices,
+                          seeds, labels, hop_seeds, dropout_seed,
+                          fused={"row_cap": ROW_CAP})))
+    loss_p, grads_p = grads_of(copy.deepcopy(model), lambda m: (
+        train._model_loss(m, rx, layers_to_adjs(rl, BATCH, SIZES), labels,
+                          BATCH, dropout_seed)))
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_TOL,
+          f"train {name}: loss {loss_k} against the plain walk's {loss_p}")
+    worst = 0.0
+    for n, g in grads_k.items():
+        rel = max_abs(g, grads_p[n]) / max(float(grads_p[n].abs().max()),
+                                           1e-30)
+        check(rel <= GRAD_TOL, f"train {name}: gradient {n} differs from the "
+              f"plain walk's by {rel:.3g} of its largest entry")
+        worst = max(worst, rel)
+    print(f"train {name}: kernel walk against plain walk: n_id and "
+          f"{len(layers)} COOs equal, loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(|diff| {abs(loss_k - loss_p):.3g}, tolerance {LOSS_TOL}), "
+          f"{len(grads_k)} gradients within {worst:.3g} of their largest "
+          f"entry (tolerance {GRAD_TOL})", flush=True)
+
+
+def phase_train(dev, gen, nodes, indptr, indices, card):
+    """Train GraphSAGE at full width through the fused walk: launch
+    counts per step, the loss falling, step times, device time, sampled
+    edges per second; then the kernel walk held against the plain walk
+    (fp32 and int8 tables) and one step of the split route. Returns the
+    launches of the timed steps."""
+    import torch
+    from quiver_tpu_torch import GraphSAGE
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.parallel import draw_step_seeds, train
+
+    feat, labels = make_train_data(dev, gen, nodes)
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES), dropout=DROPOUT)
+    model.load_state_dict(flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED)))
+    state, step = new_trainer(model.to(dev))
+    order = torch.randperm(nodes, generator=gen, device=dev).to(torch.int32)
+    # batch 0 warms the step up (the first backward's GEMM set-up, Adam's
+    # moments), the next TRAIN_STEPS are counted and timed, 4 more are
+    # profiled and the last one feeds the checks
+    timed = range(1, 1 + TRAIN_STEPS)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(TRAIN_STEPS + 6)]
+    ys = [labels[b.long()] for b in batches]
+    host = torch.Generator().manual_seed(SEED)
+    rand = [draw_step_seeds(host, len(SIZES)) for _ in batches]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, warm_loss = step(state, feat, None, indptr, indices, batches[0],
+                            ys[0], *rand[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels.reset_launches()
+    lat, losses = [], []
+    for i in timed:
+        t0 = time.perf_counter()
+        state, loss = step(state, feat, None, indptr, indices, batches[i],
+                           ys[i], *rand[i])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = dict(kernels.LAUNCHES)
+    losses = torch.stack(losses).tolist()
+    check(state.step == 1 + TRAIN_STEPS, "step count")
+    check(launches == {"fused_sample_hop": (len(SIZES) - 1) * TRAIN_STEPS,
+                       "fused_hot_hop": TRAIN_STEPS, "sample_layer": 0,
+                       "gather_rows": 0}, f"train step launches {launches}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(last < 0.7 * first, f"loss did not fall: first 8 mean {first}, "
+          f"last 8 mean {last}")
+
+    edges = 0
+    for i in timed:
+        _, layers = train._fused_multihop_x(feat, None, indptr, indices,
+                                            batches[i], SIZES, rand[i][0],
+                                            ROW_CAP)
+        edges += sum(int(lay.edge_count) for lay in layers)
+    wall_s = sum(lat) / 1e3
+    srt = sorted(lat)
+    p50 = srt[len(srt) // 2]
+    p99 = srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)]
+    print(f"train: {TRAIN_STEPS} steps of {BATCH} seeds, fanout {SIZES}, "
+          f"GraphSAGE {DIM}->{HIDDEN}->{HIDDEN}->{CLASSES}, dropout "
+          f"{DROPOUT}, Adam lr {LR}, fp32 features, on {card}", flush=True)
+    print(f"train: step p50 {p50:.3f} ms p99 {p99:.3f} ms (host clock + "
+          f"synchronize; the warm-up step before them {warm_ms:.3f} ms), "
+          f"{edges} sampled edges = "
+          f"{edges / wall_s:.6g} sampled edges/s, "
+          f"{TRAIN_STEPS * BATCH / wall_s:.6g} seeds/s, on {card}",
+          flush=True)
+    print(f"train: loss of the warm-up step {float(warm_loss):.4f}; then "
+          f"first {losses[0]:.4f} last {losses[-1]:.4f}; mean "
+          f"of the first 8 {first:.4f}, of the last 8 {last:.4f}; every "
+          f"loss: {' '.join(f'{v:.4f}' for v in losses)}; on {card}",
+          flush=True)
+    print(f"train: launches per step: fused_sample_hop "
+          f"{launches['fused_sample_hop'] / TRAIN_STEPS:g}, fused_hot_hop "
+          f"{launches['fused_hot_hop'] / TRAIN_STEPS:g}, sample_layer 0, "
+          "gather_rows 0", flush=True)
+
+    def four_steps():
+        nonlocal state
+        for i in range(1 + TRAIN_STEPS, 5 + TRAIN_STEPS):
+            state, _ = step(state, feat, None, indptr, indices, batches[i],
+                            ys[i], *rand[i])
+    busy = device_profile(four_steps, 4, "step")
+    print(f"train: device time per step {fmt_ms(busy)} on {card}",
+          flush=True)
+
+    last_batch = (batches[-1], ys[-1], *rand[-1])
+    for name, table in (("fp32", feat), ("int8", quant.quantize(feat,
+                                                                "int8"))):
+        check_walks_agree(state.model, table, name, indptr, indices,
+                          *last_batch)
+
+    split_state, split_step = new_trainer(copy.deepcopy(state.model),
+                                          fused_hot_hop=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, loss = split_step(split_state, feat, None, indptr, indices,
+                         *last_batch)
+    split_loss = float(loss)
+    split_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(split_loss), f"split route loss {split_loss}")
+    check(not any(kernels.LAUNCHES.values()),
+          f"the split route launched kernels: {kernels.LAUNCHES}")
+    print(f"train split route (exact sampler, masked gather): one step "
+          f"{split_ms:.3f} ms (host clock, first call), loss "
+          f"{split_loss:.4f}, no kernel launched, on {card}", flush=True)
+    return launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
     four batches for the device's busy share and its top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from quiver_tpu_torch.ops.kernels import fused
     from quiver_tpu_torch.parallel import layers_to_adjs
     seeds = eng.pad_seeds(requests[0])
@@ -551,19 +766,29 @@ def breakdown(eng, requests, x, layers):
     print(f"breakdown: walk {walk_ms:.3f} ms, model {model_ms:.3f} ms "
           "(CUDA events, one batch each)", flush=True)
 
+    device_profile(lambda: [eng.run(ids) for ids in requests[:4]], 4,
+                   "batch")
+
+
+def device_profile(run, units: int, unit: str):
+    """``torch.profiler`` over one call of ``run`` (``units`` batches or
+    steps): wall time, the device's busy time (the union of its kernel
+    intervals) and idle share, and the top kernels per unit. Returns
+    the busy ms per unit, None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for ids in requests[:4]:
-            eng.run(ids)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("breakdown: torch.profiler saw no device time: device busy "
-              "share not measured", flush=True)
-        return
+        print(f"profile: torch.profiler saw no device time: device busy "
+              f"per {unit} not measured", flush=True)
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0, None
     for a, b in spans:                   # union of kernel intervals
@@ -577,13 +802,14 @@ def breakdown(eng, requests, x, layers):
     for e in kernels:
         t, n = by_name.get(e.name, (0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"breakdown: 4 batches, wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}",
-          flush=True)
+    print(f"profile: {units} x {unit}, wall {wall_us / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms = {busy / units / 1e3:.3f} ms per "
+          f"{unit}, idle share {1 - busy / wall_us:.3f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, n) in top:
-        print(f"breakdown: {t / 4e3:9.4f} ms/batch {n // 4:5d}x/batch "
-              f"{name[:110]}", flush=True)
+        print(f"profile: {t / units / 1e3:9.4f} ms/{unit} "
+              f"{n // units:5d}x/{unit} {name[:110]}", flush=True)
+    return busy / units / 1e3
 
 
 def main() -> int:
@@ -637,6 +863,8 @@ def main() -> int:
     kern["gather_rows"], split_launches = phase_split(
         eng, requests, served, feat, iters=20)
     launches.update(split_launches)
+    del eng, requests, served, feat, featq
+    train_launches = phase_train(dev, gen, NODES, indptr, indices, card)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -646,7 +874,8 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name].get("bound_by", "bytes"),
-         "library_ms": kern[name].get("library_ms")}
+         "library_ms": kern[name].get("library_ms"),
+         "launches_per_train_step": train_launches[name] / TRAIN_STEPS}
         for name in SOURCES]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)

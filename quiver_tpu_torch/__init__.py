@@ -4,8 +4,9 @@ A package of its own beside the JAX one, laid out like it (``ops/``,
 ``ops/kernels/``, ``models/``, ``parallel/``, ``utils/``, ``pyg/``,
 ``serving.py``). It imports neither JAX nor ``quiver_tpu``. Entry points
 put their tensors on the card unless the caller passes ``device="cpu"``;
-the TPU kernels of the served path are CUDA kernels for Hopper
-(``csrc/``), built at first use.
+the TPU kernels, which the serve and train steps run through the fused
+walk, are CUDA kernels for Hopper (``csrc/``), built at first use. The
+train steps are in ``parallel`` (``build_train_step``).
 """
 
 __version__ = "0.1.0"

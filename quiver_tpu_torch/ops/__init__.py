@@ -1,4 +1,5 @@
 from . import quant
-from .sample import LayerSample, compact_ids, compact_layer
+from .sample import LayerSample, compact_ids, compact_layer, sample_layer
 
-__all__ = ["quant", "LayerSample", "compact_ids", "compact_layer"]
+__all__ = ["quant", "LayerSample", "compact_ids", "compact_layer",
+           "sample_layer"]

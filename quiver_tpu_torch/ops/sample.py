@@ -1,5 +1,13 @@
-"""Layer compaction (counterpart of the compaction half of
-``quiver_tpu/ops/sample.py``).
+"""The exact sampler and layer compaction (counterpart of
+``sample_layer`` and the compaction half of ``quiver_tpu/ops/sample.py``).
+
+``sample_layer`` draws ``min(deg, k)`` distinct neighbours per seed,
+uniformly without replacement, by a vectorised partial Fisher–Yates
+from an explicit ``torch.Generator``. It is plain torch, on the card as
+on the CPU: the JAX function is ``jnp`` code, not a Pallas kernel. The
+two packages' random streams differ, so it is held to the JAX package by
+contract (membership, counts, distinct picks, uniformity), not bit for
+bit.
 
 ``compact_layer`` dedups a hop's ``concat(seeds, picks)`` into the next
 frontier and emits the hop's bipartite COO in local ids. The order is
@@ -39,6 +47,74 @@ class LayerSample(NamedTuple):
     col: torch.Tensor
     edge_count: torch.Tensor
     e_id: Optional[torch.Tensor] = None
+
+
+def _fisher_yates_rows(generator: torch.Generator, deg: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """Per row, draw ``min(deg, k)`` distinct positions in ``[0, deg)``.
+
+    A virtual array ``a = [0..deg)`` per row; step ``i`` swaps ``a[i]``
+    with ``a[j]``, ``j ~ U[i, deg)``, and emits ``a[j]``. Only the <= k
+    written entries are kept (a write log), so the cost is O(bs * k^2)
+    whatever the degree. ``j`` is a 62-bit draw modulo the span: the
+    bias is below 2**-48 for any degree an int32 graph has.
+
+    Returns positions ``[bs, k]`` (int64); slots ``i >= min(deg, k)``
+    are meaningless and must be masked by the caller."""
+    bs = deg.shape[0]
+    dev = deg.device
+    deg = deg.to(torch.int64)
+    steps = torch.arange(k, dtype=torch.int64, device=dev)
+    pos_log = torch.full((bs, k), -1, dtype=torch.int64, device=dev)
+    val_log = torch.zeros((bs, k), dtype=torch.int64, device=dev)
+    draws = torch.randint(0, 2**62, (k, bs), generator=generator,
+                          device=dev, dtype=torch.int64)
+
+    def lookup(x):
+        # virtual read a[x]: the last write wins; unwritten -> x itself
+        match = pos_log == x[:, None]
+        last = torch.where(match, steps, -1).amax(dim=1)
+        logged = val_log.gather(1, last.clamp(min=0)[:, None])[:, 0]
+        return torch.where(last >= 0, logged, x)
+
+    picks = []
+    for i in range(k):
+        span = (deg - i).clamp(min=1)
+        j = i + draws[i] % span
+        a_j = lookup(j)
+        a_i = lookup(torch.full((bs,), i, dtype=torch.int64, device=dev))
+        pos_log[:, i] = j
+        val_log[:, i] = a_i
+        picks.append(a_j)
+    return torch.stack(picks, dim=1)
+
+
+def sample_layer(indptr: torch.Tensor, indices: torch.Tensor,
+                 seeds: torch.Tensor, k: int, generator: torch.Generator,
+                 with_slots: bool = False):
+    """Sample up to ``k`` distinct neighbours of each seed, all of a
+    seed's neighbours being candidates (no ``row_cap`` window).
+
+    ``seeds`` may hold -1 (masked rows). Returns ``(nbrs [bs, k] int32
+    with -1 fill, counts [bs] int32)`` with ``counts == min(deg, k)``;
+    with ``with_slots`` also each pick's CSR slot (``[bs, k]``, -1
+    fill). ``generator`` lives on the seeds' device."""
+    n = indptr.shape[0] - 1
+    e = indices.shape[0]
+    valid = seeds >= 0
+    safe = seeds.long().clamp(0, max(n - 1, 0))
+    start = indptr[safe].long()
+    deg = torch.where(valid, indptr[safe + 1].long() - start, 0)
+    counts = deg.clamp(max=k).to(torch.int32)
+    picks = _fisher_yates_rows(generator, deg, k)
+    slot = (start[:, None] + picks).clamp(0, max(e - 1, 0))
+    mask = torch.arange(k, device=seeds.device)[None, :] < counts[:, None]
+    nbrs = indices[slot].to(torch.int32) if e else \
+        torch.zeros_like(slot, dtype=torch.int32)
+    nbrs = torch.where(mask, nbrs, -1)
+    if with_slots:
+        return nbrs, counts, torch.where(mask, slot, -1)
+    return nbrs, counts
 
 
 def _compact_core(ids: torch.Tensor, s: int, seeds_dense: bool = False):

@@ -1,3 +1,7 @@
-from .serve_ops import layers_to_adjs, masked_feature_gather
+from .train import (TrainState, build_split_train_step, build_train_step,
+                    cross_entropy_logits, draw_step_seeds, init_state,
+                    layers_to_adjs, masked_feature_gather)
 
-__all__ = ["layers_to_adjs", "masked_feature_gather"]
+__all__ = ["TrainState", "build_split_train_step", "build_train_step",
+           "cross_entropy_logits", "draw_step_seeds", "init_state",
+           "layers_to_adjs", "masked_feature_gather"]

@@ -1,0 +1,283 @@
+"""Single-device training steps: sample -> gather -> forward/backward ->
+update (counterpart of ``quiver_tpu/parallel/train.py``).
+
+Two routes feed the same GraphSAGE loss. ``fused_hot_hop=True`` runs
+the fused frontier walk (``ops.kernels.fused.fused_multihop``): the
+interior hops launch the CUDA sampling kernel and the leaf hop samples
+and gathers its rows in one kernel. ``fused_hot_hop=False`` runs the
+exact i.i.d. sampler (``ops.sample_multihop``) and then the masked row
+gather. Neither kernel has a backward: gradients reach only the model's
+parameters, and the sampled feature block is a constant of the step.
+
+JAX derives every random stream of a step from one key. Here the
+caller passes them as plain ints: one int32 kernel seed per hop
+(``hop_seeds``) and a ``dropout_seed``; :func:`draw_step_seeds` draws
+both from a host ``torch.Generator`` without touching the device. The
+JAX streams themselves (``fold_in(key, 1000)`` for dropout, the JAX
+PRNG for the exact sampler) cannot be reproduced in torch, so
+only the fused walk's picks, which come from the kernels' counter hash,
+match the JAX package's bit for bit.
+
+The data-parallel ``build_e2e_train_step``, ``dedup_gather``,
+``collect_metrics`` and the windowed sampling methods are later items
+of ROADMAP Queue 1; asking for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import quant
+from ..ops.kernels.fused import fused_multihop
+from ..ops.sample_multihop import _VARIANTS, sample_multihop
+from ..pyg.sage_sampler import Adj, layer_shapes
+
+_DEDUP = "ROADMAP Queue 1 'serve: dedup_gather'"
+_METRICS = "ROADMAP Queue 1 'serve: collect_metrics'"
+
+
+class TrainState(NamedTuple):
+    """The model (its parameters), its optimizer (its moments) and the
+    number of steps taken. torch updates both in place, so a step
+    returns the same two objects with the count advanced; JAX's
+    ``donate`` and its donation guard have nothing left to do."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def init_state(model, optimizer) -> TrainState:
+    """A fresh ``TrainState``; ``model`` is initialised and on the data's
+    device, ``optimizer`` holds its parameters."""
+    return TrainState(model, optimizer, 0)
+
+
+def cross_entropy_logits(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer labels."""
+    return F.cross_entropy(logits, labels.long())
+
+
+def draw_int32(generator: torch.Generator, n: int) -> List[int]:
+    """``n`` int32 values from a host generator (no device sync)."""
+    return torch.randint(-2**31, 2**31 - 1, (n,),
+                         generator=generator).tolist()
+
+
+def draw_step_seeds(generator: torch.Generator,
+                    hops: int) -> Tuple[List[int], int]:
+    """The next step's ``(hop_seeds, dropout_seed)``: ``hops + 1`` int32
+    values from a host generator, with no device synchronisation."""
+    vals = draw_int32(generator, hops + 1)
+    return vals[:hops], vals[hops]
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def layers_to_adjs(layers, batch_size: int, sizes: Sequence[int]):
+    """LayerSamples (sampling order) -> Adj list (outermost hop first)."""
+    adjs = []
+    for layer, shape in zip(layers, layer_shapes(batch_size, sizes)):
+        adjs.append(Adj(edge_index=torch.stack([layer.col, layer.row]),
+                        e_id=layer.e_id,
+                        size=(shape.n_id_cap, shape.num_seeds),
+                        mask=layer.col >= 0))
+    return adjs[::-1]
+
+
+def masked_feature_gather(feat, n_id: torch.Tensor,
+                          feature_order=None) -> torch.Tensor:
+    """Feature rows for a -1-padded frontier, through the optional
+    hot-order indirection; padded rows come back zeroed. ``feat`` is a
+    tensor or a ``QuantizedTensor`` (dequant fused into the gather)."""
+    ids = n_id.long()
+    if feature_order is not None:
+        ids = feature_order.long()[ids.clamp(min=0)]
+    safe = ids.clamp(0, quant.tier_rows(feat) - 1)
+    x = quant.gather_rows(feat, safe)
+    return x * (n_id >= 0).to(x.dtype)[:, None]
+
+
+def _fused_multihop_x(feat, forder, indptr, indices, seeds,
+                      sizes: Sequence[int], hop_seeds: Sequence[int],
+                      row_cap: int = 2048, hot_rows: Optional[int] = None):
+    """The fused frontier walk (``ops.kernels.fused.fused_multihop``):
+    interior hops run the sampling kernel, the leaf hop samples and
+    gathers in one kernel. Hop ``i`` draws from ``hop_seeds[i]``.
+    Returns ``(x, layers)``."""
+    _, layers, x = fused_multihop(
+        indptr, indices, seeds, feat, list(sizes), hop_seeds,
+        row_cap=row_cap, feature_order=forder, hot_rows=hot_rows)
+    return x, layers
+
+
+def _fused_knobs(enabled, row_cap, sizes, method, dedup_gather=None):
+    """Validate and pack the ``fused_hot_hop`` knobs of a step: the walk
+    covers any exact-method fanout ladder and gathers in-kernel, so it
+    composes with nothing that reshapes sampling or the gather."""
+    if not enabled:
+        return None
+    if not sizes:
+        raise ValueError("fused_hot_hop needs at least one hop in sizes")
+    if method != "exact":
+        raise ValueError(
+            f"fused_hot_hop requires method='exact', got {method!r}")
+    if dedup_gather is not None:
+        raise ValueError(
+            "fused_hot_hop gathers in-kernel (one row per frontier "
+            "slot); dedup_gather does not compose with it")
+    return {"row_cap": int(row_cap)}
+
+
+def _step_knobs(fused_hot_hop, row_cap, sizes, method, dedup_gather,
+                collect_metrics):
+    """The knobs of the train and serve steps: the fused walk's (see
+    :func:`_fused_knobs`), then the ones that are later work."""
+    fused = _fused_knobs(fused_hot_hop, row_cap, sizes, method,
+                         dedup_gather=dedup_gather)
+    if dedup_gather is not None:
+        raise NotImplementedError(_DEDUP)
+    if collect_metrics:
+        raise NotImplementedError(_METRICS)
+    if method != "exact":
+        raise NotImplementedError(f"method={method!r}: {_VARIANTS}")
+    return fused
+
+
+def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
+          hot_rows: Optional[int] = None):
+    """One batch's ``(x, layers)``. ``fused`` (the packed knobs) takes
+    the fused walk, hop ``i`` seeded with ``hop_seeds[i]``; ``None``
+    takes the split route: the exact sampler on every hop, all hops
+    drawing from one generator seeded with ``hop_seeds[0]`` on the
+    seeds' device, then the masked gather over the final frontier."""
+    if len(hop_seeds) != len(sizes):
+        raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
+                         f"{len(hop_seeds)} seeds")
+    if fused is not None:
+        return _fused_multihop_x(feat, forder, indptr, indices, seeds,
+                                 sizes, hop_seeds, hot_rows=hot_rows,
+                                 **fused)
+    n_id, layers = sample_multihop(
+        indptr, indices, seeds, sizes,
+        _generator(seeds.device, hop_seeds[0]), seeds_dense=True)
+    return masked_feature_gather(feat, n_id, forder), layers
+
+
+def _model_loss(model, x, adjs, labels, batch_size: int,
+                dropout_seed: int) -> torch.Tensor:
+    """GraphSAGE in train mode on a sampled block, its dropout drawn from
+    a generator seeded with ``dropout_seed`` on ``x``'s device, and the
+    loss over the first ``batch_size`` rows: every batch slot counts,
+    the -1 padded seeds included, as in the JAX package."""
+    logits = model(x, adjs, generator=_generator(x.device, dropout_seed))
+    return cross_entropy_logits(logits[:batch_size], labels)
+
+
+def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
+                seeds, labels, hop_seeds, dropout_seed, fused=None):
+    """The step's loss over one batch's walk (:func:`_walk`). The walk
+    runs without autograd: ``x`` and the layers are constants of the
+    step.
+
+    Batch contract: ``seeds`` are distinct valid ids with -1 padding at
+    the tail only, and ``labels`` holds a class in ``[0, classes)`` at
+    every slot."""
+    with torch.no_grad():
+        x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
+                          sizes, hop_seeds)
+    adjs = layers_to_adjs(layers, batch_size, sizes)
+    return _model_loss(model, x, adjs, labels, batch_size, dropout_seed)
+
+
+def _update(state: TrainState, model, optimizer, loss) -> TrainState:
+    if state.model is not model or state.optimizer is not optimizer:
+        raise ValueError("the state's model and optimizer must be the "
+                         "ones the step was built with")
+    loss.backward()
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return TrainState(model, optimizer, state.step + 1)
+
+
+def build_train_step(model, optimizer, sizes: Sequence[int],
+                     batch_size: int, method: str = "exact",
+                     dedup_gather=None, collect_metrics: bool = False,
+                     fused_hot_hop: bool = False,
+                     fused_row_cap: int = 2048):
+    """Single-device train step:
+    ``step(state, feat, forder, indptr, indices, seeds, labels,
+    hop_seeds, dropout_seed) -> (state, loss)``.
+
+    ``state`` is ``init_state(model, optimizer)`` or a state the step
+    returned. ``feat`` is an fp32 table or an int8 ``QuantizedTensor``
+    (dequant fused into the gather), ``forder`` an optional hot-order
+    permutation; every tensor lies on one device. ``seeds`` is
+    ``[batch_size]`` int32, distinct valid ids first and -1 fill at the
+    tail, ``labels`` ``[batch_size]``. ``hop_seeds`` holds one int32 per
+    hop, ``dropout_seed`` one int (see :func:`draw_step_seeds`). The
+    loss comes back as a 0-d tensor on the device: the step never waits
+    for the device.
+
+    ``fused_hot_hop=True`` (``method="exact"``, any ``sizes`` ladder)
+    samples and gathers through the fused walk's CUDA kernels, hop ``i``
+    seeded with ``hop_seeds[i]``; ``fused_row_cap`` bounds the
+    candidates per seed (degrees beyond it are truncated, the kernels'
+    contract). ``fused_hot_hop=False`` samples every hop exactly, from
+    one generator seeded with ``hop_seeds[0]``.
+
+    The update is the optimizer's: ``optax.adam(lr)`` is
+    ``torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)``, both
+    adding ``eps`` outside the square root of the bias-corrected second
+    moment. torch updates the parameters and moments in place, so JAX's
+    ``donate`` has no counterpart."""
+    sizes = [int(k) for k in sizes]
+    fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
+                        dedup_gather, collect_metrics)
+
+    def step(state: TrainState, feat, forder, indptr, indices, seeds,
+             labels, hop_seeds, dropout_seed):
+        model.train()
+        loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
+                           indices, seeds, labels, hop_seeds, dropout_seed,
+                           fused=fused)
+        return _update(state, model, optimizer, loss), loss.detach()
+
+    return step
+
+
+def build_split_train_step(model, optimizer, sizes: Sequence[int],
+                           batch_size: int, method: str = "exact"):
+    """Two-stage step for callers that fetch the rows themselves:
+
+      ``sample_fn(indptr, indices, seeds, seed) -> (n_id, adjs)``
+      ``step_fn(state, x, adjs, labels, dropout_seed) -> (state, loss)``
+
+    ``sample_fn`` samples every hop exactly from one generator seeded
+    with ``seed``; the caller gathers ``x = feature[n_id]`` (padded slots
+    zeroed) and hands it to ``step_fn``. The batch contract is the one of
+    :func:`build_train_step`."""
+    sizes = [int(k) for k in sizes]
+    if method != "exact":
+        raise NotImplementedError(f"method={method!r}: {_VARIANTS}")
+
+    def sample_fn(indptr, indices, seeds, seed: int):
+        with torch.no_grad():
+            n_id, layers = sample_multihop(
+                indptr, indices, seeds, sizes,
+                _generator(seeds.device, seed), seeds_dense=True)
+        return n_id, layers_to_adjs(layers, batch_size, sizes)
+
+    def step_fn(state: TrainState, x, adjs, labels, dropout_seed):
+        model.train()
+        loss = _model_loss(model, x, adjs, labels, batch_size,
+                           dropout_seed)
+        return _update(state, model, optimizer, loss), loss.detach()
+
+    return sample_fn, step_fn

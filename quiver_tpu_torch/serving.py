@@ -1,19 +1,22 @@
 """Point-query GNN serving (counterpart of the serve step and
 ``ServeEngine`` of ``quiver_tpu/serving.py``).
 
-This slice of the port serves through the fused frontier walk
-(``fused_hot_hop=True``): interior hops run the CUDA sampling kernel,
-the leaf hop samples and gathers the hot-tier rows (int8 dequant
-included) in one kernel, and GraphSAGE runs on the assembled block.
-The split path, ``dedup_gather``, a tiered ``Feature`` store,
-``collect_metrics`` and ``MicroBatchServer`` are later items of
-ROADMAP Queue 1; asking for them raises ``NotImplementedError``.
+Two routes. ``fused_hot_hop=True`` serves through the fused frontier
+walk: interior hops run the CUDA sampling kernel, the leaf hop samples
+and gathers the hot-tier rows (int8 dequant included) in one kernel.
+``fused_hot_hop=False`` is the split path: the exact i.i.d. sampler
+(``ops.sample_multihop``) on every hop, then the masked row gather.
+GraphSAGE runs on the assembled block either way. ``dedup_gather``, a
+tiered ``Feature`` store, ``collect_metrics`` and ``MicroBatchServer``
+are later items of ROADMAP Queue 1; asking for them raises
+``NotImplementedError``.
 
 The JAX step threads a JAX random key and derives each hop's kernel
-seed from it on the device. Here each hop's int32 kernel seed is
-explicit: ``ServeEngine`` draws them on the host from its own
-``torch.Generator`` (no device synchronisation), and
-``run(seeds, hop_seeds=...)`` takes them from the caller.
+seed from it on the device. Here each hop's int32 seed is explicit:
+``ServeEngine`` draws them on the host from its own ``torch.Generator``
+(no device synchronisation), and ``run(seeds, hop_seeds=...)`` takes
+them from the caller. The split path seeds its sampler's generator with
+``hop_seeds[0]``.
 """
 
 from __future__ import annotations
@@ -24,15 +27,13 @@ import numpy as np
 import torch
 
 from .ops import quant
-from .parallel.serve_ops import (_fused_knobs, _fused_multihop_x,
-                                 layers_to_adjs)
+from .ops.sample_multihop import sample_multihop
+from .parallel.train import (_DEDUP, _METRICS, _step_knobs, _walk,
+                             draw_int32, layers_to_adjs)
 from .utils.csr import INT32_MAX
 from .utils.device import resolve_device
 
-_SPLIT = "ROADMAP Queue 1 'serve: split path' (fused_hot_hop=False)"
-_DEDUP = "ROADMAP Queue 1 'serve: dedup_gather'"
 _STORE = "ROADMAP Queue 1 'serve: Feature store with cold-tier fixup'"
-_METRICS = "ROADMAP Queue 1 'serve: collect_metrics'"
 
 
 def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
@@ -47,32 +48,34 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
     logits ``[batch_cap, out_dim]``. ``seeds`` is ``[batch_cap]`` int32,
     distinct valid ids first, -1 fill at the tail; rows of padded slots
     are garbage. ``hop_seeds`` holds one int32 kernel seed per hop.
-    ``model`` is a ``GraphSAGE`` in eval mode on the data's device."""
+    ``model`` is a ``GraphSAGE`` in eval mode on the data's device.
+    ``fused_hot_hop=True`` walks through the fused kernels, hop ``i``
+    seeded with ``hop_seeds[i]``; ``fused_hot_hop=False`` samples every
+    hop exactly from one generator seeded with ``hop_seeds[0]``."""
     sizes = [int(k) for k in sizes]
-    if not fused_hot_hop:
-        raise NotImplementedError(_SPLIT)
     if gather is not None:
         raise NotImplementedError(_STORE)
-    if collect_metrics:
-        raise NotImplementedError(_METRICS)
-    fused = _fused_knobs(fused_hot_hop, fused_row_cap, sizes, method,
-                         dedup_gather=dedup_gather)
+    fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
+                        dedup_gather, collect_metrics)
 
     def step(hop_seeds, feat, forder, indptr, indices, seeds):
         with torch.inference_mode():
-            x, layers = _fused_multihop_x(
-                feat, forder, indptr, indices, seeds, sizes, hop_seeds,
-                hot_rows=fused_hot_rows, **fused)
+            x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
+                              sizes, hop_seeds, hot_rows=fused_hot_rows)
             adjs = layers_to_adjs(layers, batch_cap, sizes)
             return model(x, adjs)[:batch_cap]
 
     return step
 
 
-def sample_multihop_serving(indptr, indices, seeds, sizes, key,
+def sample_multihop_serving(indptr, indices, seeds, sizes, generator,
                             method="exact", collector=None):
-    """The split path's sampling stage; a later slice ports it."""
-    raise NotImplementedError(_SPLIT)
+    """The split path's sampling stage: ``ops.sample_multihop`` under
+    the serve step's batch contract (distinct valid seeds first, -1 tail
+    fill, so ``seeds_dense``), every hop drawing from ``generator``."""
+    return sample_multihop(indptr, indices, seeds, sizes, generator,
+                           method=method, seeds_dense=True,
+                           collector=collector)
 
 
 def _to_device_tier(feat, device):
@@ -102,8 +105,9 @@ class ServeEngine:
     parameters). ``topo`` is a ``CSRTopo`` or an ``(indptr, indices)``
     pair. Everything moves to ``device``: the card unless the caller
     passes ``device="cpu"``; with no card and no such request the
-    constructor raises. ``seed`` seeds the host generator the per-hop
-    kernel seeds come from.
+    constructor raises. ``fused_hot_hop`` picks the route, fused walk or
+    split path (see :func:`build_serve_step`). ``seed`` seeds the host
+    generator the per-hop seeds come from.
 
     ``run`` is not thread-safe (the generator is serial state).
     """
@@ -122,8 +126,6 @@ class ServeEngine:
             raise ValueError(
                 f"all fanout variants must share the model's hop count, "
                 f"got lengths {sorted(hops)}")
-        if not fused_hot_hop:
-            raise NotImplementedError(_SPLIT)
         if dedup_gather is not None:
             raise NotImplementedError(_DEDUP)
         if collect_metrics:
@@ -143,7 +145,7 @@ class ServeEngine:
             _index_tensor(forder, self.device, "forder")
         self._steps = [
             build_serve_step(self.model, sizes, self.batch_cap,
-                             method=method, fused_hot_hop=True,
+                             method=method, fused_hot_hop=fused_hot_hop,
                              fused_row_cap=fused_row_cap)
             for sizes in self.variants]
         self._gen = torch.Generator().manual_seed(int(seed))
@@ -166,8 +168,7 @@ class ServeEngine:
 
     def draw_hop_seeds(self, hops: int) -> List[int]:
         """The next ``hops`` int32 kernel seeds from the host generator."""
-        return torch.randint(-2**31, 2**31 - 1, (hops,),
-                             generator=self._gen).tolist()
+        return draw_int32(self._gen, hops)
 
     def run(self, seeds, variant: int = 0,
             hop_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:

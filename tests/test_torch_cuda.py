@@ -10,15 +10,22 @@ table (int8, fp32, each with and without ``feature_order`` +
 ``hot_rows``) at widths 3, 7, 20 and 100 (the scalar and the 4-value
 gather words), a table whose base is not 16-byte aligned, and the
 ``seed_rows_out`` destination. Every seed list has a ragged last
-128-seed block, seeds of degree 0 and above ``row_cap``, and -1 seeds."""
+128-seed block, seeds of degree 0 and above ``row_cap``, and -1 seeds.
+The train step is counted (one launch of each kernel per hop) and its
+loss and gradients through the kernel walk are held against the plain
+walk's; the split serve path answers on the card."""
 
 import numpy as np
 import pytest
 import torch
 
+import copy
+
 from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine
 from quiver_tpu_torch.ops import quant
 from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
+from quiver_tpu_torch.parallel import (build_train_step, init_state,
+                                       layers_to_adjs, train)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +214,85 @@ def test_engine_serves_through_the_kernels(graph):
     assert out.shape == (64, 5) and torch.isfinite(out).all()
     assert fused.LAUNCHES == {"fused_sample_hop": 1, "fused_hot_hop": 1,
                               "sample_layer": 0, "gather_rows": 0}
+
+
+def _train_batch(graph):
+    """A dense seed block (distinct valid ids, then a -1 tail), labels
+    for every slot, an fp32 table and its int8 copy."""
+    dev = graph["seeds"].device
+    seeds = torch.cat([graph["seeds"][2:30],
+                       torch.full((4,), -1, dtype=torch.int32, device=dev)])
+    labels = torch.randint(0, 5, (32,), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    f32 = graph["feat"][:, :DIM].contiguous()
+    return seeds, labels, {"fp32": f32, "int8": quant.quantize(f32, "int8")}
+
+
+def test_train_step_launches_each_kernel_per_hop(graph):
+    seeds, labels, tables = _train_batch(graph)
+    model = GraphSAGE(DIM, 16, 5, 2).to(seeds.device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = build_train_step(model, opt, [4, 3], 32, fused_hot_hop=True,
+                            fused_row_cap=ROW_CAP)
+    state = init_state(model, opt)
+    fused.reset_launches()
+    losses = []
+    for i in range(3):
+        state, loss = step(state, tables["int8"], None, graph["indptr"],
+                           graph["indices"], seeds, labels, [i, -i], 7 + i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == {"fused_sample_hop": 3, "fused_hot_hop": 3,
+                              "sample_layer": 0, "gather_rows": 0}
+    assert state.step == 3 and torch.isfinite(torch.stack(losses)).all()
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_train_kernel_walk_equals_plain_walk(graph, kind):
+    """One step's loss and gradients from the same parameters and seeds,
+    through the kernel walk (the step's own loss) and the plain walk:
+    the loss within 1e-4 and each gradient within 1e-4 of its tensor's
+    largest entry, since ``index_add_`` and the backward of
+    ``x_src[s]`` sum with atomics in another order on each run."""
+    seeds, labels, tables = _train_batch(graph)
+    table, sizes, hs = tables[kind], [4, 3], [11, -12]
+    model = GraphSAGE(DIM, 16, 5, 2, dropout=0.5).to(seeds.device).train()
+    args = (graph["indptr"], graph["indices"], seeds)
+    rn, rl, rx = fused.multihop_plain(*args, table, sizes, hs, ROW_CAP)
+    _, layers = train._fused_multihop_x(table, None, *args, sizes, hs,
+                                        ROW_CAP)
+    assert torch.equal(layers[-1].n_id, rn)
+    for a, b in zip(layers, rl):
+        assert torch.equal(a.row, b.row) and torch.equal(a.col, b.col)
+    out = []
+    for loss_of in (
+            lambda m: train._fused_loss(m, sizes, 32, table, None, *args,
+                                        labels, hs, 5,
+                                        fused={"row_cap": ROW_CAP}),
+            lambda m: train._model_loss(m, rx, layers_to_adjs(rl, 32, sizes),
+                                        labels, 32, 5)):
+        m = copy.deepcopy(model)
+        loss = loss_of(m)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad for n, p in
+                                  m.named_parameters()}))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-4
+    for n, g in gk.items():
+        assert (g - gp[n]).abs().max() <= 1e-4 * gp[n].abs().max(), n
+
+
+def test_split_engine_answers_on_the_card(graph):
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    eng = ServeEngine(GraphSAGE(DIM, 16, 5, 2), None, topo,
+                      quant.quantize(graph["feat"][:, :DIM].contiguous(),
+                                     "int8"), [[4, 3]], 64)
+    fused.reset_launches()
+    ids = torch.arange(40, dtype=torch.int32)
+    out = eng.run(ids, hop_seeds=[3, 4])
+    again = eng.run(ids, hop_seeds=[3, 4])
+    torch.cuda.synchronize()
+    assert out.shape == (64, 5) and out.device.type == "cuda"
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, again, atol=1e-5, rtol=1e-5)
+    assert not any(fused.LAUNCHES.values())

@@ -21,10 +21,12 @@ from quiver_tpu.ops import quant as jquant
 from quiver_tpu.ops.pallas.fused import _hop_seed
 from quiver_tpu.ops.sample import compact_layer as jcompact
 from quiver_tpu.parallel.train import layers_to_adjs as jadjs
+from quiver_tpu.pyg.sage_sampler import Adj as JAdj
 from quiver_tpu.serving import build_serve_step as jbuild_serve_step
 from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine, quantize
 from quiver_tpu_torch.models import flax_to_state_dict
-from quiver_tpu_torch.serving import build_serve_step
+from quiver_tpu_torch.parallel import layers_to_adjs, masked_feature_gather
+from quiver_tpu_torch.serving import build_serve_step, sample_multihop_serving
 
 REPO = Path(__file__).resolve().parents[1]
 ROW_CAP = 16
@@ -123,8 +125,8 @@ def test_deferred_pieces_raise(setup):
     s = setup
     args = (_torch_model(s), None, (s["indptr"], s["indices"]), s["feat"],
             [SIZES], CAP)
-    with pytest.raises(NotImplementedError, match="split path"):
-        ServeEngine(*args, device="cpu")
+    with pytest.raises(NotImplementedError, match="Sampling core"):
+        ServeEngine(*args, method="window", device="cpu")
     with pytest.raises(NotImplementedError, match="dedup_gather"):
         ServeEngine(*args, fused_hot_hop=True, dedup_gather=True,
                     device="cpu")
@@ -147,6 +149,37 @@ def test_deferred_pieces_raise(setup):
                     device="cpu")
 
 
+def test_split_engine_serves_the_exact_sampler(setup):
+    """``ServeEngine(fused_hot_hop=False)``: the exact sampler seeded with
+    ``hop_seeds[0]`` (``sample_multihop_serving``), the masked gather
+    and the model, composed by hand, give the engine's logits; the JAX
+    model gives them too on the same sampled block."""
+    s = setup
+    eng = ServeEngine(_torch_model(s), _state(s),
+                      (s["indptr"], s["indices"]), s["feat"], [SIZES], CAP,
+                      forder=s["forder"], device="cpu")
+    ids = np.array([3, 7, 11, 250, 0], np.int32)
+    got = eng.run(ids, hop_seeds=[91, 5, 6])
+    assert torch.equal(got, eng.run(ids, hop_seeds=[91, -1, 2]))
+    assert not torch.equal(got, eng.run(ids, hop_seeds=[92, 5, 6]))
+    assert torch.isfinite(eng.run(ids)).all()
+
+    seeds = eng.pad_seeds(ids)
+    n_id, layers = sample_multihop_serving(
+        eng._indptr, eng._indices, seeds, SIZES,
+        torch.Generator().manual_seed(91))
+    x = masked_feature_gather(torch.from_numpy(s["feat"]), n_id,
+                              torch.from_numpy(s["forder"]))
+    with torch.inference_mode():
+        want = eng.model(x, layers_to_adjs(layers, CAP, SIZES))[:CAP]
+    assert torch.equal(got, want)
+    jadj = [JAdj(jnp.asarray(a.edge_index.numpy()), None, a.size)
+            for a in layers_to_adjs(layers, CAP, SIZES)]
+    jlog = s["fmodel"].apply(s["variables"], jnp.asarray(x.numpy()), jadj)
+    np.testing.assert_allclose(got[:5].numpy(), np.asarray(jlog)[:5],
+                               atol=1e-5, rtol=1e-5)
+
+
 def test_no_card_means_raise_not_cpu(setup):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is used")
@@ -159,7 +192,9 @@ def test_no_card_means_raise_not_cpu(setup):
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    code = ("import sys, quiver_tpu_torch\n"
+    code = ("import sys, quiver_tpu_torch, quiver_tpu_torch.parallel.train"
+            ", quiver_tpu_torch.ops.sample_multihop, "
+            "quiver_tpu_torch.models.sage\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'quiver_tpu' or "
             "m.startswith('quiver_tpu.')]\n"
