@@ -49,9 +49,30 @@ Phases:
    (fp32 and int8 tables; loss within 1e-4, each gradient within 1e-4
    of its tensor's largest entry), and one step of the split route
    (``fused_hot_hop=False``) with a finite loss and no kernel launched;
-6. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
-   the kernel's own, ``launches_per_train_step`` from phase 5), then
-   the last line ``{"ok": true, "device": {...}}``.
+6. tiered serving at full width: the tiered ``Feature`` store over the
+   graph of phase 1 and 100-dim features from the seed, 25% of its rows
+   (by degree) hot on the card as int8, the rest in pinned host memory,
+   ``dedup_cold=True`` (``examples/serve_sage.py``'s configuration),
+   served by ``ServeEngine(fused_hot_hop=True)`` on 16 batches: p50/p99,
+   device time and idle share per batch, launches per batch, and per
+   batch (read after the timed run) the hot and cold frontier slots, the
+   unique cold rows, the host rows the cold fixup reads and its branch
+   (narrow, compacted or full). Checks: the tiered walk's ``x`` equal bit
+   for bit to the same walk over one device table (both tiers
+   concatenated) and its logits within 1e-4; the host-tier gather (int8
+   and fp32, with and without ``out=`` and -1 ids) equal to its plain
+   version at the batch's cold ids, with its times against a bound from
+   the measured pinned-to-device copy rate; a lookup at
+   ``cold_budget=256`` (both fallbacks) equal to the one-table gather;
+   the store's lookup free of host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``); and finite logits from
+   the split route over the store and from ``dedup_gather=True`` over a
+   plain table;
+7. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+   the kernel's own, ``launches_per_train_step`` from phase 5,
+   ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
+   its host-tier variant under ``host_tier``), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
 the script exits 2 at once. TF32 is switched off for matrix products and
@@ -93,6 +114,8 @@ LR = 3e-3
 DROPOUT = 0.5
 LOSS_TOL = 1e-4
 GRAD_TOL = 1e-4                # of the largest |gradient| of each tensor
+COPY_BYTES = 256 * 2**20       # the pinned-to-device copy that sets the rate
+FP32_HOST_ROWS = 2**18         # the fp32 host table of the gather check
 
 
 class SmokeFailure(RuntimeError):
@@ -749,6 +772,273 @@ def phase_train(dev, gen, nodes, indptr, indices, card):
     return launches
 
 
+def tiered_stats(eng, store, requests, hop_seeds):
+    """Per served batch, replayed with its hop seeds after the timed run:
+    the frontier's hot and cold valid slots, its unique cold rows, and
+    the branch of the store's lookup in the cold fixup with the host rows
+    that branch reads (the dedup table's live rows when narrow; the cold
+    slots when compacted, and when the raw cold count overflows too)."""
+    import torch
+    from quiver_tpu_torch.feature import _resolve_cold_budget
+    from quiver_tpu_torch.ops.kernels import fused
+    forder, hot = store.feature_order, store.cache_rows
+    out = []
+    for ids, hs in zip(requests, hop_seeds):
+        n_id, _, _ = fused.fused_multihop(
+            eng._indptr, eng._indices, eng.pad_seeds(ids), store.device_part,
+            SIZES, hs, ROW_CAP, forder, hot)
+        valid = n_id >= 0
+        t = forder.long()[n_id.long().clamp(min=0)]
+        is_cold = valid & (t >= hot)
+        n_cold = int(is_cold.sum())
+        n_uniq = int(torch.unique(t[is_cold]).numel())
+        budget = _resolve_cold_budget(store.dedup_cold, store.cold_budget,
+                                      n_id.shape[0])
+        if n_uniq <= budget:
+            branch, rows = "narrow", n_uniq
+        elif n_cold <= budget:
+            branch, rows = "compacted", n_cold
+        else:
+            branch, rows = "full", n_cold
+        out.append({"hot": int(valid.sum()) - n_cold, "cold": n_cold,
+                    "unique_cold": n_uniq, "budget": budget,
+                    "branch": branch, "host_rows": rows})
+    return out
+
+
+def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
+    """Serve full-width batches from the tiered store (hot tier on the
+    card, cold tier pinned in host memory) through the cold fixup, and
+    hold the path, the host-tier gather and the store's lookup to their
+    references. Returns the host-tier gather's record and the launches
+    of the served run."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, Feature, GraphSAGE, ServeEngine
+    from quiver_tpu_torch import serving
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.ops.kernels import fused, gather
+    from quiver_tpu_torch.parallel import layers_to_adjs, masked_feature_gather
+
+    t0 = time.perf_counter()
+    feat = torch.randn(nodes, DIM, generator=gen, device=dev).cpu()
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    store = Feature(
+        device_cache_size=(nodes // 4) * quant.row_bytes(DIM, "int8"),
+        csr_topo=topo, dedup_cold=True, dtype_policy="int8",
+        host_placement="offload", device=dev).from_cpu_tensor(feat)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del feat
+    cold = store._host_offload
+    check(store.host_part is None and all(t.is_pinned() for t in cold),
+          "the cold tier is not in pinned host memory")
+    hot_rows, cold_rows = store.cache_rows, quant.tier_rows(cold)
+    rb = quant.row_read_bytes(cold)
+    print(f"tiered: store of {nodes} rows x {DIM} int8 (+ fp32 scale and "
+          f"zero): {hot_rows} hot rows on the card ({hot_rows * rb} B), "
+          f"{cold_rows} cold rows in pinned host memory ({cold_rows * rb} "
+          f"B), dedup_cold=True; built in {setup_s:.2f} s (degree order, "
+          "int8 quantization on the host, pinning)", flush=True)
+
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES))
+    params = flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED))
+    eng = ServeEngine(model, params, topo, store, [SIZES], BATCH,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP, seed=SEED,
+                      device=dev).warmup()
+    requests = [torch.randperm(nodes, generator=gen, device=dev)[:BATCH]
+                for _ in range(batches)]
+    hop_seeds = [eng.draw_hop_seeds(len(SIZES)) for _ in requests]
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    lat, outs = [], []
+    for ids, hs in zip(requests, hop_seeds):
+        t0 = time.perf_counter()
+        outs.append(eng.run(ids, hop_seeds=hs))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    for o in outs:
+        check(tuple(o.shape) == (BATCH, CLASSES), "tiered logits shape")
+        check(bool(torch.isfinite(o).all()), "non-finite tiered logits")
+    check(launches["fused_sample_hop"] == (len(SIZES) - 1) * batches
+          and launches["fused_hot_hop"] == batches
+          and launches["sample_layer"] == 0
+          and launches["gather_rows"] >= batches,
+          f"tiered serving launches {launches}")
+    srt = sorted(lat)
+    p50 = srt[len(srt) // 2]
+    p99 = srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)]
+    print(f"tiered: {batches} batches of {BATCH}, per-batch latency p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms on {card}", flush=True)
+    print(f"tiered: launches per batch: fused_sample_hop "
+          f"{launches['fused_sample_hop'] / batches:g}, fused_hot_hop "
+          f"{launches['fused_hot_hop'] / batches:g}, gather_rows (host "
+          f"tier) {launches['gather_rows'] / batches:g}, sample_layer 0",
+          flush=True)
+    device_profile(lambda: [eng.run(ids, hop_seeds=hs) for ids, hs in
+                            zip(requests[:4], hop_seeds[:4])], 4,
+                   "tiered batch")
+
+    stats = tiered_stats(eng, store, requests, hop_seeds)
+    for i, s in enumerate(stats):
+        print(f"tiered batch {i}: hot slots {s['hot']}, cold slots "
+              f"{s['cold']}, unique cold rows {s['unique_cold']}, budget "
+              f"{s['budget']}, branch {s['branch']}, host rows read "
+              f"{s['host_rows']} ({s['host_rows'] * rb} B)", flush=True)
+    mean = {k: sum(s[k] for s in stats) / len(stats)
+            for k in ("hot", "cold", "unique_cold", "host_rows")}
+    mix = {b: sum(s["branch"] == b for s in stats)
+           for b in ("narrow", "compacted", "full")}
+    print(f"tiered: per batch mean hot slots {mean['hot']:.1f}, cold slots "
+          f"{mean['cold']:.1f}, unique cold rows {mean['unique_cold']:.1f}, "
+          f"host rows {mean['host_rows']:.1f} = "
+          f"{mean['host_rows'] * rb:.0f} B; branch mix {mix}", flush=True)
+
+    # 1. the tiered walk against the same walk over one device table
+    table = quant.QuantizedTensor(*(torch.cat([h, c.to(dev)]) for h, c in
+                                    zip(store.device_part, cold)))
+    forder = store.feature_order
+    hs = hop_seeds[0]
+    seeds = eng.pad_seeds(requests[0])
+    feat_args, _, store_gather = serving._feature_gather(store)
+    n_id, layers, x = fused.fused_multihop(
+        eng._indptr, eng._indices, seeds, store.device_part, SIZES, hs,
+        ROW_CAP, forder, hot_rows)
+    x = serving._cold_fixup(store_gather, feat_args, forder, n_id, x,
+                            hot_rows)
+    rn, rl, rx = fused.fused_multihop(eng._indptr, eng._indices, seeds,
+                                      table, SIZES, hs, ROW_CAP, forder)
+    check(torch.equal(n_id, rn), "tiered: frontier differs from the "
+          "one-table walk")
+    for a, b in zip(layers, rl):
+        check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
+              "tiered: layer COO differs from the one-table walk")
+    check(same_bits(x, rx), "tiered: x differs from the one-table walk's")
+    served = eng.run(requests[0], hop_seeds=hs)
+    with torch.inference_mode():
+        want = eng.model(rx, layers_to_adjs(rl, BATCH, SIZES))[:BATCH]
+    err = max_abs(served, want)
+    check(torch.allclose(served, want, atol=1e-4, rtol=1e-4),
+          f"tiered logits differ from the one-table walk's by {err}")
+    t = forder.long()[n_id.long().clamp(min=0)]
+    is_cold = (n_id >= 0) & (t >= hot_rows)
+    print(f"tiered check 1: x over {n_id.shape[0]} slots ({int(is_cold.sum())}"
+          f" cold) equal bit for bit to the one-table walk's, logits max "
+          f"|tiered - one table| = {err:.3g} (tolerance 1e-4)", flush=True)
+
+    # 2. the host-tier gather against its plain version at the cold ids
+    cold_ids = (t[is_cold] - hot_rows).to(torch.int32).contiguous()
+    holes = torch.where(is_cold, t - hot_rows, -1).to(torch.int32)
+    f32_rows = min(FP32_HOST_ROWS, cold_rows)
+    f32 = quant.dequantize(quant.QuantizedTensor(
+        *(c[:f32_rows] for c in cold))).pin_memory()
+    for name, tab, mod in (("int8", cold, cold_rows), ("fp32", f32, f32_rows)):
+        ids_m, holes_m = cold_ids % mod, torch.where(holes >= 0, holes % mod,
+                                                     holes)
+        got = gather.gather_rows(tab, ids_m)
+        check(same_bits(got, gather.gather_rows_plain(tab, ids_m)),
+              f"host-tier gather {name} differs from its plain version")
+        a = torch.full((holes.shape[0], DIM), 7.5, device=dev)
+        b = a.clone()
+        gather.gather_rows(tab, holes_m, out=a)
+        gather.gather_rows_plain(tab, holes_m, out=b)
+        check(same_bits(a, b), f"host-tier gather {name} with out= differs "
+              "from its plain version")
+    copy_src = torch.empty(COPY_BYTES, dtype=torch.uint8).pin_memory()
+    copy_dst = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(lambda: copy_dst.copy_(copy_src, non_blocking=True), 5)
+    h2d = COPY_BYTES / (copy_ms / 1e3)
+    del copy_src, copy_dst
+    rec = None
+    for name, tab, ids_m, kname in (
+            ("int8", cold, cold_ids, "gather_rows_q8_kernel"),
+            ("fp32", f32, cold_ids % f32_rows, "gather_rows_kernel")):
+        words = gather.word_bytes(tab, gather.gather_rows(tab, ids_m))
+        ms = cuda_ms(lambda: gather.gather_rows(tab, ids_m), iters)
+        own = own_ms(lambda: gather.gather_rows(tab, ids_m), kname, iters)
+        plain_ms = cuda_ms(lambda: gather.gather_rows_plain(tab, ids_m), 3)
+        distinct = int(torch.unique(ids_m).numel())
+        host_bytes = distinct * quant.row_read_bytes(tab)
+        dev_bytes = ids_m.shape[0] * (4 + 4 * DIM)
+        b_host = host_bytes / h2d * 1e3
+        b_dev = dev_bytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (b_host, "bytes (host)") if b_host >= b_dev \
+            else (b_dev, "bytes (device)")
+        share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+        print(f"host-tier gather_rows {name} ids={ids_m.shape[0]} distinct="
+              f"{distinct} D={DIM} ({words}-"
+              f"{'code' if name == 'int8' else 'byte'} words): wrapper "
+              f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
+              f"{plain_ms:.4f} ms, reads {host_bytes} B from the host at the"
+              f" measured {h2d / 1e9:.2f} GB/s pinned-to-device copy rate "
+              f"({COPY_BYTES} B copy_ in {copy_ms:.4f} ms) and moves "
+              f"{dev_bytes} B on the card: bound {b_ms:.4f} ms ({b_by}), "
+              "exact", flush=True)
+        if rec is None:
+            rec = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": "bytes",
+                   "library_ms": None, "err": 0.0,
+                   "h2d_bytes_per_s": h2d}
+    del f32
+
+    # 3. both fallbacks: a budget of 256 against the one-table gather
+    fix_ids = torch.where(is_cold, n_id, -1)
+    store.cold_budget = 256
+    try:
+        got = store.lookup_tiered(fix_ids, masked=True)
+    finally:
+        store.cold_budget = None
+    n_uniq = int(torch.unique(t[is_cold]).numel())
+    check(n_uniq > 256 and int(is_cold.sum()) > 256, "the budget of 256 "
+          "did not overflow both the unique table and the compaction")
+    want = masked_feature_gather(table, fix_ids, forder)
+    check(same_bits(got[is_cold], want[is_cold])
+          and not got[~is_cold].any(),
+          "the lookup at cold_budget=256 differs from the one-table gather")
+    print(f"tiered check 3: lookup at cold_budget=256 ({n_uniq} unique cold "
+          "rows: unique overflow, then cold overflow) equal to the "
+          "one-table gather", flush=True)
+
+    # 4. no host synchronisation in the store's lookup; and the step?
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        store.lookup_tiered(fix_ids, masked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run(requests[0], hop_seeds=hs)
+        step_note = "runs without one too"
+    except RuntimeError as e:
+        step_note = f"synchronises: {str(e).splitlines()[0][:160]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"tiered check 4: the store's lookup_tiered runs under "
+          f"set_sync_debug_mode('error') without a host synchronisation; "
+          f"the whole serve step {step_note}", flush=True)
+
+    # 5. the split route over the store; dedup_gather over a plain table
+    split = ServeEngine(model, None, topo, store, [SIZES], BATCH, seed=SEED,
+                        device=dev)
+    dedup = ServeEngine(model, None, topo, table, [SIZES], BATCH,
+                        forder=forder, dedup_gather=True, seed=SEED,
+                        device=dev)
+    for name, e in (("split route over the store", split),
+                    ("dedup_gather over one table", dedup)):
+        o = e.run(requests[1])
+        check(bool(torch.isfinite(o).all()), f"{name}: non-finite logits")
+        print(f"tiered check 5: {name}: finite logits {tuple(o.shape)}",
+              flush=True)
+    return rec, launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -865,6 +1155,9 @@ def main() -> int:
     launches.update(split_launches)
     del eng, requests, served, feat, featq
     train_launches = phase_train(dev, gen, NODES, indptr, indices, card)
+    host_tier, tiered_launches = phase_tiered(dev, gen, NODES, indptr,
+                                              indices, card, BATCHES,
+                                              iters=20)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -875,8 +1168,17 @@ def main() -> int:
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name].get("bound_by", "bytes"),
          "library_ms": kern[name].get("library_ms"),
-         "launches_per_train_step": train_launches[name] / TRAIN_STEPS}
+         "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
+         "launches_per_tiered_batch": tiered_launches[name] / BATCHES}
         for name in SOURCES]}
+    gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
+    gather_entry["host_tier"] = {
+        "launches": tiered_launches["gather_rows"],
+        "max_abs_err": host_tier["err"], "ms": host_tier["ms"],
+        "own_ms": host_tier["own_ms"], "plain_ms": host_tier["plain_ms"],
+        "bound_ms": host_tier["bound_ms"],
+        "bound_by": host_tier["bound_by"], "library_ms": None,
+        "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,18 @@ A package of its own beside the JAX one, laid out like it (``ops/``,
 put their tensors on the card unless the caller passes ``device="cpu"``;
 the TPU kernels, which the serve and train steps run through the fused
 walk, are CUDA kernels for Hopper (``csrc/``), built at first use. The
-train steps are in ``parallel`` (``build_train_step``).
+train steps are in ``parallel`` (``build_train_step``). ``Feature`` is
+the tiered store: its hot tier on the card, its cold tier in pinned host
+memory that the card's row gather reads.
 """
 
 __version__ = "0.1.0"
 
+from .feature import DeviceConfig, Feature
 from .models import GraphSAGE
 from .ops.quant import quantize
 from .serving import ServeEngine, build_serve_step
-from .utils import CSRTopo
+from .utils import CSRTopo, parse_size
 
-__all__ = ["CSRTopo", "GraphSAGE", "ServeEngine", "build_serve_step",
-           "quantize"]
+__all__ = ["CSRTopo", "DeviceConfig", "Feature", "GraphSAGE",
+           "ServeEngine", "build_serve_step", "parse_size", "quantize"]

@@ -1,0 +1,491 @@
+"""Tiered feature store, single device (counterpart of
+``quiver_tpu/feature.py``).
+
+Two tiers, by bandwidth:
+  1. the hot tier on the card: the hottest rows (degree-ordered through
+     ``feature_order``, the reference's hot-order permutation), as many
+     as ``device_cache_size`` bytes hold under the hot dtype policy;
+  2. the cold tier, the remaining rows, in host memory. With
+     ``host_placement="offload"`` it is pinned and the card reads it
+     itself: the CUDA row gather (``ops/kernels/gather.py``) takes device
+     ids and reads the rows over PCIe, the reference's UVA gather. With
+     ``host_placement="numpy"`` it is a plain CPU tensor: a lookup
+     brings its ids to the host, indexes there and copies the rows to
+     the card.
+
+Lookup ids pass through ``feature_order`` before tier dispatch. Every
+entry point runs on the card unless the caller passes ``device="cpu"``;
+there both tiers are CPU tensors and the gathers run their plain
+versions.
+
+The offload lookup (:meth:`Feature._lookup_tiered`) keeps the JAX
+package's branches: no hot tier; a budget no smaller than the batch;
+cold compaction into ``cold_budget`` host rows with its full-gather
+fallback; and ``dedup_cold``'s unique table with its fallback to
+compaction. Where JAX picks a branch with ``lax.cond``, this lookup
+never asks the host: each branch's host gather is given -1 at every
+slot the branch would not read (the gather skips those), so a branch
+that is not taken reads nothing, and results merge on the card. Host
+rows read per batch stay within JAX's bound (``budget`` on the narrow
+path, ``budget`` more on unique overflow, and the batch's cold slots
+when the raw cold count overflows too): the unique rows on the dedup
+narrow path, the cold slots on the compaction path, and the cold slots
+alone when they overflow the budget.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .ops import quant
+from .ops.dedup import dedup_take, unique_within_budget
+from .ops.kernels.gather import gather_rows
+from .parallel.train import _METRICS
+from .utils.device import resolve_device
+from .utils.placement import pinned_put
+from .utils.reorder import reindex_feature
+from .utils.sizes import parse_size
+
+_MULTI = "ROADMAP Queue 1 item 7 (multi-GPU)"
+_LATER = ("ROADMAP Queue 1 item 3 (what is left of the Feature store: "
+          "the disk tier, rotate_hot_set, cold prefetch)")
+
+
+class DeviceConfig:
+    """Pre-partitioned construction recipe (reference feature.py:11-14):
+    ``gpu_parts`` land in the hot tier, ``cpu_part`` in the cold tier."""
+
+    def __init__(self, gpu_parts, cpu_part):
+        self.gpu_parts = gpu_parts
+        self.cpu_part = cpu_part
+
+    @property
+    def device_parts(self):
+        return self.gpu_parts
+
+    @property
+    def host_part(self):
+        return self.cpu_part
+
+
+def _resolve_tier_policy(policy) -> dict:
+    """A dtype-policy knob as ``{"hot": ..., "cold": ...}`` with
+    canonical policy names (None = store as it is)."""
+    if policy is None or isinstance(policy, str):
+        p = quant.resolve_policy(policy)
+        return {"hot": p, "cold": p}
+    if isinstance(policy, dict):
+        unknown = set(policy) - {"hot", "cold"}
+        if unknown:
+            raise ValueError(
+                f"dtype_policy keys must be 'hot'/'cold', got "
+                f"{sorted(unknown)}")
+        return {"hot": quant.resolve_policy(policy.get("hot")),
+                "cold": quant.resolve_policy(policy.get("cold"))}
+    raise ValueError(f"cannot parse dtype_policy {policy!r}")
+
+
+def _resolve_cold_budget(dedup_cold, cold_budget, n: int) -> int:
+    """The cold-compaction budget for an ``n``-slot lookup: an explicit
+    ``dedup_cold=int`` wins, then ``cold_budget``, then the default."""
+    if dedup_cold and not isinstance(dedup_cold, bool):
+        return int(dedup_cold)
+    if cold_budget is not None:
+        return cold_budget
+    return quant.default_cold_budget(n)
+
+
+def _cpu_tensor(a) -> torch.Tensor:
+    """A host table (numpy array or tensor) as a CPU tensor."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    return t.cpu()
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+class Feature:
+    """``Feature(rank, device_list, device_cache_size, cache_policy,
+    csr_topo)``: the reference's constructor (feature.py:37-59) and the
+    JAX package's knobs, plus ``device`` (the card unless ``"cpu"``).
+
+    ``dtype_policy`` stores each tier narrow (``None``, ``"bf16"``,
+    ``"fp16"``, ``"int8"``, or ``{"hot": ..., "cold": ...}``; mixed
+    tiers merge at the wider dtype). ``cold_budget`` caps the host rows
+    an offload lookup reads per batch (default ``max(n // 4, 256)``);
+    ``dedup_cold`` (True, or an int unique budget) reads each distinct
+    cold row once. Only ``cache_policy="device_replicate"`` on one
+    device is ported."""
+
+    def __init__(self, rank: int = 0,
+                 device_list: Optional[Sequence[int]] = None,
+                 device_cache_size=0,
+                 cache_policy: str = "device_replicate",
+                 csr_topo=None,
+                 mesh=None,
+                 dtype=None,
+                 host_placement: str = "numpy",
+                 cold_budget: Optional[int] = None,
+                 dedup_cold=False,
+                 dtype_policy=None,
+                 device=None):
+        if cache_policy not in ("device_replicate", "p2p_clique_replicate",
+                                "shard"):
+            raise ValueError(f"unknown cache_policy {cache_policy!r}")
+        if cache_policy != "device_replicate" or mesh is not None:
+            raise NotImplementedError(
+                f"cache_policy={cache_policy!r} / mesh: {_MULTI}")
+        if host_placement not in ("numpy", "offload"):
+            raise ValueError(f"unknown host_placement {host_placement!r}")
+        self.device = resolve_device(device)
+        self.rank = rank
+        self.device_list = list(device_list) if device_list else None
+        self.device_cache_size = device_cache_size
+        self.cache_policy = cache_policy
+        self.csr_topo = csr_topo
+        self.dtype = dtype
+        self.host_placement = host_placement
+        self.cold_budget = cold_budget
+        self.dedup_cold = dedup_cold
+        self.dtype_policy = _resolve_tier_policy(dtype_policy)
+        self.feature_order = None      # old id -> storage row, int32
+        self.cache_rows = 0
+        self.device_part = None        # hot tier on the device
+        self.host_part = None          # cold tier gathered on the host
+        self._host_offload = None      # cold tier the card reads (pinned)
+
+    # -- sizing (reference feature.py:74-82) --------------------------------
+    def cal_size(self, cpu_tensor, cache_memory_budget: int) -> int:
+        """Hot rows that ``cache_memory_budget`` bytes hold: the budget
+        divided by the stored row width under the hot dtype policy."""
+        itemsize = cpu_tensor.element_size() if torch.is_tensor(cpu_tensor) \
+            else np.asarray(cpu_tensor).dtype.itemsize
+        row_bytes = quant.row_bytes(int(np.prod(cpu_tensor.shape[1:])),
+                                    self.dtype_policy["hot"], itemsize)
+        return min(cpu_tensor.shape[0],
+                   cache_memory_budget // max(row_bytes, 1))
+
+    def partition(self, cpu_tensor, cache_memory_budget: int):
+        rows = self.cal_size(cpu_tensor, cache_memory_budget)
+        return [cpu_tensor[:rows], cpu_tensor[rows:]]
+
+    # -- construction -------------------------------------------------------
+    def from_cpu_tensor(self, cpu_tensor):
+        """Build both tiers from a host table (numpy or a tensor). With a
+        ``csr_topo`` the rows are stored degree-descending: the topo's
+        ``feature_order`` is computed here, or reused when an earlier
+        store set it, and this table is permuted by it either way."""
+        tensor = _cpu_tensor(cpu_tensor)
+        if self.dtype is not None:
+            tensor = tensor.to(_torch_dtype(self.dtype))
+        budget = parse_size(self.device_cache_size)
+        if self.csr_topo is not None:
+            if self.csr_topo.feature_order is None:
+                _, new_order = reindex_feature(self.csr_topo, None, 0)
+                self.csr_topo.feature_order = new_order
+            order = self.csr_topo.feature_order
+            storage = torch.empty_like(tensor)
+            storage.index_copy_(0, order.cpu().long(), tensor)
+            tensor = storage
+            self.feature_order = order.to(self.device, torch.int32)
+        cache_part, host_part = self.partition(tensor, budget)
+        self.cache_rows = int(cache_part.shape[0])
+        self._place(quant.quantize(cache_part, self.dtype_policy["hot"]))
+        self.host_part = None
+        if host_part.shape[0]:
+            self.host_part = quant.tree_map_tier(
+                torch.Tensor.contiguous,
+                quant.quantize(host_part, self.dtype_policy["cold"]))
+        self._maybe_offload_host()
+        return self
+
+    def from_mmap(self, np_array, device_config: DeviceConfig):
+        """Build from pre-partitioned parts (reference feature.py:95-192):
+        ``device_config.gpu_parts`` concatenated into the hot tier,
+        ``cpu_part`` (or ``np_array`` when there is neither) the cold."""
+        parts = [_cpu_tensor(p) for p in device_config.device_parts
+                 if p is not None]
+        parts = [p for p in parts if p.numel()]
+        host = device_config.host_part
+        host = None if host is None else _cpu_tensor(host)
+        if parts:
+            cache_part = torch.cat(parts)
+        else:
+            cache_part = host.new_zeros((0,) + tuple(host.shape[1:]))
+        self.cache_rows = int(cache_part.shape[0])
+        if self.cache_rows:
+            self._place(quant.quantize(cache_part, self.dtype_policy["hot"]))
+        raw = host if host is not None and host.numel() else None
+        if raw is None and np_array is not None and not self.cache_rows:
+            raw = np_array
+        self.host_part = None if raw is None else quant.tree_map_tier(
+            torch.Tensor.contiguous,
+            quant.quantize(_cpu_tensor(raw), self.dtype_policy["cold"]))
+        self._maybe_offload_host()
+        return self
+
+    def _place(self, cache_part):
+        if quant.tier_rows(cache_part) == 0:
+            self.device_part = None
+            return
+        self.device_part = quant.tree_map_tier(
+            lambda t: t.to(self.device).contiguous(), cache_part)
+
+    def _maybe_offload_host(self):
+        """``host_placement="offload"``: pin the cold tier for the card's
+        gather. The pinned copy owns the tier, so host residency stays
+        1x. On the CPU the tier stays a plain tensor."""
+        if self.host_placement != "offload" or self.host_part is None:
+            return
+        self._host_offload = pinned_put(self.host_part, self.device,
+                                        "the Feature host tier")
+        self.host_part = None
+
+    # -- the gathers ----------------------------------------------------------
+    def _ids(self, node_idx) -> torch.Tensor:
+        t = node_idx if torch.is_tensor(node_idx) \
+            else torch.as_tensor(np.asarray(node_idx))
+        return t.to(self.device)
+
+    @staticmethod
+    def _translate(ids, order):
+        if order is None:
+            return ids.to(torch.int32)
+        return order[ids.long()]
+
+    def _gather_cached(self, dev_part, ids):
+        safe = ids.clamp(0, max(self.cache_rows - 1, 0))
+        return quant.gather_rows(dev_part, safe)
+
+    def _lookup_cached(self, dev_part, ids, order):
+        return self._gather_cached(dev_part, self._translate(ids, order))
+
+    def _lookup_cached_masked(self, dev_part, ids, order):
+        ids_i = ids.to(torch.int32)
+        safe = ids_i.clamp(0, max(self.cache_rows - 1, 0))
+        rows = self._gather_cached(dev_part, self._translate(safe, order))
+        return rows * (ids_i >= 0).to(rows.dtype)[:, None]
+
+    def _lookup_tiered(self, dev_part, host_part, ids, order,
+                       masked: bool = False):
+        """The offload lookup (the JAX package's ``lookup_tiered_body``):
+        hot rows from the device tier, cold rows read from the host tier
+        by ``gather_rows``, without a host synchronisation. ``masked``:
+        -1 ids give zero rows, and padding counts as hot (it never takes
+        a cold budget slot)."""
+        ids_raw = ids.to(torch.int32)
+        cache_rows = self.cache_rows
+        cold_total = quant.tier_rows(host_part)
+        total = cache_rows + cold_total
+        ids = ids_raw.clamp(0, total - 1) if masked else ids_raw
+        out_dt = quant.tier_dtype(host_part)
+        if dev_part is not None:
+            out_dt = torch.promote_types(quant.tier_dtype(dev_part), out_dt)
+        dev, n, dim = ids.device, ids.shape[0], quant.tier_dim(host_part)
+        skip = torch.full_like(ids_raw, -1)
+
+        def take_hot(hids):
+            return self._gather_cached(dev_part, hids).to(out_dt)
+
+        def put_host(x, hids):
+            """Host rows over ``x`` where ``hids`` is not -1, in place."""
+            if quant.tier_dtype(host_part) == out_dt:
+                return gather_rows(host_part, hids, out=x)
+            rows = gather_rows(host_part, hids, out=torch.zeros(
+                (hids.shape[0], dim), dtype=quant.tier_dtype(host_part),
+                device=dev))
+            return x.copy_(torch.where((hids >= 0)[:, None],
+                                       rows.to(out_dt), x))
+
+        def finish(rows):
+            if not masked:
+                return rows
+            return rows * (ids_raw >= 0).to(rows.dtype)[:, None]
+
+        t = self._translate(ids, order)
+        hot = t < cache_rows
+        if masked:
+            hot = hot | (ids_raw < 0)
+        cold_idx = (t - cache_rows).clamp(0, max(cold_total - 1, 0))
+        budget = _resolve_cold_budget(self.dedup_cold, self.cold_budget, n)
+        dedup = bool(self.dedup_cold)
+        if dev_part is None:
+            if dedup and budget < n:
+                # no hot tier: every slot is cold, dedup still bounds the
+                # host read to unique rows
+                return finish(dedup_take(host_part, cold_idx, budget)
+                              .to(out_dt))
+            return finish(gather_rows(host_part, cold_idx).to(out_dt))
+        zero = torch.zeros_like(t)
+        if budget >= n:
+            # the budget cannot beat a full gather: one read of every
+            # cold slot (also the tiny-batch path)
+            x = take_hot(torch.where(hot, t, zero))
+            return finish(put_host(x, torch.where(hot, skip, cold_idx)))
+
+        def compacted(pred):
+            """Cold compaction: hot rows per slot, up to ``budget`` cold
+            slots filled from the host tier, or, when the raw cold count
+            overflows, every cold slot by the full host gather instead
+            (JAX reads the budget rows then too; they would only be read
+            again). ``pred`` (a device bool, or None for always) gates
+            its host reads: the dedup path runs it as its unique-overflow
+            fallback."""
+            x = take_hot(torch.where(hot, t, zero))
+            x = torch.cat([x, x.new_zeros((1, dim))])      # row n: dropped
+            cold = ~hot
+            n_cold = cold.sum(dtype=torch.int32)
+            over = n_cold > budget
+            if pred is not None:
+                over = over & pred
+            crank = torch.cumsum(cold, 0, dtype=torch.int32) - 1
+            sel = cold & (crank < budget)
+            cpos = torch.full((budget + 1,), n, dtype=torch.int32,
+                              device=dev)
+            cpos.scatter_(0, torch.where(sel, crank, budget).long(),
+                          torch.arange(n, dtype=torch.int32, device=dev))
+            cpos = cpos[:budget]            # cold positions, n past n_cold
+            live = (cpos < n) & (n_cold <= budget)
+            if pred is not None:
+                live = live & pred
+            c_ids = cold_idx[cpos.clamp(max=n - 1).long()]
+            rows = put_host(torch.zeros((budget, dim), dtype=out_dt,
+                                        device=dev),
+                            torch.where(live, c_ids, skip[:budget]))
+            x.index_copy_(0, cpos.long(), rows)
+            put_host(x[:n], torch.where(cold & over, cold_idx, skip))
+            return x[:n]
+
+        if not dedup:
+            return finish(compacted(None))
+        # the deduplicated narrow path: unique over the whole translated
+        # frontier, each unique cold row read once ([budget, dim], the
+        # only host read), positions expanded from the unique rows; on
+        # unique overflow, the compaction path (which keeps its own
+        # traffic bound) is taken instead
+        valid_pos = (ids_raw >= 0) if masked else None
+        uniq, inv, n_uniq = unique_within_budget(t, budget, valid=valid_pos)
+        uover = n_uniq > budget
+        safe_u = uniq.clamp(0, total - 1)
+        hot_u = safe_u < cache_rows
+        rows_u = take_hot(torch.where(hot_u, safe_u, torch.zeros_like(uniq)))
+        cold_u = (safe_u - cache_rows).clamp(0, max(cold_total - 1, 0))
+        live_u = ~hot_u & ~uover & (
+            torch.arange(budget, device=dev) < n_uniq)
+        put_host(rows_u, torch.where(live_u, cold_u, skip[:budget]))
+        if masked:
+            # padding expands from a dedicated zero row
+            rows_u = torch.cat([rows_u, rows_u.new_zeros((1, dim))])
+            inv = torch.where(valid_pos, inv, budget)
+        narrow = rows_u.index_select(0, inv.long())
+        if masked:
+            return torch.where(uover, finish(compacted(uover)), narrow)
+        return torch.where(uover, compacted(uover), narrow)
+
+    # -- lookup (reference feature.py:296-333) ------------------------------
+    def __getitem__(self, node_idx):
+        ids = self._ids(node_idx)
+        if self._host_offload is not None:
+            return self._lookup_tiered(self.device_part, self._host_offload,
+                                       ids, self.feature_order)
+        if self.host_part is None:
+            return self._lookup_cached(self.device_part, ids,
+                                       self.feature_order)
+        ids = self._translate(ids, self.feature_order)
+        # mixed policies (bf16 hot + int8 cold) merge at the wider dtype,
+        # as the offload lookup does, whether or not a batch has cold rows
+        out_dt = quant.tier_dtype(self.host_part)
+        if self.device_part is None:
+            out = torch.zeros((ids.shape[0], self.dim()), dtype=out_dt,
+                              device=self.device)
+        else:
+            out_dt = torch.promote_types(
+                quant.tier_dtype(self.device_part), out_dt)
+            out = self._gather_cached(self.device_part, ids).to(out_dt)
+        ids_h = ids.cpu()                      # the host path: one sync
+        pos = torch.nonzero(ids_h >= self.cache_rows).reshape(-1)
+        if pos.numel() == 0:
+            return out
+        host_rows = quant.take_np(self.host_part,
+                                  ids_h[pos] - self.cache_rows)
+        # torch keeps no executable per shape, so unlike the JAX package
+        # this scatter needs no power-of-two padding of the cold count
+        return out.index_copy_(0, pos.to(self.device),
+                               host_rows.to(self.device, out_dt))
+
+    def getitem_masked(self, node_idx):
+        """``feature[clip(ids)]`` with -1 ids giving zero rows."""
+        ids = self._ids(node_idx)
+        if self._host_offload is not None:
+            return self._lookup_tiered(self.device_part, self._host_offload,
+                                       ids, self.feature_order, True)
+        if self.host_part is None:
+            return self._lookup_cached_masked(self.device_part, ids,
+                                              self.feature_order)
+        safe = ids.clamp(0, self.size(0) - 1)
+        rows = self[safe]
+        return rows * (ids >= 0).to(rows.dtype)[:, None]
+
+    def lookup_tiered(self, node_idx, masked: bool = False,
+                      collect_metrics: bool = False):
+        """``feature[ids]`` (``masked``: -1 ids give zero rows). The
+        device counters of ``collect_metrics=True`` are later work."""
+        if collect_metrics:
+            raise NotImplementedError(_METRICS)
+        return self.getitem_masked(node_idx) if masked else self[node_idx]
+
+    def close(self):
+        """Nothing to stop: the staging pipelines that the JAX store
+        shuts down here (``prefetch``, the cold prefetcher) are not
+        ported."""
+
+    # -- later work ----------------------------------------------------------
+    def prefetch(self, node_idx):
+        raise NotImplementedError(_LATER)
+
+    def set_mmap_file(self, path, disk_map, scale=None, zero=None):
+        raise NotImplementedError(_LATER)
+
+    def read_mmap(self, ids):
+        raise NotImplementedError(_LATER)
+
+    def rotate_hot_set(self, promote, demote):
+        raise NotImplementedError(_LATER)
+
+    def enable_cold_prefetch(self, *args, **kwargs):
+        raise NotImplementedError(_LATER)
+
+    def stage_frontier(self, node_idx):
+        raise NotImplementedError(_LATER)
+
+    def share_ipc(self):
+        raise NotImplementedError(_MULTI)
+
+    def __getstate__(self):
+        raise NotImplementedError(f"pickling a Feature: {_LATER}")
+
+    # -- shape protocol ------------------------------------------------------
+    @property
+    def shape(self):
+        cold = self.host_part if self.host_part is not None \
+            else self._host_offload
+        rows = self.cache_rows + (0 if cold is None
+                                  else quant.tier_rows(cold))
+        dim = None
+        for tier in (self.device_part, cold):
+            if tier is not None:
+                dim = quant.tier_dim(tier)
+                break
+        return (rows, dim)
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def dim(self) -> int:
+        return self.shape[1]

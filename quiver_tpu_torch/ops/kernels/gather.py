@@ -1,11 +1,20 @@
 """Row gather (counterpart of ``quiver_tpu/ops/pallas/gather.py``).
 
 :func:`gather_rows` computes ``out[i] = feat[ids[i]]`` for a 2-D
-contiguous fp32, bf16, fp16 or int8 table. On CUDA tensors it launches
-the kernel of ``csrc/gather.cu`` (a warp per row, copying bytes in
-16-byte words where the width and alignment allow); on CPU tensors it
-runs the plain version :func:`gather_rows_plain`. Unlike the JAX
+contiguous fp32, bf16, fp16 or int8 table, or for an int8
+``QuantizedTensor`` with fp32 sidecars, whose rows it dequantizes to
+fp32 as it reads them. On CUDA ids it launches a kernel of
+``csrc/gather.cu`` (a warp per row); the table lies on the ids' card or
+in pinned host memory, which the kernel reads over PCIe, as the
+reference's UVA gather does: the cold tier of the feature store. On CPU
+ids it runs the plain version :func:`gather_rows_plain`. Unlike the JAX
 function, neither the width nor the id count is padded.
+
+With ``out=``, the rows are written into ``out`` and a negative id
+leaves its row of ``out`` as it is, reading nothing: the tiered lookup
+gives each branch's reads -1 where the branch does not read, so the
+host decides nothing. Without ``out=`` every id must lie in the table
+(the kernel clamps one that does not).
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import ctypes
 
 import torch
 
+from .. import quant
 from . import _build
 from .sample_kernel import _check_1d_int32
 
@@ -24,57 +34,125 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 def _lib():
     lib = _build.load(_LIB)
     if not getattr(lib, "_qt_bound", False):
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.qt_gather_rows.argtypes = [p, p, ll, ll, ll, p, p]
-        lib.qt_gather_rows.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qt_gather_rows.argtypes = [p, i, p, ll, ll, ll, p, i, p]
+        lib.qt_gather_rows.restype = i
+        lib.qt_gather_rows_q8.argtypes = [p, p, p, i, p, ll, ll, ll, p, i, p]
+        lib.qt_gather_rows_q8.restype = i
         lib.qt_gather_word_bytes.argtypes = [p, p, ll]
-        lib.qt_gather_word_bytes.restype = ctypes.c_int
+        lib.qt_gather_word_bytes.restype = i
+        lib.qt_gather_q8_vec.argtypes = [p, p, ll]
+        lib.qt_gather_q8_vec.restype = i
         lib._qt_bound = True
     return lib
 
 
-def gather_rows_plain(feat, ids):
-    """Plain version of :func:`gather_rows` (``gather_rows_reference``)."""
-    return feat[ids.long()]
+def _leaves(feat):
+    """The table's storage leaves, checked: ``(data, scale, zero)``."""
+    data, scale, zero = quant.tier_parts(feat)
+    if not torch.is_tensor(data) or data.dim() != 2 \
+            or not data.is_contiguous() or data.dtype not in _DTYPES:
+        raise ValueError(
+            "gather_rows takes a contiguous 2-D fp32, bf16, fp16 or int8 "
+            f"table, got {getattr(data, 'dtype', type(data))} "
+            f"{tuple(getattr(data, 'shape', ()))}")
+    if scale is not None:
+        for side in (scale, zero):
+            if data.dtype != torch.int8 or not torch.is_tensor(side) \
+                    or not side.is_floating_point() \
+                    or tuple(side.shape) != (data.shape[0], 1) \
+                    or not side.is_contiguous() \
+                    or side.device != data.device:
+                raise ValueError(
+                    "a quantized table is int8 [N, D] codes with "
+                    "contiguous float [N, 1] scale and zero beside them")
+    return data, scale, zero
+
+
+def _check_out(out, n, dim, dtype, dev):
+    if not torch.is_tensor(out) or out.dtype != dtype \
+            or tuple(out.shape) != (n, dim) or not out.is_contiguous() \
+            or out.device != dev:
+        raise ValueError(
+            f"out must be a contiguous {dtype} [{n}, {dim}] tensor on {dev}")
+
+
+def gather_rows_plain(feat, ids, out=None):
+    """Plain version of :func:`gather_rows`: index on the table's side
+    (host or device), copy the rows to the ids' device, and write into
+    ``out`` only where the id is not negative. Ids are clamped into the
+    table, as the kernel clamps them."""
+    data, _, _ = quant.tier_parts(feat)
+    idx = ids.to(data.device).long().clamp(0, max(data.shape[0] - 1, 0))
+    rows = quant.gather_rows(feat, idx).to(ids.device)
+    if out is None:
+        return rows
+    keep = (ids >= 0)[:, None]
+    return out.copy_(torch.where(keep, rows, out))
 
 
 def word_bytes(feat, out) -> int:
     """The width of the words the kernel copies for ``feat`` into
-    ``out``: 16, 4, 2 or 1 bytes."""
-    row = feat.shape[1] * feat.element_size()
-    return _lib().qt_gather_word_bytes(feat.data_ptr(), out.data_ptr(), row)
+    ``out``: 16, 4, 2 or 1 bytes; for a quantized table, 4 or 1 int8
+    codes."""
+    data, scale, _ = quant.tier_parts(feat)
+    if scale is not None:
+        return _lib().qt_gather_q8_vec(data.data_ptr(), out.data_ptr(),
+                                       data.shape[1])
+    row = data.shape[1] * data.element_size()
+    return _lib().qt_gather_word_bytes(data.data_ptr(), out.data_ptr(), row)
 
 
-def gather_rows(feat, ids):
-    """``out[i] = feat[ids[i]]`` with every id in ``[0, N)`` (the
-    contract of ``gather.py``; the kernel clamps an id outside it into
-    the table, and reads nothing outside). ``feat`` is a contiguous
-    ``[N, D]`` fp32, bf16, fp16 or int8 tensor; ``ids`` a contiguous 1-D
-    int32 tensor on the same device, int64 ids are cast."""
-    if not torch.is_tensor(feat) or feat.dtype not in _DTYPES \
-            or feat.dim() != 2 or not feat.is_contiguous():
-        raise ValueError(
-            "gather_rows takes a contiguous 2-D fp32, bf16, fp16 or int8 "
-            f"table, got {getattr(feat, 'dtype', type(feat))} "
-            f"{tuple(getattr(feat, 'shape', ()))}")
-    dev = feat.device
+def gather_rows(feat, ids, out=None):
+    """``out[i] = feat[ids[i]]``. ``feat`` is a contiguous ``[N, D]``
+    fp32, bf16, fp16 or int8 tensor, or an int8 ``QuantizedTensor``
+    (rows come back dequantized in its sidecars' dtype; the kernel takes
+    fp32 sidecars). ``ids`` is a contiguous 1-D int32 tensor (int64 ids
+    are cast); rows come back on its device. On a card, the table lies
+    on that card or in pinned host memory. Without ``out`` every id must
+    lie in ``[0, N)`` (the kernel clamps one outside it into the table
+    and reads nothing outside); with ``out`` (contiguous ``[n, D]`` of
+    the rows' dtype on the ids' device) a negative id leaves its row of
+    ``out`` untouched and reads nothing, and ``out`` is returned."""
+    data, scale, zero = _leaves(feat)
     if torch.is_tensor(ids) and ids.dtype == torch.int64:
         ids = ids.to(torch.int32)
-    _check_1d_int32(ids, "ids", dev)
+    home = data.device
+    dev = ids.device if torch.is_tensor(ids) else home
+    on_host = dev.type == "cuda" and home.type == "cpu"
+    if on_host and not data.is_pinned():
+        raise ValueError("gather_rows reads a host table from the card "
+                         "only when it lies in pinned memory")
+    _check_1d_int32(ids, "ids", dev if on_host else home)
+    n, dim = ids.shape[0], data.shape[1]
+    dtype = quant.tier_dtype(feat)
+    if out is not None:
+        _check_out(out, n, dim, dtype, dev)
     if dev.type == "cpu":
-        return gather_rows_plain(feat, ids)
+        return gather_rows_plain(feat, ids, out)
     if dev.type != "cuda":
         raise ValueError(f"gather_rows runs on cuda or cpu, not {dev}")
-    n = ids.shape[0]
-    out = torch.empty((n, feat.shape[1]), dtype=feat.dtype, device=dev)
+    if scale is not None and (scale.dtype != torch.float32
+                              or zero.dtype != torch.float32):
+        raise ValueError("the int8 gather kernel takes fp32 scale and zero")
+    skip = int(out is not None)
+    if out is None:
+        out = torch.empty((n, dim), dtype=dtype, device=dev)
     if out.numel() == 0:
         return out
-    if feat.shape[0] < 1:
+    if data.shape[0] < 1:
         raise ValueError("gather_rows: ids index an empty table")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().qt_gather_rows(
-            feat.data_ptr(), ids.data_ptr(), n, feat.shape[0],
-            feat.shape[1] * feat.element_size(), out.data_ptr(), stream)
+        if scale is None:
+            err = _lib().qt_gather_rows(
+                data.data_ptr(), int(on_host), ids.data_ptr(), n,
+                data.shape[0], dim * data.element_size(), out.data_ptr(),
+                skip, stream)
+        else:
+            err = _lib().qt_gather_rows_q8(
+                data.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                int(on_host), ids.data_ptr(), n, data.shape[0], dim,
+                out.data_ptr(), skip, stream)
     _build.launched(err, "gather_rows")
     return out

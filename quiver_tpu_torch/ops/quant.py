@@ -12,11 +12,15 @@ two bit-identical.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 POLICIES = (None, "fp32", "fp16", "bf16", "int8")
+
+# per-row sidecar bytes for int8: fp32 scale + fp32 zero-point
+_SIDECAR_BYTES = 8
 
 
 def resolve_policy(policy):
@@ -52,6 +56,23 @@ class QuantizedTensor(NamedTuple):
 
 def is_quantized(t) -> bool:
     return isinstance(t, QuantizedTensor)
+
+
+def storage_itemsize(policy) -> float:
+    """Stored bytes per element under ``policy`` (sidecars excluded)."""
+    return {None: 4, "bf16": 2, "fp16": 2, "int8": 1}[resolve_policy(policy)]
+
+
+def row_bytes(dim: int, policy=None, base_itemsize: int = 4) -> int:
+    """Stored bytes per row under ``policy``, sidecars included: the
+    currency of host-tier traffic, and what the hot-tier sizing divides
+    the byte budget by."""
+    p = resolve_policy(policy)
+    if p is None:
+        return dim * base_itemsize
+    if p == "int8":
+        return dim + _SIDECAR_BYTES
+    return dim * 2                      # bf16 / fp16
 
 
 def quantize(x, policy):
@@ -124,4 +145,85 @@ def gather_rows(t, ids: torch.Tensor) -> torch.Tensor:
     scale = t.scale.index_select(0, ids)
     zero = t.zero.index_select(0, ids)
     return code.to(scale.dtype) * scale + zero
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def take_np(t, ids) -> torch.Tensor:
+    """The host path's fancy-index and dequant: rows ``ids`` (in range)
+    of a tier held in host memory (CPU tensors or numpy arrays), as a
+    CPU tensor. Unlike the JAX package's ``take_np``, which decodes
+    through float64 and rounds once, this rounds the multiply and then
+    the add, as the kernels and :func:`gather_rows` do, so a row reads
+    the same bits from either tier."""
+    return gather_rows(tree_map_tier(torch.as_tensor, t),
+                       torch.as_tensor(ids))
+
+
+def tree_map_tier(fn, t):
+    """Apply ``fn`` to the tier's storage leaves (placement, pinning)
+    keeping the ``QuantizedTensor`` wrapper."""
+    if is_quantized(t):
+        return QuantizedTensor(fn(t.data), fn(t.scale), fn(t.zero))
+    return fn(t)
+
+
+def default_cold_budget(n: int) -> int:
+    """The tiered lookup's default per-batch host-row budget (shared by
+    ``Feature.lookup_tiered`` and ``dedup_feature_gather``)."""
+    return max(n // 4, 256)
+
+
+def dedup_rows_read(ids, budget: Optional[int] = None,
+                    cold_count: Optional[int] = None) -> int:
+    """The host rows the dedup tiered lookup's branch structure allows
+    for one batch, as the JAX package counts them: ``budget`` on the
+    narrow path; on unique overflow the cold-compaction path, still
+    ``budget`` unless the raw cold-slot count (``cold_count``; None
+    assumes every slot may be cold) overflows too, and then the whole
+    batch."""
+    ids = _host(ids)
+    n = int(ids.shape[0])
+    if budget is None:
+        budget = default_cold_budget(n)
+    if budget >= n:
+        return n
+    if np.unique(ids[ids >= 0]).size <= budget:
+        return budget
+    if cold_count is None:
+        cold_count = n
+    return budget if cold_count <= budget else n
+
+
+class HotPlan(NamedTuple):
+    """Bandwidth-aware hot-tier sizing under a dtype policy."""
+
+    rows: int                    # hot rows the budget holds under policy
+    row_bytes: int               # stored bytes/row (sidecars included)
+    expected_hit_rate: Optional[float]   # degree-mass share, if degrees
+    fp32_rows: int               # the width-blind sizing, for comparison
+    fp32_hit_rate: Optional[float]
+
+
+def plan_hot_capacity(budget_bytes: int, total_rows: int, dim: int,
+                      policy=None, base_itemsize: int = 4,
+                      degree=None) -> HotPlan:
+    """Hot-tier capacity from (byte budget, dtype policy, degrees):
+    narrow rows hold 2-4x more rows in one budget, and under
+    degree-proportional access the expected hit rate is the cached rows'
+    share of the total degree mass, beside the fp32 sizing's."""
+    rb = row_bytes(dim, policy, base_itemsize)
+    rows = min(total_rows, budget_bytes // max(rb, 1))
+    rb32 = dim * base_itemsize
+    rows32 = min(total_rows, budget_bytes // max(rb32, 1))
+    hit = hit32 = None
+    if degree is not None and total_rows:
+        deg = np.sort(_host(degree).astype(np.float64))[::-1]
+        mass = np.concatenate([[0.0], np.cumsum(deg)])
+        total = mass[-1] or 1.0
+        hit = float(mass[min(rows, deg.size)] / total)
+        hit32 = float(mass[min(rows32, deg.size)] / total)
+    return HotPlan(int(rows), int(rb), hit, int(rows32), hit32)
 

@@ -18,9 +18,11 @@ PRNG for the exact sampler) cannot be reproduced in torch, so
 only the fused walk's picks, which come from the kernels' counter hash,
 match the JAX package's bit for bit.
 
-The data-parallel ``build_e2e_train_step``, ``dedup_gather``,
-``collect_metrics`` and the windowed sampling methods are later items
-of ROADMAP Queue 1; asking for them raises ``NotImplementedError``.
+``dedup_gather`` (True or an int unique budget) swaps the split
+route's gather for :func:`dedup_feature_gather`. The data-parallel
+``build_e2e_train_step``, ``collect_metrics`` and the windowed sampling
+methods are later items of ROADMAP Queue 1; asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import quant
+from ..ops.dedup import unique_within_budget
 from ..ops.kernels.fused import fused_multihop
+from ..ops.kernels.gather import gather_rows
 from ..ops.sample_multihop import _VARIANTS, sample_multihop
 from ..pyg.sage_sampler import Adj, layer_shapes
 
-_DEDUP = "ROADMAP Queue 1 'serve: dedup_gather'"
 _METRICS = "ROADMAP Queue 1 'serve: collect_metrics'"
 
 
@@ -104,6 +107,46 @@ def masked_feature_gather(feat, n_id: torch.Tensor,
     return x * (n_id >= 0).to(x.dtype)[:, None]
 
 
+def dedup_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
+                         budget: Optional[int] = None) -> torch.Tensor:
+    """:func:`masked_feature_gather` reading each distinct valid id once
+    (default budget ``max(len(n_id) // 4, 256)``): a ``[budget, dim]``
+    gather of the unique rows expanded to the positions. When the unique
+    count overflows the budget, every slot is gathered instead; as in
+    ``ops.dedup``, that read is predicated (ids -1 unless overflowed,
+    through ``gather_rows``), so the host never picks the branch. Equal
+    to the JAX function in both branches."""
+    n = n_id.shape[0]
+    if budget is None:
+        budget = quant.default_cold_budget(n)
+    if budget >= n:
+        return masked_feature_gather(feat, n_id, feature_order)
+    valid = n_id >= 0
+    uniq, inv, n_uniq = unique_within_budget(n_id, budget, valid=valid)
+    ids = n_id.long().clamp(min=0)
+    hi = quant.tier_rows(feat) - 1
+    if feature_order is not None:
+        hi = feature_order.shape[0] - 1
+        ids = feature_order.long()[ids.clamp(max=hi)]
+    # the int32-max fill reads the last row, as JAX's clamping gather does
+    rows_u = masked_feature_gather(feat, uniq.clamp(max=hi), feature_order)
+    x = rows_u.index_select(0, inv.long())
+    ids = ids.clamp(0, quant.tier_rows(feat) - 1).to(torch.int32)
+    x = gather_rows(feat, torch.where(n_uniq > budget, ids,
+                                      torch.full_like(ids, -1)), out=x)
+    return x * valid.to(x.dtype)[:, None]
+
+
+def _dedup_gather_fn(dedup_gather):
+    """The ``dedup_gather`` knob (None, True or an int unique budget) as
+    the gather the split route takes (None keeps the masked gather)."""
+    if dedup_gather is None:
+        return None
+    budget = None if dedup_gather is True else int(dedup_gather)
+    return lambda feat, n_id, forder: dedup_feature_gather(
+        feat, n_id, forder, budget)
+
+
 def _fused_multihop_x(feat, forder, indptr, indices, seeds,
                       sizes: Sequence[int], hop_seeds: Sequence[int],
                       row_cap: int = 2048, hot_rows: Optional[int] = None):
@@ -141,8 +184,6 @@ def _step_knobs(fused_hot_hop, row_cap, sizes, method, dedup_gather,
     :func:`_fused_knobs`), then the ones that are later work."""
     fused = _fused_knobs(fused_hot_hop, row_cap, sizes, method,
                          dedup_gather=dedup_gather)
-    if dedup_gather is not None:
-        raise NotImplementedError(_DEDUP)
     if collect_metrics:
         raise NotImplementedError(_METRICS)
     if method != "exact":
@@ -151,12 +192,13 @@ def _step_knobs(fused_hot_hop, row_cap, sizes, method, dedup_gather,
 
 
 def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
-          hot_rows: Optional[int] = None):
+          hot_rows: Optional[int] = None, gather=None):
     """One batch's ``(x, layers)``. ``fused`` (the packed knobs) takes
     the fused walk, hop ``i`` seeded with ``hop_seeds[i]``; ``None``
     takes the split route: the exact sampler on every hop, all hops
     drawing from one generator seeded with ``hop_seeds[0]`` on the
-    seeds' device, then the masked gather over the final frontier."""
+    seeds' device, then ``gather(feat, n_id, forder)`` (default the
+    masked gather) over the final frontier."""
     if len(hop_seeds) != len(sizes):
         raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
                          f"{len(hop_seeds)} seeds")
@@ -167,7 +209,7 @@ def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
     n_id, layers = sample_multihop(
         indptr, indices, seeds, sizes,
         _generator(seeds.device, hop_seeds[0]), seeds_dense=True)
-    return masked_feature_gather(feat, n_id, forder), layers
+    return (gather or masked_feature_gather)(feat, n_id, forder), layers
 
 
 def _model_loss(model, x, adjs, labels, batch_size: int,
@@ -181,7 +223,8 @@ def _model_loss(model, x, adjs, labels, batch_size: int,
 
 
 def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
-                seeds, labels, hop_seeds, dropout_seed, fused=None):
+                seeds, labels, hop_seeds, dropout_seed, fused=None,
+                gather=None):
     """The step's loss over one batch's walk (:func:`_walk`). The walk
     runs without autograd: ``x`` and the layers are constants of the
     step.
@@ -191,7 +234,7 @@ def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
     every slot."""
     with torch.no_grad():
         x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
-                          sizes, hop_seeds)
+                          sizes, hop_seeds, gather=gather)
     adjs = layers_to_adjs(layers, batch_size, sizes)
     return _model_loss(model, x, adjs, labels, batch_size, dropout_seed)
 
@@ -230,7 +273,9 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     seeded with ``hop_seeds[i]``; ``fused_row_cap`` bounds the
     candidates per seed (degrees beyond it are truncated, the kernels'
     contract). ``fused_hot_hop=False`` samples every hop exactly, from
-    one generator seeded with ``hop_seeds[0]``.
+    one generator seeded with ``hop_seeds[0]``, and ``dedup_gather``
+    (split route only, as in JAX) reads each distinct frontier row once
+    (:func:`dedup_feature_gather`).
 
     The update is the optimizer's: ``optax.adam(lr)`` is
     ``torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)``, both
@@ -240,13 +285,14 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     sizes = [int(k) for k in sizes]
     fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
                         dedup_gather, collect_metrics)
+    gather = _dedup_gather_fn(dedup_gather)
 
     def step(state: TrainState, feat, forder, indptr, indices, seeds,
              labels, hop_seeds, dropout_seed):
         model.train()
         loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
                            indices, seeds, labels, hop_seeds, dropout_seed,
-                           fused=fused)
+                           fused=fused, gather=gather)
         return _update(state, model, optimizer, loss), loss.detach()
 
     return step

@@ -6,10 +6,14 @@ walk: interior hops run the CUDA sampling kernel, the leaf hop samples
 and gathers the hot-tier rows (int8 dequant included) in one kernel.
 ``fused_hot_hop=False`` is the split path: the exact i.i.d. sampler
 (``ops.sample_multihop``) on every hop, then the masked row gather.
-GraphSAGE runs on the assembled block either way. ``dedup_gather``, a
-tiered ``Feature`` store, ``collect_metrics`` and ``MicroBatchServer``
-are later items of ROADMAP Queue 1; asking for them raises
-``NotImplementedError``.
+GraphSAGE runs on the assembled block either way. ``dedup_gather`` swaps
+the split path's gather for ``dedup_feature_gather``. A tiered
+``Feature`` store serves through its own lookup: on the fused route the
+leaf kernel gathers only the hot tier and the frontier's cold slots are
+overlaid from the store's lookup (the cold fixup), whose host rows the
+card reads from pinned memory. ``collect_metrics`` and
+``MicroBatchServer`` are later items of ROADMAP Queue 1; asking for them
+raises ``NotImplementedError``.
 
 The JAX step threads a JAX random key and derives each hop's kernel
 seed from it on the device. Here each hop's int32 seed is explicit:
@@ -28,12 +32,14 @@ import torch
 
 from .ops import quant
 from .ops.sample_multihop import sample_multihop
-from .parallel.train import (_DEDUP, _METRICS, _step_knobs, _walk,
+from .parallel.train import (_METRICS, _dedup_gather_fn, _step_knobs, _walk,
                              draw_int32, layers_to_adjs)
 from .utils.csr import INT32_MAX
 from .utils.device import resolve_device
+from .utils.placement import pinned_put
 
-_STORE = "ROADMAP Queue 1 'serve: Feature store with cold-tier fixup'"
+_ROTATE = ("ROADMAP Queue 1 item 3 (rotate_hot_set, which refresh_feature "
+           "follows)")
 
 
 def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
@@ -51,17 +57,40 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
     ``model`` is a ``GraphSAGE`` in eval mode on the data's device.
     ``fused_hot_hop=True`` walks through the fused kernels, hop ``i``
     seeded with ``hop_seeds[i]``; ``fused_hot_hop=False`` samples every
-    hop exactly from one generator seeded with ``hop_seeds[0]``."""
+    hop exactly from one generator seeded with ``hop_seeds[0]``.
+
+    ``dedup_gather`` (True or an int unique budget; split route only)
+    gathers through ``dedup_feature_gather``. ``gather`` replaces the
+    whole gather, ``gather(feat, n_id, forder)``: the engine's splice of
+    a ``Feature`` store's lookup, where ``feat`` is ``(device_part,
+    host_tier)``. On the fused route it needs ``fused_hot_rows`` (the
+    hot tier's row count): the leaf kernel reads ``feat[0]`` and zeroes
+    every frontier slot whose storage row is not hot, and those slots,
+    and only those, are overlaid from ``gather`` (the cold fixup)."""
     sizes = [int(k) for k in sizes]
-    if gather is not None:
-        raise NotImplementedError(_STORE)
+    if gather is None:
+        gather = _dedup_gather_fn(dedup_gather)
     fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
                         dedup_gather, collect_metrics)
+    if fused is not None and gather is not None and fused_hot_rows is None:
+        raise ValueError(
+            "fused_hot_hop over a spliced tiered gather needs "
+            "fused_hot_rows (the hot-tier row count) to route cold "
+            "picks back through the tiered lookup")
 
     def step(hop_seeds, feat, forder, indptr, indices, seeds):
         with torch.inference_mode():
-            x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
-                              sizes, hop_seeds, hot_rows=fused_hot_rows)
+            if fused is None:
+                x, layers = _walk(None, feat, forder, indptr, indices,
+                                  seeds, sizes, hop_seeds, gather=gather)
+            else:
+                hot = feat[0] if gather is not None else feat
+                x, layers = _walk(fused, hot, forder, indptr, indices,
+                                  seeds, sizes, hop_seeds,
+                                  hot_rows=fused_hot_rows)
+                if gather is not None:
+                    x = _cold_fixup(gather, feat, forder, layers[-1].n_id,
+                                    x, fused_hot_rows)
             adjs = layers_to_adjs(layers, batch_cap, sizes)
             return model(x, adjs)[:batch_cap]
 
@@ -78,9 +107,42 @@ def sample_multihop_serving(indptr, indices, seeds, sizes, generator,
                            collector=collector)
 
 
+def _cold_fixup(gather, feat, forder, n_id, x, hot_rows: int):
+    """Overlay the cold slots of the fused walk's ``x``: the kernel
+    zeroed every frontier slot whose storage row is at or past
+    ``hot_rows``; those slots come from the store's lookup, and the hot
+    slots are given -1 so the store reads nothing for them. The final
+    layer's ``n_id`` is the whole walk's frontier."""
+    safe = n_id.long().clamp(min=0)
+    t = forder.long()[safe] if forder is not None else safe
+    is_cold = (n_id >= 0) & (t >= hot_rows)
+    x_cold = gather(feat, torch.where(is_cold, n_id, -1), forder)
+    return torch.where(is_cold[:, None], x_cold, x)
+
+
+def _feature_gather(feature):
+    """Splice a ``Feature`` store's lookup into the serve step: returns
+    ``(feat_args, forder, gather)``, ``feat_args`` being the
+    ``(device_part, host_tier)`` pair the step passes through and
+    ``gather`` the store's masked tiered lookup on it. A cold tier kept
+    for the host path is pinned here once (on the CPU it stays a plain
+    tensor), so no batch waits on a host round trip. A store with no
+    cold tier returns ``(device_part, feature_order, None)``: the
+    default masked gather over the hot tier is its lookup."""
+    host = feature._host_offload
+    if host is None and feature.host_part is not None:
+        host = pinned_put(feature.host_part, feature.device,
+                          "the serving cold tier")
+    if host is None:
+        return feature.device_part, feature.feature_order, None
+
+    def gather(feat_args, n_id, forder):
+        dev, host_t = feat_args
+        return feature._lookup_tiered(dev, host_t, n_id, forder, True)
+    return (feature.device_part, host), feature.feature_order, gather
+
+
 def _to_device_tier(feat, device):
-    if hasattr(feat, "lookup_tiered"):
-        raise NotImplementedError(_STORE)
     if quant.is_quantized(feat):
         return quant.QuantizedTensor(
             *(t.to(device).contiguous() for t in feat))
@@ -100,7 +162,9 @@ class ServeEngine:
 
     ``sizes_variants`` is the degradation ladder (index 0 full quality;
     every entry has the model's hop count). ``feat`` is a tensor or
-    numpy array, or a ``quant.QuantizedTensor``; ``params`` an optional
+    numpy array, a ``quant.QuantizedTensor``, or a ``Feature`` store on
+    the engine's device, whose tiered lookup becomes the gather stage
+    (the cold fixup on the fused route); ``params`` an optional
     state dict loaded into ``model`` (see ``models.convert`` for flax
     parameters). ``topo`` is a ``CSRTopo`` or an ``(indptr, indices)``
     pair. Everything moves to ``device``: the card unless the caller
@@ -126,8 +190,6 @@ class ServeEngine:
             raise ValueError(
                 f"all fanout variants must share the model's hop count, "
                 f"got lengths {sorted(hops)}")
-        if dedup_gather is not None:
-            raise NotImplementedError(_DEDUP)
         if collect_metrics:
             raise NotImplementedError(_METRICS)
         if params is not None:
@@ -140,13 +202,30 @@ class ServeEngine:
             if hasattr(topo, "indptr") else topo
         self._indptr = _index_tensor(indptr, self.device, "indptr")
         self._indices = _index_tensor(indices, self.device, "indices")
-        self._feat = _to_device_tier(feat, self.device)
+        gather, hot_rows = None, None
+        if hasattr(feat, "lookup_tiered"):           # a Feature store
+            if feat.device.type != self.device.type:
+                raise ValueError(f"the Feature store lives on "
+                                 f"{feat.device}, the engine on "
+                                 f"{self.device}")
+            feat, forder, gather = _feature_gather(feat)
+            if gather is not None:
+                if feat[0] is None and fused_hot_hop:
+                    raise ValueError("fused_hot_hop needs a store with a "
+                                     "hot tier on the device")
+                hot_rows = None if feat[0] is None \
+                    else quant.tier_rows(feat[0])
+            self._feat = feat
+        else:
+            self._feat = _to_device_tier(feat, self.device)
         self._forder = None if forder is None else \
             _index_tensor(forder, self.device, "forder")
         self._steps = [
             build_serve_step(self.model, sizes, self.batch_cap,
-                             method=method, fused_hot_hop=fused_hot_hop,
-                             fused_row_cap=fused_row_cap)
+                             method=method, dedup_gather=dedup_gather,
+                             gather=gather, fused_hot_hop=fused_hot_hop,
+                             fused_row_cap=fused_row_cap,
+                             fused_hot_rows=hot_rows)
             for sizes in self.variants]
         self._gen = torch.Generator().manual_seed(int(seed))
 
@@ -182,6 +261,11 @@ class ServeEngine:
         return self._steps[variant](
             list(hop_seeds), self._feat, self._forder, self._indptr,
             self._indices, self.pad_seeds(seeds))
+
+    def refresh_feature(self) -> "ServeEngine":
+        """Re-splice the store's tiers after ``Feature.rotate_hot_set``,
+        which is later work; so is this."""
+        raise NotImplementedError(_ROTATE)
 
     def warmup(self) -> "ServeEngine":
         """One dispatch per variant, so the first real request pays no

@@ -13,7 +13,13 @@ gather words), a table whose base is not 16-byte aligned, and the
 128-seed block, seeds of degree 0 and above ``row_cap``, and -1 seeds.
 The train step is counted (one launch of each kernel per hop) and its
 loss and gradients through the kernel walk are held against the plain
-walk's; the split serve path answers on the card."""
+walk's; the split serve path answers on the card.
+
+The host-tier row gather reads pinned host tables (fp32, bf16, int8 with
+sidecars; misaligned widths and bases) from the card, with and without
+``out=`` and its negative ids, equal to its plain version; the tiered
+store's lookup runs on the card with no host synchronisation, equal to
+the same store on the CPU, and the engine serves through it."""
 
 import numpy as np
 import pytest
@@ -21,7 +27,7 @@ import torch
 
 import copy
 
-from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine
+from quiver_tpu_torch import CSRTopo, Feature, GraphSAGE, ServeEngine
 from quiver_tpu_torch.ops import quant
 from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
 from quiver_tpu_torch.parallel import (build_train_step, init_state,
@@ -64,7 +70,9 @@ def graph(card):
 
 
 def _bits(t):
-    return t.view(torch.int32) if t.is_floating_point() else t
+    if not t.is_floating_point():
+        return t
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
 
 def _offset(t, by):
@@ -296,3 +304,106 @@ def test_split_engine_answers_on_the_card(graph):
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, again, atol=1e-5, rtol=1e-5)
     assert not any(fused.LAUNCHES.values())
+
+
+# (kind, width, base offset): 16-byte / 4-value words, then the narrow
+# and misaligned ones
+HOST_CASES = [(kind, dim, off) for kind in ("fp32", "bf16", "int8")
+              for dim, off in ((WIDE, 0), (7, 0), (3, 0), (WIDE, 1))]
+
+
+def _host_table(graph, kind, dim, offset):
+    """A table in pinned host memory (``offset`` elements past an aligned
+    base when not 0) and its rows' dtype."""
+    f = graph["feat"][:, :dim].contiguous().cpu()
+
+    def pinned(t):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype).pin_memory()
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    if kind == "int8":
+        return quant.QuantizedTensor(*(pinned(t) for t in
+                                       quant.quantize(f, "int8")))
+    return pinned(f.to(torch.bfloat16) if kind == "bf16" else f)
+
+
+@pytest.mark.parametrize("kind,dim,offset", HOST_CASES)
+def test_host_tier_gather_equals_plain(graph, kind, dim, offset):
+    table = _host_table(graph, kind, dim, offset)
+    assert quant.tier_parts(table)[0].is_pinned()
+    ids = graph["seeds"].clamp(min=0).contiguous()
+    before = fused.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(table, ids)
+    want = gather.gather_rows_plain(table, ids)
+    assert got.device == ids.device
+    assert torch.equal(_bits(got), _bits(want))
+    # out=: negative ids leave their rows untouched
+    holes = graph["seeds"]
+    out = torch.full((holes.shape[0], dim), 7.5, device=ids.device,
+                     dtype=got.dtype)
+    res = gather.gather_rows(table, holes, out=out)
+    assert res is out and fused.LAUNCHES["gather_rows"] == before + 2
+    keep = holes >= 0
+    assert torch.equal(_bits(out[keep]), _bits(want[keep]))
+    assert (out[~keep] == 7.5).all()
+    torch.cuda.synchronize()
+
+
+def test_host_tier_gather_needs_pinned_memory(graph):
+    with pytest.raises(ValueError, match="pinned"):
+        gather.gather_rows(graph["feat"].cpu(), graph["seeds"].clamp(min=0))
+
+
+def _stores(graph, **kw):
+    """The same tiered int8 store on the card and on the CPU."""
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    feat = graph["feat"][:, :DIM].cpu().numpy()
+    mk = lambda dev: Feature(device_cache_size=(N // 4) * (DIM + 8),
+                             csr_topo=topo, dtype_policy="int8",
+                             host_placement="offload", device=dev,
+                             **kw).from_cpu_tensor(feat)
+    return mk("cuda"), mk("cpu")
+
+
+@pytest.mark.parametrize("budget", [None, 64])
+def test_tiered_lookup_runs_without_host_sync(graph, budget):
+    card, cpu = _stores(graph, dedup_cold=True, cold_budget=budget)
+    assert card._host_offload.data.is_pinned()
+    ids = torch.cat([graph["seeds"], graph["seeds"][:500]]).contiguous()
+    fused.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    safe = ids.clamp(min=0)             # the unmasked lookup's contract
+    try:
+        got = card.lookup_tiered(safe)
+        got_m = card.lookup_tiered(ids, masked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused.LAUNCHES["gather_rows"] > 0
+    assert torch.equal(_bits(got.cpu()), _bits(cpu.lookup_tiered(safe.cpu())))
+    assert torch.equal(_bits(got_m.cpu()),
+                       _bits(cpu.lookup_tiered(ids.cpu(), masked=True)))
+
+
+def test_engine_serves_a_tiered_store(graph):
+    card, cpu = _stores(graph, dedup_cold=True)
+    model = GraphSAGE(DIM, 16, 5, 2)
+    state = model.state_dict()
+    topo = (graph["indptr"], graph["indices"])
+    eng = ServeEngine(model, state, topo, card, [[4, 3]], 64,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP)
+    ref = ServeEngine(copy.deepcopy(model), state,
+                      tuple(t.cpu() for t in topo), cpu, [[4, 3]], 64,
+                      fused_hot_hop=True,
+                      fused_row_cap=ROW_CAP, device="cpu")
+    ids = torch.arange(20, 60, dtype=torch.int32)
+    fused.reset_launches()
+    out = eng.run(ids, hop_seeds=[3, 4])
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_sample_hop"] == 1
+    assert fused.LAUNCHES["fused_hot_hop"] == 1
+    assert fused.LAUNCHES["gather_rows"] > 0
+    torch.testing.assert_close(out.cpu(), ref.run(ids, hop_seeds=[3, 4]),
+                               atol=1e-4, rtol=1e-4)

@@ -1,7 +1,13 @@
 """The port's serve path against the JAX package's
 ``build_serve_step(fused_hot_hop=True)`` (``quiver_tpu/serving.py``),
 with the per-hop kernel seeds JAX derives from its key, plus the guards
-that keep the port apart from JAX and off the CPU unless asked."""
+that keep the port apart from JAX and off the CPU unless asked.
+
+Tiered serving (the port of ``tests/test_fused.py``'s cold-fixup tests):
+the port's ``ServeEngine`` over the port's int8 ``Feature`` against
+JAX's engine over JAX's store, logits within 1e-5 (the model's sums run
+in another order, and XLA decodes the cold rows with a fused
+multiply-add where the port rounds twice)."""
 
 import os
 import re
@@ -16,16 +22,21 @@ import numpy as np
 import pytest
 import torch
 
+import quiver_tpu as qv
 from quiver_tpu.models import GraphSAGE as FlaxSAGE
 from quiver_tpu.ops import quant as jquant
 from quiver_tpu.ops.pallas.fused import _hop_seed
 from quiver_tpu.ops.sample import compact_layer as jcompact
 from quiver_tpu.parallel.train import layers_to_adjs as jadjs
 from quiver_tpu.pyg.sage_sampler import Adj as JAdj
+from quiver_tpu.serving import ServeEngine as JServeEngine
 from quiver_tpu.serving import build_serve_step as jbuild_serve_step
-from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine, quantize
+from quiver_tpu.utils import CSRTopo as JCSRTopo
+from quiver_tpu_torch import (CSRTopo, Feature, GraphSAGE, ServeEngine,
+                              quantize)
 from quiver_tpu_torch.models import flax_to_state_dict
-from quiver_tpu_torch.parallel import layers_to_adjs, masked_feature_gather
+from quiver_tpu_torch.parallel import (dedup_feature_gather, layers_to_adjs,
+                                       masked_feature_gather)
 from quiver_tpu_torch.serving import build_serve_step, sample_multihop_serving
 
 REPO = Path(__file__).resolve().parents[1]
@@ -33,6 +44,21 @@ ROW_CAP = 16
 N, DIM, HIDDEN, OUT = 300, 12, 16, 5
 SIZES = [4, 3, 2]
 CAP = 8
+
+
+def _flax(sizes):
+    """A flax GraphSAGE with ``len(sizes)`` layers and its variables."""
+    fmodel = FlaxSAGE(hidden_dim=HIDDEN, out_dim=OUT,
+                      num_layers=len(sizes), dropout=0.0)
+    layers, cur = [], jnp.full((CAP,), -1, jnp.int32)
+    for k in sizes:
+        layers.append(jcompact(cur, jnp.full((cur.shape[0], k), -1,
+                                             jnp.int32), seeds_dense=True))
+        cur = layers[-1].n_id
+    variables = fmodel.init(jax.random.key(0),
+                            jnp.zeros((cur.shape[0], DIM)),
+                            jadjs(layers, CAP, sizes))
+    return fmodel, variables
 
 
 @pytest.fixture(scope="module")
@@ -46,16 +72,7 @@ def setup():
     perm = g.permutation(N).astype(np.int32)
     forder = np.empty(N, np.int32)
     forder[perm] = np.arange(N, dtype=np.int32)
-    fmodel = FlaxSAGE(hidden_dim=HIDDEN, out_dim=OUT,
-                      num_layers=len(SIZES), dropout=0.0)
-    layers, cur = [], jnp.full((CAP,), -1, jnp.int32)
-    for k in SIZES:
-        layers.append(jcompact(cur, jnp.full((cur.shape[0], k), -1,
-                                             jnp.int32), seeds_dense=True))
-        cur = layers[-1].n_id
-    variables = fmodel.init(jax.random.key(0),
-                            jnp.zeros((cur.shape[0], DIM)),
-                            jadjs(layers, CAP, SIZES))
+    fmodel, variables = _flax(SIZES)
     return dict(indptr=indptr, indices=indices, feat=feat, forder=forder,
                 fmodel=fmodel, variables=variables)
 
@@ -127,20 +144,21 @@ def test_deferred_pieces_raise(setup):
             [SIZES], CAP)
     with pytest.raises(NotImplementedError, match="Sampling core"):
         ServeEngine(*args, method="window", device="cpu")
-    with pytest.raises(NotImplementedError, match="dedup_gather"):
+    with pytest.raises(ValueError, match="dedup_gather"):
         ServeEngine(*args, fused_hot_hop=True, dedup_gather=True,
                     device="cpu")
     with pytest.raises(NotImplementedError, match="collect_metrics"):
         ServeEngine(*args, fused_hot_hop=True, collect_metrics=True,
                     device="cpu")
-
-    class Store:
-        def lookup_tiered(self, ids):
-            return ids
-
-    with pytest.raises(NotImplementedError, match="Feature store"):
-        ServeEngine(*args[:3], Store(), [SIZES], CAP, fused_hot_hop=True,
-                    device="cpu")
+    store = Feature(device_cache_size=100 * DIM * 4, device="cpu") \
+        .from_cpu_tensor(s["feat"])
+    eng = ServeEngine(*args[:3], store, [SIZES], CAP, fused_hot_hop=True,
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="rotate_hot_set"):
+        eng.refresh_feature()
+    with pytest.raises(ValueError, match="fused_hot_rows"):
+        build_serve_step(args[0], SIZES, CAP, fused_hot_hop=True,
+                         gather=lambda feat, n_id, forder: feat)
     with pytest.raises(ValueError, match="exact"):
         build_serve_step(args[0], SIZES, CAP, method="rotation",
                          fused_hot_hop=True)
@@ -178,6 +196,113 @@ def test_split_engine_serves_the_exact_sampler(setup):
     jlog = s["fmodel"].apply(s["variables"], jnp.asarray(x.numpy()), jadj)
     np.testing.assert_allclose(got[:5].numpy(), np.asarray(jlog)[:5],
                                atol=1e-5, rtol=1e-5)
+
+
+def _tiered_stores(s, placement="offload"):
+    """JAX's int8 store and the port's over the setup's table, each with a
+    degree-ordered topo of the setup's graph; 120 of 300 rows hot."""
+    jtopo = JCSRTopo(indptr=s["indptr"], indices=s["indices"])
+    jstore = qv.Feature(rank=0, device_cache_size=120 * (DIM + 8),
+                        cache_policy="device_replicate", csr_topo=jtopo,
+                        dtype_policy="int8")
+    jstore.from_cpu_tensor(s["feat"])
+    topo = CSRTopo(indptr=s["indptr"], indices=s["indices"], device="cpu")
+    store = Feature(device_cache_size=120 * (DIM + 8), csr_topo=topo,
+                    dtype_policy="int8", host_placement=placement,
+                    device="cpu").from_cpu_tensor(s["feat"])
+    assert store.cache_rows == jstore.cache_rows == 120
+    return jtopo, jstore, topo, store
+
+
+@pytest.mark.parametrize("sizes", [[4], [3, 2]], ids=str)
+@pytest.mark.parametrize("placement", ["offload", "numpy"])
+def test_tiered_engine_matches_jax(setup, sizes, placement):
+    """The cold fixup: hot frontier rows from the leaf kernel (bounded by
+    the hot tier), cold ones overlaid from the store's lookup."""
+    s = setup
+    jtopo, jstore, topo, store = _tiered_stores(s, placement)
+    fmodel, variables = _flax(sizes)
+    jeng = JServeEngine(fmodel, variables, jtopo, jstore, [sizes], CAP,
+                        fused_hot_hop=True, fused_row_cap=ROW_CAP)
+    seeds = np.full((CAP,), -1, np.int32)
+    seeds[:5] = [3, 7, 11, 250, 42]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # JAX pads D=12 to 128 lanes
+        _, want = jeng._steps[0](variables, jax.random.key(5), jeng._feat,
+                                 jeng._forder, jeng._indptr, jeng._indices,
+                                 jnp.asarray(seeds))
+    _, sub = jax.random.split(jax.random.key(5))
+    hop_seeds = [int(_hop_seed(sub, i)) for i in range(len(sizes))]
+
+    model = GraphSAGE(DIM, HIDDEN, OUT, len(sizes), dropout=0.0)
+    state = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, variables))
+    eng = ServeEngine(model, state, topo, store, [sizes], CAP,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                      device="cpu")
+    assert isinstance(eng._feat, tuple) and eng._feat[1] is not None
+    got = eng.run(seeds[:5], hop_seeds=hop_seeds)
+    np.testing.assert_allclose(got[:5].numpy(), np.asarray(want)[:5],
+                               atol=1e-5, rtol=1e-5)
+
+    # the frontier really holds cold slots, and the fixup fills them:
+    # the walk over the store equals one lookup of the whole frontier
+    from quiver_tpu_torch.ops.kernels import fused
+    seeds_t = eng.pad_seeds(seeds[:5])
+    n_id, layers, x = fused.fused_multihop(
+        eng._indptr, eng._indices, seeds_t, store.device_part, sizes,
+        hop_seeds, ROW_CAP, store.feature_order, store.cache_rows)
+    cold = (n_id >= 0) & (store.feature_order[n_id.long().clamp(min=0)]
+                          >= store.cache_rows)
+    assert cold.any() and not x[cold].any()
+    with torch.inference_mode():
+        whole = eng.model(store.getitem_masked(n_id),
+                          layers_to_adjs(layers, CAP, sizes))[:CAP]
+    torch.testing.assert_close(got, whole, atol=1e-6, rtol=1e-6)
+
+
+def test_tiered_split_route_serves_the_store(setup):
+    """``fused_hot_hop=False`` over a store: the exact sampler, then the
+    store's masked lookup as the gather."""
+    s = setup
+    _, _, topo, store = _tiered_stores(s)
+    eng = ServeEngine(_torch_model(s), _state(s), topo, store, [SIZES], CAP,
+                      device="cpu")
+    ids = np.array([3, 7, 11, 250, 0], np.int32)
+    got = eng.run(ids, hop_seeds=[91, 5, 6])
+    n_id, layers = sample_multihop_serving(
+        eng._indptr, eng._indices, eng.pad_seeds(ids), SIZES,
+        torch.Generator().manual_seed(91))
+    with torch.inference_mode():
+        want = eng.model(store.getitem_masked(n_id),
+                         layers_to_adjs(layers, CAP, SIZES))[:CAP]
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("budget", [True, 300, 2])
+def test_split_route_dedup_gather(setup, budget):
+    """``dedup_gather`` on the split route: the narrow unique gather (a
+    budget the frontier's unique ids fit) or its overflow fallback (a
+    budget of 2) gives the masked gather's rows, so the same logits."""
+    s = setup
+    mk = lambda **kw: ServeEngine(
+        _torch_model(s), _state(s), (s["indptr"], s["indices"]), s["feat"],
+        [SIZES], CAP, forder=s["forder"], device="cpu", **kw)
+    eng, plain = mk(dedup_gather=budget), mk()
+    ids = np.array([3, 7, 11, 250, 0], np.int32)
+    got = eng.run(ids, hop_seeds=[91, 5, 6])
+    assert torch.equal(got[:5], plain.run(ids, hop_seeds=[91, 5, 6])[:5])
+    n_id, layers = sample_multihop_serving(
+        eng._indptr, eng._indices, eng.pad_seeds(ids), SIZES,
+        torch.Generator().manual_seed(91))
+    x = dedup_feature_gather(eng._feat, n_id, eng._forder,
+                             None if budget is True else budget)
+    valid = n_id >= 0
+    assert torch.equal(x[valid], masked_feature_gather(
+        eng._feat, n_id, eng._forder)[valid])
+    # the default budget (256 of 480 slots) and 300 take the narrow path,
+    # 2 overflows
+    n_uniq = int(torch.unique(n_id[valid]).numel())
+    assert 2 < n_uniq <= 256 < n_id.shape[0]
 
 
 def test_no_card_means_raise_not_cpu(setup):

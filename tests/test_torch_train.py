@@ -257,6 +257,27 @@ def test_split_route_of_the_train_step(data):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("budget", [2, 64])
+def test_split_route_dedup_gather(data, budget):
+    """``dedup_gather`` on the split route: the unique gather (budget 64
+    holds the frontier's unique ids) or its overflow fallback (budget 2)
+    gives the masked gather's rows, so the same loss and update."""
+    sizes = [3, 2]
+    _, _, jstate = _flax(sizes)
+    args = [_t(data[k]) for k in ("feat", "indptr", "indices", "seeds",
+                                  "labels")]
+    args.insert(1, None)
+    results = []
+    for kw in ({}, {"dedup_gather": budget}):
+        state, step = _port(jstate, sizes, **kw)
+        state, loss = step(state, *args, [77, 78], 9)
+        results.append((loss, list(state.model.parameters())))
+    (loss, params), (dloss, dparams) = results
+    assert torch.isfinite(loss) and loss.item() == dloss.item()
+    for a, b in zip(params, dparams):
+        assert torch.equal(a, b)
+
+
 def test_knob_validation():
     """Mirrors ``test_fused.py::TestFusedTrainStep::test_knob_validation``,
     plus the pieces that are later work and the step's own checks."""
@@ -273,8 +294,7 @@ def test_knob_validation():
     with pytest.raises(ValueError, match="dedup_gather"):
         build_train_step(model, opt, [4], 8, fused_hot_hop=True,
                          dedup_gather=True)
-    with pytest.raises(NotImplementedError, match="dedup_gather"):
-        build_train_step(model, opt, [4], 8, dedup_gather=True)
+    assert callable(build_train_step(model, opt, [4], 8, dedup_gather=True))
     with pytest.raises(NotImplementedError, match="collect_metrics"):
         build_train_step(model, opt, [4], 8, fused_hot_hop=True,
                          collect_metrics=True)
