@@ -51,7 +51,9 @@ Phases:
    (``fused_hot_hop=False``) with a finite loss and no kernel launched;
 6. tiered serving at full width: the tiered ``Feature`` store over the
    graph of phase 1 and 100-dim features from the seed, 25% of its rows
-   (by degree) hot on the card as int8, the rest in pinned host memory,
+   (by degree) hot on the card as int8, the rest in pinned host memory
+   as packed rows (``quant.pack``: codes, scale and zero in one
+   128-byte row),
    ``dedup_cold=True`` (``examples/serve_sage.py``'s configuration),
    served by ``ServeEngine(fused_hot_hop=True)`` on 16 batches: p50/p99,
    device time and idle share per batch, launches per batch, and per
@@ -61,8 +63,10 @@ Phases:
    for bit to the same walk over one device table (both tiers
    concatenated) and its logits within 1e-4; the host-tier gather (int8
    and fp32, with and without ``out=`` and -1 ids) equal to its plain
-   version at the batch's cold ids, with its times against a bound from
-   the measured pinned-to-device copy rate; a lookup at
+   version at the batch's cold ids, with its times (the int8 and the
+   fp32 kernel's own) against a bound from the measured pinned-to-device
+   copy rate, and the own time of each of a served batch's three
+   host-tier launches; a lookup at
    ``cold_budget=256`` (both fallbacks) equal to the one-table gather;
    the store's lookup free of host synchronisation
    (``torch.cuda.set_sync_debug_mode("error")``); and finite logits from
@@ -71,7 +75,9 @@ Phases:
 7. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
-   its host-tier variant under ``host_tier``), then the last line
+   its host-tier variant under ``host_tier``, with the fp32 host tier
+   under ``fp32`` and the served launches' own times under
+   ``served_launch_own_ms``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -156,22 +162,62 @@ def own_ms(fn, kernel: str, iters: int):
     """Median device duration of the ``torch.profiler`` CUDA kernel
     events whose name holds ``kernel`` over ``iters`` calls of ``fn``:
     the kernel's own time, without the wrapper's allocations, launch
-    and tensor ops. None when the profiler saw fewer such events."""
+    and tensor ops. The profiler drops a kernel event now and then (18 of
+    20 in one run, none in others), so a window short of events is
+    profiled once more; None when the second one is short too."""
+    for _ in range(2):
+        durs = kernel_events(lambda: [fn() for _ in range(iters)], kernel,
+                             warmup=fn)
+        if len(durs) >= iters:
+            durs = sorted(durs)
+            return durs[len(durs) // 2]
+        print(f"profile: {len(durs)} events of {kernel} in {iters} calls",
+              flush=True)
+    return None
+
+
+def kernel_events(run, kernel: str, warmup=None):
+    """The durations in ms, in launch order, of the ``torch.profiler``
+    CUDA kernel events whose name holds ``kernel`` during one call of
+    ``run`` (after one call of ``warmup``, unprofiled). The window opens
+    and closes with the card idle and 50 ms of host time, so no launch
+    sits on its edge."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup is not None:
+        warmup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        time.sleep(0.05)
+        run()
         torch.cuda.synchronize()
-    durs = sorted(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and kernel in e.name)
-    if len(durs) < iters:
+        time.sleep(0.05)
+    seen: dict = {}
+    hits = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        seen[e.name] = seen.get(e.name, 0) + 1
+        if kernel in e.name:
+            hits.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
+    if not hits:
+        print(f"profile: no event of {kernel}; device events seen: "
+              + "; ".join(f"{n} x{c}" for n, c in seen.items())[:600],
+              flush=True)
+    return [ms for _, ms in sorted(hits)]
+
+
+def launch_own_ms(run, kernel: str, units: int):
+    """The own time of each launch of ``kernel`` within one unit (a
+    batch) of ``run``, which runs ``units`` of them: the median, across
+    units, of the kernel's ``torch.profiler`` events at that position.
+    None when the events do not split evenly into units."""
+    durs = kernel_events(run, kernel)
+    if not durs or len(durs) % units:
         return None
-    return durs[len(durs) // 2] / 1e3
+    per = len(durs) // units
+    return [sorted(durs[i::per])[units // 2] for i in range(per)]
 
 
 def fmt_ms(ms) -> str:
@@ -275,6 +321,35 @@ def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def h2d_rate(dev):
+    """The pinned-to-device copy rate in bytes/s (one ``copy_`` of
+    ``COPY_BYTES``, median of 5) and that copy's ms."""
+    import torch
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    return COPY_BYTES / (ms / 1e3), ms
+
+
+def host_gather_bound(tab, ids, h2d):
+    """``(bound ms, by what, host bytes, device bytes, distinct rows)``
+    of a host-tier gather: each distinct row's data bytes (codes and
+    sidecars, not a packed row's padding) read once at the copy rate
+    ``h2d``, or the ids read and the fp32 rows written at 3.35 TB/s,
+    whichever is longer. Negative ids read nothing."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    live = ids[ids >= 0]
+    distinct = int(torch.unique(live).numel())
+    host_bytes = distinct * quant.row_read_bytes(tab)
+    dev_bytes = ids.shape[0] * 4 + live.shape[0] * 4 * quant.tier_dim(tab)
+    b_host = host_bytes / h2d * 1e3
+    b_dev = dev_bytes / HBM_BYTES_PER_S * 1e3
+    if b_host >= b_dev:
+        return b_host, "bytes (host)", host_bytes, dev_bytes, distinct
+    return b_dev, "bytes (device)", host_bytes, dev_bytes, distinct
 
 
 def phase_kernels(dev, gen, nodes, indptr, indices, deg, feats, forder,
@@ -834,13 +909,19 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
     cold = store._host_offload
     check(store.host_part is None and all(t.is_pinned() for t in cold),
           "the cold tier is not in pinned host memory")
+    stride = quant.packed_stride(DIM)
+    check(cold.data.stride(0) == stride and cold.scale.data_ptr()
+          == cold.data.data_ptr() + quant.sidecar_offset(DIM),
+          "the cold tier is not packed")
     hot_rows, cold_rows = store.cache_rows, quant.tier_rows(cold)
     rb = quant.row_read_bytes(cold)
     print(f"tiered: store of {nodes} rows x {DIM} int8 (+ fp32 scale and "
           f"zero): {hot_rows} hot rows on the card ({hot_rows * rb} B), "
           f"{cold_rows} cold rows in pinned host memory ({cold_rows * rb} "
+          f"B of data in packed {stride}-byte rows: {cold_rows * stride} "
           f"B), dedup_cold=True; built in {setup_s:.2f} s (degree order, "
-          "int8 quantization on the host, pinning)", flush=True)
+          "int8 quantization on the host, packing and pinning)",
+          flush=True)
 
     model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES))
     params = flax_to_state_dict(
@@ -948,42 +1029,49 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
         gather.gather_rows_plain(tab, holes_m, out=b)
         check(same_bits(a, b), f"host-tier gather {name} with out= differs "
               "from its plain version")
-    copy_src = torch.empty(COPY_BYTES, dtype=torch.uint8).pin_memory()
-    copy_dst = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
-    copy_ms = cuda_ms(lambda: copy_dst.copy_(copy_src, non_blocking=True), 5)
-    h2d = COPY_BYTES / (copy_ms / 1e3)
-    del copy_src, copy_dst
-    rec = None
+    h2d, copy_ms = h2d_rate(dev)
+    recs = {}
     for name, tab, ids_m, kname in (
-            ("int8", cold, cold_ids, "gather_rows_q8_kernel"),
+            ("int8", cold, cold_ids, "gather_rows_packed_kernel"),
             ("fp32", f32, cold_ids % f32_rows, "gather_rows_kernel")):
         words = gather.word_bytes(tab, gather.gather_rows(tab, ids_m))
         ms = cuda_ms(lambda: gather.gather_rows(tab, ids_m), iters)
         own = own_ms(lambda: gather.gather_rows(tab, ids_m), kname, iters)
         plain_ms = cuda_ms(lambda: gather.gather_rows_plain(tab, ids_m), 3)
-        distinct = int(torch.unique(ids_m).numel())
-        host_bytes = distinct * quant.row_read_bytes(tab)
-        dev_bytes = ids_m.shape[0] * (4 + 4 * DIM)
-        b_host = host_bytes / h2d * 1e3
-        b_dev = dev_bytes / HBM_BYTES_PER_S * 1e3
-        b_ms, b_by = (b_host, "bytes (host)") if b_host >= b_dev \
-            else (b_dev, "bytes (device)")
+        b_ms, b_by, host_bytes, dev_bytes, distinct = host_gather_bound(
+            tab, ids_m, h2d)
         share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+        rate = "" if own is None else \
+            f", {ids_m.shape[0] / own / 1e3:.1f}M host rows/s"
         print(f"host-tier gather_rows {name} ids={ids_m.shape[0]} distinct="
-              f"{distinct} D={DIM} ({words}-"
-              f"{'code' if name == 'int8' else 'byte'} words): wrapper "
-              f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
+              f"{distinct} D={DIM} ({words}-byte words): wrapper "
+              f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}{rate}, plain "
               f"{plain_ms:.4f} ms, reads {host_bytes} B from the host at the"
               f" measured {h2d / 1e9:.2f} GB/s pinned-to-device copy rate "
               f"({COPY_BYTES} B copy_ in {copy_ms:.4f} ms) and moves "
               f"{dev_bytes} B on the card: bound {b_ms:.4f} ms ({b_by}), "
               "exact", flush=True)
-        if rec is None:
-            rec = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": "bytes",
-                   "library_ms": None, "err": 0.0,
-                   "h2d_bytes_per_s": h2d}
+        recs[name] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": "bytes",
+                      "library_ms": None, "err": 0.0}
     del f32
+    rec = dict(recs["int8"], h2d_bytes_per_s=h2d, fp32=recs["fp32"])
+
+    # the served form: each of a tiered batch's host-tier launches
+    per_launch = launch_own_ms(
+        lambda: [eng.run(ids, hop_seeds=hs) for ids, hs in
+                 zip(requests[:4], hop_seeds[:4])],
+        "gather_rows_packed_kernel", 4)
+    check(per_launch is not None, "the profiler did not see every "
+          "host-tier launch of the served batches")
+    rec["served_launch_own_ms"] = per_launch
+    print(f"tiered: host-tier gather_rows launches per batch, in order "
+          f"(the dedup table's read, the compaction's, the full read; "
+          f"ids {stats[0]['budget']} / {stats[0]['budget']} / "
+          f"{n_id.shape[0]}): own "
+          f"{' / '.join(f'{x:.4f}' for x in per_launch)} ms (median over "
+          f"4 batches, torch.profiler), {sum(per_launch):.4f} ms per "
+          "batch", flush=True)
 
     # 3. both fallbacks: a budget of 256 against the one-table gather
     fix_ids = torch.where(is_cold, n_id, -1)
@@ -1178,7 +1266,9 @@ def main() -> int:
         "own_ms": host_tier["own_ms"], "plain_ms": host_tier["plain_ms"],
         "bound_ms": host_tier["bound_ms"],
         "bound_by": host_tier["bound_by"], "library_ms": None,
-        "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"]}
+        "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"],
+        "served_launch_own_ms": host_tier["served_launch_own_ms"],
+        "fp32": host_tier["fp32"]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

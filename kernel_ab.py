@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""The sampling kernels of the port, an older commit's against this
-tree's, in one process on one NVIDIA card.
+"""The port's kernels, an older commit's against this tree's, in one
+process on one NVIDIA card.
 
     git archive <commit> quiver_tpu_torch/csrc | tar -x -C DIR
-    python3 kernel_ab.py --old DIR
+    python3 kernel_ab.py --old DIR          # the sampling kernels
+    python3 kernel_ab.py --old-gather DIR   # the row gather
 
-The older sources (``DIR/quiver_tpu_torch/csrc``) are built with this
+Each option runs its part; give either or both.
+
+``--old``: the older sources (``DIR/quiver_tpu_torch/csrc``) are built with this
 tree's ``nvcc`` flags and launched through the C interface they had
 before the group sampler (``OLD_ARGS``: one thread per seed, the hot
 hop's seed rows in their own block); this tree's kernels run through
@@ -18,8 +21,25 @@ the median of the kernel's own ``torch.profiler`` events over 20
 launches. Last, the fused walk of one served batch, old (the older
 kernels, compaction, the seed scatter and the pick scatter) against new
 (``fused_multihop``), timed the same way with CUDA events around the
-walk, its outputs held equal. Prints the card, one line per case and a
-JSON line; exits non-zero on any failure.
+walk, its outputs held equal.
+
+``--old-gather``: the older ``gather.cu`` (the interface of commit
+9c17a96: int8 codes with separate scale and zero arrays), built with
+this tree's flags, against this tree's ``gather_rows``, at
+``chip_smoke.py``'s shapes with ids drawn from the seed: the int8 host
+tier of phase 6 (1,837,500 cold rows x 100 pinned; old over separate
+pinned sidecars, new over packed rows of 112 and of 128 bytes) at 491,677
+distinct dense cold ids and in the served form (1,081,344 ids with
+499,107 live and distinct, and 270,336 all -1, both with ``out=``); the
+fp32 host table of phase 6 (2**18 rows, the dense ids modulo 2**18); and
+the device tables of phase 4 (fp32 and bf16, 2,450,000 x 100, 662,640
+distinct ids). Every output is held equal bit for bit across the sides,
+then each case is timed old, new, new, old (with two new layouts: old,
+112, 128, 128, 112, old), each turn the median of the kernel's own
+``torch.profiler`` events over 20 launches.
+
+Prints the card, one line per case and a JSON line; exits non-zero on
+any failure.
 """
 
 from __future__ import annotations
@@ -37,8 +57,10 @@ ITERS = 20
 WALK_ITERS = 10
 BUILD = Path(__file__).resolve().parent / "build" / "kernel_ab"
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 OLD_ARGS = {
+    "qt_gather_rows": [_p, _i, _p, _ll, _ll, _ll, _p, _i, _p],
+    "qt_gather_rows_q8": [_p, _p, _p, _i, _p, _ll, _ll, _ll, _p, _i, _p],
     "qt_fused_sample_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
     "qt_fused_hot_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _i,
                          _i, _i, _p, _i, _i, _p, _p, _p, _p, _p],
@@ -46,13 +68,13 @@ OLD_ARGS = {
 }
 
 
-def build_old(csrc: Path):
-    """Build the older ``fused_hop.cu`` and ``sample_kernel.cu``, both at
-    once, and bind their C functions; prints their ptxas lines."""
+def build_old(csrc: Path, names):
+    """Build the named older sources, all at once, and bind their C
+    functions; prints their ptxas lines."""
     from quiver_tpu_torch.ops.kernels import _build
     BUILD.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in ("fused_hop", "sample_kernel"):
+    for name in names:
         out = BUILD / f"libold_{name}.so"
         jobs[name] = (out, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -160,27 +182,12 @@ def abba(old, new, timer):
     return t
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True,
-                    help="directory holding quiver_tpu_torch/csrc of the "
-                         "older commit")
-    args = ap.parse_args()
+def sampling_ab(csrc: Path, dev, gen, indptr, indices, deg, rows):
+    """The sampling kernels and the fused walk, old against new."""
     import torch
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device available", file=sys.stderr)
-        return 2
     from quiver_tpu_torch.ops import quant
-    from quiver_tpu_torch.ops.kernels import (build_kernels, fused,
-                                              sample_kernel)
-
-    card = cs.card_line()
-    print(card, flush=True)
-    build_kernels()
-    libs = build_old(Path(args.old) / "quiver_tpu_torch" / "csrc")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    indptr, indices, deg = cs.make_graph(dev, gen, cs.NODES)
+    from quiver_tpu_torch.ops.kernels import fused, sample_kernel
+    libs = build_old(csrc, ("fused_hop", "sample_kernel"))
     featq = quant.quantize(
         torch.randn(cs.NODES, cs.DIM, generator=gen, device=dev), "int8")
     shapes = [cs.BATCH]
@@ -219,7 +226,6 @@ def main() -> int:
                 sk, indptr, indices, s, k, hs),
             "sample_layer_kernel"))
 
-    rows = []
     for kernel, label, seeds, k, new, old, pname in cases:
         got, want = new(), old()
         for g, w in zip(got, want):
@@ -264,6 +270,140 @@ def main() -> int:
           f"{t['new'][0]:.4f} / {t['new'][1]:.4f} ms (CUDA events, median "
           f"of {WALK_ITERS} per turn, order old new new old), outputs "
           "equal", flush=True)
+
+
+def old_gather(lib, table, ids, out):
+    """The older ``gather.cu``'s ``out=`` form over ``table`` (a tensor,
+    or a ``QuantizedTensor`` of contiguous leaves) into ``out``."""
+    from quiver_tpu_torch.ops import quant
+    data, scale, zero = quant.tier_parts(table)
+    on_host, skip = int(data.device.type == "cpu"), 1
+    n, dim = ids.shape[0], data.shape[1]
+    if scale is None:
+        err = lib.qt_gather_rows(
+            data.data_ptr(), on_host, ids.data_ptr(), n, data.shape[0],
+            dim * data.element_size(), out.data_ptr(), skip, _stream())
+    else:
+        err = lib.qt_gather_rows_q8(
+            data.data_ptr(), scale.data_ptr(), zero.data_ptr(), on_host,
+            ids.data_ptr(), n, data.shape[0], dim, out.data_ptr(), skip,
+            _stream())
+    cs.check(err == 0, f"old gather launch failed: {err}")
+    return out
+
+
+def gather_ab(csrc: Path, dev, rows):
+    """The row gather, old against new, at chip_smoke.py's shapes."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    lib = build_old(csrc, ("gather",))["gather"]
+    h2d, copy_ms = cs.h2d_rate(dev)
+    print(f"pinned-to-device copy rate {h2d / 1e9:.2f} GB/s "
+          f"({cs.COPY_BYTES} B in {copy_ms:.4f} ms)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    cold_rows = cs.NODES - cs.NODES // 4
+    q = quant.quantize(torch.randn(cold_rows, cs.DIM, generator=gen,
+                                   device=dev), "int8")
+    q = quant.QuantizedTensor(*(t.cpu() for t in q))
+    old_tier = quant.QuantizedTensor(*(t.pin_memory() for t in q))
+    new_tiers = {s: quant.pack(q, stride=s, pin=True) for s in (112, 128)}
+    f32 = quant.dequantize(quant.QuantizedTensor(
+        *(t[:cs.FP32_HOST_ROWS] for t in q))).pin_memory()
+    del q
+    dense = torch.randperm(cold_rows, generator=gen, device=dev)[
+        :491_677].to(torch.int32)
+    served = torch.full((1_081_344,), -1, dtype=torch.int32, device=dev)
+    slots = torch.randperm(served.shape[0], generator=gen, device=dev)[
+        :499_107]
+    served[slots] = torch.randperm(cold_rows, generator=gen, device=dev)[
+        :slots.shape[0]].to(torch.int32)
+    empty = torch.full((270_336,), -1, dtype=torch.int32, device=dev)
+    table = torch.randn(cs.NODES, cs.DIM, generator=gen, device=dev)
+    frontier = torch.randperm(cs.NODES, generator=gen, device=dev)[
+        :662_640].to(torch.int32)
+
+    # (label, old table, {side: new table}, ids, old / new kernel names)
+    q8 = ("gather_rows_q8_kernel", "gather_rows_packed_kernel")
+    plain = ("gather_rows_kernel", "gather_rows_kernel")
+    cases = [
+        ("int8 host tier, dense cold ids", old_tier, new_tiers, dense, q8),
+        ("int8 host tier, served full read", old_tier, new_tiers, served, q8),
+        ("int8 host tier, served empty read", old_tier, new_tiers, empty,
+         q8),
+        ("fp32 host table", f32, {"new": f32},
+         dense % cs.FP32_HOST_ROWS, plain),
+        ("fp32 device table", table, {"new": table}, frontier, plain),
+        ("bf16 device table", table.to(torch.bfloat16),
+         {"new": table.to(torch.bfloat16)}, frontier, plain),
+    ]
+    for label, old_t, news, ids, (old_k, new_k) in cases:
+        dtype = quant.tier_dtype(old_t)
+        shape = (ids.shape[0], cs.DIM)
+        outs = {"old": torch.full(shape, 7.5, dtype=dtype, device=dev)}
+        outs.update({s: outs["old"].clone() for s in news})
+        calls = {"old": lambda o=outs["old"]: old_gather(lib, old_t, ids, o)}
+        calls.update({s: (lambda t=t, o=outs[s]: gather.gather_rows(
+            t, ids, out=o)) for s, t in news.items()})
+        for fn in calls.values():
+            fn()
+        for side in news:
+            cs.check(cs.same_bits(outs[side], outs["old"]), f"gather "
+                     f"{label}: new ({side}) and old disagree")
+        if quant.tier_parts(old_t)[0].device.type == "cuda":
+            b_ms, _ = cs.bound(ids.shape[0] * (4 + 2 * cs.DIM
+                                               * old_t.element_size()), 0)
+        else:
+            b_ms = cs.host_gather_bound(old_t, ids, h2d)[0]
+        order = ["old", *news, *reversed(list(news)), "old"]
+        t = {side: [] for side in calls}
+        for side in order:
+            t[side].append(cs.own_ms(calls[side],
+                                     old_k if side == "old" else new_k,
+                                     ITERS))
+        live = int((ids >= 0).sum())
+        rows.append({"kernel": "gather_rows", "shape": f"{label}: "
+                     f"{ids.shape[0]} ids, {live} live", "bound_ms": b_ms,
+                     **{f"{side}_ms": t[side] for side in t}})
+        print(f"gather_rows {label}: {ids.shape[0]} ids, {live} live: own "
+              "device time " + ", ".join(
+                  f"{side} {' / '.join(cs.fmt_ms(x) for x in t[side])}"
+                  for side in t) +
+              f" (torch.profiler, median of {ITERS} launches per turn, "
+              f"order {' '.join(map(str, order))}), bound {b_ms:.5f} ms, "
+              "outputs equal", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", help="directory holding quiver_tpu_torch/csrc "
+                    "of a commit before the group sampler (the sampling "
+                    "kernels' A/B)")
+    ap.add_argument("--old-gather", help="directory holding "
+                    "quiver_tpu_torch/csrc of commit 9c17a96 (the row "
+                    "gather's A/B)")
+    args = ap.parse_args()
+    if not (args.old or args.old_gather):
+        ap.error("give --old, --old-gather or both")
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    from quiver_tpu_torch.ops.kernels import build_kernels
+
+    card = cs.card_line()
+    print(card, flush=True)
+    build_kernels()
+    dev = torch.device("cuda")
+    rows = []
+    if args.old:
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        indptr, indices, deg = cs.make_graph(dev, gen, cs.NODES)
+        sampling_ab(Path(args.old) / "quiver_tpu_torch" / "csrc", dev, gen,
+                    indptr, indices, deg, rows)
+    if args.old_gather:
+        gather_ab(Path(args.old_gather) / "quiver_tpu_torch" / "csrc", dev,
+                  rows)
     print(card, flush=True)
     print(json.dumps({"card": card, "cases": rows}), flush=True)
     return 0

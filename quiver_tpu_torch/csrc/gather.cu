@@ -2,24 +2,47 @@
 // memory or in pinned host memory.
 //
 // Replaces the Pallas TPU kernel of quiver_tpu/ops/pallas/gather.py:
-//   qt_gather_rows     <- gather_rows (_gather_kernel; pallas_call at
-//                         gather.py:92)
-//   qt_gather_rows_q8  <- the same gather over an int8 table with its
-//                         per-row scale and zero, dequant fused (the JAX
-//                         package's quant.gather_rows over a tier)
+//   qt_gather_rows         <- gather_rows (_gather_kernel; pallas_call at
+//                             gather.py:92)
+//   qt_gather_rows_packed  <- the same gather over a packed int8 tier, the
+//                             cold tier's host layout (ops/quant.py: pack):
+//                             row r of one byte buffer holds its codes,
+//                             then its fp32 scale and zero at byte `side`,
+//                             then padding up to the row stride; dequant
+//                             fused (the JAX package's quant.gather_rows
+//                             over a tier)
+//   qt_gather_rows_q8      <- the same over int8 codes with separate
+//                             scale and zero arrays (a device table)
 //
-// Rows are copied as bytes, so qt_gather_rows serves every dtype (fp32,
-// bf16, fp16, int8). One warp per output row, with a grid-stride loop over
-// the rows (the shape of the reference's quiver_tensor_gather): a lane
-// copies 16-byte vectors when the row's byte width is a multiple of 16 and
-// both base pointers are 16-byte aligned, else 4-, 2- or 1-byte words.
-// qt_gather_rows_q8 reads 4 codes a lane (char4) and writes 4 fp32 values
-// (float4) when the width is a multiple of 4 and the bases allow, else one
-// value; each value is __fadd_rn(__fmul_rn(code, scale), zero), a rounded
-// multiply then a rounded add and never one FMA, as fused_hop.cu's leaf
-// gather and the plain version round it. Offsets are int64; neither the
-// width nor the id count is padded (the Pallas kernel's 128-lane and
-// 256-row padding were Mosaic rules).
+// What bounds it. From device memory, bytes: 4 + 2 * row bytes per id at
+// 3.35 TB/s. From pinned host memory, the rows cross PCIe, at best at the
+// pinned-to-device copy rate; but a read of host memory from the SMs is
+// held back first by the count of read requests in flight, not by bytes.
+// A 100-wide int8 row whose codes lie at id * 100 and whose scale and zero
+// lie in two other arrays costs three or more small requests for 108 bytes
+// (that layout reached 18% of the bound).
+//
+// What the design of the packed kernel does about it:
+// - Id scan. A warp loads 32 ids in one coalesced read, takes
+//   __ballot_sync of those it must read and ranks them into shared memory,
+//   then serves only those rows. An all -1 launch (a branch of the tiered
+//   lookup that is not taken) reads 4 bytes per id and nothing else.
+// - Groups of 8 lanes. A group reads a row as 16-byte words, lane j the
+//   words j, j + 8, ...: a packed row of at most 128 bytes that starts on a
+//   128-byte line is one aligned request. Each group keeps 8 rows in
+//   flight, so a warp reads all the live rows of its 32 ids at once.
+// - Packed int8 rows. The lane whose word holds the scale and zero
+//   broadcasts them to its group by __shfl_sync (that word is read first);
+//   the group decodes each code as __fadd_rn(__fmul_rn(code, scale), zero),
+//   a rounded multiply then a rounded add and never one FMA, as
+//   fused_hop.cu's leaf gather and the plain version round it, and writes
+//   float4s where the width and the output allow, else single floats.
+// Rows of other tables are copied as bytes, one row a warp, in 16-, 4-,
+// 2- or 1-byte words by width and alignment: a 400-byte fp32 row is
+// already a few large requests.
+// Offsets are int64; neither the width nor the id count is padded (the
+// Pallas kernel's 128-lane and 256-row padding were Mosaic rules, and its
+// 4 row DMAs in flight per block become a warp's 32 rows in flight).
 //
 // Ids: with skip_negative = 0 every id must lie in [0, n_rows); one that
 // does not is clamped into the table, so the kernel never reads outside
@@ -30,14 +53,8 @@
 //
 // Host tables: with table_on_host = 1 the table pointers are pinned host
 // memory (cudaHostAlloc, as torch's pin_memory allocates it), mapped into
-// the device's address space with cudaHostGetDevicePointer; each warp's
-// loads then cross PCIe (the reference's UVA gather, quiver_feature.cu).
-//
-// Bound on an H100: bytes. From device memory, 4 + 2 * row_bytes per id
-// (the id, the row read, the row written) at 3.35 TB/s; from host memory,
-// the rows read over PCIe at the pinned-to-device copy rate. The grid is a
-// few blocks per SM, each warp keeping one row's loads in flight; staging
-// rows with cp.async or TMA to keep more bytes in flight is later work.
+// the device's address space with cudaHostGetDevicePointer; the loads then
+// cross PCIe (the reference's UVA gather, quiver_feature.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,12 +63,41 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 8;  // 2048 resident threads per SM
+constexpr int kGroup = 8;                      // lanes that read one row
+constexpr int kGroups = 32 / kGroup;           // rows per load instruction
+constexpr int kRowsPerGroup = 32 / kGroups;    // a warp's 32 ids at once
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t clamp_id(int64_t id, int64_t n_rows) {
   return id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
 }
 
+// The ids [base, base + 32) of the calling warp, loaded in one read: keeps
+// those the gather reads (all, clamped; with skip_negative, those >= 0)
+// and ranks them, row[k] the table row and at[k] the lane (output row
+// base + at[k]) of the k-th kept id. Returns the count, the same in every
+// lane.
+__device__ __forceinline__ int scan_ids(const int* __restrict__ ids,
+                                        int64_t base, int64_t n_ids,
+                                        int64_t n_rows, int skip_negative,
+                                        int* row, int* at) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = base + lane;
+  const int64_t id = i < n_ids ? ids[i] : -1;
+  const bool keep = i < n_ids && !(skip_negative && id < 0);
+  const unsigned mask = __ballot_sync(kFull, keep);
+  if (keep) {
+    const int k = __popc(mask & ((1u << lane) - 1u));
+    row[k] = static_cast<int>(clamp_id(id, n_rows));
+    at[k] = lane;
+  }
+  __syncwarp();
+  return __popc(mask);
+}
+
+// Rows of any dtype as bytes, one row a warp: on device tables and on
+// 400-byte fp32 host rows this loop measured faster than groups of 8 lanes
+// with the id scan, which cut a row into several steps.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const V* __restrict__ feat, const int* __restrict__ ids,
@@ -75,6 +121,100 @@ __device__ __forceinline__ float deq(int8_t code, float sc, float z) {
   return __fadd_rn(__fmul_rn(static_cast<float>(code), sc), z);
 }
 
+__device__ __forceinline__ float deq_byte(uint32_t word, int b, float sc,
+                                          float z) {
+  return deq(static_cast<int8_t>(word >> (8 * b)), sc, z);
+}
+
+__device__ __forceinline__ uint32_t word_at(const uint4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
+
+// Decodes the codes of one 16-byte word, codes [first, first + 16) of the
+// row, into dst[first...], writing only those below dim.
+template <bool kVec4>
+__device__ __forceinline__ void put_codes(const uint4& v, int64_t first,
+                                          int64_t dim, float sc, float z,
+                                          float* __restrict__ dst) {
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t word = word_at(v, w);
+    const int64_t c = first + 4 * w;
+    if (kVec4) {  // dim % 4 == 0: a word's 4 codes are all in or all out
+      if (c < dim)
+        *reinterpret_cast<float4*>(dst + c) = make_float4(
+            deq_byte(word, 0, sc, z), deq_byte(word, 1, sc, z),
+            deq_byte(word, 2, sc, z), deq_byte(word, 3, sc, z));
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (c + b < dim) dst[c + b] = deq_byte(word, b, sc, z);
+    }
+  }
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_packed_kernel(const uint4* __restrict__ rows,
+                          const int* __restrict__ ids, int64_t n_ids,
+                          int64_t n_rows, int64_t row_words, int64_t dim,
+                          int side, int skip_negative,
+                          float* __restrict__ out) {
+  __shared__ int s_row[kWarps][32], s_at[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane / kGroup, j = lane % kGroup;
+  int* row = s_row[warp];
+  int* at = s_at[warp];
+  // the 16-byte words that hold codes or sidecars (the rest is padding);
+  // the one holding scale and zero, its lane in the group, its step and
+  // the two 4-byte slots in it
+  const int words = (side + 8 + 15) / 16;
+  const int steps = (words + kGroup - 1) / kGroup;
+  const int side_word = side / 16;
+  const int side_lane = side_word % kGroup, side_step = side_word / kGroup;
+  const int side_slot = (side % 16) / 4;
+  const int64_t chunks = (n_ids + 31) / 32;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+       c < chunks; c += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int n = scan_ids(ids, c * 32, n_ids, n_rows, skip_negative, row,
+                           at);
+    if (n == 0) continue;
+    float sc[kRowsPerGroup], z[kRowsPerGroup];
+    for (int s = 0; s < steps; ++s) {
+      // the sidecars' step first, then the others in order
+      const int step = s == 0 ? side_step : (s <= side_step ? s - 1 : s);
+      const int q = step * kGroup + j;
+      uint4 v[kRowsPerGroup];
+#pragma unroll
+      for (int u = 0; u < kRowsPerGroup; ++u) {
+        const int k = g + kGroups * u;
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (k < n && q < words)
+          v[u] = rows[static_cast<int64_t>(row[k]) * row_words + q];
+      }
+      if (s == 0) {
+#pragma unroll
+        for (int u = 0; u < kRowsPerGroup; ++u) {
+          sc[u] = __uint_as_float(__shfl_sync(
+              kFull, word_at(v[u], side_slot), side_lane, kGroup));
+          z[u] = __uint_as_float(__shfl_sync(
+              kFull, word_at(v[u], side_slot + 1), side_lane, kGroup));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsPerGroup; ++u) {
+        const int k = g + kGroups * u;
+        if (k < n && 16 * q < dim)
+          put_codes<kVec4>(v[u], 16 * q, dim, sc[u], z[u],
+                           out + (c * 32 + at[k]) * dim);
+      }
+    }
+    __syncwarp();  // the next chunk's scan overwrites row and at
+  }
+}
+
+// Int8 codes with separate sidecar arrays (a device table): one row a
+// warp, its scale and zero loaded apart from its codes.
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_q8_kernel(const int8_t* __restrict__ codes,
@@ -109,14 +249,20 @@ gather_rows_q8_kernel(const int8_t* __restrict__ codes,
   }
 }
 
-int grid_for(int64_t n_ids, int* grid) {
-  int dev = 0, sms = 0;
+// Blocks for `warps` warps of work, at most as many as the card holds at
+// once for `kernel` (a grid-stride loop takes the rest).
+template <typename K>
+int grid_for(K kernel, int64_t warps, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t want = (n_ids + kWarps - 1) / kWarps;
-  const int64_t most = static_cast<int64_t>(sms) * kBlocksPerSm;
+  const int64_t want = (warps + kWarps - 1) / kWarps;
+  const int64_t most = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   *grid = static_cast<int>(want < most ? want : most);
   return 0;
 }
@@ -138,12 +284,41 @@ int launch(const void* feat, const void* ids, int64_t n_ids, int64_t n_rows,
            int64_t row_bytes, void* out, int skip_negative,
            cudaStream_t stream) {
   int grid = 0;
-  const int err = grid_for(n_ids, &grid);
+  const int err = grid_for(gather_rows_kernel<V>, n_ids, &grid);
   if (err != 0) return err;
   gather_rows_kernel<V><<<grid, kThreads, 0, stream>>>(
       static_cast<const V*>(feat), static_cast<const int*>(ids), n_ids,
       n_rows, row_bytes / static_cast<int64_t>(sizeof(V)), skip_negative,
       static_cast<V*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int launch_packed(const void* rows, const void* ids, int64_t n_ids,
+                  int64_t n_rows, int64_t stride, int64_t dim, int side,
+                  void* out, int skip_negative, cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(gather_rows_packed_kernel<kVec4>,
+                           (n_ids + 31) / 32, &grid);
+  if (err != 0) return err;
+  gather_rows_packed_kernel<kVec4><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint4*>(rows), static_cast<const int*>(ids), n_ids,
+      n_rows, stride / 16, dim, side, skip_negative,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int launch_q8(const void* codes, const void* scale, const void* zero,
+              const void* ids, int64_t n_ids, int64_t n_rows, int64_t dim,
+              void* out, int skip_negative, cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(gather_rows_q8_kernel<kVec4>, n_ids, &grid);
+  if (err != 0) return err;
+  gather_rows_q8_kernel<kVec4><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(codes), static_cast<const float*>(scale),
+      static_cast<const float*>(zero), static_cast<const int*>(ids), n_ids,
+      n_rows, dim, skip_negative, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,6 +336,10 @@ bool q8_vec4(const void* codes, const void* out, long long dim) {
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
+bool out_vec4(const void* out, long long dim) {
+  return dim % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -171,7 +350,8 @@ int qt_gather_word_bytes(const void* feat, const void* out,
   return word_bytes(feat, out, row_bytes);
 }
 
-// The values a lane of the int8 gather decodes per word: 4 or 1.
+// The values a lane of the separate-sidecar int8 gather decodes per word:
+// 4 or 1.
 int qt_gather_q8_vec(const void* codes, const void* out, long long dim) {
   return q8_vec4(codes, out, dim) ? 4 : 1;
 }
@@ -199,6 +379,29 @@ int qt_gather_rows(const void* feat, int feat_on_host, const void* ids,
   }
 }
 
+// rows: the packed tier's base, 16-byte aligned; stride: its row stride
+// in bytes, a multiple of 16; side: the scale's byte offset in a row, a
+// multiple of 4 with scale and zero in one 16-byte word, at or past dim
+// and with both sidecars inside the row.
+int qt_gather_rows_packed(const void* rows, int table_on_host,
+                          const void* ids, long long n_ids, long long n_rows,
+                          long long stride, long long dim, long long side,
+                          void* out, int skip_negative, void* stream) {
+  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0 || stride % 16 != 0 ||
+      side % 4 != 0 || side % 16 > 8 || side < dim || side + 8 > stride)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* table = nullptr;
+  const cudaError_t err = device_address(rows, table_on_host, &table);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int sd = static_cast<int>(side);
+  if (out_vec4(out, dim))
+    return launch_packed<true>(table, ids, n_ids, n_rows, stride, dim, sd,
+                               out, skip_negative, s);
+  return launch_packed<false>(table, ids, n_ids, n_rows, stride, dim, sd,
+                              out, skip_negative, s);
+}
+
 int qt_gather_rows_q8(const void* codes, const void* scale, const void* zero,
                       int table_on_host, const void* ids, long long n_ids,
                       long long n_rows, long long dim, void* out,
@@ -208,22 +411,12 @@ int qt_gather_rows_q8(const void* codes, const void* scale, const void* zero,
   if (err == cudaSuccess) err = device_address(scale, table_on_host, &sc);
   if (err == cudaSuccess) err = device_address(zero, table_on_host, &z);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int grid = 0;
-  const int gerr = grid_for(n_ids, &grid);
-  if (gerr != 0) return gerr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* c8 = static_cast<const int8_t*>(c);
-  const auto* sf = static_cast<const float*>(sc);
-  const auto* zf = static_cast<const float*>(z);
-  const auto* id = static_cast<const int*>(ids);
-  auto* o = static_cast<float*>(out);
   if (q8_vec4(c, out, dim))
-    gather_rows_q8_kernel<true><<<grid, kThreads, 0, s>>>(
-        c8, sf, zf, id, n_ids, n_rows, dim, skip_negative, o);
-  else
-    gather_rows_q8_kernel<false><<<grid, kThreads, 0, s>>>(
-        c8, sf, zf, id, n_ids, n_rows, dim, skip_negative, o);
-  return static_cast<int>(cudaGetLastError());
+    return launch_q8<true>(c, sc, z, ids, n_ids, n_rows, dim, out,
+                           skip_negative, s);
+  return launch_q8<false>(c, sc, z, ids, n_ids, n_rows, dim, out,
+                          skip_negative, s);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@ Two tiers, by bandwidth:
   2. the cold tier, the remaining rows, in host memory. With
      ``host_placement="offload"`` it is pinned and the card reads it
      itself: the CUDA row gather (``ops/kernels/gather.py``) takes device
-     ids and reads the rows over PCIe, the reference's UVA gather. With
+     ids and reads the rows over PCIe, the reference's UVA gather; an
+     int8 tier is pinned packed (``quant.pack``), each row's codes,
+     scale and zero in one host row that the gather reads at once. With
      ``host_placement="numpy"`` it is a plain CPU tensor: a lookup
      brings its ids to the host, indexes there and copies the rows to
      the card.

@@ -3,12 +3,15 @@
 :func:`gather_rows` computes ``out[i] = feat[ids[i]]`` for a 2-D
 contiguous fp32, bf16, fp16 or int8 table, or for an int8
 ``QuantizedTensor`` with fp32 sidecars, whose rows it dequantizes to
-fp32 as it reads them. On CUDA ids it launches a kernel of
-``csrc/gather.cu`` (a warp per row); the table lies on the ids' card or
-in pinned host memory, which the kernel reads over PCIe, as the
-reference's UVA gather does: the cold tier of the feature store. On CPU
-ids it runs the plain version :func:`gather_rows_plain`. Unlike the JAX
-function, neither the width nor the id count is padded.
+fp32 as it reads them: its leaves contiguous (a device table), or
+views into one buffer of packed rows (``quant.pack``: the cold tier as
+``utils/placement.py`` pins it, each row one aligned host read). On
+CUDA ids it launches a kernel of ``csrc/gather.cu``; the table lies on
+the ids' card or in pinned host memory, which the kernel reads over
+PCIe, as the reference's UVA gather does: the cold tier of the feature
+store. On CPU ids it runs the plain version :func:`gather_rows_plain`.
+Unlike the JAX function, neither the width nor the id count is
+padded.
 
 With ``out=``, the rows are written into ``out`` and a negative id
 leaves its row of ``out`` as it is, reading nothing: the tiered lookup
@@ -39,6 +42,9 @@ def _lib():
         lib.qt_gather_rows.restype = i
         lib.qt_gather_rows_q8.argtypes = [p, p, p, i, p, ll, ll, ll, p, i, p]
         lib.qt_gather_rows_q8.restype = i
+        lib.qt_gather_rows_packed.argtypes = [p, i, p, ll, ll, ll, ll, ll,
+                                              p, i, p]
+        lib.qt_gather_rows_packed.restype = i
         lib.qt_gather_word_bytes.argtypes = [p, p, ll]
         lib.qt_gather_word_bytes.restype = i
         lib.qt_gather_q8_vec.argtypes = [p, p, ll]
@@ -48,25 +54,46 @@ def _lib():
 
 
 def _leaves(feat):
-    """The table's storage leaves, checked: ``(data, scale, zero)``."""
+    """The table's storage leaves, checked: ``(data, scale, zero,
+    stride)``, ``stride`` the row stride in bytes of a packed int8 tier
+    and None where the leaves are contiguous."""
     data, scale, zero = quant.tier_parts(feat)
     if not torch.is_tensor(data) or data.dim() != 2 \
-            or not data.is_contiguous() or data.dtype not in _DTYPES:
+            or data.dtype not in _DTYPES \
+            or (scale is None and not data.is_contiguous()):
         raise ValueError(
             "gather_rows takes a contiguous 2-D fp32, bf16, fp16 or int8 "
             f"table, got {getattr(data, 'dtype', type(data))} "
             f"{tuple(getattr(data, 'shape', ()))}")
-    if scale is not None:
-        for side in (scale, zero):
-            if data.dtype != torch.int8 or not torch.is_tensor(side) \
-                    or not side.is_floating_point() \
-                    or tuple(side.shape) != (data.shape[0], 1) \
-                    or not side.is_contiguous() \
-                    or side.device != data.device:
-                raise ValueError(
-                    "a quantized table is int8 [N, D] codes with "
-                    "contiguous float [N, 1] scale and zero beside them")
-    return data, scale, zero
+    if scale is None:
+        return data, None, None, None
+    for side in (scale, zero):
+        if data.dtype != torch.int8 or not torch.is_tensor(side) \
+                or not side.is_floating_point() \
+                or tuple(side.shape) != (data.shape[0], 1) \
+                or side.device != data.device:
+            raise ValueError(
+                "a quantized table is int8 [N, D] codes with float "
+                "[N, 1] scale and zero beside them")
+    if data.is_contiguous() and scale.is_contiguous() \
+            and zero.is_contiguous():
+        return data, scale, zero, None
+    stride, base = data.stride(0), data.data_ptr()
+    side = quant.sidecar_offset(data.shape[1])
+    buf = data.untyped_storage().data_ptr()
+    if data.stride(1) != 1 or stride % 16 or stride < side + 8 \
+            or base % 16 \
+            or scale.dtype != torch.float32 or zero.dtype != torch.float32 \
+            or any(t.untyped_storage().data_ptr() != buf
+                   or t.stride(0) * 4 != stride for t in (scale, zero)) \
+            or scale.data_ptr() != base + side \
+            or zero.data_ptr() != base + side + 4:
+        raise ValueError(
+            "a quantized table's leaves are contiguous, or views into one "
+            "buffer of packed rows (quant.pack): 16-byte aligned, a row "
+            "stride that is a multiple of 16, fp32 scale and zero at "
+            "bytes quant.sidecar_offset(D) and 4 past it")
+    return data, scale, zero, stride
 
 
 def _check_out(out, n, dim, dtype, dev):
@@ -94,8 +121,10 @@ def gather_rows_plain(feat, ids, out=None):
 def word_bytes(feat, out) -> int:
     """The width of the words the kernel copies for ``feat`` into
     ``out``: 16, 4, 2 or 1 bytes; for a quantized table, 4 or 1 int8
-    codes."""
-    data, scale, _ = quant.tier_parts(feat)
+    codes (a packed tier is read in 16-byte words)."""
+    data, scale, _, stride = _leaves(feat)
+    if stride is not None:
+        return 16
     if scale is not None:
         return _lib().qt_gather_q8_vec(data.data_ptr(), out.data_ptr(),
                                        data.shape[1])
@@ -106,15 +135,16 @@ def word_bytes(feat, out) -> int:
 def gather_rows(feat, ids, out=None):
     """``out[i] = feat[ids[i]]``. ``feat`` is a contiguous ``[N, D]``
     fp32, bf16, fp16 or int8 tensor, or an int8 ``QuantizedTensor``
-    (rows come back dequantized in its sidecars' dtype; the kernel takes
-    fp32 sidecars). ``ids`` is a contiguous 1-D int32 tensor (int64 ids
+    with contiguous leaves or packed by ``quant.pack`` (rows come back
+    dequantized in its sidecars' dtype; the kernel takes fp32
+    sidecars). ``ids`` is a contiguous 1-D int32 tensor (int64 ids
     are cast); rows come back on its device. On a card, the table lies
     on that card or in pinned host memory. Without ``out`` every id must
     lie in ``[0, N)`` (the kernel clamps one outside it into the table
     and reads nothing outside); with ``out`` (contiguous ``[n, D]`` of
     the rows' dtype on the ids' device) a negative id leaves its row of
     ``out`` untouched and reads nothing, and ``out`` is returned."""
-    data, scale, zero = _leaves(feat)
+    data, scale, zero, stride = _leaves(feat)
     if torch.is_tensor(ids) and ids.dtype == torch.int64:
         ids = ids.to(torch.int32)
     home = data.device
@@ -144,7 +174,12 @@ def gather_rows(feat, ids, out=None):
         raise ValueError("gather_rows: ids index an empty table")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if scale is None:
+        if stride is not None:
+            err = _lib().qt_gather_rows_packed(
+                data.data_ptr(), int(on_host), ids.data_ptr(), n,
+                data.shape[0], stride, dim, quant.sidecar_offset(dim),
+                out.data_ptr(), skip, stream)
+        elif scale is None:
             err = _lib().qt_gather_rows(
                 data.data_ptr(), int(on_host), ids.data_ptr(), n,
                 data.shape[0], dim * data.element_size(), out.data_ptr(),

@@ -170,6 +170,61 @@ def tree_map_tier(fn, t):
     return fn(t)
 
 
+# -- the packed int8 host tier ------------------------------------------------
+# Row r of one uint8 buffer [n, stride] holds the codes in bytes [0, d),
+# the fp32 scale in [c, c + 4) and the fp32 zero in [c + 4, c + 8), with
+# c = sidecar_offset(d), then zeros up to the stride. The card reads a
+# host row over PCIe, where the count of read requests, not bytes, sets
+# the pace: a packed row of at most 128 bytes is one aligned request,
+# where codes and two sidecar arrays cost three or more.
+
+def sidecar_offset(dim: int) -> int:
+    """Byte offset of the scale in a packed row: ``dim`` rounded up to
+    4, or to 16 where the 8 sidecar bytes would cross a 16-byte word
+    (the gather kernel takes both from one word)."""
+    c = -(-dim // 4) * 4
+    return c if c % 16 <= 8 else -(-dim // 16) * 16
+
+
+def packed_stride(dim: int) -> int:
+    """The row stride in bytes of a packed tier of width ``dim``: the
+    row's bytes rounded up to a power of two up to 128, past that to a
+    multiple of 128, so that no row crosses a 128-byte line it does not
+    have to (a 100-wide row takes 128 bytes)."""
+    need = sidecar_offset(dim) + 8
+    if need > 128:
+        return -(-need // 128) * 128
+    return max(16, 1 << (need - 1).bit_length())
+
+
+def pack(t: QuantizedTensor, stride: Optional[int] = None,
+         pin: bool = False) -> QuantizedTensor:
+    """The int8 tier ``t`` (fp32 sidecars) copied into one host buffer of
+    packed rows (pinned when ``pin``), returned as the same
+    ``QuantizedTensor`` whose three leaves are strided views into that
+    buffer. ``stride`` (a multiple of 16 that holds the row) defaults to
+    :func:`packed_stride`."""
+    data, scale, zero = (x.cpu() for x in t)
+    if data.dtype != torch.int8 or data.dim() != 2 \
+            or scale.dtype != torch.float32 or zero.dtype != torch.float32:
+        raise ValueError("pack takes int8 [n, d] codes with fp32 sidecars")
+    n, d = data.shape
+    side = sidecar_offset(d)
+    stride = packed_stride(d) if stride is None else stride
+    if stride % 16 or stride < side + 8:
+        raise ValueError(f"a packed row of width {d} needs a stride that "
+                         f"is a multiple of 16 of at least {side + 8}, "
+                         f"not {stride}")
+    buf = torch.zeros((n, stride), dtype=torch.uint8, pin_memory=pin)
+    buf[:, :d] = data.view(torch.uint8)
+    for off, side_t in ((side, scale), (side + 4, zero)):
+        buf[:, off:off + 4] = side_t.reshape(n, 1).contiguous() \
+            .view(torch.uint8)
+    return QuantizedTensor(buf[:, :d].view(torch.int8),
+                           buf[:, side:side + 4].view(torch.float32),
+                           buf[:, side + 4:side + 8].view(torch.float32))
+
+
 def default_cold_budget(n: int) -> int:
     """The tiered lookup's default per-batch host-row budget (shared by
     ``Feature.lookup_tiered`` and ``dedup_feature_gather``)."""

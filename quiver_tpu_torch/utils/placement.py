@@ -7,6 +7,11 @@ backend can use the placement and falls back loudly where it cannot;
 here there is nothing to probe: on a card, pinning either works or is an
 error, and on the CPU (the caller asked for it) the tier stays in plain
 host memory.
+
+An int8 tier with fp32 sidecars is packed (``ops/quant.py: pack``): each
+row's codes, scale and zero in one aligned host row, which the gather
+reads in one request. The CPU gets the same packed views, so its plain
+gather reads the layout the card reads.
 """
 
 from __future__ import annotations
@@ -16,19 +21,29 @@ import torch
 from ..ops import quant
 
 
+def _host(tier, pin: bool):
+    if quant.is_quantized(tier) and tier.scale.dtype == torch.float32 \
+            and tier.zero.dtype == torch.float32:
+        return quant.pack(tier, pin=pin)
+    if pin:
+        return quant.tree_map_tier(
+            lambda t: t.cpu().contiguous().pin_memory(), tier)
+    return quant.tree_map_tier(lambda t: t.cpu().contiguous(), tier)
+
+
 def pinned_put(tier, device: torch.device, what: str):
     """A host tier (a CPU tensor, or a ``QuantizedTensor`` of them)
-    placed where ``device``'s lookups read it: every leaf pinned
-    (page-locked, mapped for the card) when ``device`` is a CUDA device,
-    left in plain host memory for the CPU. Raises when pinning fails
-    (``what`` names the tier in the message)."""
+    placed where ``device``'s lookups read it: pinned (page-locked,
+    mapped for the card) when ``device`` is a CUDA device, in plain host
+    memory for the CPU; an int8 tier with fp32 sidecars packed either
+    way. Raises when pinning fails (``what`` names the tier in the
+    message)."""
     if device.type == "cpu":
-        return quant.tree_map_tier(lambda t: t.cpu().contiguous(), tier)
+        return _host(tier, pin=False)
     if device.type != "cuda":
         raise ValueError(f"cannot place {what} for {device}")
     try:
-        return quant.tree_map_tier(
-            lambda t: t.cpu().contiguous().pin_memory(), tier)
+        return _host(tier, pin=True)
     except RuntimeError as e:
         raise RuntimeError(f"pinning {what} in host memory failed: {e}") \
             from e

@@ -17,7 +17,10 @@ walk's; the split serve path answers on the card.
 
 The host-tier row gather reads pinned host tables (fp32, bf16, int8 with
 sidecars; misaligned widths and bases) from the card, with and without
-``out=`` and its negative ids, equal to its plain version; the tiered
+``out=`` and its negative ids, equal to its plain version; so does its
+id scan over the packed int8 tier at widths 7, 100, 128 and 256, fp32
+and bf16 host tables and device tables, with ids all -1, with holes or
+dense, 1, 31, 33 and 270,336 of them; the tiered
 store's lookup runs on the card with no host synchronisation, equal to
 the same store on the CPU, and the engine serves through it."""
 
@@ -32,6 +35,7 @@ from quiver_tpu_torch.ops import quant
 from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
 from quiver_tpu_torch.parallel import (build_train_step, init_state,
                                        layers_to_adjs, train)
+from quiver_tpu_torch.utils.placement import pinned_put
 
 pytestmark = pytest.mark.cuda
 
@@ -354,6 +358,73 @@ def test_host_tier_gather_equals_plain(graph, kind, dim, offset):
 def test_host_tier_gather_needs_pinned_memory(graph):
     with pytest.raises(ValueError, match="pinned"):
         gather.gather_rows(graph["feat"].cpu(), graph["seeds"].clamp(min=0))
+
+
+# ids all -1, with holes, or dense; counts below, just past and far past
+# a warp's 32
+GATHER_IDS = ["none", "holes", "dense"]
+GATHER_COUNTS = [1, 31, 33, 270_336]
+
+
+def _gather_ids(dev, kind, n):
+    g = np.random.default_rng(n)
+    ids = g.integers(0, N, n).astype(np.int32)
+    if kind == "none":
+        ids[:] = -1
+    elif kind == "holes":
+        ids[g.random(n) < 0.5] = -1
+    return torch.from_numpy(ids).to(dev)
+
+
+def _check_gather(table, ids, dim, dtype):
+    """The kernel against its plain version: without ``out=`` over the
+    ids clamped to 0, then with ``out=`` over the ids as they are."""
+    before = fused.LAUNCHES["gather_rows"]
+    dense = ids.clamp(min=0)
+    got = gather.gather_rows(table, dense)
+    assert torch.equal(_bits(got),
+                       _bits(gather.gather_rows_plain(table, dense)))
+    out = torch.full((ids.shape[0], dim), 7.5, device=ids.device,
+                     dtype=dtype)
+    want = out.clone()
+    assert gather.gather_rows(table, ids, out=out) is out
+    gather.gather_rows_plain(table, ids, out=want)
+    assert torch.equal(_bits(out), _bits(want))
+    assert fused.LAUNCHES["gather_rows"] == before + 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_ids", GATHER_COUNTS)
+@pytest.mark.parametrize("kind", GATHER_IDS)
+@pytest.mark.parametrize("dim", [7, 100, 128, 256])
+def test_packed_host_gather_equals_plain(card, dim, kind, n_ids):
+    f = np.random.default_rng(dim).standard_normal((N, dim)) \
+        .astype(np.float32)
+    table = pinned_put(quant.quantize(torch.from_numpy(f), "int8"), card,
+                       "the test tier")
+    assert table.data.is_pinned()
+    assert table.data.stride(0) == quant.packed_stride(dim)
+    assert gather.word_bytes(table, torch.empty(1, device=card)) == 16
+    _check_gather(table, _gather_ids(card, kind, n_ids), dim, torch.float32)
+
+
+@pytest.mark.parametrize("n_ids", GATHER_COUNTS)
+@pytest.mark.parametrize("kind", GATHER_IDS)
+@pytest.mark.parametrize("dtype,where", [
+    (torch.float32, "host"), (torch.bfloat16, "host"),
+    (torch.float32, "device"), (torch.bfloat16, "device"),
+    (torch.int8, "device")])
+def test_row_gather_id_scan_equals_plain(graph, dtype, where, kind, n_ids):
+    f = graph["feat"]
+    if dtype == torch.int8:
+        table = quant.quantize(f, "int8")
+        out_dt = torch.float32
+    else:
+        table = f.to(dtype).contiguous()
+        out_dt = dtype
+    if where == "host":
+        table = table.cpu().pin_memory()
+    _check_gather(table, _gather_ids(f.device, kind, n_ids), WIDE, out_dt)
 
 
 def _stores(graph, **kw):

@@ -290,6 +290,30 @@ def test_budgeted_lookup_across_the_budget(placement, policy):
                                           cold_count))
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("policy", ["int8", {"hot": "bf16", "cold": "int8"}],
+                         ids=str)
+def test_offload_int8_tier_is_packed(policy, dedup):
+    """The offload store's int8 cold tier is packed on the CPU too (one
+    buffer in ``quant.pack``'s layout), holds JAX's bits, and answers
+    every branch equal to JAX."""
+    feat = _table()
+    j, t = _stores(feat, "offload", device_cache_size=100 * 12,
+                   cold_budget=8, dedup_cold=dedup, dtype_policy=policy)
+    cold = _cold_tier(t)
+    buf = cold.data.untyped_storage().data_ptr()
+    assert cold.data.stride(0) == quant.packed_stride(DIM)
+    assert all(x.untyped_storage().data_ptr() == buf for x in cold)
+    assert cold.scale.data_ptr() - cold.data.data_ptr() \
+        == quant.sidecar_offset(DIM)
+    for g, w in zip(cold, j.host_part):
+        assert _same(g, w)
+    rng = np.random.default_rng(17)
+    for cold_count in (0, 3, 8, 9, 20):
+        _check_lookups(j, t, _ids_by_tier(t, rng, 32 - cold_count,
+                                          cold_count))
+
+
 @pytest.mark.parametrize("placement", PLACEMENTS)
 @pytest.mark.parametrize("policy", [None, "int8"], ids=str)
 def test_dedup_lookup_across_the_budget(placement, policy):

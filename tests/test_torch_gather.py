@@ -1,8 +1,10 @@
 """The port's row gather (``quiver_tpu_torch/ops/kernels/gather.py``)
 against the JAX package's Pallas kernel ``gather_rows``, run in
-interpret mode as that package's tests run it. The port's wrapper gets
-CPU tensors, so it runs the kernel's plain version; every output must
-match bit for bit."""
+interpret mode as that package's tests run it, and over the packed int8
+tier (``quant.pack``) against the JAX package's int8 tier lookup
+(``quant.gather_rows``, run op by op: a rounded multiply, then a rounded
+add). The port's wrapper gets CPU tensors, so it runs the kernel's plain
+version; every output must match bit for bit."""
 
 import warnings
 
@@ -12,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from quiver_tpu.ops import quant as jquant
 from quiver_tpu.ops.pallas import gather as jgather
+from quiver_tpu_torch.ops import quant
 from quiver_tpu_torch.ops.kernels import _build, gather
 
 N = 300
@@ -103,3 +107,93 @@ def test_cpu_tensors_take_the_plain_version():
     _build.reset_launches()
     gather.gather_rows(torch.zeros((N, 4)), torch.from_numpy(_ids(10)))
     assert _build.LAUNCHES["gather_rows"] == 0
+
+
+# -- the packed int8 tier -----------------------------------------------------
+
+
+def _packed(dim, seed=8):
+    """The JAX package's int8 tier and the port's, packed, over one
+    table."""
+    f = np.random.default_rng(seed).standard_normal((N, dim)) \
+        .astype(np.float32)
+    return (jquant.quantize(jnp.asarray(f), "int8"),
+            quant.pack(quant.quantize(torch.from_numpy(f), "int8")))
+
+
+@pytest.mark.parametrize("dim", [7, 100, 128])
+def test_packed_tier_equals_jax_tier_lookup(dim):
+    """700 ids (not a multiple of a warp's 32), then ``out=`` with -1
+    ids, which leave their rows as they were."""
+    jq, tq = _packed(dim)
+    assert tq.data.stride(0) == quant.packed_stride(dim)
+    ids = _ids()
+    want = np.asarray(jquant.gather_rows(jq, jnp.asarray(ids)))
+    got = gather.gather_rows(tq, torch.from_numpy(ids))
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == want.tobytes()
+    holes = ids.copy()
+    holes[::3] = -1
+    out = torch.full((ids.size, dim), 7.5)
+    assert gather.gather_rows(tq, torch.from_numpy(holes), out=out) is out
+    keep = (holes >= 0)[:, None]
+    assert out.numpy().tobytes() == np.where(keep, want, 7.5) \
+        .astype(np.float32).tobytes()
+
+
+@pytest.mark.parametrize("dim,stride", [(7, None), (12, None), (100, None),
+                                        (100, 112), (128, None)])
+def test_pack_keeps_every_bit(dim, stride):
+    """Pack, then read the leaves back: the same bits, -0.0, infinities
+    and NaN payloads in the sidecars included; each row inside its
+    stride, the sidecars in one 16-byte word, the padding zero."""
+    g = np.random.default_rng(dim)
+    codes = torch.from_numpy(g.integers(-128, 128, (N, dim), dtype=np.int8))
+    words = g.integers(0, 2**32, (2, N, 1), dtype=np.uint32)
+    words[:, :6, 0] = [0x80000000, 0x7FC01234, 0xFFC00001, 0x7F800000,
+                       0xFF800000, 0x7F800001]
+    scale, zero = (torch.from_numpy(w.view(np.float32)) for w in words)
+    t = quant.pack(quant.QuantizedTensor(codes, scale, zero), stride)
+    side = quant.sidecar_offset(dim)
+    s = quant.packed_stride(dim) if stride is None else stride
+    assert side >= dim and side % 4 == 0 and side // 16 == (side + 7) // 16
+    assert s % 16 == 0 and s >= side + 8 and t.data.stride(0) == s
+    if stride is None:                      # no row crosses a line it
+        assert 128 % s == 0 if s <= 128 else s % 128 == 0   # need not
+    for got, want in zip(t, (codes, scale, zero)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got.contiguous().view(torch.uint8),
+                           want.view(torch.uint8))
+    buf = torch.from_numpy(np.lib.stride_tricks.as_strided(
+        t.data.view(torch.uint8).numpy(), (N, s), (s, 1)))
+    assert not buf[:, dim:side].any() and not buf[:, side + 8:].any()
+
+
+def _views(buf, dim, side, stride):
+    rows = buf.view(-1, stride)
+    return quant.QuantizedTensor(
+        rows[:, :dim].view(torch.int8),
+        rows[:, side:side + 4].view(torch.float32),
+        rows[:, side + 4:side + 8].view(torch.float32))
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "mixed", "offset",
+                                   "stride"])
+def test_wrapper_refuses_a_bad_packed_tier(fault):
+    dim, side, stride = 100, quant.sidecar_offset(100), 128
+    buf = torch.zeros(N * stride + 16, dtype=torch.uint8)
+    ids = torch.from_numpy(_ids(10))
+    good = _views(buf[:N * stride], dim, side, stride)
+    assert gather.gather_rows(good, ids).shape == (10, dim)
+    if fault == "misaligned":
+        bad = _views(buf[4:4 + N * stride], dim, side, stride)
+    elif fault == "mixed":
+        other = _views(torch.zeros(N * stride, dtype=torch.uint8), dim,
+                       side, stride)
+        bad = quant.QuantizedTensor(good.data, other.scale, good.zero)
+    elif fault == "offset":
+        bad = _views(buf[:N * stride], dim, side + 4, stride)
+    else:
+        bad = _views(buf[:N * 120], dim, side, 120)
+    with pytest.raises(ValueError, match="packed rows"):
+        gather.gather_rows(bad, ids)
