@@ -72,13 +72,38 @@ Phases:
    (``torch.cuda.set_sync_debug_mode("error")``); and finite logits from
    the split route over the store and from ``dedup_gather=True`` over a
    plain table;
-7. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+7. the sampler: ``GraphSageSampler`` over the graph of phase 1 (its
+   tensors, not copied), fanout [15, 10, 5], batch 1024, eight arms:
+   HBM (a) exact scattered, (b) exact wide (pair layout), (c) rotation
+   pair+sort, (d) rotation overlap+sort, (e) rotation overlap+butterfly,
+   (f) window pair+sort; HOST (g) exact wide, (h) rotation
+   overlap+sort. Each arm: one reshuffle where the method has one
+   (timed apart), a warm-up batch, then 32 timed batches, consecutive
+   slices of one node permutation, with sampled edges per second
+   (valid edges over the wall time, bench.py's metric), ms per batch and
+   launches per batch printed on ``sampler:`` lines. Checks: (b) equal
+   to (a), (g) to (b) and (h) to (d) bit for bit on every batch; the HBM
+   arms launch no kernel of the port and the HOST arms the topology
+   gathers; (b), (d), (f), (g) and (h) sample four more batches under
+   ``torch.cuda.set_sync_debug_mode("error")``; each arm's device time
+   per batch and idle share come from ``torch.profiler`` over four
+   batches; HOST mode's
+   ``max_memory_allocated`` grows by less than the bytes of
+   ``indices``; one ``with_eid`` batch of every arm whose edge ids are
+   CSR slots of their targets holding their sources, ``min(deg, k)``
+   edges per target, distinct within a hop; and the topology gathers
+   (180,224 rows of the 128- and 256-wide int32 views, 901,120
+   elements of ``indices``; pinned and device tables; -1 ids) equal to
+   their plain versions, with own times against their bounds, host read
+   requests per second and, for device tables, indexing as a yardstick;
+8. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
    under ``fp32`` and the served launches' own times under
-   ``served_launch_own_ms``), then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``served_launch_own_ms``, and the topology variants of phase 7 under
+   ``host_topology``; the arms' records under ``sampler``), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
 the script exits 2 at once. TF32 is switched off for matrix products and
@@ -122,6 +147,7 @@ LOSS_TOL = 1e-4
 GRAD_TOL = 1e-4                # of the largest |gradient| of each tensor
 COPY_BYTES = 256 * 2**20       # the pinned-to-device copy that sets the rate
 FP32_HOST_ROWS = 2**18         # the fp32 host table of the gather check
+SAMPLER_BATCHES = 32           # timed batches of each sampler arm
 
 
 class SmokeFailure(RuntimeError):
@@ -515,7 +541,8 @@ def phase_slice(dev, gen, nodes, indptr, indices, featq, batches):
           f"fused_sample_hop launches {launches}")
     check(launches["fused_hot_hop"] == batches,
           f"fused_hot_hop launches {launches}")
-    check(launches["sample_layer"] == launches["gather_rows"] == 0,
+    check(launches["sample_layer"] == launches["gather_rows"]
+          == launches["gather_elems"] == 0,
           f"the served path launched split-walk kernels: {launches}")
 
     # one batch against the plain walk with the same hop seeds
@@ -564,7 +591,8 @@ def phase_split(eng, requests, served, feat, iters):
     torch.cuda.synchronize()
     split_launches = dict(kernels.LAUNCHES)
     check(split_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
-                             "sample_layer": len(SIZES), "gather_rows": 0},
+                             "sample_layer": len(SIZES), "gather_rows": 0,
+                             "gather_elems": 0},
           f"split walk launches {split_launches}")
 
     n_id, layers, x = fused.fused_multihop(*walk)
@@ -616,7 +644,8 @@ def phase_split(eng, requests, served, feat, iters):
     torch.cuda.synchronize()
     gather_launches = dict(kernels.LAUNCHES)
     check(gather_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
-                              "sample_layer": 0, "gather_rows": 1},
+                              "sample_layer": 0, "gather_rows": 1,
+                              "gather_elems": 0},
           f"gather path launches {gather_launches}")
     check(same_bits(out, xf[valid]), "gather_rows differs from the fused "
           "walk's rows")
@@ -779,7 +808,8 @@ def phase_train(dev, gen, nodes, indptr, indices, card):
     check(state.step == 1 + TRAIN_STEPS, "step count")
     check(launches == {"fused_sample_hop": (len(SIZES) - 1) * TRAIN_STEPS,
                        "fused_hot_hop": TRAIN_STEPS, "sample_layer": 0,
-                       "gather_rows": 0}, f"train step launches {launches}")
+                       "gather_rows": 0, "gather_elems": 0},
+          f"train step launches {launches}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
     check(last < 0.7 * first, f"loss did not fall: first 8 mean {first}, "
@@ -947,7 +977,7 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
         check(bool(torch.isfinite(o).all()), "non-finite tiered logits")
     check(launches["fused_sample_hop"] == (len(SIZES) - 1) * batches
           and launches["fused_hot_hop"] == batches
-          and launches["sample_layer"] == 0
+          and launches["sample_layer"] == launches["gather_elems"] == 0
           and launches["gather_rows"] >= batches,
           f"tiered serving launches {launches}")
     srt = sorted(lat)
@@ -1127,6 +1157,367 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
     return rec, launches
 
 
+# the sampler's arms: (label, mode, constructor arguments)
+SAMPLER_ARMS = [
+    ("a", "HBM", dict(sampling="exact", wide_exact=False)),
+    ("b", "HBM", dict(sampling="exact")),
+    ("c", "HBM", dict(sampling="rotation")),
+    ("d", "HBM", dict(sampling="rotation", layout="overlap")),
+    ("e", "HBM", dict(sampling="rotation", layout="overlap",
+                      shuffle="butterfly")),
+    ("f", "HBM", dict(sampling="window")),
+    ("g", "HOST", dict(sampling="exact")),
+    ("h", "HOST", dict(sampling="rotation", layout="overlap"))]
+SAME_PICKS = {"b": "a", "g": "b", "h": "d"}   # arm: the arm it equals
+SYNC_FREE = "bdfgh"                           # sampled under sync "error"
+KEEP = set(SAME_PICKS.values()) | set(SAME_PICKS)
+
+
+def arm_name(mode, kw) -> str:
+    s, layout = kw["sampling"], kw.get("layout", "pair")
+    if s == "exact":
+        return f"{mode} exact " + (f"wide {layout}" if kw.get(
+            "wide_exact", True) else "scattered")
+    return f"{mode} {s} {layout}+{kw.get('shuffle', 'sort')}"
+
+
+def same_sample(x, y) -> bool:
+    """Two ``sample()`` results equal bit for bit: n_id and every adj."""
+    import torch
+    return torch.equal(x[0], y[0]) and x[1] == y[1] and all(
+        torch.equal(a.edge_index, b.edge_index) and a.size == b.size
+        and (a.e_id is None) == (b.e_id is None)
+        for a, b in zip(x[2], y[2]))
+
+
+def sample_bytes(out) -> int:
+    return out[0].nbytes + sum(
+        a.edge_index.nbytes + a.mask.nbytes
+        + (0 if a.e_id is None else a.e_id.nbytes) for a in out[2])
+
+
+def check_eid_contract(name, indptr, indices, out):
+    """Every valid edge of one ``with_eid`` sample, with target ``t``,
+    source ``u`` and edge id ``slot`` (a CSR slot: the topology has no
+    eid map): ``indptr[t] <= slot < indptr[t + 1]``,
+    ``indices[slot] == u``; per target ``min(deg, k)`` edges; within a
+    hop the slots distinct. Returns the edges checked."""
+    import torch
+    n_id, bs, adjs = out
+    ip = indptr.long()
+    edges = 0
+    n_valid = bs         # hop i's seeds: the first n_valid slots of n_id
+    for hop, (adj, k) in enumerate(zip(adjs[::-1], SIZES)):
+        m = adj.mask
+        src, dst = adj.edge_index[0][m].long(), adj.edge_index[1][m].long()
+        slot = adj.e_id[m].long()
+        t, u = n_id[dst].long(), n_id[src].long()
+        check(bool(((ip[t] <= slot) & (slot < ip[t + 1])).all()),
+              f"{name} hop {hop}: an edge id outside its target's segment")
+        check(torch.equal(indices[slot].long(), u),
+              f"{name} hop {hop}: indices[slot] is not the edge's source")
+        seeds = n_id[:n_valid].long()
+        deg = ip[seeds + 1] - ip[seeds]
+        cnt = torch.bincount(dst, minlength=adj.size[1])
+        check(torch.equal(cnt[:n_valid], deg.clamp(max=k))
+              and not cnt[n_valid:].any(),
+              f"{name} hop {hop}: edges per target differ from min(deg, k)")
+        n_valid = max(n_valid, int(src.max()) + 1 if src.numel() else 0)
+        check(int(torch.unique(slot).numel()) == slot.numel(),
+              f"{name} hop {hop}: repeated slots")
+        edges += slot.numel()
+    return edges
+
+
+def run_arm(label, mode, kw, topo, batches, card):
+    """One arm: the sampler built and placed, one reshuffle where the
+    method has one (timed apart), a warm-up batch, then the timed
+    batches. Returns its record and the timed batches' samples."""
+    import torch
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops import kernels
+    name = f"({label}) {arm_name(mode, kw)}"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = GraphSageSampler(topo, SIZES, mode=mode, seed=SEED,
+                         device=topo.device, **kw)
+    s.lazy_init_quiver()
+    if kw["sampling"] == "exact" and kw.get("wide_exact", True):
+        s._ensure_exact_rows()
+        s._exact_hub_frac()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_grow = torch.cuda.max_memory_allocated() - base
+    reshuffle_ms = None
+    if kw["sampling"] != "exact":
+        # HOST mode shuffles on the card too, then keeps no E-sized
+        # array there: its growth is measured from after the reshuffle
+        t0 = time.perf_counter()
+        s.reshuffle()
+        torch.cuda.synchronize()
+        reshuffle_ms = (time.perf_counter() - t0) * 1e3
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    warm = s.sample(batches[0])
+    torch.cuda.synchronize()
+    del warm
+    warm_grow = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    outs = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        outs.append(s.sample(b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    kept = sum(sample_bytes(o) for o in outs)
+    loop_grow = torch.cuda.max_memory_allocated() - before - kept
+    edges = int(sum(a.mask.sum() for o in outs for a in o[2]))
+    n = len(outs)
+    rec = {"arm": label, "name": arm_name(mode, kw), "mode": mode,
+           "seps": edges / wall, "ms_per_batch": wall * 1e3 / n,
+           "edges_per_batch": edges / n, "reshuffle_ms": reshuffle_ms,
+           "setup_s": setup_s, "launches": launches,
+           "setup_growth_bytes": setup_grow,
+           "warmup_growth_bytes": warm_grow, "loop_growth_bytes": loop_grow,
+           "sync_free": label in SYNC_FREE}
+    per = ", ".join(f"{k} {v / n:g}" for k, v in launches.items() if v)
+    sync = ""
+    if label in SYNC_FREE:       # four more batches, none may synchronise
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in batches[1:5]:
+                s.sample(b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sync = "; 4 more batches sampled under set_sync_debug_mode(error)"
+    print(f"sampler: {name}: {n} batches of {BATCH}, fanout {SIZES}: "
+          f"{rec['ms_per_batch']:.3f} ms per batch (host clock + "
+          f"synchronize), {edges / n:.0f} sampled edges per batch, "
+          f"{rec['seps']:.6g} sampled edges/s; reshuffle "
+          f"{fmt_ms(reshuffle_ms)}; set-up {setup_s:.2f} s; launches per "
+          f"batch: {per or 'none'}{sync}; on {card}", flush=True)
+    rec["device_ms_per_batch"] = device_profile(
+        lambda: [s.sample(b) for b in batches[1:5]], 4, f"({label}) batch",
+        top=6)
+    return rec, (outs if label in KEEP else None), s
+
+
+def topology_gathers(dev, samplers, indptr, indices, card, iters):
+    """The topology variants of the gather against their plain versions,
+    bit for bit, at the arms' shapes (a last-hop frontier of 180,224
+    seeds: its rows of the pair and overlap views, 901,120 slots of
+    ``indices``), over pinned and device tables, with -1 ids; own times
+    against their bounds, host read requests per second, and for device
+    tables the indexing yardstick."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    hop = [BATCH]
+    for k in SIZES[:-1]:
+        hop.append(hop[-1] * (1 + k))
+    bs, k = hop[-1], SIZES[-1]
+    seeds = torch.randperm(NODES, generator=gen, device=dev)[:bs]
+    seeds[torch.rand(bs, generator=gen, device=dev) < 0.2] = -1
+    seeds = seeds.to(torch.int32)
+    ip = indptr.long()
+    valid = seeds >= 0
+    sl = seeds.long().clamp(min=0)
+    start = torch.where(valid, ip[sl], 0)
+    deg = torch.where(valid, ip[sl + 1] - ip[sl], 0)
+    r0 = torch.where(valid & (deg > 0), start // 128, -1).to(torch.int32)
+    pos = torch.randint(0, 2**62, (bs, k), generator=gen, device=dev) \
+        % deg.clamp(min=1)[:, None]
+    picked = torch.arange(k, device=dev) < deg.clamp(max=k)[:, None]
+    slots = torch.where(picked, start[:, None] + pos, -1).reshape(-1) \
+        .contiguous()
+    h2d, _ = h2d_rate(dev)
+    pair_host = samplers["g"]._exact_rows
+    over_host = samplers["h"]._rot
+    tables = {
+        "rows128": (pair_host, samplers["b"]._exact_rows, r0, 128),
+        "rows256": (over_host, samplers["d"]._rot, r0, 256),
+        "elems": (samplers["g"]._placed[1], indices, slots, 1)}
+    recs = {}
+    for vname, (host_t, dev_t, ids, width) in tables.items():
+        rec = {}
+        for where, tab in (("host", host_t), ("device", dev_t)):
+            check(tab.is_pinned() == (where == "host"),
+                  f"{vname}: the {where} table is misplaced")
+            live = ids[ids >= 0]
+            if width == 1:
+                run = lambda tab=tab, ids=ids: gather.gather_elems(tab, ids)
+                plain = lambda tab=tab, ids=ids: gather.gather_elems_plain(
+                    tab, ids)
+                kname = "gather_elems_kernel"
+                lib = (lambda tab=tab, live=live: tab[live.long()]) \
+                    if where == "device" else None
+                got, want = run(), plain()
+                check(bool((got[ids < 0] == -1).all()),
+                      f"{vname} {where}: a -1 id did not give -1")
+                row_b = tab.element_size()
+            else:
+                out = torch.full((ids.shape[0], width), 7, dtype=torch.int32,
+                                 device=dev)
+                ref = out.clone()
+                run = lambda tab=tab, ids=ids, out=out: gather.gather_rows(
+                    tab, ids, out=out)
+                plain = lambda tab=tab, ids=ids, ref=ref: \
+                    gather.gather_rows_plain(tab, ids, out=ref)
+                kname = "gather_rows_kernel"
+                lib = (lambda tab=tab, live=live: torch.index_select(
+                    tab, 0, live)) if where == "device" else None
+                got, want = run(), plain()
+                dense = live.contiguous()
+                check(same_bits(gather.gather_rows(tab, dense),
+                                gather.gather_rows_plain(tab, dense)),
+                      f"{vname} {where}: the gather of live ids differs "
+                      "from its plain version")
+                row_b = width * 4
+            check(same_bits(got, want), f"{vname} {where}: the gather "
+                  "differs from its plain version")
+            kernels.reset_launches()
+            run()
+            check(kernels.LAUNCHES["gather_elems" if width == 1
+                                   else "gather_rows"] == 1,
+                  f"{vname} {where}: launches {kernels.LAUNCHES}")
+            ms = cuda_ms(run, iters)
+            own = own_ms(run, kname, iters)
+            plain_ms = cuda_ms(plain, 3)
+            lib_ms = None if lib is None else cuda_ms(lib, iters)
+            n_live = int(live.numel())
+            data_b = n_live * row_b
+            dev_b = ids.shape[0] * 4 + (n_live * row_b
+                                        if where == "host" else 2 * data_b)
+            if where == "host":
+                b_host = data_b / h2d * 1e3
+                b_dev = dev_b / HBM_BYTES_PER_S * 1e3
+                b_ms, b_by = (b_host, "bytes (host)") if b_host >= b_dev \
+                    else (b_dev, "bytes (device)")
+            else:
+                b_ms, b_by = bound(dev_b, 0)
+            lines = n_live * max(1, row_b // 128)
+            rate = None if own is None or where == "device" else \
+                lines / (own / 1e3)
+            share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+            print(f"topology gather {vname} {where} table "
+                  f"{tuple(tab.shape)} {str(tab.dtype)[6:]}: ids "
+                  f"{ids.shape[0]} ({n_live} live, the rest -1): wrapper "
+                  f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
+                  f"{plain_ms:.4f} ms"
+                  + ("" if lib_ms is None else
+                     f", indexing yardstick {lib_ms:.4f} ms")
+                  + f", bound {b_ms:.4f} ms ({b_by}"
+                  + (f" at the measured {h2d / 1e9:.2f} GB/s pinned copy "
+                     "rate" if where == "host" else "") + ")"
+                  + ("" if rate is None else
+                     f", {rate / 1e6:.1f}M host read requests/s "
+                     f"({max(1, row_b // 128)} per id)")
+                  + f", exact; on {card}", flush=True)
+            rec[where] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": "bytes",
+                          "library_ms": lib_ms, "max_abs_err": 0.0,
+                          "ids": int(ids.shape[0]), "live_ids": n_live,
+                          "host_requests_per_s": rate}
+        recs[vname] = rec
+    return recs, h2d
+
+
+def phase_sampler(dev, gen, nodes, indptr, indices, card):
+    """``GraphSageSampler`` at bench.py's scale in both modes: the eight
+    arms timed on the same 32 batches, their picks held to each other
+    bit for bit, ``sample()`` free of host synchronisation, HOST mode's
+    footprint on the card, every method's edge ids held to the CSR, and
+    the topology gathers against their plain versions."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, GraphSageSampler
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    check(topo.indptr.data_ptr() == indptr.data_ptr()
+          and topo.indices.data_ptr() == indices.data_ptr(),
+          "CSRTopo copied the graph")
+    meta = topo.exact_bucket_meta()
+    perm = torch.randperm(nodes, generator=gen, device=dev).to(torch.int32)
+    batches = [perm[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(SAMPLER_BATCHES + 1)]
+    print(f"sampler: {nodes} nodes, {indices.numel()} edges, bucket split "
+          f"node_frac {meta.node_frac:.4f} edge_frac {meta.edge_frac:.4f}; "
+          f"pinned for the HOST arms: indices {indices.nbytes} B, pair "
+          f"rows view {((indices.numel() + 255) // 128 + 1) * 512} B, "
+          f"overlap view {((indices.numel() + 255) // 128 + 1) * 1024} B; "
+          f"on {card}", flush=True)
+    recs, kept, samplers = {}, {}, {}
+    for i, (label, mode, kw) in enumerate(SAMPLER_ARMS):
+        rec, outs, s = run_arm(label, mode, kw, topo, batches, card)
+        recs[label] = rec
+        if label in "bdgh":             # their tables feed the gather check
+            samplers[label] = s
+        del s
+        if outs is not None:
+            kept[label] = outs
+        ref = SAME_PICKS.get(label)
+        if ref is not None:
+            check(all(same_sample(x, y) for x, y in zip(kept[label],
+                                                       kept[ref])),
+                  f"sampler ({label}) differs from ({ref})")
+            print(f"sampler check: ({label}) equal to ({ref}) bit for bit "
+                  f"over {len(kept[label])} batches (n_id and every adj)",
+                  flush=True)
+            later = {SAME_PICKS.get(y) for y, _, _ in SAMPLER_ARMS[i + 1:]}
+            for x in (ref, label):
+                if x not in later:
+                    del kept[x]
+        if mode == "HBM":
+            check(not any(rec["launches"].values()),
+                  f"({label}) HBM launched port kernels: {rec['launches']}")
+        else:
+            check(rec["launches"]["gather_elems"] > 0
+                  and rec["launches"]["gather_rows"] > 0,
+                  f"({label}) HOST did not read through the topology "
+                  f"gathers: {rec['launches']}")
+            for key in ("setup_growth_bytes", "warmup_growth_bytes",
+                        "loop_growth_bytes"):
+                check(rec[key] < indices.nbytes,
+                      f"({label}) the card's memory grew by {rec[key]} B "
+                      f"({key}), not below the indices' {indices.nbytes} B")
+            print(f"sampler check: ({label}) HOST mode: "
+                  f"max_memory_allocated grew by {rec['setup_growth_bytes']}"
+                  f" B over set-up, {rec['warmup_growth_bytes']} B over the "
+                  f"warm-up batch and {rec['loop_growth_bytes']} B over the "
+                  f"timed batches beyond the samples they returned, each "
+                  f"below the indices' {indices.nbytes} B", flush=True)
+    check(not kept, f"samples left uncompared: {sorted(kept)}")
+    for a, b, what in (("g", "b", "exact wide"), ("h", "d", "rotation")):
+        print(f"sampler: HOST/HBM SEPS for {what}: "
+              f"{recs[a]['seps'] / recs[b]['seps']:.3f}; on {card}",
+              flush=True)
+
+    gathers, h2d = topology_gathers(dev, samplers, indptr, indices, card,
+                                    iters=20)
+    del samplers
+
+    edges = 0
+    for label, mode, kw in SAMPLER_ARMS:
+        s = GraphSageSampler(topo, SIZES, mode=mode, seed=SEED + 1,
+                             with_eid=True, device=dev, **kw)
+        out = s.sample(batches[0])
+        edges += check_eid_contract(f"({label}) with_eid", indptr, indices,
+                                    out)
+        del s, out
+    print(f"sampler check: with_eid on one batch of each of the "
+          f"{len(SAMPLER_ARMS)} arms: {edges} edges, each id a CSR slot "
+          "of its target holding its source, min(deg, k) edges per target,"
+          " distinct slots within each hop", flush=True)
+    host_l = sum(recs[x]["launches"]["gather_rows"]
+                 + recs[x]["launches"]["gather_elems"] for x in "gh")
+    return recs, gathers, host_l, h2d
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -1148,7 +1539,7 @@ def breakdown(eng, requests, x, layers):
                    "batch")
 
 
-def device_profile(run, units: int, unit: str):
+def device_profile(run, units: int, unit: str, top: int = 12):
     """``torch.profiler`` over one call of ``run`` (``units`` batches or
     steps): wall time, the device's busy time (the union of its kernel
     intervals) and idle share, and the top kernels per unit. Returns
@@ -1182,9 +1573,10 @@ def device_profile(run, units: int, unit: str):
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     print(f"profile: {units} x {unit}, wall {wall_us / 1e3:.3f} ms, device "
           f"busy {busy / 1e3:.3f} ms = {busy / units / 1e3:.3f} ms per "
-          f"{unit}, idle share {1 - busy / wall_us:.3f}", flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (t, n) in top:
+          f"{unit}, idle share {1 - busy / wall_us:.3f}, "
+          f"{len(kernels) / units:g} device kernels per {unit}", flush=True)
+    for name, (t, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:top]:
         print(f"profile: {t / units / 1e3:9.4f} ms/{unit} "
               f"{n // units:5d}x/{unit} {name[:110]}", flush=True)
     return busy / units / 1e3
@@ -1246,6 +1638,8 @@ def main() -> int:
     host_tier, tiered_launches = phase_tiered(dev, gen, NODES, indptr,
                                               indices, card, BATCHES,
                                               iters=20)
+    arms, topo_gathers, host_launches, h2d = phase_sampler(
+        dev, gen, NODES, indptr, indices, card)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1269,6 +1663,21 @@ def main() -> int:
         "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"],
         "served_launch_own_ms": host_tier["served_launch_own_ms"],
         "fp32": host_tier["fp32"]}
+    elems = topo_gathers["elems"]["host"]
+    gather_entry["host_topology"] = {
+        "name": "gather_elems + gather_rows (int32 rows views)",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"], "launches": host_launches,
+        "launches_per_host_batch": {
+            arm["arm"]: {k: v / SAMPLER_BATCHES for k, v in
+                         arm["launches"].items() if v}
+            for arm in arms.values() if arm["mode"] == "HOST"},
+        "max_abs_err": 0.0, "ms": elems["ms"], "own_ms": elems["own_ms"],
+        "plain_ms": elems["plain_ms"], "bound_ms": elems["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "h2d_bytes_per_s": h2d,
+        "variants": topo_gathers}
+    line["sampler"] = [{k: v for k, v in arm.items()} for arm in
+                       arms.values()]
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ the TPU kernels, which the serve and train steps run through the fused
 walk, are CUDA kernels for Hopper (``csrc/``), built at first use. The
 train steps are in ``parallel`` (``build_train_step``). ``Feature`` is
 the tiered store: its hot tier on the card, its cold tier in pinned host
-memory that the card's row gather reads.
+memory that the card's row gather reads. ``GraphSageSampler`` samples
+k-hop neighbourhoods with the topology on the card (HBM mode) or pinned
+in host memory (HOST mode), read by the card's gathers.
 """
 
 __version__ = "0.1.0"
@@ -16,8 +18,10 @@ __version__ = "0.1.0"
 from .feature import DeviceConfig, Feature
 from .models import GraphSAGE
 from .ops.quant import quantize
+from .pyg import GraphSageSampler, SampleJob
 from .serving import ServeEngine, build_serve_step
 from .utils import CSRTopo, parse_size
 
 __all__ = ["CSRTopo", "DeviceConfig", "Feature", "GraphSAGE",
-           "ServeEngine", "build_serve_step", "parse_size", "quantize"]
+           "GraphSageSampler", "SampleJob", "ServeEngine",
+           "build_serve_step", "parse_size", "quantize"]

@@ -13,6 +13,11 @@
 //                             over a tier)
 //   qt_gather_rows_q8      <- the same over int8 codes with separate
 //                             scale and zero arrays (a device table)
+//   qt_gather_elems        <- the same gather over a 1-D table of 4- or
+//                             8-byte elements: the sampler's reads of a
+//                             topology in pinned host memory (indptr,
+//                             indices, an edge-id map); its int32 rows
+//                             views go through qt_gather_rows
 //
 // What bounds it. From device memory, bytes: 4 + 2 * row bytes per id at
 // 3.35 TB/s. From pinned host memory, the rows cross PCIe, at best at the
@@ -50,6 +55,11 @@
 // leaves its output row as it is and reads nothing: the tiered lookup
 // predicates each branch's reads this way instead of waiting for the host
 // to pick a branch.
+//
+// Elements: one id a thread, int32 or int64 ids; a negative id gives -1
+// and reads nothing (a read the sampler does not take), an id past the
+// table is clamped into it. From pinned host memory each live id is one
+// read request over PCIe, so the request rate, not bytes, bounds it.
 //
 // Host tables: with table_on_host = 1 the table pointers are pinned host
 // memory (cudaHostAlloc, as torch's pin_memory allocates it), mapped into
@@ -249,6 +259,20 @@ gather_rows_q8_kernel(const int8_t* __restrict__ codes,
   }
 }
 
+// 1-D gather, one id a thread: out[i] = table[ids[i]], -1 where
+// ids[i] < 0.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+gather_elems_kernel(const T* __restrict__ table, const I* __restrict__ ids,
+                    int64_t n_ids, int64_t n_rows, T* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_ids; i += stride) {
+    const int64_t id = ids[i];
+    out[i] = id < 0 ? static_cast<T>(-1) : table[clamp_id(id, n_rows)];
+  }
+}
+
 // Blocks for `warps` warps of work, at most as many as the card holds at
 // once for `kernel` (a grid-stride loop takes the rest).
 template <typename K>
@@ -319,6 +343,19 @@ int launch_q8(const void* codes, const void* scale, const void* zero,
       static_cast<const int8_t*>(codes), static_cast<const float*>(scale),
       static_cast<const float*>(zero), static_cast<const int*>(ids), n_ids,
       n_rows, dim, skip_negative, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename I>
+int launch_elems(const void* table, const void* ids, int64_t n_ids,
+                 int64_t n_rows, void* out, cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(gather_elems_kernel<T, I>, (n_ids + 31) / 32,
+                           &grid);
+  if (err != 0) return err;
+  gather_elems_kernel<T, I><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const I*>(ids), n_ids, n_rows,
+      static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -417,6 +454,27 @@ int qt_gather_rows_q8(const void* codes, const void* scale, const void* zero,
                            skip_negative, s);
   return launch_q8<false>(c, sc, z, ids, n_ids, n_rows, dim, out,
                           skip_negative, s);
+}
+
+// table: n_rows elements of elem_bytes (4 or 8) bytes, on the device or
+// in pinned host memory; ids: n_ids ids of id_bytes (4 or 8) bytes on the
+// device; out: n_ids elements on the device.
+int qt_gather_elems(const void* table, int table_on_host, int elem_bytes,
+                    const void* ids, int id_bytes, long long n_ids,
+                    long long n_rows, void* out, void* stream) {
+  if ((elem_bytes != 4 && elem_bytes != 8) || (id_bytes != 4 && id_bytes != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* t = nullptr;
+  const cudaError_t err = device_address(table, table_on_host, &t);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_bytes == 4)
+    return id_bytes == 4
+               ? launch_elems<int32_t, int32_t>(t, ids, n_ids, n_rows, out, s)
+               : launch_elems<int32_t, int64_t>(t, ids, n_ids, n_rows, out, s);
+  return id_bytes == 4
+             ? launch_elems<int64_t, int32_t>(t, ids, n_ids, n_rows, out, s)
+             : launch_elems<int64_t, int64_t>(t, ids, n_ids, n_rows, out, s);
 }
 
 }  // extern "C"

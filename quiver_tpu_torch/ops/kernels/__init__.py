@@ -6,7 +6,8 @@ from ._build import LAUNCHES, reset_launches
 from .fused import (fused_hot_hop, fused_hot_hop_reference, fused_multihop,
                     fused_multihop_reference, fused_sample_hop,
                     fused_sample_multihop, multihop_plain)
-from .gather import gather_rows, gather_rows_plain
+from .gather import (gather_elems, gather_elems_plain, gather_rows,
+                     gather_rows_plain)
 from .sample_kernel import sample_layer_kernel, sample_layer_plain
 
 
@@ -21,6 +22,7 @@ def build_kernels() -> None:
 __all__ = ["LAUNCHES", "build_kernels", "fused_hot_hop",
            "fused_hot_hop_reference", "fused_multihop",
            "fused_multihop_reference", "fused_sample_hop",
-           "fused_sample_multihop", "gather_rows", "gather_rows_plain",
+           "fused_sample_multihop", "gather_elems", "gather_elems_plain",
+           "gather_rows", "gather_rows_plain",
            "multihop_plain", "reset_launches", "sample_layer_kernel",
            "sample_layer_plain"]

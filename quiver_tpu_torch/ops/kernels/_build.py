@@ -36,7 +36,7 @@ build_seconds: dict = {}
 # launches of each kernel since the last reset_launches(); a wrapper adds
 # one exactly where it launches its kernel
 LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0, "sample_layer": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "gather_elems": 0}
 
 
 def reset_launches() -> None:

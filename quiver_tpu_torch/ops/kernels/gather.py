@@ -1,7 +1,8 @@
 """Row gather (counterpart of ``quiver_tpu/ops/pallas/gather.py``).
 
 :func:`gather_rows` computes ``out[i] = feat[ids[i]]`` for a 2-D
-contiguous fp32, bf16, fp16 or int8 table, or for an int8
+contiguous fp32, bf16, fp16, int8 or int32 table (int32: the sampler's
+rows views of a topology), or for an int8
 ``QuantizedTensor`` with fp32 sidecars, whose rows it dequantizes to
 fp32 as it reads them: its leaves contiguous (a device table), or
 views into one buffer of packed rows (``quant.pack``: the cold tier as
@@ -18,6 +19,11 @@ leaves its row of ``out`` as it is, reading nothing: the tiered lookup
 gives each branch's reads -1 where the branch does not read, so the
 host decides nothing. Without ``out=`` every id must lie in the table
 (the kernel clamps one that does not).
+
+:func:`gather_elems` is the same gather over a 1-D int32 or int64 table
+(``indptr``, ``indices``, an edge-id map): the sampler's HOST mode reads
+its pinned topology through it, one id a thread, a negative id giving -1
+and reading nothing. :func:`gather_elems_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from . import _build
 from .sample_kernel import _check_1d_int32
 
 _LIB = "gather"
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8,
+           torch.int32)
+_ELEM_DTYPES = (torch.int32, torch.int64)
 
 
 def _lib():
@@ -49,6 +57,8 @@ def _lib():
         lib.qt_gather_word_bytes.restype = i
         lib.qt_gather_q8_vec.argtypes = [p, p, ll]
         lib.qt_gather_q8_vec.restype = i
+        lib.qt_gather_elems.argtypes = [p, i, i, p, i, ll, ll, p, p]
+        lib.qt_gather_elems.restype = i
         lib._qt_bound = True
     return lib
 
@@ -62,8 +72,8 @@ def _leaves(feat):
             or data.dtype not in _DTYPES \
             or (scale is None and not data.is_contiguous()):
         raise ValueError(
-            "gather_rows takes a contiguous 2-D fp32, bf16, fp16 or int8 "
-            f"table, got {getattr(data, 'dtype', type(data))} "
+            "gather_rows takes a contiguous 2-D fp32, bf16, fp16, int8 or "
+            f"int32 table, got {getattr(data, 'dtype', type(data))} "
             f"{tuple(getattr(data, 'shape', ()))}")
     if scale is None:
         return data, None, None, None
@@ -190,4 +200,54 @@ def gather_rows(feat, ids, out=None):
                 int(on_host), ids.data_ptr(), n, data.shape[0], dim,
                 out.data_ptr(), skip, stream)
     _build.launched(err, "gather_rows")
+    return out
+
+
+def gather_elems_plain(table, ids):
+    """Plain version of :func:`gather_elems`: index on the table's side
+    (host or device) with the ids clamped into it, copy to the ids'
+    device, -1 where the id is negative."""
+    idx = ids.to(table.device).long().clamp(0, max(table.shape[0] - 1, 0))
+    vals = table[idx].to(ids.device)
+    return torch.where(ids >= 0, vals, -1)
+
+
+def gather_elems(table, ids):
+    """``out[i] = table[ids[i]]`` for a contiguous 1-D int32 or int64
+    ``table``; ``ids`` a contiguous 1-D int32 or int64 tensor. A negative
+    id gives -1 and reads nothing; an id past the table is clamped into
+    it. The result has the table's dtype and lies on the ids' device. On
+    a card the table lies on that card or in pinned host memory, which
+    the kernel reads over PCIe; on CPU ids the plain version runs."""
+    for t, name in ((table, "table"), (ids, "ids")):
+        if not torch.is_tensor(t) or t.dtype not in _ELEM_DTYPES \
+                or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(
+                f"gather_elems: {name} must be a contiguous 1-D int32 or "
+                f"int64 tensor, got {getattr(t, 'dtype', type(t))} "
+                f"{tuple(getattr(t, 'shape', ()))}")
+    dev, home = ids.device, table.device
+    on_host = dev.type == "cuda" and home.type == "cpu"
+    if on_host and not table.is_pinned():
+        raise ValueError("gather_elems reads a host table from the card "
+                         "only when it lies in pinned memory")
+    if not on_host and home != dev:
+        raise ValueError(f"gather_elems: a table on {home} and ids on {dev}")
+    if dev.type == "cpu":
+        return gather_elems_plain(table, ids)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_elems runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=table.dtype, device=dev)
+    if n == 0:
+        return out
+    if table.shape[0] < 1:
+        raise ValueError("gather_elems: ids index an empty table")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().qt_gather_elems(
+            table.data_ptr(), int(on_host), table.element_size(),
+            ids.data_ptr(), ids.element_size(), n, table.shape[0],
+            out.data_ptr(), stream)
+    _build.launched(err, "gather_elems")
     return out

@@ -1,3 +1,3 @@
-from .sage_sampler import Adj, layer_shapes
+from .sage_sampler import Adj, GraphSageSampler, SampleJob, layer_shapes
 
-__all__ = ["Adj", "layer_shapes"]
+__all__ = ["Adj", "GraphSageSampler", "SampleJob", "layer_shapes"]

@@ -3,6 +3,12 @@
 Node ids are int32; ``indptr`` widens to int64 only when the edge count
 needs it. Isolated tail nodes are kept when ``node_count`` is passed.
 The tensors live on the card unless the caller passes ``device="cpu"``.
+
+The JAX package keeps a topology whose offsets exceed int32 in host
+numpy and says so with ``requires_host_sampling``, because JAX's default
+32-bit mode would wrap them on the device. torch holds an int64
+``indptr`` on the card as it is, so the port has no such case and no
+counterpart of that method.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ class CSRTopo:
         else:
             raise ValueError("provide either edge_index or indptr+indices")
         self._feature_order = None
+        self._bucket_meta = {}   # {step: ExactBucketMeta}, computed lazily
 
     @property
     def indptr(self) -> torch.Tensor:
@@ -106,6 +113,18 @@ class CSRTopo:
     @property
     def edge_count(self) -> int:
         return int(self._indices.shape[0])
+
+    def exact_bucket_meta(self, step: int = 128):
+        """The wide-exact sampler's degree-bucket split
+        (``ops.sample.ExactBucketMeta``), computed once per rows-layout
+        ``step`` and cached: the hub fractions that size its static
+        budget of scattered reads (``suggest_hub_cap``)."""
+        meta = self._bucket_meta.get(step)
+        if meta is None:
+            from ..ops.sample import exact_bucket_meta
+            meta = exact_bucket_meta(self._indptr, step=step)
+            self._bucket_meta[step] = meta
+        return meta
 
     def __repr__(self):
         return (f"CSRTopo(node_count={self.node_count}, "

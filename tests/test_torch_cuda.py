@@ -15,6 +15,15 @@ The train step is counted (one launch of each kernel per hop) and its
 loss and gradients through the kernel walk are held against the plain
 walk's; the split serve path answers on the card.
 
+The sampler's topology gathers (``gather_rows`` over int32 rows views
+128 and 256 wide, ``gather_elems`` over 4- and 8-byte elements with 4-
+and 8-byte ids) read pinned and device tables, with -1 ids, 1, 31, 33
+and 270,336 of them, equal to their plain versions; ``GraphSageSampler``
+in HOST mode gives HBM mode's picks bit for bit in every method, HBM
+mode launching no kernel of the port and HOST mode the topology
+gathers, and ``sample()`` runs under
+``torch.cuda.set_sync_debug_mode("error")`` in both modes.
+
 The host-tier row gather reads pinned host tables (fp32, bf16, int8 with
 sidecars; misaligned widths and bases) from the card, with and without
 ``out=`` and its negative ids, equal to its plain version; so does its
@@ -30,7 +39,8 @@ import torch
 
 import copy
 
-from quiver_tpu_torch import CSRTopo, Feature, GraphSAGE, ServeEngine
+from quiver_tpu_torch import (CSRTopo, Feature, GraphSAGE, GraphSageSampler,
+                              ServeEngine)
 from quiver_tpu_torch.ops import quant
 from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
 from quiver_tpu_torch.parallel import (build_train_step, init_state,
@@ -204,7 +214,8 @@ def test_split_walk_equals_fused_walk(graph):
     rn, rl, rx = fused.fused_multihop_reference(*args)
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {"fused_sample_hop": 0, "fused_hot_hop": 0,
-                              "sample_layer": 3, "gather_rows": 0}
+                              "sample_layer": 3, "gather_rows": 0,
+                              "gather_elems": 0}
     n_id, layers, x = fused.fused_multihop(*args)
     assert torch.equal(n_id, rn)
     for a, b in zip(layers, rl):
@@ -225,7 +236,8 @@ def test_engine_serves_through_the_kernels(graph):
     torch.cuda.synchronize()
     assert out.shape == (64, 5) and torch.isfinite(out).all()
     assert fused.LAUNCHES == {"fused_sample_hop": 1, "fused_hot_hop": 1,
-                              "sample_layer": 0, "gather_rows": 0}
+                              "sample_layer": 0, "gather_rows": 0,
+                              "gather_elems": 0}
 
 
 def _train_batch(graph):
@@ -255,7 +267,8 @@ def test_train_step_launches_each_kernel_per_hop(graph):
         losses.append(loss)
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {"fused_sample_hop": 3, "fused_hot_hop": 3,
-                              "sample_layer": 0, "gather_rows": 0}
+                              "sample_layer": 0, "gather_rows": 0,
+                              "gather_elems": 0}
     assert state.step == 3 and torch.isfinite(torch.stack(losses)).all()
 
 
@@ -478,3 +491,98 @@ def test_engine_serves_a_tiered_store(graph):
     assert fused.LAUNCHES["gather_rows"] > 0
     torch.testing.assert_close(out.cpu(), ref.run(ids, hop_seeds=[3, 4]),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_ids", GATHER_COUNTS)
+@pytest.mark.parametrize("kind", GATHER_IDS)
+@pytest.mark.parametrize("where", ["host", "device"])
+@pytest.mark.parametrize("width", [128, 256])
+def test_int32_rows_gather_equals_plain(card, width, where, kind, n_ids):
+    rows = torch.from_numpy(np.random.default_rng(width).integers(
+        -2**31, 2**31 - 1, (N, width), dtype=np.int64).astype(np.int32))
+    rows = pinned_put(rows, card, "rows") if where == "host" \
+        else rows.to(card)
+    assert rows.is_pinned() == (where == "host")
+    _check_gather(rows, _gather_ids(card, kind, n_ids), width, torch.int32)
+
+
+@pytest.mark.parametrize("n_ids", GATHER_COUNTS)
+@pytest.mark.parametrize("kind", GATHER_IDS)
+@pytest.mark.parametrize("where", ["host", "device"])
+@pytest.mark.parametrize("dtype,id_dtype", [
+    (torch.int32, torch.int32), (torch.int32, torch.int64),
+    (torch.int64, torch.int32), (torch.int64, torch.int64)])
+def test_gather_elems_equals_plain(card, dtype, id_dtype, where, kind,
+                                   n_ids):
+    g = np.random.default_rng(n_ids)
+    table = torch.from_numpy(g.integers(-2**40, 2**40, 5 * N)).to(dtype)
+    table = pinned_put(table, card, "elems") if where == "host" \
+        else table.to(card)
+    ids = _gather_ids(card, kind, n_ids).to(id_dtype) * 5 + \
+        (_gather_ids(card, "dense", n_ids) % 5).to(id_dtype)
+    ids = torch.where(ids < 0, -1, ids).contiguous()
+    before = fused.LAUNCHES["gather_elems"]
+    got = gather.gather_elems(table, ids)
+    want = gather.gather_elems_plain(table, ids)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    assert torch.equal(got, want)
+    assert (got[ids < 0] == -1).all()
+    assert fused.LAUNCHES["gather_elems"] == before + 1
+
+
+def test_topology_reader_refuses_unpinned_host_tables(card):
+    from quiver_tpu_torch.ops.sample import take
+    ids = torch.arange(4, device=card)
+    with pytest.raises(ValueError, match="pinned"):
+        take(torch.arange(10, dtype=torch.int32), ids)
+    with pytest.raises(ValueError, match="pinned"):
+        gather.gather_elems(torch.arange(10, dtype=torch.int32), ids)
+    assert torch.equal(take(torch.arange(10, device=card), ids), ids)
+
+
+SAMPLER_METHODS = [dict(sampling="exact", wide_exact=False),
+                   dict(sampling="exact"),
+                   dict(sampling="exact", layout="overlap"),
+                   dict(sampling="rotation"),
+                   dict(sampling="rotation", layout="overlap"),
+                   dict(sampling="rotation", layout="overlap",
+                        shuffle="butterfly"),
+                   dict(sampling="window"),
+                   dict(sampling="window", layout="overlap",
+                        shuffle="butterfly")]
+
+
+@pytest.mark.parametrize("kw", SAMPLER_METHODS)
+def test_sampler_host_equals_hbm_without_sync(graph, kw):
+    """Both modes draw the same picks bit for bit; HBM mode launches no
+    kernel of the port, HOST mode the topology gathers; ``sample()``
+    after the first batch runs with no host synchronisation."""
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"],
+                   eid=torch.randperm(int(graph["indices"].shape[0]),
+                                      device=graph["seeds"].device))
+    seeds = graph["seeds"][graph["seeds"] >= 0][:200].contiguous()
+    out = {}
+    for mode in ("HBM", "HOST"):
+        s = GraphSageSampler(topo, [5, 4, 3], mode=mode, seed=11,
+                             with_eid=True, **kw)
+        s.sample(seeds)
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = s.sample(seeds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[mode] = (got, dict(fused.LAUNCHES))
+        if mode == "HOST":
+            assert s._placed[1].is_pinned() and s._placed[0].is_pinned()
+    (hbm, hbm_l), (host, host_l) = out["HBM"], out["HOST"]
+    assert not any(hbm_l.values()), hbm_l
+    assert host_l["gather_elems"] > 0 and host_l["fused_hot_hop"] == 0
+    wide = kw["sampling"] != "exact" or kw.get("wide_exact", True)
+    assert (host_l["gather_rows"] > 0) == wide
+    assert torch.equal(hbm[0], host[0]) and hbm[1] == host[1]
+    for a, b in zip(hbm[2], host[2]):
+        assert torch.equal(a.edge_index, b.edge_index)
+        assert torch.equal(a.e_id, b.e_id) and a.size == b.size

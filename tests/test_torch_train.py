@@ -449,11 +449,13 @@ def test_sample_multihop_compaction_matches_jax(data):
 
 
 def test_sample_multihop_refuses_later_variants(data):
+    """Weighted sampling and the collector are later work; the rotation,
+    window, rows-view and edge-id knobs run (tests/test_torch_sampler.py)."""
     ip, ix, sd = (_t(data[k]) for k in ("indptr", "indices", "seeds"))
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(method="rotation"), dict(method="window"),
-               dict(edge_weight=torch.ones(ix.shape[0])),
-               dict(indices_rows=ix), dict(eid=True),
-               dict(collector=object())):
-        with pytest.raises(NotImplementedError, match="item 4"):
+    for kw, item in ((dict(edge_weight=torch.ones(ix.shape[0])), "item 4"),
+                     (dict(edge_weight=torch.ones(ix.shape[0]),
+                           method="window"), "item 4"),
+                     (dict(collector=object()), "collect_metrics")):
+        with pytest.raises(NotImplementedError, match=item):
             sample_multihop(ip, ix, sd, [2], gen, **kw)
