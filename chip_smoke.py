@@ -96,14 +96,48 @@ Phases:
    elements of ``indices``; pinned and device tables; -1 ids) equal to
    their plain versions, with own times against their bounds, host read
    requests per second and, for device tables, indexing as a yardstick;
-8. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+8. weighted sampling and GAT (``examples/gat_weighted.py``'s
+   configuration on the graph of phase 1): edge weights ``0.5 +
+   deg[indices] / max(deg)`` made on the card; four weighted sampler
+   arms at [15, 10, 5], batch 1024, on phase 7's batches (16 timed
+   each): HBM (i) exact (the ``row_cap`` pool draw), (j) rotation
+   overlap+sort (the windowed weighted draw); HOST (k) exact, (l)
+   rotation overlap+sort (weights and weight rows pinned, read by
+   ``gather_elems`` and ``gather_rows``), with the phase 7 line per arm,
+   the peak allocated bytes over one batch, (k) = (i) and (l) = (j) bit
+   for bit, the HBM arms launching no kernel of the port, HOST growth on
+   the card below the weights' bytes, butterfly with weighted rotation
+   refused, and one ``with_eid`` batch per arm over weights with 10% of
+   the edges zeroed held to the contract (CSR slots of their targets,
+   no pick of weight 0, ``min(deg, k)`` draws per target of positive
+   mass); the HOST arms' weight reads (pinned fp32 elements at the hop-2
+   pool, pinned fp32 rows 128 and 256 wide) against their plain
+   versions with own times, bounds and read requests per second; GAT
+   (100 -> 4 x 64 -> 47, 2 layers, dropout 0, Adam 3e-3) trained 1 + 32
+   steps at [10, 5] through ``GraphSageSampler(edge_weight=...,
+   sampling="exact")``, the masked gather and
+   ``build_split_train_step``'s ``step_fn``, then 1 + 32 with
+   ``sampling="rotation"`` (labels: each node's most common neighbour
+   class of phase 5's classes, since GAT has no self term; the loss
+   must fall below the first 8's mean and below ln 47), step p50/p99,
+   edges per second, device time and idle share; GAT through the fused
+   walk (1 + 1 launches a step, loss and gradients within 1e-4 of the
+   plain walk), served 4 batches by ``ServeEngine(fused_hot_hop=True)``
+   (one within 1e-4 of the plain walk); one GraphSAGE step of
+   ``build_train_step(method="rotation", indices_stride=128)`` over the
+   reshuffled overlap view and one ``ServeEngine(method="rotation")``
+   batch; one 1-step ``random_walk`` from 1024 starts held to its
+   contract;
+9. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
    under ``fp32`` and the served launches' own times under
    ``served_launch_own_ms``, and the topology variants of phase 7 under
-   ``host_topology``; the arms' records under ``sampler``), then the
-   last line ``{"ok": true, "device": {...}}``.
+   ``host_topology``, and the weight reads of phase 8 under
+   ``host_weights``; the arms' records under ``sampler``, phase 8's
+   under ``weighted``), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
 the script exits 2 at once. TF32 is switched off for matrix products and
@@ -717,7 +751,7 @@ def grads_of(model, loss_fn):
 
 
 def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
-                      hop_seeds, dropout_seed):
+                      hop_seeds, dropout_seed, sizes=SIZES):
     """One train step's loss and gradients from the same parameters,
     hop seeds and dropout seed, once through the kernel walk (the step's
     own loss) and once through the plain walk: equal frontier and COOs,
@@ -728,8 +762,8 @@ def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
     from quiver_tpu_torch.ops.kernels import fused
     from quiver_tpu_torch.parallel import layers_to_adjs, train
     _, layers = train._fused_multihop_x(table, None, indptr, indices, seeds,
-                                        SIZES, hop_seeds, ROW_CAP)
-    rn, rl, rx = fused.multihop_plain(indptr, indices, seeds, table, SIZES,
+                                        sizes, hop_seeds, ROW_CAP)
+    rn, rl, rx = fused.multihop_plain(indptr, indices, seeds, table, sizes,
                                       hop_seeds, ROW_CAP)
     check(torch.equal(layers[-1].n_id, rn), f"train {name}: frontier differs "
           "from the plain walk")
@@ -737,11 +771,11 @@ def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
         check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
               f"train {name}: layer COO differs from the plain walk")
     loss_k, grads_k = grads_of(copy.deepcopy(model), lambda m: (
-        train._fused_loss(m, SIZES, BATCH, table, None, indptr, indices,
+        train._fused_loss(m, sizes, BATCH, table, None, indptr, indices,
                           seeds, labels, hop_seeds, dropout_seed,
                           fused={"row_cap": ROW_CAP})))
     loss_p, grads_p = grads_of(copy.deepcopy(model), lambda m: (
-        train._model_loss(m, rx, layers_to_adjs(rl, BATCH, SIZES), labels,
+        train._model_loss(m, rx, layers_to_adjs(rl, BATCH, sizes), labels,
                           BATCH, dropout_seed)))
     check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_TOL,
           f"train {name}: loss {loss_k} against the plain walk's {loss_p}")
@@ -1229,22 +1263,32 @@ def check_eid_contract(name, indptr, indices, out):
     return edges
 
 
-def run_arm(label, mode, kw, topo, batches, card):
-    """One arm: the sampler built and placed, one reshuffle where the
+def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
+            keep=KEEP, sync_free=SYNC_FREE):
+    """One arm: the sampler built and placed (with ``edge_weight``, a
+    weighted sampler with its weights placed), one reshuffle where the
     method has one (timed apart), a warm-up batch, then the timed
-    batches. Returns its record and the timed batches' samples."""
+    batches. Returns its record, the timed batches' samples (for the
+    arms in ``keep``) and the sampler."""
     import torch
     from quiver_tpu_torch import GraphSageSampler
     from quiver_tpu_torch.ops import kernels
-    name = f"({label}) {arm_name(mode, kw)}"
+    weighted = edge_weight is not None
+    aname = arm_name(mode, kw)
+    if weighted:         # the weighted exact draw is the pool draw
+        aname = f"weighted {mode} exact pool" if kw["sampling"] == "exact" \
+            else f"weighted {aname}"
+    name = f"({label}) {aname}"
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = GraphSageSampler(topo, SIZES, mode=mode, seed=SEED,
-                         device=topo.device, **kw)
+                         device=topo.device, edge_weight=edge_weight, **kw)
     s.lazy_init_quiver()
-    if kw["sampling"] == "exact" and kw.get("wide_exact", True):
+    if weighted:
+        s._ensure_weights_placed()
+    elif kw["sampling"] == "exact" and kw.get("wide_exact", True):
         s._ensure_exact_rows()
         s._exact_hub_frac()
     torch.cuda.synchronize()
@@ -1276,18 +1320,20 @@ def run_arm(label, mode, kw, topo, batches, card):
     launches = dict(kernels.LAUNCHES)
     kept = sum(sample_bytes(o) for o in outs)
     loop_grow = torch.cuda.max_memory_allocated() - before - kept
+    resident = torch.cuda.memory_allocated() - before - kept
     edges = int(sum(a.mask.sum() for o in outs for a in o[2]))
     n = len(outs)
-    rec = {"arm": label, "name": arm_name(mode, kw), "mode": mode,
+    rec = {"arm": label, "name": aname, "mode": mode,
            "seps": edges / wall, "ms_per_batch": wall * 1e3 / n,
            "edges_per_batch": edges / n, "reshuffle_ms": reshuffle_ms,
            "setup_s": setup_s, "launches": launches,
            "setup_growth_bytes": setup_grow,
            "warmup_growth_bytes": warm_grow, "loop_growth_bytes": loop_grow,
-           "sync_free": label in SYNC_FREE}
+           "resident_growth_bytes": resident,
+           "sync_free": label in sync_free}
     per = ", ".join(f"{k} {v / n:g}" for k, v in launches.items() if v)
     sync = ""
-    if label in SYNC_FREE:       # four more batches, none may synchronise
+    if label in sync_free:       # four more batches, none may synchronise
         torch.cuda.set_sync_debug_mode("error")
         try:
             for b in batches[1:5]:
@@ -1302,10 +1348,12 @@ def run_arm(label, mode, kw, topo, batches, card):
           f"{rec['seps']:.6g} sampled edges/s; reshuffle "
           f"{fmt_ms(reshuffle_ms)}; set-up {setup_s:.2f} s; launches per "
           f"batch: {per or 'none'}{sync}; on {card}", flush=True)
+    prof = {}
     rec["device_ms_per_batch"] = device_profile(
         lambda: [s.sample(b) for b in batches[1:5]], 4, f"({label}) batch",
-        top=6)
-    return rec, (outs if label in KEEP else None), s
+        top=6, stats=prof)
+    rec.update(prof)
+    return rec, (outs if label in keep else None), s
 
 
 def topology_gathers(dev, samplers, indptr, indices, card, iters):
@@ -1515,7 +1563,559 @@ def phase_sampler(dev, gen, nodes, indptr, indices, card):
           " distinct slots within each hop", flush=True)
     host_l = sum(recs[x]["launches"]["gather_rows"]
                  + recs[x]["launches"]["gather_elems"] for x in "gh")
-    return recs, gathers, host_l, h2d
+    return recs, gathers, host_l, h2d, topo, batches
+
+
+# -- phase 8: weighted sampling, GAT, the windowed steps, random walks ------
+
+WEIGHTED_ARMS = [
+    ("i", "HBM", dict(sampling="exact")),
+    ("j", "HBM", dict(sampling="rotation", layout="overlap")),
+    ("k", "HOST", dict(sampling="exact")),
+    ("l", "HOST", dict(sampling="rotation", layout="overlap"))]
+WEIGHTED_SAME = {"k": "i", "l": "j"}          # arm: the arm it equals
+WEIGHTED_BATCHES = 16                         # timed batches of each arm
+ZERO_FRAC = 0.1          # the share of edges whose weight the check zeroes
+GAT_SIZES = [10, 5]
+GAT_HIDDEN, GAT_HEADS = 64, 4                 # examples/gat_weighted.py
+GAT_STEPS = 32
+
+
+def example_weights(indices, deg):
+    """``examples/gat_weighted.py``'s refresh weights on the card: ``0.5
+    + deg[indices] / max(deg)``, fp32, CSR-slot-aligned."""
+    import torch
+    d = deg.to(torch.float32)
+    return 0.5 + d[indices.long()] / d.max()
+
+
+def majority_labels(indptr, indices, cls, nodes):
+    """Each node's label: the class (of ``cls``) most common among its
+    neighbours, ties to the lowest; a node with none keeps its own. GAT
+    has no self term, so it can learn only what the neighbours carry."""
+    import torch
+    from quiver_tpu_torch.ops.sample import edge_row_ids
+    rows = edge_row_ids(indptr, indices.shape[0]).long()
+    counts = torch.zeros(nodes * CLASSES, dtype=torch.int32,
+                         device=cls.device)
+    counts.index_add_(0, rows * CLASSES + cls.long()[indices.long()],
+                      torch.ones_like(indices))
+    del rows
+    deg = (indptr[1:] - indptr[:-1]).long()
+    return torch.where(deg > 0, counts.view(nodes, CLASSES).argmax(1),
+                       cls.long()).to(torch.int32)
+
+
+def check_weighted_contract(name, indptr, indices, w, out, windowed):
+    """One ``with_eid`` sample of a weighted arm over weights with zeros:
+    each edge id a CSR slot of its target holding its source, none of
+    weight 0; per target ``min(deg, k)`` draws where the target's weight
+    (within the window, for a windowed draw whose segment passes it) is
+    positive, else none. Returns the edges checked."""
+    import torch
+    n_id, bs, adjs = out
+    ip = indptr.long()
+    csum = torch.cat([w.new_zeros(1, dtype=torch.float64),
+                      torch.cumsum(w.double(), 0)])   # one prefix sum
+    edges = 0
+    n_valid = bs
+    for hop, (adj, k) in enumerate(zip(adjs[::-1], SIZES)):
+        m = adj.mask
+        src, dst = adj.edge_index[0][m].long(), adj.edge_index[1][m].long()
+        slot = adj.e_id[m].long()
+        t, u = n_id[dst].long(), n_id[src].long()
+        check(bool(((ip[t] <= slot) & (slot < ip[t + 1])).all()),
+              f"{name} hop {hop}: an edge id outside its target's segment")
+        check(torch.equal(indices[slot].long(), u),
+              f"{name} hop {hop}: indices[slot] is not the edge's source")
+        check(bool((w[slot] > 0).all()),
+              f"{name} hop {hop}: a pick on a zero-weight edge")
+        seeds = n_id[:n_valid].long()
+        deg = ip[seeds + 1] - ip[seeds]
+        cnt = torch.bincount(dst, minlength=adj.size[1])
+        mass = csum[ip[seeds + 1]] - csum[ip[seeds]]
+        full = deg.clamp(max=k)
+        sure = mass > 0 if not windowed else (mass > 0) & (deg <= 129)
+        check(torch.equal(cnt[:n_valid][sure], full[sure])
+              and bool((cnt[:n_valid][mass == 0] == 0).all())
+              and bool(((cnt[:n_valid] == 0) | (cnt[:n_valid] == full))
+                       .all())
+              and not cnt[n_valid:].any(),
+              f"{name} hop {hop}: draws per target differ from min(deg, k)")
+        n_valid = max(n_valid, int(src.max()) + 1 if src.numel() else 0)
+        edges += slot.numel()
+    return edges
+
+
+def weight_gathers(dev, samplers, indptr, card, h2d, iters):
+    """The HOST weighted arms' reads against their plain versions at
+    their shapes: the pool draw's pinned fp32 weights at hop 2 (a
+    180,224-seed frontier, 80% live, each live seed's first min(deg,
+    2048) slots and -1 for the rest of its 2048 columns), and the pinned
+    fp32 weight rows, 128 (the pair layout) and 256 wide, at the
+    frontier's row ids; own times against the copy-rate bound, host
+    read requests per second."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.utils.placement import pinned_put
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bs = BATCH
+    for k in SIZES[:-1]:
+        bs *= 1 + k
+    seeds = torch.randperm(NODES, generator=gen, device=dev)[:bs]
+    seeds[torch.rand(bs, generator=gen, device=dev) < 0.2] = -1
+    ip = indptr.long()
+    valid = seeds >= 0
+    sl = seeds.long().clamp(min=0)
+    start = torch.where(valid, ip[sl], 0)
+    deg = torch.where(valid, ip[sl + 1] - ip[sl], 0)
+    offs = torch.arange(ROW_CAP, device=dev)[None, :]
+    pool = torch.where(offs < deg.clamp(max=ROW_CAP)[:, None],
+                       start[:, None] + offs, -1).reshape(-1)
+    r0 = torch.where(valid & (deg > 0), start // 128, -1).to(torch.int32)
+    w_host = samplers["k"]._weight_placed
+    rows256 = samplers["l"]._rot_w
+    rows128 = pinned_put(rows256[:, :128].contiguous(), dev,
+                         "the pair weight rows")
+    recs = {}
+    for vname, tab, ids, width in (("elems", w_host, pool, 1),
+                                   ("rows128", rows128, r0, 128),
+                                   ("rows256", rows256, r0, 256)):
+        check(tab.is_pinned() and tab.dtype == torch.float32,
+              f"weights {vname}: the table is not pinned fp32")
+        live = ids[ids >= 0]
+        if width == 1:
+            run = lambda tab=tab, ids=ids: gather.gather_elems(tab, ids)
+            plain = lambda tab=tab, ids=ids: gather.gather_elems_plain(
+                tab.view(torch.int32), ids).view(torch.float32)
+            kname = "gather_elems_kernel"
+        else:
+            out = torch.full((ids.shape[0], width), 7.5, device=dev)
+            ref = out.clone()
+            run = lambda tab=tab, ids=ids, out=out: gather.gather_rows(
+                tab, ids, out=out)
+            plain = lambda tab=tab, ids=ids, ref=ref: \
+                gather.gather_rows_plain(tab, ids, out=ref)
+            kname = "gather_rows_kernel"
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = run()
+        check(same_bits(got, want), f"weights {vname}: the gather differs "
+              "from its plain version")
+        if width == 1:
+            check(torch.equal(got[ids >= 0], w_host[live.cpu()].to(dev)),
+                  "weights elems: live values differ from the table")
+        kernels.reset_launches()
+        run()
+        check(kernels.LAUNCHES["gather_elems" if width == 1
+                               else "gather_rows"] == 1,
+              f"weights {vname}: launches {kernels.LAUNCHES}")
+        ms = cuda_ms(run, iters)
+        own = own_ms(run, kname, iters)
+        n_live = int(live.numel())
+        data_b = n_live * 4 * width
+        dev_b = ids.shape[0] * ids.element_size() + ids.shape[0] * 4 * width
+        b_host = data_b / h2d * 1e3
+        b_dev = dev_b / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (b_host, "bytes (host)") if b_host >= b_dev \
+            else (b_dev, "bytes (device)")
+        lines = n_live * max(1, 4 * width // 128)
+        rate = None if own is None else lines / (own / 1e3)
+        share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+        print(f"weight gather {vname} pinned fp32 table "
+              f"{tuple(tab.shape)}: ids {ids.shape[0]} ({n_live} live, the "
+              f"rest -1): wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}"
+              f"{share}, plain {plain_ms:.4f} ms (host clock, one call), "
+              f"bound {b_ms:.4f} ms ({b_by} at the measured "
+              f"{h2d / 1e9:.2f} GB/s pinned copy rate)"
+              + ("" if rate is None else
+                 f", {rate / 1e6:.1f}M host read requests/s "
+                 f"({max(1, 4 * width // 128)} per id)")
+              + f", exact; on {card}", flush=True)
+        recs[vname] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": "bytes",
+                       "library_ms": None, "max_abs_err": 0.0,
+                       "ids": int(ids.shape[0]), "live_ids": n_live,
+                       "host_requests_per_s": rate}
+        del got, want
+    return recs
+
+
+def gat_model(dev):
+    """``examples/gat_weighted.py``'s GAT (hidden 64, 4 heads, 2 layers,
+    dropout 0) over phase 5's widths, random weights from the seed."""
+    from quiver_tpu_torch import GAT
+    from quiver_tpu_torch.models.convert import (gat_flax_to_state_dict,
+                                                 random_gat_flax_params)
+    model = GAT(DIM, GAT_HIDDEN, CLASSES, len(GAT_SIZES), heads=GAT_HEADS,
+                dropout=0.0)
+    model.load_state_dict(gat_flax_to_state_dict(random_gat_flax_params(
+        DIM, GAT_HIDDEN, CLASSES, len(GAT_SIZES), heads=GAT_HEADS,
+        seed=SEED)))
+    return model.to(dev)
+
+
+def adam(model):
+    import torch
+    return torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def gat_train(dev, topo, w, feat, labels, order, sampling, card):
+    """GAT through the user's path: ``GraphSageSampler(edge_weight=w,
+    sampling=...)``, the masked gather, ``build_split_train_step``'s
+    ``step_fn``; one warm-up step, ``GAT_STEPS`` counted and timed, four
+    profiled. Returns the run's record."""
+    import torch
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import (build_split_train_step,
+                                           init_state, masked_feature_gather)
+    model = gat_model(dev)
+    opt = adam(model)
+    _, step_fn = build_split_train_step(model, opt, GAT_SIZES, BATCH)
+    sampler = GraphSageSampler(topo, GAT_SIZES, device=dev, seed=SEED,
+                               edge_weight=w, sampling=sampling,
+                               layout="overlap")
+    state = init_state(model, opt)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(GAT_STEPS + 5)]
+
+    def one(i):
+        nonlocal state
+        n_id, _, adjs = sampler.sample(batches[i])
+        x = masked_feature_gather(feat, n_id)
+        state, loss = step_fn(state, x, adjs, labels[batches[i].long()], i)
+        return loss, sum(a.mask.sum() for a in adjs)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm, _ = one(0)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    lat, losses, edges = [], [], []
+    for i in range(1, 1 + GAT_STEPS):
+        t0 = time.perf_counter()
+        loss, e = one(i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        edges.append(e)
+    launches = dict(kernels.LAUNCHES)
+    losses = torch.stack(losses).tolist()
+    n_edges = int(torch.stack(edges).sum())
+    check(all(math.isfinite(v) for v in losses), f"GAT losses {losses}")
+    check(not any(launches.values()),
+          f"GAT on the HBM sampler launched port kernels: {launches}")
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(last < first and last < math.log(CLASSES),
+          f"GAT ({sampling}) loss did not fall below the uniform guess "
+          f"ln {CLASSES} = {math.log(CLASSES):.4f}: first 8 mean {first}, "
+          f"last 8 mean {last}")
+    srt = sorted(lat)
+    p50 = srt[len(srt) // 2]
+    p99 = srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)]
+    wall_s = sum(lat) / 1e3
+    print(f"gat train ({sampling}): {GAT_STEPS} steps of {BATCH} seeds, "
+          f"fanout {GAT_SIZES}, GAT {DIM}->{GAT_HEADS}x{GAT_HIDDEN}->"
+          f"{CLASSES}, weighted {sampling} sampler (HBM), masked gather, "
+          f"split step_fn, Adam lr {LR}: step p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms (host clock + synchronize, sampling and gather "
+          f"included; the warm-up step {warm_ms:.3f} ms), {n_edges} sampled "
+          f"edges = {n_edges / wall_s:.6g} sampled edges/s; loss of the "
+          f"warm-up step {float(warm):.4f}, then first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f}, mean of the first 8 {first:.4f}, of the last "
+          f"8 {last:.4f} (ln {CLASSES} = {math.log(CLASSES):.4f}); every "
+          f"loss: {' '.join(f'{v:.4f}' for v in losses)}; on {card}",
+          flush=True)
+    prof = {}
+    busy = device_profile(
+        lambda: [one(i) for i in range(1 + GAT_STEPS, 5 + GAT_STEPS)], 4,
+        f"GAT {sampling} step", stats=prof)
+    return {"sampling": sampling, "steps": GAT_STEPS, "step_p50_ms": p50,
+            "step_p99_ms": p99, "warmup_ms": warm_ms,
+            "edges_per_s": n_edges / wall_s, "loss_first8": first,
+            "loss_last8": last, "losses": losses,
+            "device_ms_per_step": busy, **prof}
+
+
+def gat_fused(dev, gen, nodes, indptr, indices, feat, labels, model, card):
+    """GAT through the fused walk: one ``build_train_step(fused_hot_hop=
+    True)`` step (1 + 1 kernel launches at [10, 5]) and its loss and
+    gradients against the plain walk; then 4 batches served by
+    ``ServeEngine(gat, fused_hot_hop=True)`` (1 + 1 a batch), one held
+    against the plain walk within 1e-4. Returns the launches."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, ServeEngine
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.parallel import (build_train_step, init_state,
+                                           layers_to_adjs)
+    seeds = torch.randperm(nodes, generator=gen, device=dev)[:BATCH] \
+        .to(torch.int32)
+    ys = labels[seeds.long()]
+    hs = SPLIT_HOP_SEEDS[:len(GAT_SIZES)]
+    check_walks_agree(model, feat, "GAT fused walk", indptr, indices, seeds,
+                      ys, hs, 7, sizes=GAT_SIZES)
+    fmodel = copy.deepcopy(model)
+    opt = adam(fmodel)
+    step = build_train_step(fmodel, opt, GAT_SIZES, BATCH,
+                            fused_hot_hop=True, fused_row_cap=ROW_CAP)
+    state = init_state(fmodel, opt)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, loss = step(state, feat, None, indptr, indices, seeds, ys, hs, 7)
+    loss = float(loss)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    train_l = dict(kernels.LAUNCHES)
+    check(train_l == {"fused_sample_hop": 1, "fused_hot_hop": 1,
+                      "sample_layer": 0, "gather_rows": 0,
+                      "gather_elems": 0},
+          f"GAT fused train step launches {train_l}")
+    check(math.isfinite(loss), f"GAT fused step loss {loss}")
+    print(f"gat fused: one build_train_step(fused_hot_hop=True) step "
+          f"{step_ms:.3f} ms (host clock, first call), loss {loss:.4f}, "
+          f"launches fused_sample_hop 1, fused_hot_hop 1; on {card}",
+          flush=True)
+
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    eng = ServeEngine(copy.deepcopy(state.model), None, topo, feat,
+                      [GAT_SIZES], BATCH, fused_hot_hop=True,
+                      fused_row_cap=ROW_CAP, seed=SEED, device=dev).warmup()
+    requests = [torch.randperm(nodes, generator=gen, device=dev)[:BATCH]
+                for _ in range(4)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    lat = []
+    for ids in requests:
+        t0 = time.perf_counter()
+        o = eng.run(ids)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(o.shape) == (BATCH, CLASSES)
+              and bool(torch.isfinite(o).all()), "GAT served logits")
+    serve_l = dict(kernels.LAUNCHES)
+    check(serve_l["fused_sample_hop"] == 4 and serve_l["fused_hot_hop"] == 4
+          and serve_l["sample_layer"] == serve_l["gather_rows"]
+          == serve_l["gather_elems"] == 0,
+          f"GAT served launches {serve_l}")
+    sd = eng.pad_seeds(requests[0])
+    got = eng.run(requests[0], hop_seeds=hs)
+    rn, rl, rx = fused.multihop_plain(eng._indptr, eng._indices, sd,
+                                      eng._feat, GAT_SIZES, hs, ROW_CAP)
+    with torch.inference_mode():
+        want = eng.model(rx, layers_to_adjs(rl, BATCH, GAT_SIZES))[:BATCH]
+    err = max_abs(got, want)
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+          f"GAT served logits differ from the plain walk by {err}")
+    print(f"gat serve: ServeEngine(GAT, fused_hot_hop=True), 4 batches of "
+          f"{BATCH}: ms {' '.join(f'{v:.3f}' for v in lat)} (host clock + "
+          f"synchronize); launches per batch fused_sample_hop 1, "
+          f"fused_hot_hop 1; one batch's logits max |kernel - plain| = "
+          f"{err:.3g} (tolerance 1e-4); on {card}", flush=True)
+    return {"train_step": train_l, "served_4": serve_l,
+            "serve_ms": lat, "train_step_ms": step_ms, "serve_err": err}
+
+
+def windowed_steps(dev, gen, nodes, indptr, indices, feat, labels, rows,
+                   card):
+    """One full-width GraphSAGE step of the windowed train route
+    (``build_train_step(method="rotation", indices_stride=128)`` over the
+    sampler's reshuffled overlap view) and one batch served by
+    ``ServeEngine(method="rotation")`` (a permute of the topology per
+    call); neither launches a kernel of the port."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, GraphSAGE, ServeEngine
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import (build_train_step, draw_step_seeds,
+                                           init_state)
+    params = flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED))
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES), dropout=DROPOUT)
+    model.load_state_dict(params)
+    model = model.to(dev)
+    opt = adam(model)
+    step = build_train_step(model, opt, SIZES, BATCH, method="rotation",
+                            indices_stride=128)
+    state = init_state(model, opt)
+    host = torch.Generator().manual_seed(SEED + 3)
+    times, losses = [], []
+    kernels.reset_launches()
+    for _ in range(2):
+        seeds = torch.randperm(nodes, generator=gen, device=dev)[:BATCH] \
+            .to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, feat, None, indptr, indices, seeds,
+                           labels[seeds.long()],
+                           *draw_step_seeds(host, len(SIZES)), rows)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    eng = ServeEngine(model, None, CSRTopo(indptr=indptr, indices=indices,
+                                           device=dev), feat, [SIZES],
+                      BATCH, method="rotation", seed=SEED,
+                      device=dev).warmup()
+    ids = torch.randperm(nodes, generator=gen, device=dev)[:BATCH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(ids)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(out).all()), "rotation-served logits")
+    check(not any(kernels.LAUNCHES.values()),
+          f"the windowed routes launched kernels: {kernels.LAUNCHES}")
+    print(f"windowed steps: build_train_step(GraphSAGE, method='rotation', "
+          f"indices_stride=128) over the reshuffled overlap view, fanout "
+          f"{SIZES}, batch {BATCH}: step {times[0]:.3f} ms (first call) "
+          f"then {times[1]:.3f} ms, losses {losses[0]:.4f} "
+          f"{losses[1]:.4f}; ServeEngine(method='rotation') one batch "
+          f"{serve_ms:.3f} ms (a permute of the {indices.numel()} edges "
+          f"per call); no kernel launched; on {card}", flush=True)
+    return {"train_step_ms": times, "serve_ms": serve_ms}
+
+
+def walk_check(dev, gen, nodes, indptr, indices, card):
+    """One ``random_walk`` of 1-step walks from 1024 starts: paths start
+    at the starts, each step a neighbour (a zero-degree start stays)."""
+    import torch
+    from quiver_tpu_torch.ops import random_walk
+    starts = torch.randperm(nodes, generator=gen, device=dev)[:BATCH] \
+        .to(torch.int32)
+    wgen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = random_walk(indptr, indices, starts, 1, wgen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ip = indptr.long()
+    st, dg = ip[starts.long()], ip[starts.long() + 1] - ip[starts.long()]
+    rows = torch.repeat_interleave(torch.arange(BATCH, device=dev), dg)
+    first = torch.cumsum(dg, 0) - dg
+    pos = st[rows] + torch.arange(rows.numel(), device=dev) - first[rows]
+    hit = torch.zeros(BATCH, dtype=torch.int32, device=dev).index_add_(
+        0, rows, (indices[pos] == paths[rows, 1]).to(torch.int32)) > 0
+    check(tuple(paths.shape) == (BATCH, 2)
+          and torch.equal(paths[:, 0], starts)
+          and bool(torch.where(dg > 0, hit, paths[:, 1] == starts).all()),
+          "random_walk broke its contract")
+    print(f"random walk: 1-step walks from {BATCH} starts in {ms:.3f} ms "
+          f"(host clock, first call): paths[:, 0] the starts, every step a "
+          f"neighbour ({int((dg == 0).sum())} zero-degree starts stayed); "
+          f"on {card}", flush=True)
+    return ms
+
+
+def phase_weighted(dev, gen, nodes, indptr, indices, deg, topo, batches,
+                   h2d, card):
+    """Phase 8: the weighted sampler arms at bench.py's scale and their
+    HOST-mode weight gathers; GAT trained through the weighted sampler
+    and through the fused walk, and served; one step of the windowed
+    train and serve routes; one random walk."""
+    import torch
+    from quiver_tpu_torch import GraphSageSampler
+    w = example_weights(indices, deg)
+    zgen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    w_zero = torch.where(torch.rand(w.shape[0], generator=zgen, device=dev)
+                         < ZERO_FRAC, 0.0, w)
+    print(f"weighted: edge weights 0.5 + deg[indices] / max(deg) "
+          f"({w.nbytes} B fp32); the contract check's copy with "
+          f"{int((w_zero == 0).sum())} edges zeroed; on {card}", flush=True)
+    timed = batches[:WEIGHTED_BATCHES + 1]
+    recs, kept, samplers = {}, {}, {}
+    for label, mode, kw in WEIGHTED_ARMS:
+        rec, outs, s = run_arm(label, mode, kw, topo, timed, card,
+                               edge_weight=w, keep=set("ijkl"),
+                               sync_free="ijkl")
+        recs[label] = rec
+        kept[label] = outs
+        if label in "jkl":
+            samplers[label] = s
+        del s
+        ref = WEIGHTED_SAME.get(label)
+        if ref is not None:
+            check(all(same_sample(x, y) for x, y in zip(kept[label],
+                                                       kept[ref])),
+                  f"weighted ({label}) differs from ({ref})")
+            print(f"weighted check: ({label}) equal to ({ref}) bit for bit "
+                  f"over {len(kept[label])} batches", flush=True)
+            del kept[label], kept[ref]
+        launches = rec["launches"]
+        if mode == "HBM":
+            check(not any(launches.values()),
+                  f"({label}) HBM launched port kernels: {launches}")
+        else:
+            check(launches["gather_elems"] > 0 and (
+                kw["sampling"] == "exact" or launches["gather_rows"] > 0),
+                f"({label}) HOST did not read through the gathers: "
+                f"{launches}")
+            check(rec["setup_growth_bytes"] < w.nbytes
+                  and rec["resident_growth_bytes"] < w.nbytes,
+                  f"({label}) the card's memory grew by "
+                  f"{rec['setup_growth_bytes']} B over set-up and "
+                  f"{rec['resident_growth_bytes']} B resident, not below "
+                  f"the weights' {w.nbytes} B")
+        print(f"weighted memory: ({label}) peak allocated over one batch "
+              f"{rec['warmup_growth_bytes']} B, over the timed batches "
+              f"{rec['loop_growth_bytes']} B beyond their samples, resident "
+              f"growth {rec['resident_growth_bytes']} B, set-up "
+              f"{rec['setup_growth_bytes']} B; on {card}", flush=True)
+    check(not kept, f"weighted samples left uncompared: {sorted(kept)}")
+    for a, b, what in (("k", "i", "exact"), ("l", "j", "rotation")):
+        print(f"weighted: HOST/HBM SEPS for {what}: "
+              f"{recs[a]['seps'] / recs[b]['seps']:.3f}; on {card}",
+              flush=True)
+    try:
+        GraphSageSampler(topo, SIZES, device=dev, edge_weight=w,
+                         sampling="rotation", shuffle="butterfly")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "butterfly with weighted rotation was not refused")
+
+    edges = 0
+    for label, mode, kw in WEIGHTED_ARMS:
+        s = GraphSageSampler(topo, SIZES, mode=mode, seed=SEED + 1,
+                             edge_weight=w_zero, with_eid=True, device=dev,
+                             **kw)
+        edges += check_weighted_contract(
+            f"({label}) weighted with_eid", indptr, indices, w_zero,
+            s.sample(batches[0]), kw["sampling"] != "exact")
+        del s
+    print(f"weighted check: one with_eid batch of each arm over the zeroed "
+          f"weights: {edges} edges, each id a CSR slot of its target "
+          "holding its source, none of weight 0, min(deg, k) draws per "
+          "target of positive weight; butterfly with weighted rotation "
+          "refused", flush=True)
+
+    gathers = weight_gathers(dev, samplers, indptr, card, h2d, iters=20)
+    rot_rows = samplers["j"]._rot
+    del samplers
+
+    feat, cls = make_train_data(dev, gen, nodes)
+    labels = majority_labels(indptr, indices, cls, nodes)
+    del cls
+    order = torch.randperm(nodes, generator=gen, device=dev).to(torch.int32)
+    gat = [gat_train(dev, topo, w, feat, labels, order, sampling, card)
+           for sampling in ("exact", "rotation")]
+    fused = gat_fused(dev, gen, nodes, indptr, indices, feat, labels,
+                      gat_model(dev), card)
+    steps = windowed_steps(dev, gen, nodes, indptr, indices, feat, labels,
+                           rot_rows, card)
+    walk_ms = walk_check(dev, gen, nodes, indptr, indices, card)
+    host_l = {x: {k: v / WEIGHTED_BATCHES
+                  for k, v in recs[x]["launches"].items() if v}
+              for x in "kl"}
+    return {"arms": list(recs.values()), "gat_train": gat,
+            "gat_fused": fused, "windowed_steps": steps,
+            "random_walk_ms": walk_ms}, gathers, host_l
 
 
 def breakdown(eng, requests, x, layers):
@@ -1539,11 +2139,13 @@ def breakdown(eng, requests, x, layers):
                    "batch")
 
 
-def device_profile(run, units: int, unit: str, top: int = 12):
+def device_profile(run, units: int, unit: str, top: int = 12, stats=None):
     """``torch.profiler`` over one call of ``run`` (``units`` batches or
     steps): wall time, the device's busy time (the union of its kernel
     intervals) and idle share, and the top kernels per unit. Returns
-    the busy ms per unit, None when the profiler saw no device time."""
+    the busy ms per unit, None when the profiler saw no device time;
+    ``stats`` (a dict) also gets the idle share and the device kernels
+    per unit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1575,6 +2177,9 @@ def device_profile(run, units: int, unit: str, top: int = 12):
           f"busy {busy / 1e3:.3f} ms = {busy / units / 1e3:.3f} ms per "
           f"{unit}, idle share {1 - busy / wall_us:.3f}, "
           f"{len(kernels) / units:g} device kernels per {unit}", flush=True)
+    if stats is not None:
+        stats.update(idle_share=1 - busy / wall_us,
+                     device_kernels_per_unit=len(kernels) / units)
     for name, (t, n) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][0])[:top]:
         print(f"profile: {t / units / 1e3:9.4f} ms/{unit} "
@@ -1638,8 +2243,10 @@ def main() -> int:
     host_tier, tiered_launches = phase_tiered(dev, gen, NODES, indptr,
                                               indices, card, BATCHES,
                                               iters=20)
-    arms, topo_gathers, host_launches, h2d = phase_sampler(
+    arms, topo_gathers, host_launches, h2d, topo, batches = phase_sampler(
         dev, gen, NODES, indptr, indices, card)
+    weighted, weight_gathers_rec, weighted_host_l = phase_weighted(
+        dev, gen, NODES, indptr, indices, deg, topo, batches, h2d, card)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1676,8 +2283,22 @@ def main() -> int:
         "plain_ms": elems["plain_ms"], "bound_ms": elems["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "h2d_bytes_per_s": h2d,
         "variants": topo_gathers}
+    elems_w = weight_gathers_rec["elems"]
+    gather_entry["host_weights"] = {
+        "name": "gather_elems + gather_rows (pinned fp32 edge weights and "
+                "weight rows)",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"],
+        "launches": sum(v * WEIGHTED_BATCHES for x in weighted_host_l.values()
+                        for v in x.values()),
+        "launches_per_host_batch": weighted_host_l,
+        "max_abs_err": 0.0, "ms": elems_w["ms"], "own_ms": elems_w["own_ms"],
+        "plain_ms": elems_w["plain_ms"], "bound_ms": elems_w["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "h2d_bytes_per_s": h2d,
+        "variants": weight_gathers_rec}
     line["sampler"] = [{k: v for k, v in arm.items()} for arm in
                        arms.values()]
+    line["weighted"] = weighted
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

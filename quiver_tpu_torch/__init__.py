@@ -16,12 +16,12 @@ in host memory (HOST mode), read by the card's gathers.
 __version__ = "0.1.0"
 
 from .feature import DeviceConfig, Feature
-from .models import GraphSAGE
+from .models import GAT, GraphSAGE
 from .ops.quant import quantize
 from .pyg import GraphSageSampler, SampleJob
 from .serving import ServeEngine, build_serve_step
 from .utils import CSRTopo, parse_size
 
-__all__ = ["CSRTopo", "DeviceConfig", "Feature", "GraphSAGE",
+__all__ = ["CSRTopo", "DeviceConfig", "Feature", "GAT", "GraphSAGE",
            "GraphSageSampler", "SampleJob", "ServeEngine",
            "build_serve_step", "parse_size", "quantize"]

@@ -20,10 +20,11 @@ gives each branch's reads -1 where the branch does not read, so the
 host decides nothing. Without ``out=`` every id must lie in the table
 (the kernel clamps one that does not).
 
-:func:`gather_elems` is the same gather over a 1-D int32 or int64 table
-(``indptr``, ``indices``, an edge-id map): the sampler's HOST mode reads
-its pinned topology through it, one id a thread, a negative id giving -1
-and reading nothing. :func:`gather_elems_plain` is its plain version.
+:func:`gather_elems` is the same gather over a 1-D int32, int64 or fp32
+table (``indptr``, ``indices``, an edge-id map, edge weights): the
+sampler's HOST mode reads its pinned topology and weights through it,
+one id a thread, a negative id giving the bits of int -1 and reading
+nothing. :func:`gather_elems_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -213,12 +214,17 @@ def gather_elems_plain(table, ids):
 
 
 def gather_elems(table, ids):
-    """``out[i] = table[ids[i]]`` for a contiguous 1-D int32 or int64
-    ``table``; ``ids`` a contiguous 1-D int32 or int64 tensor. A negative
-    id gives -1 and reads nothing; an id past the table is clamped into
-    it. The result has the table's dtype and lies on the ids' device. On
-    a card the table lies on that card or in pinned host memory, which
-    the kernel reads over PCIe; on CPU ids the plain version runs."""
+    """``out[i] = table[ids[i]]`` for a contiguous 1-D int32, int64 or
+    fp32 ``table``; ``ids`` a contiguous 1-D int32 or int64 tensor. A
+    negative id gives -1 (for fp32 its bits, a NaN) and reads nothing; an
+    id past the table is clamped into it. The result has the table's
+    dtype and lies on the ids' device. On a card the table lies on that
+    card or in pinned host memory, which the kernel reads over PCIe; on
+    CPU ids the plain version runs. An fp32 table is read as the int32
+    words it is made of, by the same kernel."""
+    if torch.is_tensor(table) and table.dtype == torch.float32:
+        return gather_elems(table.view(torch.int32), ids) \
+            .view(torch.float32)
     for t, name in ((table, "table"), (ids, "ids")):
         if not torch.is_tensor(t) or t.dtype not in _ELEM_DTYPES \
                 or t.dim() != 1 or not t.is_contiguous():

@@ -2,12 +2,13 @@
 ``quiver_tpu/ops/sample_multihop.py``).
 
 Every hop runs one sampler of ``ops/sample.py`` (exact, wide exact,
-rotation or window) and compacts its picks into the next hop's
-frontier. All hops draw, in order, from the one ``torch.Generator`` the
-call is given, where the JAX function folds its key per hop. The
-topology lies on the seeds' device or in pinned host memory
-(``sample.take``). Weighted sampling and the metrics collector are later
-work and raise ``NotImplementedError``.
+rotation or window) or of ``ops/weighted.py`` (the weighted pool draw,
+or the windowed weighted draw) and compacts its picks into the next
+hop's frontier. All hops draw, in order, from the one
+``torch.Generator`` the call is given, where the JAX function folds its
+key per hop. The topology and the weights lie on the seeds' device or
+in pinned host memory (``sample.take``). The metrics collector is later
+work and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,12 +23,8 @@ from .sample import (LayerSample, _draw_offsets, _draw_positions,
                      sample_layer, sample_layer_exact_wide,
                      sample_layer_rotation, sample_layer_window,
                      suggest_hub_cap, take)
+from .weighted import sample_layer_weighted, sample_layer_weighted_window
 
-_ITEM4 = "ROADMAP Queue 1 item 4 'Sampling core and variants'"
-# what item 4 still has to bring
-_VARIANTS = (f"the train and serve steps' method, indices_rows and "
-             f"indices_stride plumbing, {_ITEM4} (what is left)")
-_WEIGHTED = f"weighted sampling (ops/weighted.py), {_ITEM4}, its second PR"
 _METRICS = "ROADMAP Queue 1 item 1 'serve: collect_metrics'"
 _METHODS = ("exact", "rotation", "window")
 
@@ -35,7 +32,7 @@ _METHODS = ("exact", "rotation", "window")
 def _check_knobs(method, edge_weight, indices_rows, weight_rows,
                  collector):
     """The JAX function's coupled-parameter ``ValueError``s, then the
-    knobs that are later work."""
+    knob that is later work."""
     if method not in _METHODS:
         raise ValueError(f"unknown sampling method {method!r}")
     windowed = method in ("rotation", "window")
@@ -57,8 +54,11 @@ def _check_knobs(method, edge_weight, indices_rows, weight_rows,
             "(the pool draw is scattered) — drop indices_rows, or use a "
             "rotation/window method with weight_rows for the windowed "
             "weighted draw")
-    if edge_weight is not None or weight_rows is not None:
-        raise NotImplementedError(f"edge_weight: {_WEIGHTED}")
+    if weight_rows is not None and indices_rows is None:
+        raise ValueError(
+            "windowed weighted sampling needs indices_rows from the same "
+            "shuffle as weight_rows (reshuffle_csr with "
+            "extra=(edge_weight,), then as_index_rows* both)")
     if collector is not None:
         raise NotImplementedError(f"collector: {_METRICS}")
 
@@ -125,6 +125,14 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     (``ExactBucketMeta.frac``) sizes each wide-exact hop's budget of
     scattered reads.
 
+    ``edge_weight`` (CSR-slot-aligned) switches every hop to weighted
+    sampling (``ops/weighted.py``): the ``row_cap`` pool draw, or, with
+    a windowed ``method`` and ``weight_rows`` (the weights' rows view
+    from the same shuffle as ``indices_rows``:
+    ``reshuffle_csr(..., extra=(edge_weight,))`` then ``as_index_rows*``
+    of both), the windowed weighted draw. A windowed method with weights
+    and neither rows view takes the pool draw.
+
     ``eid``: ``True`` stamps each sampled edge with its CSR slot (the
     position in the reshuffled array under rotation and window); a
     tensor stamps ``eid[slot]`` (``CSRTopo.eid``, or the co-permuted map
@@ -133,13 +141,12 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     ``generator`` is a ``torch.Generator`` on the seeds' device; the
     topology arrays lie there or in pinned host memory. ``seeds_dense``
     promises the hop-0 seeds are valid-first (-1 fill only at the tail);
-    later hops always are. ``edge_weight``, ``weight_rows`` and
-    ``collector`` raise ``NotImplementedError`` after the JAX function's
-    ``ValueError`` checks."""
+    later hops always are. ``collector`` raises ``NotImplementedError``
+    after the JAX function's ``ValueError`` checks."""
     _check_knobs(method, edge_weight, indices_rows, weight_rows, collector)
     windowed = method in ("rotation", "window")
     after = None
-    if windowed and indices_rows is None:
+    if windowed and indices_rows is None and edge_weight is None:
         indices_rows, eid, after = _fallback_rows(
             indptr, indices, seeds, sizes, generator, method,
             indices_stride, eid)
@@ -148,7 +155,14 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     for i, k in enumerate(sizes):
         k = int(k)
         track = eid is not None
-        if method == "rotation":
+        if weight_rows is not None:
+            out = sample_layer_weighted_window(
+                indptr, indices_rows, weight_rows, cur, k, generator,
+                stride=indices_stride, with_slots=track)
+        elif edge_weight is not None:
+            out = sample_layer_weighted(indptr, indices, edge_weight, cur,
+                                        k, generator, with_slots=track)
+        elif method == "rotation":
             out = sample_layer_rotation(indptr, indices_rows, cur, k,
                                         generator, with_slots=track,
                                         stride=indices_stride)

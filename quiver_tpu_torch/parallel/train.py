@@ -1,13 +1,16 @@
 """Single-device training steps: sample -> gather -> forward/backward ->
 update (counterpart of ``quiver_tpu/parallel/train.py``).
 
-Two routes feed the same GraphSAGE loss. ``fused_hot_hop=True`` runs
+Two routes feed the same loss of any model with ``forward(x, adjs,
+generator=None)`` (``GraphSAGE``, ``GAT``). ``fused_hot_hop=True`` runs
 the fused frontier walk (``ops.kernels.fused.fused_multihop``): the
 interior hops launch the CUDA sampling kernel and the leaf hop samples
 and gathers its rows in one kernel. ``fused_hot_hop=False`` runs the
-exact i.i.d. sampler (``ops.sample_multihop``) and then the masked row
-gather. Neither kernel has a backward: gradients reach only the model's
-parameters, and the sampled feature block is a constant of the step.
+sampler of ``method`` (``ops.sample_multihop``: exact, or rotation and
+window over the caller's rows view of a reshuffled ``indices``) and
+then the masked row gather. Neither kernel has a backward: gradients
+reach only the model's parameters, and the sampled feature block is a
+constant of the step.
 
 JAX derives every random stream of a step from one key. Here the
 caller passes them as plain ints: one int32 kernel seed per hop
@@ -20,8 +23,8 @@ match the JAX package's bit for bit.
 
 ``dedup_gather`` (True or an int unique budget) swaps the split
 route's gather for :func:`dedup_feature_gather`. The data-parallel
-``build_e2e_train_step``, ``collect_metrics`` and the windowed sampling
-methods are later items of ROADMAP Queue 1; asking for them raises
+``build_e2e_train_step`` and ``collect_metrics`` are later items of
+ROADMAP Queue 1; asking for ``collect_metrics`` raises
 ``NotImplementedError``.
 """
 
@@ -36,7 +39,7 @@ from ..ops import quant
 from ..ops.dedup import unique_within_budget
 from ..ops.kernels.fused import fused_multihop
 from ..ops.kernels.gather import gather_rows
-from ..ops.sample_multihop import _VARIANTS, sample_multihop
+from ..ops.sample_multihop import _METHODS, sample_multihop
 from ..pyg.sage_sampler import Adj, layer_shapes
 
 _METRICS = "ROADMAP Queue 1 'serve: collect_metrics'"
@@ -160,7 +163,8 @@ def _fused_multihop_x(feat, forder, indptr, indices, seeds,
     return x, layers
 
 
-def _fused_knobs(enabled, row_cap, sizes, method, dedup_gather=None):
+def _fused_knobs(enabled, row_cap, sizes, method, dedup_gather=None,
+                 indices_stride=None, hub_frac=None):
     """Validate and pack the ``fused_hot_hop`` knobs of a step: the walk
     covers any exact-method fanout ladder and gathers in-kernel, so it
     composes with nothing that reshapes sampling or the gather."""
@@ -175,30 +179,69 @@ def _fused_knobs(enabled, row_cap, sizes, method, dedup_gather=None):
         raise ValueError(
             "fused_hot_hop gathers in-kernel (one row per frontier "
             "slot); dedup_gather does not compose with it")
+    if indices_stride is not None or hub_frac is not None:
+        raise ValueError(
+            "fused_hot_hop takes neither indices_stride nor hub_frac "
+            "(no wide-exact/rotation layout views in the fused kernel)")
     return {"row_cap": int(row_cap)}
 
 
+def _check_method(method: str):
+    if method not in _METHODS:
+        raise ValueError(f"unknown sampling method {method!r}")
+
+
 def _step_knobs(fused_hot_hop, row_cap, sizes, method, dedup_gather,
-                collect_metrics):
-    """The knobs of the train and serve steps: the fused walk's (see
-    :func:`_fused_knobs`), then the ones that are later work."""
+                collect_metrics, indices_stride=None, hub_frac=None):
+    """The knobs of the train and serve steps: the method, the fused
+    walk's (see :func:`_fused_knobs`), then the one that is later
+    work."""
+    _check_method(method)
     fused = _fused_knobs(fused_hot_hop, row_cap, sizes, method,
-                         dedup_gather=dedup_gather)
+                         dedup_gather=dedup_gather,
+                         indices_stride=indices_stride, hub_frac=hub_frac)
     if collect_metrics:
         raise NotImplementedError(_METRICS)
-    if method != "exact":
-        raise NotImplementedError(f"method={method!r}: {_VARIANTS}")
     return fused
 
 
+def _check_rows(method: str, indices_rows, kind: str) -> bool:
+    """The ``indices_rows`` contract of the step builders: rotation and
+    window need the per-epoch reshuffled view (``as_index_rows`` or
+    ``as_index_rows_overlapping`` of a ``reshuffle_csr`` output); exact
+    may take a view of the un-shuffled ``indices``, which switches it to
+    the wide-exact read (the same draw). Returns whether the method is
+    windowed."""
+    windowed = method in ("rotation", "window")
+    if windowed and indices_rows is None:
+        raise TypeError(
+            f"{method} {kind} step requires indices_rows (the shuffled "
+            "as_index_rows/as_index_rows_overlapping view; refresh per "
+            "epoch via permute_csr)")
+    return windowed
+
+
+def _split_sample(indptr, indices, seeds, sizes, generator, method="exact",
+                  indices_rows=None, indices_stride=None, hub_frac=None):
+    """The split route's sampling: ``sample_multihop`` under the step's
+    batch contract (distinct valid seeds first, so ``seeds_dense``).
+    ``indices_stride`` counts only with a rows view, as in JAX."""
+    return sample_multihop(
+        indptr, indices, seeds, sizes, generator, method=method,
+        indices_rows=indices_rows,
+        indices_stride=indices_stride if indices_rows is not None else None,
+        seeds_dense=True, hub_frac=hub_frac)
+
+
 def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
-          hot_rows: Optional[int] = None, gather=None):
+          hot_rows: Optional[int] = None, gather=None, **sampling):
     """One batch's ``(x, layers)``. ``fused`` (the packed knobs) takes
     the fused walk, hop ``i`` seeded with ``hop_seeds[i]``; ``None``
-    takes the split route: the exact sampler on every hop, all hops
-    drawing from one generator seeded with ``hop_seeds[0]`` on the
-    seeds' device, then ``gather(feat, n_id, forder)`` (default the
-    masked gather) over the final frontier."""
+    takes the split route: :func:`_split_sample` with the ``sampling``
+    knobs (``method``, ``indices_rows``, ``indices_stride``,
+    ``hub_frac``), all hops drawing from one generator seeded with
+    ``hop_seeds[0]`` on the seeds' device, then ``gather(feat, n_id,
+    forder)`` (default the masked gather) over the final frontier."""
     if len(hop_seeds) != len(sizes):
         raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
                          f"{len(hop_seeds)} seeds")
@@ -206,35 +249,37 @@ def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
         return _fused_multihop_x(feat, forder, indptr, indices, seeds,
                                  sizes, hop_seeds, hot_rows=hot_rows,
                                  **fused)
-    n_id, layers = sample_multihop(
-        indptr, indices, seeds, sizes,
-        _generator(seeds.device, hop_seeds[0]), seeds_dense=True)
+    n_id, layers = _split_sample(indptr, indices, seeds, sizes,
+                                 _generator(seeds.device, hop_seeds[0]),
+                                 **sampling)
     return (gather or masked_feature_gather)(feat, n_id, forder), layers
 
 
 def _model_loss(model, x, adjs, labels, batch_size: int,
                 dropout_seed: int) -> torch.Tensor:
-    """GraphSAGE in train mode on a sampled block, its dropout drawn from
-    a generator seeded with ``dropout_seed`` on ``x``'s device, and the
-    loss over the first ``batch_size`` rows: every batch slot counts,
-    the -1 padded seeds included, as in the JAX package."""
+    """``model`` (any module with ``forward(x, adjs, generator=None)``:
+    ``GraphSAGE``, ``GAT``) in train mode on a sampled block, its
+    dropout drawn from a generator seeded with ``dropout_seed`` on
+    ``x``'s device, and the loss over the first ``batch_size`` rows:
+    every batch slot counts, the -1 padded seeds included, as in the JAX
+    package."""
     logits = model(x, adjs, generator=_generator(x.device, dropout_seed))
     return cross_entropy_logits(logits[:batch_size], labels)
 
 
 def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
                 seeds, labels, hop_seeds, dropout_seed, fused=None,
-                gather=None):
-    """The step's loss over one batch's walk (:func:`_walk`). The walk
-    runs without autograd: ``x`` and the layers are constants of the
-    step.
+                gather=None, **sampling):
+    """The step's loss over one batch's walk (:func:`_walk`, the split
+    route taking the ``sampling`` knobs). The walk runs without
+    autograd: ``x`` and the layers are constants of the step.
 
     Batch contract: ``seeds`` are distinct valid ids with -1 padding at
     the tail only, and ``labels`` holds a class in ``[0, classes)`` at
     every slot."""
     with torch.no_grad():
         x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
-                          sizes, hop_seeds, gather=gather)
+                          sizes, hop_seeds, gather=gather, **sampling)
     adjs = layers_to_adjs(layers, batch_size, sizes)
     return _model_loss(model, x, adjs, labels, batch_size, dropout_seed)
 
@@ -251,12 +296,16 @@ def _update(state: TrainState, model, optimizer, loss) -> TrainState:
 
 def build_train_step(model, optimizer, sizes: Sequence[int],
                      batch_size: int, method: str = "exact",
+                     indices_stride: Optional[int] = None,
+                     hub_frac: Optional[float] = None,
                      dedup_gather=None, collect_metrics: bool = False,
                      fused_hot_hop: bool = False,
                      fused_row_cap: int = 2048):
     """Single-device train step:
     ``step(state, feat, forder, indptr, indices, seeds, labels,
-    hop_seeds, dropout_seed) -> (state, loss)``.
+    hop_seeds, dropout_seed, indices_rows=None) -> (state, loss)``.
+    ``model`` is any module with ``forward(x, adjs, generator=None)``
+    (``GraphSAGE``, ``GAT``).
 
     ``state`` is ``init_state(model, optimizer)`` or a state the step
     returned. ``feat`` is an fp32 table or an int8 ``QuantizedTensor``
@@ -272,9 +321,17 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     samples and gathers through the fused walk's CUDA kernels, hop ``i``
     seeded with ``hop_seeds[i]``; ``fused_row_cap`` bounds the
     candidates per seed (degrees beyond it are truncated, the kernels'
-    contract). ``fused_hot_hop=False`` samples every hop exactly, from
-    one generator seeded with ``hop_seeds[0]``, and ``dedup_gather``
-    (split route only, as in JAX) reads each distinct frontier row once
+    contract); it takes no ``indices_rows``. ``fused_hot_hop=False``
+    samples every hop with ``method`` from one generator seeded with
+    ``hop_seeds[0]``: ``"exact"``, with an optional ``indices_rows``
+    view of the un-shuffled ``indices`` for the wide-exact read (pass
+    ``hub_frac``, ``CSRTopo.exact_bucket_meta().frac``, to size its
+    budget of scattered reads), or ``"rotation"`` / ``"window"``, which
+    require ``indices_rows``, the rows view of an ``indices`` reshuffled
+    per epoch (``reshuffle_csr``; ``indices_stride=128`` for the
+    overlapping view), and raise ``TypeError`` without it, as the JAX
+    package's data-parallel step does. ``dedup_gather`` (split route
+    only, as in JAX) reads each distinct frontier row once
     (:func:`dedup_feature_gather`).
 
     The update is the optimizer's: ``optax.adam(lr)`` is
@@ -284,40 +341,61 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     ``donate`` has no counterpart."""
     sizes = [int(k) for k in sizes]
     fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
-                        dedup_gather, collect_metrics)
+                        dedup_gather, collect_metrics,
+                        indices_stride=indices_stride, hub_frac=hub_frac)
     gather = _dedup_gather_fn(dedup_gather)
 
     def step(state: TrainState, feat, forder, indptr, indices, seeds,
-             labels, hop_seeds, dropout_seed):
+             labels, hop_seeds, dropout_seed, indices_rows=None):
+        if fused is not None and indices_rows is not None:
+            raise TypeError(
+                "fused_hot_hop does not take indices_rows (the fused "
+                "walk does its own in-kernel CSR reads every hop)")
+        sampling = {}
+        if fused is None:
+            _check_rows(method, indices_rows, "train")
+            sampling = dict(method=method, indices_rows=indices_rows,
+                            indices_stride=indices_stride,
+                            hub_frac=hub_frac)
         model.train()
         loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
                            indices, seeds, labels, hop_seeds, dropout_seed,
-                           fused=fused, gather=gather)
+                           fused=fused, gather=gather, **sampling)
         return _update(state, model, optimizer, loss), loss.detach()
 
     return step
 
 
 def build_split_train_step(model, optimizer, sizes: Sequence[int],
-                           batch_size: int, method: str = "exact"):
+                           batch_size: int, method: str = "exact",
+                           indices_stride: Optional[int] = None,
+                           hub_frac: Optional[float] = None):
     """Two-stage step for callers that fetch the rows themselves:
 
-      ``sample_fn(indptr, indices, seeds, seed) -> (n_id, adjs)``
+      ``sample_fn(indptr, indices, seeds, seed, indices_rows=None) ->
+      (n_id, adjs)``
       ``step_fn(state, x, adjs, labels, dropout_seed) -> (state, loss)``
 
-    ``sample_fn`` samples every hop exactly from one generator seeded
-    with ``seed``; the caller gathers ``x = feature[n_id]`` (padded slots
-    zeroed) and hands it to ``step_fn``. The batch contract is the one of
+    ``sample_fn`` samples every hop with ``method`` from one generator
+    seeded with ``seed`` (``indices_rows``, ``indices_stride`` and
+    ``hub_frac`` as in :func:`build_train_step`; rotation or window
+    without ``indices_rows`` permute the topology on every call, as
+    ``sample_multihop`` does). The caller gathers ``x = feature[n_id]``
+    (padded slots zeroed), or samples by other means, such as a
+    ``GraphSageSampler`` with edge weights, and hands ``x`` and the adjs
+    to ``step_fn``. ``model`` is any module with ``forward(x, adjs,
+    generator=None)``. The batch contract is the one of
     :func:`build_train_step`."""
     sizes = [int(k) for k in sizes]
-    if method != "exact":
-        raise NotImplementedError(f"method={method!r}: {_VARIANTS}")
+    _check_method(method)
 
-    def sample_fn(indptr, indices, seeds, seed: int):
+    def sample_fn(indptr, indices, seeds, seed: int, indices_rows=None):
         with torch.no_grad():
-            n_id, layers = sample_multihop(
+            n_id, layers = _split_sample(
                 indptr, indices, seeds, sizes,
-                _generator(seeds.device, seed), seeds_dense=True)
+                _generator(seeds.device, seed), method=method,
+                indices_rows=indices_rows, indices_stride=indices_stride,
+                hub_frac=hub_frac)
         return n_id, layers_to_adjs(layers, batch_size, sizes)
 
     def step_fn(state: TrainState, x, adjs, labels, dropout_seed):

@@ -17,13 +17,17 @@ Sampling methods: ``"exact"`` (i.i.d. subsets; ``wide_exact`` reads
 them through a rows view, the same draw), ``"rotation"`` and
 ``"window"`` over a row order that ``reshuffle()`` refreshes per epoch
 (``shuffle="sort"`` or ``"butterfly"``; ``layout="pair"`` or
-``"overlap"``). Random numbers come from one ``torch.Generator`` on the
+``"overlap"``). ``edge_weight`` (CSR-slot-aligned) makes every hop a
+weighted draw (``ops/weighted.py``): the pool draw under ``"exact"``,
+the windowed weighted draw over the co-shuffled weights' rows view
+under ``"rotation"`` and ``"window"``; the weights lie where the
+topology does. Random numbers come from one ``torch.Generator`` on the
 sampler's device, seeded from ``seed``, where the JAX sampler keeps a
 key chain.
 
 ``mode="CPU"`` and ``MixedGraphSageSampler`` wait for the native CPU
-engine (ROADMAP Queue 1 item 5); weighted sampling and
-``collect_metrics`` raise ``NotImplementedError`` naming their items.
+engine (ROADMAP Queue 1 item 5), ``collect_metrics`` for item 1; they
+raise ``NotImplementedError`` naming their items.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 from ..ops.sample import (as_index_rows, as_index_rows_overlapping,
                           compact_layer, compose_slot_map, edge_row_ids,
                           reshuffle_csr, sample_layer, sample_prob)
-from ..ops.sample_multihop import _METRICS, _WEIGHTED, sample_multihop
+from ..ops.sample_multihop import _METRICS, sample_multihop
 from ..utils.device import resolve_device
 from ..utils.placement import pinned_put
 
@@ -147,8 +151,6 @@ class GraphSageSampler:
                 "rotation/window")
         if mode == "CPU":
             raise NotImplementedError(f"mode='CPU': {_ENGINE}")
-        if edge_weight is not None:
-            raise NotImplementedError(f"edge_weight: {_WEIGHTED}")
         if collect_metrics:
             raise NotImplementedError(f"collect_metrics: {_METRICS}")
         self.mode = mode
@@ -168,11 +170,14 @@ class GraphSageSampler:
         self.generator = torch.Generator(device=self.device) \
             .manual_seed(seed)
         self._placed = None       # (indptr, indices) where sampling reads
+        self._weight_placed = None  # the edge weights, fp32, placed
         self._exact_rows = None   # un-shuffled rows view (wide exact)
         self._eid = None          # the topology's eid map, placed
         self._rot = None          # shuffled rows view (pair or overlap)
+        self._rot_w = None        # co-shuffled weights' rows view
         self._rot_eid = None      # slot -> edge-id map, shuffled order
         self._permuted = None     # flat shuffled indices (butterfly state)
+        self._permuted_w = None   # flat co-shuffled weights (butterfly)
         self._row_ids = None      # CSR row of every slot (HBM mode)
 
     # -- placement ------------------------------------------------------------
@@ -197,6 +202,16 @@ class GraphSageSampler:
         if self._placed is None:
             self._placed = (self._put(self.csr_topo.indptr, "the indptr"),
                             self._put(self.csr_topo.indices, "the indices"))
+
+    def _ensure_weights_placed(self):
+        """The edge weights as fp32 where the topology lies, placed once
+        (pinned host memory in HOST mode): the draw computes in fp32, so
+        the cast loses nothing it would keep."""
+        if self._weight_placed is None:
+            w = torch.as_tensor(self.edge_weight, dtype=torch.float32)
+            self._weight_placed = self._put(w.contiguous(),
+                                            "the edge weights")
+        return self._weight_placed
 
     @staticmethod
     def _rows_np(flat: np.ndarray, width: int = 128,
@@ -242,15 +257,17 @@ class GraphSageSampler:
 
     def reshuffle(self, generator: Optional[torch.Generator] = None):
         """Re-shuffle every CSR row's neighbour order, rotation and window
-        sampling's freshness source. Called on the first ``sample``; call
-        it at each epoch boundary after. ``shuffle="sort"``: an exact
+        sampling's freshness source; the edge weights, when given, ride
+        the same shuffle into their own rows view. Called on the first
+        ``sample``; call it at each epoch boundary after.
+        ``shuffle="sort"``: an exact
         uniform shuffle per row (one sort over the edge array);
         ``"butterfly"``: the cheaper swap network, composed across calls
         (the running order and edge-id map are kept here). Draws from the
         sampler's generator unless one is given.
 
         It runs on the sampler's device in both modes. HOST mode then
-        copies the rows view (and the butterfly state and edge-id map)
+        copies the rows views (and the butterfly state and edge-id map)
         into pinned buffers allocated on the first call and keeps no
         E-sized array on the card."""
         self.lazy_init_quiver()
@@ -263,12 +280,22 @@ class GraphSageSampler:
             if self.mode != "HOST":
                 self._row_ids = row_ids
         bfly = self.shuffle == "butterfly"
+        weighted = self.edge_weight is not None
         src = self._permuted if bfly and self._permuted is not None \
             else indices
+        extra = None
+        if weighted:
+            wsrc = self._permuted_w if bfly and self._permuted_w is not None \
+                else self._ensure_weights_placed()
+            extra = (wsrc.to(dev),)
         out = reshuffle_csr(src.to(dev), row_ids, gen, method=self.shuffle,
-                            with_slot_map=self.with_eid)
-        permuted, smap = out if self.with_eid else (out, None)
-        del row_ids, out
+                            with_slot_map=self.with_eid, extra=extra)
+        if not isinstance(out, tuple):
+            out = (out,)
+        permuted, out = out[0], out[1:]
+        wp = out[0][0] if weighted else None
+        smap = out[-1] if self.with_eid else None
+        del row_ids, out, extra
         if self.with_eid:
             prev = None if self._rot_eid is None else self._rot_eid.to(dev)
             self._rot_eid = self._refill(
@@ -280,15 +307,23 @@ class GraphSageSampler:
                    else as_index_rows)
         self._rot = self._refill(self._rot, as_rows(permuted),
                                  "the shuffled rows")
+        if weighted:
+            self._rot_w = self._refill(self._rot_w, as_rows(wp),
+                                       "the shuffled weight rows")
         if bfly:
             self._permuted = self._refill(self._permuted, permuted,
                                           "the butterfly state")
+            if weighted:
+                self._permuted_w = self._refill(
+                    self._permuted_w, wp, "the butterfly weight state")
 
     def _exact_hub_frac(self):
         """The hub fraction that sizes the wide-exact budget of scattered
         reads (``CSRTopo.exact_bucket_meta``, cached on the topology);
-        None when the wide-exact path is not in play."""
-        if self.sampling != "exact" or not self.wide_exact:
+        None when the wide-exact path is not in play (it never is with
+        weights: the pool draw reads scattered)."""
+        if self.sampling != "exact" or not self.wide_exact \
+                or self.edge_weight is not None:
             return None
         return float(self.csr_topo.exact_bucket_meta(step=128).frac)
 
@@ -300,21 +335,27 @@ class GraphSageSampler:
         seeds = torch.as_tensor(input_nodes).to(self.device, torch.int32)
         bs = int(seeds.shape[0])
         indptr, indices = self._placed
+        weights = None if self.edge_weight is None \
+            else self._ensure_weights_placed()
         if self.sampling in _WINDOWED:
             if self._rot is None:
                 self.reshuffle()
-            rows, eid = self._rot, self._rot_eid
+            rows, w_rows, eid = self._rot, self._rot_w, self._rot_eid
         else:
             # a rows view of the same un-shuffled indices (Fisher-Yates
-            # positions are uniform under any fixed order)
-            rows = self._ensure_exact_rows() if self.wide_exact else None
+            # positions are uniform under any fixed order); the weighted
+            # pool draw has no use for one
+            rows = self._ensure_exact_rows() \
+                if self.wide_exact and weights is None else None
+            w_rows = None
             eid = self._eid_map() if self.with_eid else None
         stride = 128 if rows is not None and self.layout == "overlap" \
             else None
         n_id, layers = sample_multihop(
             indptr, indices, seeds, self.sizes, self.generator,
-            method=self.sampling, indices_rows=rows, eid=eid,
-            indices_stride=stride, hub_frac=self._exact_hub_frac())
+            edge_weight=weights, method=self.sampling, indices_rows=rows,
+            eid=eid, indices_stride=stride, weight_rows=w_rows,
+            hub_frac=self._exact_hub_frac())
         adjs = [Adj(edge_index=torch.stack([layer.col, layer.row]),
                     e_id=layer.e_id, size=(shape.n_id_cap, shape.num_seeds),
                     mask=layer.col >= 0)

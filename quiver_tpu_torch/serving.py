@@ -4,9 +4,12 @@
 Two routes. ``fused_hot_hop=True`` serves through the fused frontier
 walk: interior hops run the CUDA sampling kernel, the leaf hop samples
 and gathers the hot-tier rows (int8 dequant included) in one kernel.
-``fused_hot_hop=False`` is the split path: the exact i.i.d. sampler
-(``ops.sample_multihop``) on every hop, then the masked row gather.
-GraphSAGE runs on the assembled block either way. ``dedup_gather`` swaps
+``fused_hot_hop=False`` is the split path: the sampler of ``method``
+(``ops.sample_multihop``: exact, or rotation and window, which permute
+the topology on every call as the JAX serve step's do) on every hop,
+then the masked row gather. The model, any module with ``forward(x,
+adjs, generator=None)`` (``GraphSAGE``, ``GAT``), runs on the assembled
+block either way. ``dedup_gather`` swaps
 the split path's gather for ``dedup_feature_gather``. A tiered
 ``Feature`` store serves through its own lookup: on the fused route the
 leaf kernel gathers only the hot tier and the frontier's cold slots are
@@ -54,10 +57,14 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
     logits ``[batch_cap, out_dim]``. ``seeds`` is ``[batch_cap]`` int32,
     distinct valid ids first, -1 fill at the tail; rows of padded slots
     are garbage. ``hop_seeds`` holds one int32 kernel seed per hop.
-    ``model`` is a ``GraphSAGE`` in eval mode on the data's device.
-    ``fused_hot_hop=True`` walks through the fused kernels, hop ``i``
-    seeded with ``hop_seeds[i]``; ``fused_hot_hop=False`` samples every
-    hop exactly from one generator seeded with ``hop_seeds[0]``.
+    ``model`` is any module with ``forward(x, adjs, generator=None)``
+    (``GraphSAGE``, ``GAT``) in eval mode on the data's device.
+    ``fused_hot_hop=True`` (``method="exact"``) walks through the fused
+    kernels, hop ``i`` seeded with ``hop_seeds[i]``;
+    ``fused_hot_hop=False`` samples every hop with ``method`` from one
+    generator seeded with ``hop_seeds[0]`` (rotation and window with no
+    rows view: one ``permute_csr`` of the topology per call, drawn from
+    that generator after the hops' draws).
 
     ``dedup_gather`` (True or an int unique budget; split route only)
     gathers through ``dedup_feature_gather``. ``gather`` replaces the
@@ -82,7 +89,8 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
         with torch.inference_mode():
             if fused is None:
                 x, layers = _walk(None, feat, forder, indptr, indices,
-                                  seeds, sizes, hop_seeds, gather=gather)
+                                  seeds, sizes, hop_seeds, gather=gather,
+                                  method=method)
             else:
                 hot = feat[0] if gather is not None else feat
                 x, layers = _walk(fused, hot, forder, indptr, indices,
@@ -158,7 +166,9 @@ def _index_tensor(a, device, name):
 
 
 class ServeEngine:
-    """A fanout-variant set over one model and one feature tier.
+    """A fanout-variant set over one model (any module with
+    ``forward(x, adjs, generator=None)``: ``GraphSAGE``, ``GAT``) and one
+    feature tier.
 
     ``sizes_variants`` is the degradation ladder (index 0 full quality;
     every entry has the model's hop count). ``feat`` is a tensor or
@@ -170,7 +180,8 @@ class ServeEngine:
     pair. Everything moves to ``device``: the card unless the caller
     passes ``device="cpu"``; with no card and no such request the
     constructor raises. ``fused_hot_hop`` picks the route, fused walk or
-    split path (see :func:`build_serve_step`). ``seed`` seeds the host
+    split path, and ``method`` the split path's sampler (see
+    :func:`build_serve_step`). ``seed`` seeds the host
     generator the per-hop seeds come from.
 
     ``run`` is not thread-safe (the generator is serial state).

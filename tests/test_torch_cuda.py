@@ -31,7 +31,14 @@ id scan over the packed int8 tier at widths 7, 100, 128 and 256, fp32
 and bf16 host tables and device tables, with ids all -1, with holes or
 dense, 1, 31, 33 and 270,336 of them; the tiered
 store's lookup runs on the card with no host synchronisation, equal to
-the same store on the CPU, and the engine serves through it."""
+the same store on the CPU, and the engine serves through it.
+
+Weighted sampling reads pinned fp32 weights through ``gather_elems`` and
+pinned fp32 weight rows (128 and 256 wide) through ``gather_rows``, each
+equal to its plain version with -1 ids; ``GraphSageSampler(edge_weight=
+...)`` in HOST mode gives HBM mode's samples bit for bit (exact,
+rotation, window), free of host synchronisation; GAT's forward and
+backward on the card are within 1e-4 of the CPU's."""
 
 import numpy as np
 import pytest
@@ -586,3 +593,115 @@ def test_sampler_host_equals_hbm_without_sync(graph, kw):
     for a, b in zip(hbm[2], host[2]):
         assert torch.equal(a.edge_index, b.edge_index)
         assert torch.equal(a.e_id, b.e_id) and a.size == b.size
+
+
+# -- weighted sampling and GAT -------------------------------------------------
+
+@pytest.mark.parametrize("n_ids", [33, 270_336])
+@pytest.mark.parametrize("kind", GATHER_IDS)
+@pytest.mark.parametrize("width", [128, 256])
+def test_fp32_weight_rows_gather_equals_plain(card, width, kind, n_ids):
+    """The weighted windowed draw's reads: pinned fp32 rows views of the
+    co-shuffled weights, 128 (pair) and 256 (overlap) wide."""
+    rows = torch.from_numpy(np.random.default_rng(width).standard_normal(
+        (N, width)).astype(np.float32))
+    rows = pinned_put(rows, card, "weight rows")
+    assert rows.is_pinned() and rows.dtype == torch.float32
+    _check_gather(rows, _gather_ids(card, kind, n_ids), width,
+                  torch.float32)
+
+
+@pytest.mark.parametrize("n_ids", [1, 33, 270_336])
+@pytest.mark.parametrize("kind", GATHER_IDS)
+def test_fp32_weight_elems_gather_equals_plain(card, kind, n_ids):
+    """The weighted pool draw's reads: pinned fp32 edge weights through
+    ``gather_elems``, read as int32 words (a -1 id gives the bits of int
+    -1, a NaN), equal to the plain version over the same words."""
+    w = torch.from_numpy(np.random.default_rng(n_ids).random(
+        5 * N).astype(np.float32))
+    table = pinned_put(w, card, "weights")
+    ids = _gather_ids(card, kind, n_ids) * 5 + \
+        _gather_ids(card, "dense", n_ids) % 5
+    ids = torch.where(ids < 0, -1, ids).contiguous()
+    before = fused.LAUNCHES["gather_elems"]
+    got = gather.gather_elems(table, ids)
+    want = gather.gather_elems_plain(table.view(torch.int32), ids)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), want)
+    live = ids >= 0
+    assert torch.equal(got[live], w.to(card)[ids[live].long()])
+    assert fused.LAUNCHES["gather_elems"] == before + 1
+
+
+WEIGHTED_METHODS = [dict(sampling="exact"),
+                    dict(sampling="rotation", layout="overlap"),
+                    dict(sampling="window")]
+
+
+@pytest.mark.parametrize("kw", WEIGHTED_METHODS)
+def test_weighted_sampler_host_equals_hbm(graph, kw):
+    """``GraphSageSampler(edge_weight=...)``: HOST mode (weights pinned,
+    read by ``gather_elems``; the windowed draw's weight rows by
+    ``gather_rows``) gives HBM mode's samples bit for bit, with no host
+    synchronisation after the first batch; HBM mode launches no kernel
+    of the port; no pick lands on a zero-weight edge."""
+    e = int(graph["indices"].shape[0])
+    g = torch.Generator(device=graph["seeds"].device).manual_seed(3)
+    w = torch.rand(e, generator=g, device=graph["seeds"].device)
+    w[torch.rand(e, generator=g, device=w.device) < 0.3] = 0.0
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    seeds = graph["seeds"][graph["seeds"] >= 0][:200].contiguous()
+    out = {}
+    for mode in ("HBM", "HOST"):
+        s = GraphSageSampler(topo, [5, 4, 3], mode=mode, seed=11,
+                             edge_weight=w, with_eid=True, **kw)
+        s.sample(seeds)
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = s.sample(seeds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[mode] = (got, dict(fused.LAUNCHES))
+        if mode == "HOST":
+            assert s._weight_placed.is_pinned()
+    (hbm, hbm_l), (host, host_l) = out["HBM"], out["HOST"]
+    assert not any(hbm_l.values()), hbm_l
+    assert host_l["gather_elems"] > 0
+    assert (host_l["gather_rows"] > 0) == (kw["sampling"] != "exact")
+    assert torch.equal(hbm[0], host[0]) and hbm[1] == host[1]
+    for a, b in zip(hbm[2], host[2]):
+        assert torch.equal(a.edge_index, b.edge_index)
+        assert torch.equal(a.e_id, b.e_id) and a.size == b.size
+        assert bool((w[a.e_id[a.mask].long()] > 0).all())
+
+
+def test_gat_forward_backward_on_card_equals_cpu(graph):
+    """GAT on a sampled block: logits and every gradient on the card
+    within 1e-4 (of the largest entry) of the same model on the CPU."""
+    from quiver_tpu_torch import GAT
+    sizes = [4, 3]
+    seeds = graph["seeds"][:64].contiguous()
+    _, layers, x = fused.fused_multihop(
+        graph["indptr"], graph["indices"], seeds, graph["feat"], sizes,
+        [5, 6], ROW_CAP)
+    adjs = layers_to_adjs(layers, 64, sizes)
+    torch.manual_seed(0)
+    model = GAT(WIDE, 16, 7, 2, heads=4, dropout=0.0).to(graph["seeds"].device)
+    cpu = copy.deepcopy(model).cpu()
+    labels = torch.arange(64, device=x.device) % 7
+    res = []
+    for m, dev in ((model, x.device), (cpu, torch.device("cpu"))):
+        m.train()
+        logits = m(x.to(dev), [a.to(dev) for a in adjs])
+        torch.nn.functional.cross_entropy(logits[:64],
+                                          labels.to(dev)).backward()
+        res.append((logits.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    (lg, gg), (lc, gc) = res
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+    for n, g in gg.items():
+        assert float((g - gc[n]).abs().max()) <= \
+            1e-4 * max(float(gc[n].abs().max()), 1e-30), n

@@ -27,6 +27,7 @@ from quiver_tpu.ops.sample_multihop import \
     sample_multihop as jsample_multihop
 from quiver_tpu.utils import csr as jcsr
 from quiver_tpu_torch.ops import sample
+from quiver_tpu_torch.ops.random_walk import random_walk, random_walk_step
 from quiver_tpu_torch.ops.sample_multihop import (sample_multihop,
                                                   sample_multihop_dedup)
 from quiver_tpu_torch.pyg import GraphSageSampler
@@ -576,7 +577,8 @@ def _jax_raises(**kw):
 
 @pytest.mark.parametrize("case", ["weight_rows_alone", "weight_rows_exact",
                                   "windowed_rows_no_weight_rows",
-                                  "exact_weighted_rows"])
+                                  "exact_weighted_rows",
+                                  "weight_rows_no_indices_rows"])
 def test_multihop_value_errors_match_jax(graph, case):
     indptr, indices = graph
     e = indices.shape[0]
@@ -589,6 +591,9 @@ def test_multihop_value_errors_match_jax(graph, case):
                                                method="window",
                                                indices_rows=rows),
           "exact_weighted_rows": dict(edge_weight=w, indices_rows=rows),
+          "weight_rows_no_indices_rows": dict(
+              edge_weight=w, weight_rows=rows.astype(np.float32),
+              method="rotation"),
           }[case]
     seeds = np.arange(4, dtype=np.int32)
     want = _jax_raises(args=(jnp.asarray(indptr), jnp.asarray(indices),
@@ -609,9 +614,12 @@ def test_multihop_refusals(graph):
     seeds = _t(np.arange(4, dtype=np.int32))
     with pytest.raises(ValueError, match="unknown sampling method"):
         sample_multihop(ip, ix, seeds, [2], _gen(0), method="walk")
-    with pytest.raises(NotImplementedError, match="ops/weighted.py"):
-        sample_multihop(ip, ix, seeds, [2], _gen(0),
-                        edge_weight=torch.ones(ix.shape[0]))
+    # weights run the pool draw (ops/weighted.py) on every hop
+    n_id, layers = sample_multihop(ip, ix, seeds, [2], _gen(0),
+                                   edge_weight=torch.ones(ix.shape[0]))
+    _eq(layers[0].n_id[:4], np.arange(4), "weighted frontier")
+    deg = torch.from_numpy(np.diff(indptr)[:4])
+    assert int(layers[0].edge_count) == int(deg.clamp(max=2).sum())
     with pytest.raises(NotImplementedError, match="collect_metrics"):
         sample_multihop(ip, ix, seeds, [2], _gen(0), collector=object())
     with pytest.raises(ValueError, match="stride=128 requires"):
@@ -629,3 +637,62 @@ def test_multihop_dedup_matches_jax_compaction(graph):
     _eq(locs, jlocs, "batch locals")
     _eq(layers[0].n_id[:4], np.asarray(ub)[:4], "deduplicated batch")
     assert n_id.shape[0] == batch.shape[0] * 4 * 3
+
+
+# -- random walks -------------------------------------------------------------
+
+def test_random_walk_contract(graph):
+    """The contract of ``tests/test_sample_ops.py``'s random-walk tests:
+    ``paths[:, 0] == starts``, each step a neighbour of the last, a
+    walker on a zero-degree node stays, a -1 walker stays -1; the same
+    generator state gives the same walks; uniform over a row (chi-square
+    at a fixed seed)."""
+    indptr, indices = graph
+    deg = np.diff(indptr)
+    nsets = [set(indices[indptr[v]:indptr[v + 1]].tolist())
+             for v in range(len(deg))]
+    starts = np.concatenate([np.arange(60), [-1, 0, 50]]).astype(np.int32)
+    paths = random_walk(_t(indptr), _t(indices), _t(starts), 3,
+                                    _gen(4))
+    assert paths.dtype == torch.int32 and tuple(paths.shape) == (63, 4)
+    _eq(paths[:, 0], starts, "starts")
+    _eq(paths, random_walk(_t(indptr), _t(indices), _t(starts),
+                                       3, _gen(4)), "same generator")
+    p = paths.numpy()
+    for r in range(p.shape[0]):
+        for t in range(3):
+            a, b = p[r, t], p[r, t + 1]
+            if a < 0:
+                assert b == -1
+            elif deg[a] == 0:
+                assert b == a
+            else:
+                assert b in nsets[a]
+    v = int(np.argmax(deg == 12)) if (deg == 12).any() else int(
+        np.argmax(deg))
+    walkers = torch.full((6000,), v, dtype=torch.int32)
+    nxt = random_walk_step(_t(indptr), _t(indices), walkers,
+                                       _gen(5))
+    slot = {}
+    for s_ in range(indptr[v], indptr[v + 1]):
+        slot.setdefault(int(indices[s_]), 0)
+        slot[int(indices[s_])] += 1
+    ids = sorted(slot)
+    hits = np.array([(nxt.numpy() == i).sum() for i in ids])
+    assert hits.sum() == 6000
+    want = 6000 * np.array([slot[i] for i in ids]) / deg[v]
+    assert stats.chisquare(hits, want).pvalue > 1e-3
+
+
+def test_random_walk_zero_degree_matches_jax():
+    """The deterministic case of ``tests/test_sample_ops.py``: a
+    zero-degree start stays, a one-edge row always moves, as JAX's."""
+    from quiver_tpu.ops import random_walk as jrandom_walk
+    indptr, indices = np.array([0, 0, 1]), np.array([0], np.int32)
+    starts = np.array([0, 1, -1], np.int32)
+    got = random_walk(_t(indptr), _t(indices), _t(starts), 2,
+                                  _gen(0))
+    want = jrandom_walk(jnp.asarray(indptr), jnp.asarray(indices),
+                        jnp.asarray(starts), 2, KEY)
+    _eq(got, want)
+    assert got.tolist() == [[0, 0, 0], [1, 0, 0], [-1, -1, -1]]

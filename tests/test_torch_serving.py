@@ -142,8 +142,9 @@ def test_deferred_pieces_raise(setup):
     s = setup
     args = (_torch_model(s), None, (s["indptr"], s["indices"]), s["feat"],
             [SIZES], CAP)
-    with pytest.raises(NotImplementedError, match="Sampling core"):
-        ServeEngine(*args, method="window", device="cpu")
+    # the windowed methods serve on the split route (no longer deferred)
+    win = ServeEngine(*args, method="window", device="cpu")
+    assert torch.isfinite(win.run(np.array([3, 7], np.int32))).all()
     with pytest.raises(ValueError, match="dedup_gather"):
         ServeEngine(*args, fused_hot_hop=True, dedup_gather=True,
                     device="cpu")
@@ -341,3 +342,41 @@ def test_sources_never_name_jax():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if bad.search(line)]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("method", ["rotation", "window"])
+def test_split_engine_serves_windowed_methods(setup, method):
+    """``ServeEngine(method=...)`` on the split route: no rows view, so
+    each batch permutes the topology once (``sample_multihop``'s
+    fallback, as JAX's serve step does); the engine's logits are the
+    composition of that sampler, seeded with ``hop_seeds[0]``, the
+    masked gather and the model, and the sample holds the pick contract
+    (graph edges, ``min(deg, k)`` per valid target)."""
+    s = setup
+    eng = ServeEngine(_torch_model(s), _state(s),
+                      (s["indptr"], s["indices"]), s["feat"], [SIZES], CAP,
+                      method=method, device="cpu")
+    ids = np.array([3, 7, 11, 250, 0], np.int32)
+    got = eng.run(ids, hop_seeds=[91, 5, 6])
+    assert torch.isfinite(got).all() and got.shape == (CAP, OUT)
+    seeds = eng.pad_seeds(ids)
+    n_id, layers = sample_multihop_serving(
+        eng._indptr, eng._indices, seeds, SIZES,
+        torch.Generator().manual_seed(91), method=method)
+    x = masked_feature_gather(torch.from_numpy(s["feat"]), n_id)
+    with torch.inference_mode():
+        want = eng.model(x, layers_to_adjs(layers, CAP, SIZES))[:CAP]
+    assert torch.equal(got, want)
+    indptr, indices = s["indptr"], s["indices"]
+    cur = seeds.numpy()
+    for lay, k in zip(layers, SIZES):
+        lnid, row, col = lay.n_id.numpy(), lay.row.numpy(), lay.col.numpy()
+        m = col >= 0
+        for r, c in zip(row[m], col[m]):
+            t, u = lnid[r], lnid[c]
+            assert u in indices[indptr[t]:indptr[t + 1]]
+        live = cur[cur >= 0]
+        per = np.bincount(row[m], minlength=len(live))
+        np.testing.assert_array_equal(per, np.minimum(np.diff(indptr)[live],
+                                                      k))
+        cur = lnid

@@ -298,9 +298,17 @@ def test_knob_validation():
     with pytest.raises(NotImplementedError, match="collect_metrics"):
         build_train_step(model, opt, [4], 8, fused_hot_hop=True,
                          collect_metrics=True)
+    # the windowed methods build on the split route (their steps are
+    # driven in test_windowed_train_steps); the fused walk refuses them
+    # and the layout knobs, as in JAX
     for build in (build_train_step, build_split_train_step):
-        with pytest.raises(NotImplementedError, match="Sampling core"):
-            build(model, opt, [4, 4], 8, method="window")
+        assert all(callable(f) for f in np.atleast_1d(
+            build(model, opt, [4, 4], 8, method="window")))
+        with pytest.raises(ValueError, match="unknown sampling method"):
+            build(model, opt, [4, 4], 8, method="walk")
+    for kw in (dict(indices_stride=128), dict(hub_frac=0.1)):
+        with pytest.raises(ValueError, match="indices_stride nor hub_frac"):
+            build_train_step(model, opt, [4], 8, fused_hot_hop=True, **kw)
 
     step = build_train_step(model, opt, [2, 2], 8, fused_hot_hop=True)
     ip = torch.tensor([0, 1, 2], dtype=torch.int32)
@@ -449,13 +457,125 @@ def test_sample_multihop_compaction_matches_jax(data):
 
 
 def test_sample_multihop_refuses_later_variants(data):
-    """Weighted sampling and the collector are later work; the rotation,
-    window, rows-view and edge-id knobs run (tests/test_torch_sampler.py)."""
+    """The collector is later work and raises; weighted sampling runs
+    (the pool draw, also under a windowed method without rows views;
+    tests/test_torch_weighted.py), as do the rotation, window, rows-view
+    and edge-id knobs (tests/test_torch_sampler.py)."""
     ip, ix, sd = (_t(data[k]) for k in ("indptr", "indices", "seeds"))
     gen = torch.Generator().manual_seed(0)
-    for kw, item in ((dict(edge_weight=torch.ones(ix.shape[0])), "item 4"),
-                     (dict(edge_weight=torch.ones(ix.shape[0]),
-                           method="window"), "item 4"),
-                     (dict(collector=object()), "collect_metrics")):
-        with pytest.raises(NotImplementedError, match=item):
-            sample_multihop(ip, ix, sd, [2], gen, **kw)
+    deg = np.diff(data["indptr"])
+    valid = data["seeds"] >= 0
+    for kw in (dict(edge_weight=torch.ones(ix.shape[0])),
+               dict(edge_weight=torch.ones(ix.shape[0]), method="window")):
+        _, layers = sample_multihop(ip, ix, sd, [2], gen, **kw)
+        want = np.minimum(deg[data["seeds"][valid]], 2).sum()
+        assert int(layers[0].edge_count) == want
+    with pytest.raises(NotImplementedError, match="collect_metrics"):
+        sample_multihop(ip, ix, sd, [2], gen, collector=object())
+
+
+# -- the windowed methods through the steps ------------------------------------
+
+def _windowed_rows(data, gen, overlap=False):
+    ix = _t(data["indices"])
+    rids = sample.edge_row_ids(_t(data["indptr"]), ix.shape[0])
+    permuted = sample.permute_csr(ix, rids, gen)
+    if overlap:
+        return sample.as_index_rows_overlapping(permuted), 128
+    return sample.as_index_rows(permuted), None
+
+
+@pytest.mark.parametrize("method", ["rotation", "window"])
+def test_windowed_step_requires_rows(data, method):
+    """JAX's ``_check_rows`` ``TypeError`` without ``indices_rows``; the
+    fused walk refuses a rows view as JAX's ``_fused_loss`` does."""
+    sizes = [3, 2]
+    _, _, jstate = _flax(sizes)
+    state, step = _port(jstate, sizes, method=method)
+    args = [_t(data[k]) for k in ("feat", "indptr", "indices", "seeds",
+                                  "labels")]
+    args.insert(1, None)
+    with pytest.raises(TypeError) as want:
+        jtrain._check_rows(method, None, "train")
+    with pytest.raises(TypeError) as got:
+        step(state, *args, [1, 2], 0)
+    assert str(got.value) == str(want.value)
+    fstate, fstep = _port(jstate, sizes, fused_hot_hop=True,
+                          fused_row_cap=ROW_CAP)
+    with pytest.raises(TypeError, match="does not take indices_rows"):
+        fstep(fstate, *args, [1, 2], 0, sample.as_index_rows(args[3]))
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_exact_rows_view_gives_the_scattered_loss(data, overlap):
+    """``method="exact"`` with a rows view of the un-shuffled indices and
+    ``hub_frac`` (the wide-exact read) trains bit for bit as the
+    scattered route: the wide draw is ``sample_layer``'s."""
+    sizes = [3, 2]
+    _, _, jstate = _flax(sizes)
+    ix = _t(data["indices"])
+    rows = sample.as_index_rows_overlapping(ix) if overlap \
+        else sample.as_index_rows(ix)
+    frac = sample.exact_bucket_meta(_t(data["indptr"])).frac
+    args = [_t(data[k]) for k in ("feat", "indptr", "indices", "seeds",
+                                  "labels")]
+    args.insert(1, None)
+    results = []
+    for kw, extra in (({}, ()),
+                      (dict(hub_frac=frac,
+                            indices_stride=128 if overlap else None),
+                       (rows,))):
+        state, step = _port(jstate, sizes, **kw)
+        for i in range(2):
+            state, loss = step(state, *args, [77 + i, 5], 9, *extra)
+        results.append((loss, list(state.model.parameters())))
+    (loss, params), (wloss, wparams) = results
+    assert torch.isfinite(loss) and loss.item() == wloss.item()
+    for a, b in zip(params, wparams):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method,overlap", [("rotation", False),
+                                            ("rotation", True),
+                                            ("window", False)])
+def test_windowed_train_steps(data, method, overlap):
+    """Rotation and window through ``build_train_step`` (the reshuffled
+    rows view passed last) give the loss and update of
+    ``build_split_train_step``'s stages on the same seeds, and the
+    sampled block holds the pick contract: every edge a graph edge,
+    ``min(deg, k)`` of them per valid target of each hop."""
+    sizes = [3, 2]
+    _, _, jstate = _flax(sizes)
+    rows, stride = _windowed_rows(data, torch.Generator().manual_seed(5),
+                                  overlap)
+    state, step = _port(jstate, sizes, method=method,
+                        indices_stride=stride)
+    model2 = copy.deepcopy(state.model)
+    opt2 = torch.optim.Adam(model2.parameters(), lr=LR)
+    sample_fn, step_fn = build_split_train_step(
+        model2, opt2, sizes, BS, method=method, indices_stride=stride)
+    ip, ix, sd, lb = (_t(data[k]) for k in ("indptr", "indices", "seeds",
+                                            "labels"))
+    feat = _t(data["feat"])
+    _, loss = step(state, feat, None, ip, ix, sd, lb, [77, 78], 9, rows)
+    n_id, adjs = sample_fn(ip, ix, sd, 77, rows)
+    x = feat[n_id.long().clamp(min=0)] * (n_id >= 0)[:, None]
+    _, loss2 = step_fn(init_state(model2, opt2), x, adjs, lb, 9)
+    assert torch.isfinite(loss) and loss.item() == loss2.item()
+    for a, b in zip(state.model.parameters(), model2.parameters()):
+        assert torch.equal(a, b)
+
+    indptr, indices = data["indptr"], data["indices"]
+    nsets = [set(indices[indptr[v]:indptr[v + 1]].tolist())
+             for v in range(N)]
+    nid = n_id.numpy()
+    n_valid = int((data["seeds"] >= 0).sum())   # hop 0's targets
+    for adj, k in zip(adjs[::-1], sizes):
+        src, dst = adj.edge_index.numpy()
+        m = src >= 0
+        assert all(u in nsets[t] for t, u in zip(nid[dst[m]], nid[src[m]]))
+        per = np.bincount(dst[m], minlength=adj.size[1])
+        deg = np.diff(indptr)[nid[:n_valid]]
+        np.testing.assert_array_equal(per[:n_valid], np.minimum(deg, k))
+        assert not per[n_valid:].any()
+        n_valid = max(n_valid, int(src[m].max()) + 1)
