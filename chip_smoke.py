@@ -128,15 +128,39 @@ Phases:
    reshuffled overlap view and one ``ServeEngine(method="rotation")``
    batch; one 1-step ``random_walk`` from 1024 starts held to its
    contract;
-9. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+9. the device counters, rotation and ``ShardTensor`` (``metrics.py``):
+   (a) a ``ServeEngine(collect_metrics=True)`` beside phase 6's over its
+   store serves its 16 batches on its hop seeds: logits equal bit for bit
+   (torch's deterministic algorithms on for that check, so the model's
+   ``index_add_`` sums in one order), each batch's counters equal to
+   phase 6's host reading, one batch under sync "error", host p50/p99
+   and device time per batch metered and not, ``derive()``'s ratios;
+   (b) phase 5's configuration, 8 steps metered and 8 not from copies of
+   one state: losses and parameters equal bit for bit, the frontier fill
+   of each step, then 4 timed steps each (``StepStats``, a ``MetricsSink``
+   JSONL under ``build/`` read back with ``read_jsonl``, device time);
+   (c) phase 7's arms (a) and (g), metered and not from one generator
+   state: samples equal, frontier fill; (d) a full-width
+   ``host_placement="numpy"`` int8 store (25% hot) under a fused engine:
+   4,096 pairs rotated (the cold nodes phase 6's frontiers saw most, the
+   hot ones they saw least), lookups at a served frontier and the
+   engine's logits the same bits before, between the rotation and
+   ``refresh_feature``, and after, both timed; (e) ``ShardTensor`` over
+   100-dim features, 25% on the card and the rest pinned, fp32 then
+   int8: a lookup at a served frontier equal to the plain version, one
+   ``gather_rows`` launch, its own time against the copy-rate bound.
+   Results on ``metrics``, ``rotation`` and ``shard_tensor`` lines;
+10. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
    under ``fp32`` and the served launches' own times under
    ``served_launch_own_ms``, and the topology variants of phase 7 under
    ``host_topology``, and the weight reads of phase 8 under
-   ``host_weights``; the arms' records under ``sampler``, phase 8's
-   under ``weighted``), then the last line ``{"ok": true, "device":
+   ``host_weights``, and the ``ShardTensor`` host read under
+   ``shard_tensor``; the arms' records under ``sampler``, phase 8's
+   under ``weighted``, phase 9's under ``metrics``, ``rotation`` and
+   ``shard_tensor``), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -1188,7 +1212,9 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
         check(bool(torch.isfinite(o).all()), f"{name}: non-finite logits")
         print(f"tiered check 5: {name}: finite logits {tuple(o.shape)}",
               flush=True)
-    return rec, launches
+    ctx = dict(store=store, eng=eng, topo=topo, requests=requests,
+               hop_seeds=hop_seeds, stats=stats)
+    return rec, launches, ctx
 
 
 # the sampler's arms: (label, mode, constructor arguments)
@@ -2118,6 +2144,559 @@ def phase_weighted(dev, gen, nodes, indptr, indices, deg, topo, batches,
             "random_walk_ms": walk_ms}, gathers, host_l
 
 
+# -- phase 9: device counters, rotation, ShardTensor --------------------------
+
+METER_STEPS = 8                # metered and unmetered train steps each
+METER_SAMPLER_BATCHES = 4      # metered and unmetered batches per arm
+ROTATE_PAIRS = 4096
+
+
+class deterministic:
+    """torch's deterministic algorithms for a block: the model's
+    ``index_add_`` (and its backward's) sums then run in one order
+    instead of by atomics, so two runs can be compared bit for bit."""
+
+    def __enter__(self):
+        import torch
+        self.fill = torch.utils.deterministic.fill_uninitialized_memory
+        # nothing here reads memory it did not write: no NaN fill needed
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = self.fill
+
+
+def sync_free(fn, what):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    host synchronisation inside it fails the phase."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{what} synchronised with the host: "
+                           f"{str(e).splitlines()[0][:200]}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def pcts(lat):
+    srt = sorted(lat)
+    return (srt[len(srt) // 2],
+            srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)])
+
+
+def nonzero(named):
+    return {k: v for k, v in named.items() if v}
+
+
+def fmt_ratios(d) -> str:
+    return ", ".join(f"{k} {'n/a' if v is None else f'{v:.4f}'}"
+                     for k, v in d.items() if v is not None)
+
+
+def metered_serving(dev, ctx, card):
+    """(a) A metered engine beside phase 6's unmetered one over the same
+    store: the same batches and hop seeds, logits bit-equal, each
+    batch's counters equal to phase 6's host reading, one batch under
+    sync "error", and the counters' cost in device time."""
+    import torch
+    from quiver_tpu_torch import ServeEngine, metrics
+    from quiver_tpu_torch.ops import kernels
+    store, eng, stats = ctx["store"], ctx["eng"], ctx["stats"]
+    requests, hop_seeds = ctx["requests"], ctx["hop_seeds"]
+    meng = ServeEngine(copy.deepcopy(eng.model), None, ctx["topo"], store,
+                       [SIZES], BATCH, fused_hot_hop=True,
+                       fused_row_cap=ROW_CAP, collect_metrics=True,
+                       seed=SEED, device=dev).warmup()
+    t0 = time.perf_counter()
+    with deterministic():
+        for i, (ids, hs) in enumerate(zip(requests, hop_seeds)):
+            check(same_bits(meng.run(ids, hop_seeds=hs),
+                            eng.run(ids, hop_seeds=hs)),
+                  f"metered serving: batch {i}'s logits differ from the "
+                  "unmetered engine's")
+    print(f"metrics serving: {len(requests)} batches, metered logits equal "
+          "to the unmetered engine's bit for bit (deterministic "
+          f"algorithms on for this check, {time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    lat, vecs = {True: [], False: []}, []
+    step_stats = metrics.StepStats()
+    for ids, hs in zip(requests, hop_seeds):
+        for metered, e in ((True, meng), (False, eng)):
+            t0 = time.perf_counter()
+            e.run(ids, hop_seeds=hs)
+            torch.cuda.synchronize()
+            lat[metered].append((time.perf_counter() - t0) * 1e3)
+            if metered:
+                vecs.append(meng.last_counters)
+                step_stats.record_step(lat[True][-1] / 1e3,
+                                       meng.last_counters)
+    launches = dict(kernels.LAUNCHES)
+    n = len(requests)
+    check(launches["fused_sample_hop"] == 2 * (len(SIZES) - 1) * n
+          and launches["fused_hot_hop"] == 2 * n
+          and launches["gather_rows"] == 6 * n,
+          f"metered serving launches (both engines) {launches}")
+    got = torch.stack(vecs).cpu()
+    for i, (c, s) in enumerate(zip(got.tolist(), stats)):
+        want = {metrics.LOOKUP_CALLS: 1, metrics.HOT_ROWS: 0,
+                metrics.COLD_ROWS: s["cold"],
+                metrics.DEDUP_CALLS: 1, metrics.DEDUP_TOTAL: s["cold"],
+                metrics.DEDUP_UNIQUE: s["unique_cold"],
+                metrics.DEDUP_OVERFLOW: int(s["branch"] != "narrow"),
+                metrics.FRONTIER_VALID: s["hot"] + s["cold"],
+                metrics.FRONTIER_CAP: BATCH * math.prod(1 + k
+                                                        for k in SIZES)}
+        bad = {metrics.SLOT_NAMES[k]: (c[k], v) for k, v in want.items()
+               if c[k] != v}
+        rest = [metrics.SLOT_NAMES[k] for k in range(metrics.NUM_COUNTERS)
+                if k not in want and c[k]]
+        check(not bad and not rest, f"metered serving: batch {i}'s "
+              f"counters (got, phase 6) {bad}, nonzero elsewhere {rest}")
+    print(f"metrics serving: every batch's counters equal phase 6's host "
+          f"reading (lookup 1, hot rows 0, cold rows = cold slots, dedup "
+          f"total/unique/overflow, frontier valid/cap); batch 0: "
+          f"{metrics.report(got[0])}", flush=True)
+    sync_free(lambda: meng.run(requests[0], hop_seeds=hop_seeds[0]),
+              "the metered serve step")
+    print("metrics serving: one metered batch runs under "
+          "set_sync_debug_mode('error') without a host synchronisation",
+          flush=True)
+
+    prof = {}
+    for metered, e in ((True, meng), (False, eng)):
+        st: dict = {}
+        busy = device_profile(lambda: [e.run(ids, hop_seeds=hs) for ids, hs
+                                       in zip(requests[:4], hop_seeds[:4])],
+                              4, "metered batch" if metered
+                              else "unmetered batch", top=4, stats=st)
+        prof[metered] = dict(device_ms=busy, **st)
+    snap = step_stats.snapshot()
+    total = got.sum(0)
+    valid = int(total[metrics.FRONTIER_VALID])
+    hit = (valid - int(total[metrics.COLD_ROWS])) / valid
+    p50m, p99m = pcts(lat[True])
+    p50u, p99u = pcts(lat[False])
+    cost = add_ms(prof[True]["device_ms"], None if prof[False]["device_ms"]
+                  is None else -prof[False]["device_ms"])
+    print(f"metrics serving: per batch p50/p99 metered {p50m:.3f}/{p99m:.3f}"
+          f" ms, unmetered {p50u:.3f}/{p99u:.3f} ms (host clock, "
+          f"interleaved); device ms per batch metered "
+          f"{fmt_ms(prof[True]['device_ms'])}, unmetered "
+          f"{fmt_ms(prof[False]['device_ms'])} (counters' cost "
+          f"{fmt_ms(cost)}), idle share "
+          f"{prof[True].get('idle_share', float('nan')):.3f} / "
+          f"{prof[False].get('idle_share', float('nan')):.3f}, device "
+          f"kernels per batch {prof[True].get('device_kernels_per_unit')}"
+          f" / {prof[False].get('device_kernels_per_unit')}; StepStats p50 "
+          f"{snap['wall']['p50_ms']} p99 {snap['wall']['p99_ms']} ms; on "
+          f"{card}", flush=True)
+    print(f"metrics serving: derive() over {n} batches: "
+          f"{fmt_ratios(snap['derived'])}; this route's hit rate "
+          f"(frontier_valid - cold_rows) / frontier_valid = {hit:.4f} "
+          "(the store sees only the cold slots: hot_rows reads 0)",
+          flush=True)
+    return {"batches": n, "p50_ms": p50m, "p99_ms": p99m,
+            "unmetered_p50_ms": p50u, "unmetered_p99_ms": p99u,
+            "device_ms": prof[True]["device_ms"],
+            "unmetered_device_ms": prof[False]["device_ms"],
+            "idle_share": prof[True].get("idle_share"),
+            "unmetered_idle_share": prof[False].get("idle_share"),
+            "launches_both_engines": launches,
+            "counters": nonzero(metrics.counters_dict(got)),
+            "derived": snap["derived"], "hit_rate": hit,
+            "per_batch": [nonzero(metrics.counters_dict(c)) for c in got]}
+
+
+def metered_training(dev, gen, nodes, indptr, indices, card):
+    """(b) Phase 5's configuration, metered and unmetered from copies of
+    one state on the same batches and seeds: losses and parameters
+    bit-equal, the frontier fill of each step, ``StepStats`` and a
+    ``MetricsSink`` JSONL read back."""
+    import os
+    import torch
+    from quiver_tpu_torch import GraphSAGE, metrics
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import build_train_step, init_state
+    from quiver_tpu_torch.parallel import draw_step_seeds
+
+    feat, labels = make_train_data(dev, gen, nodes)
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES), dropout=DROPOUT)
+    model.load_state_dict(flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED)))
+    model = model.to(dev)
+    order = torch.randperm(nodes, generator=gen, device=dev).to(torch.int32)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(METER_STEPS + 8)]
+    ys = [labels[b.long()] for b in batches]
+    host = torch.Generator().manual_seed(SEED + 5)
+    rand = [draw_step_seeds(host, len(SIZES)) for _ in batches]
+    runs = {}
+    t0 = time.perf_counter()
+    for metered in (True, False):
+        m = copy.deepcopy(model)
+        opt = torch.optim.Adam(m.parameters(), lr=LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        step = build_train_step(m, opt, SIZES, BATCH, fused_hot_hop=True,
+                                fused_row_cap=ROW_CAP,
+                                collect_metrics=metered)
+        state, losses, vecs = init_state(m, opt), [], []
+        with deterministic():
+            for i in range(METER_STEPS):
+                out = step(state, feat, None, indptr, indices, batches[i],
+                           ys[i], *rand[i])
+                state, loss = out[0], out[1]
+                losses.append(loss)
+                if metered:
+                    vecs.append(out[2])
+        runs[metered] = dict(step=step, state=state, losses=losses,
+                             vecs=vecs, model=m)
+    check(torch.equal(torch.stack(runs[True]["losses"]),
+                      torch.stack(runs[False]["losses"])),
+          "metered training: losses differ from the unmetered steps'")
+    check(all(torch.equal(a, b) for a, b in zip(
+        runs[True]["model"].parameters(), runs[False]["model"].parameters())),
+          "metered training: parameters differ from the unmetered steps'")
+    got = torch.stack(runs[True]["vecs"]).cpu()
+    cap = BATCH * math.prod(1 + k for k in SIZES)
+    fills = (got[:, metrics.FRONTIER_VALID].double() / cap).tolist()
+    check(bool((got[:, metrics.FRONTIER_CAP] == cap).all())
+          and int(got[:, [i for i in range(metrics.NUM_COUNTERS)
+                          if i not in (metrics.FRONTIER_VALID,
+                                       metrics.FRONTIER_CAP)]].abs().sum())
+          == 0, f"metered training counters {got.tolist()}")
+    losses = torch.stack(runs[True]["losses"]).tolist()
+    print(f"metrics training: {METER_STEPS} steps metered and unmetered "
+          f"from one state: losses and parameters equal bit for bit "
+          f"(deterministic algorithms on for this check, "
+          f"{time.perf_counter() - t0:.2f} s); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; frontier_fill per "
+          f"step {' '.join(f'{v:.4f}' for v in fills)}", flush=True)
+
+    # timed, without deterministic algorithms: StepStats from the host
+    # clock and the counters, a JSONL sink, and the device time per step
+    step_stats = metrics.StepStats()
+    lat = {True: [], False: []}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(METER_STEPS, METER_STEPS + 4):
+        for metered in (True, False):
+            r = runs[metered]
+            t0 = time.perf_counter()
+            out = r["step"](r["state"], feat, None, indptr, indices,
+                            batches[i], ys[i], *rand[i])
+            torch.cuda.synchronize()
+            lat[metered].append((time.perf_counter() - t0) * 1e3)
+            r["state"] = out[0]
+            if metered:
+                step_stats.record_step(lat[True][-1] / 1e3, out[2])
+    launches = dict(kernels.LAUNCHES)
+    check(launches["fused_hot_hop"] == 8 and launches["gather_rows"] == 0,
+          f"metered training launches (both) {launches}")
+    sync_free(lambda: runs[True]["step"](
+        runs[True]["state"], feat, None, indptr, indices,
+        batches[METER_STEPS + 4], ys[METER_STEPS + 4],
+        *rand[METER_STEPS + 4]), "the metered train step")
+    prof = {}
+    for metered in (True, False):
+        r = runs[metered]
+
+        def four():
+            for i in range(METER_STEPS + 4, METER_STEPS + 8):
+                r["state"] = r["step"](r["state"], feat, None, indptr,
+                                       indices, batches[i], ys[i],
+                                       *rand[i])[0]
+        st: dict = {}
+        busy = device_profile(four, 4, "metered step" if metered
+                              else "unmetered step", top=4, stats=st)
+        prof[metered] = dict(device_ms=busy, **st)
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_metrics.jsonl")
+    for p in (path, path + ".1"):
+        if os.path.exists(p):
+            os.remove(p)
+    with metrics.MetricsSink(path) as sink:
+        rec = sink.emit_stats(step_stats)
+    back = metrics.read_jsonl(path)
+    check([r["kind"] for r in back] == ["meta", "step_stats"]
+          and back[1]["counters"] == rec["counters"]
+          and back[1]["steps"] == 4,
+          f"the MetricsSink JSONL read back as {back}")
+    snap = step_stats.snapshot()
+    cost = add_ms(prof[True]["device_ms"], None if prof[False]["device_ms"]
+                  is None else -prof[False]["device_ms"])
+    print(f"metrics training: 4 timed steps each, step p50 metered "
+          f"{pcts(lat[True])[0]:.3f} ms unmetered {pcts(lat[False])[0]:.3f}"
+          f" ms (host clock, interleaved); StepStats p50 "
+          f"{snap['wall']['p50_ms']} p99 {snap['wall']['p99_ms']} ms, "
+          f"frontier_fill {snap['derived']['frontier_fill']:.4f}; device "
+          f"ms per step metered {fmt_ms(prof[True]['device_ms'])}, "
+          f"unmetered {fmt_ms(prof[False]['device_ms'])} (counters' cost "
+          f"{fmt_ms(cost)}), idle share "
+          f"{prof[True].get('idle_share', float('nan')):.3f} / "
+          f"{prof[False].get('idle_share', float('nan')):.3f}; one metered "
+          f"step under set_sync_debug_mode('error') without a host "
+          f"synchronisation; {path} written and read back "
+          f"({len(back)} records); on {card}", flush=True)
+    return {"steps": METER_STEPS, "losses": losses, "frontier_fill": fills,
+            "p50_ms": snap["wall"]["p50_ms"], "p99_ms": snap["wall"]["p99_ms"],
+            "unmetered_p50_ms": pcts(lat[False])[0],
+            "device_ms": prof[True]["device_ms"],
+            "unmetered_device_ms": prof[False]["device_ms"],
+            "idle_share": prof[True].get("idle_share"),
+            "unmetered_idle_share": prof[False].get("idle_share"),
+            "jsonl": path}
+
+
+def metered_sampler(dev, topo, batches, card):
+    """(c) Phase 7's arms (a) and (g), each sampler sampling the same
+    batches from the same generator state metered and unmetered."""
+    import torch
+    from quiver_tpu_torch import GraphSageSampler, metrics
+    out = {}
+    arms = {label: (mode, kw) for label, mode, kw in SAMPLER_ARMS}
+    for label in "ag":
+        mode, kw = arms[label]
+        s = GraphSageSampler(topo, SIZES, mode=mode, seed=SEED,
+                             device=dev, **kw)
+        s.sample(batches[0])                  # placement and warm-up
+        res, lat = {}, {True: [], False: []}
+        for metered in (True, False):
+            s.collect_metrics = metered
+            s.generator.manual_seed(SEED)
+            res[metered] = []
+            for b in batches[1:1 + METER_SAMPLER_BATCHES]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = s.sample(b)
+                torch.cuda.synchronize()
+                lat[metered].append((time.perf_counter() - t0) * 1e3)
+                res[metered].append((o, s.last_counters))
+        for (x, c), (y, _) in zip(res[True], res[False]):
+            check(same_sample(x, y), f"metered sampler ({label}) differs "
+                  "from the unmetered samples")
+            c = c.cpu()
+            check(int(c[metrics.FRONTIER_VALID]) == int((x[0] >= 0).sum())
+                  and int(c[metrics.FRONTIER_CAP]) == x[0].shape[0],
+                  f"metered sampler ({label}) counters {c.tolist()}")
+        s.collect_metrics = True
+        sync_free(lambda: s.sample(batches[1]),
+                  f"the metered sampler ({label})")
+        fills = [metrics.derive(c)["frontier_fill"] for _, c in res[True]]
+        out[label] = {"arm": arm_name(mode, kw), "frontier_fill": fills,
+                      "ms_per_batch": sum(lat[True]) / len(lat[True]),
+                      "unmetered_ms_per_batch":
+                          sum(lat[False]) / len(lat[False])}
+        print(f"metrics sampler: ({label}) {arm_name(mode, kw)}: "
+              f"{METER_SAMPLER_BATCHES} batches metered equal to unmetered "
+              f"bit for bit, frontier_fill "
+              f"{' '.join(f'{v:.4f}' for v in fills)}, ms per batch metered "
+              f"{out[label]['ms_per_batch']:.3f} unmetered "
+              f"{out[label]['unmetered_ms_per_batch']:.3f} (host clock); "
+              f"sample() under sync 'error' with counters; on {card}",
+              flush=True)
+        del s
+    return out
+
+
+def rotation_check(dev, gen, nodes, ctx, card):
+    """(d) A full-width numpy-placement int8 store and a fused engine
+    over it; 4,096 pairs rotated by phase 6's frontier counts; lookups
+    and logits the same bits before, between rotation and refresh, and
+    after."""
+    import torch
+    from quiver_tpu_torch import Feature, ServeEngine
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import fused
+    topo, requests, hop_seeds = ctx["topo"], ctx["requests"], ctx["hop_seeds"]
+    t0 = time.perf_counter()
+    feat = torch.randn(nodes, DIM, generator=gen, device=dev).cpu()
+    store = Feature(
+        device_cache_size=(nodes // 4) * quant.row_bytes(DIM, "int8"),
+        csr_topo=topo, dedup_cold=True, dtype_policy="int8",
+        host_placement="numpy", device=dev).from_cpu_tensor(feat)
+    del feat
+    eng = ServeEngine(copy.deepcopy(ctx["eng"].model), None, topo, store,
+                      [SIZES], BATCH, fused_hot_hop=True,
+                      fused_row_cap=ROW_CAP, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    hot = store.cache_rows
+    counts = torch.zeros(nodes, dtype=torch.float32, device=dev)
+    frontiers = []
+    for ids, hs in zip(requests, hop_seeds):
+        n_id, _, _ = fused.fused_multihop(
+            eng._indptr, eng._indices, eng.pad_seeds(ids), store.device_part,
+            SIZES, hs, ROW_CAP, store.feature_order, hot)
+        counts.index_add_(0, n_id[n_id >= 0].long(),
+                          torch.ones_like(n_id[n_id >= 0],
+                                          dtype=torch.float32))
+        frontiers.append(n_id)
+    is_hot = store.feature_order.long() < hot
+    promote = torch.topk(torch.where(is_hot, -1.0, counts),
+                         ROTATE_PAIRS).indices
+    demote = torch.topk(torch.where(is_hot, -counts, -float("inf")),
+                        ROTATE_PAIRS).indices
+    seen = (int(counts[promote].min()), int(counts[promote].max()),
+            int(counts[demote].min()), int(counts[demote].max()))
+    ids = frontiers[0]
+    before = store.getitem_masked(ids)
+    q, hs = requests[0], hop_seeds[0]
+    with deterministic():
+        logits = [eng.run(q, hop_seeds=hs)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = store.rotate_hot_set(promote.cpu(), demote.cpu())
+    torch.cuda.synchronize()
+    rotate_ms = (time.perf_counter() - t0) * 1e3
+    check(res == {"rotated": ROTATE_PAIRS}, f"rotate_hot_set returned {res}")
+    order = store.feature_order.long()
+    check(bool((order[promote] < hot).all())
+          and bool((order[demote] >= hot).all()),
+          "the rotation did not swap the pairs' tiers")
+    after = store.getitem_masked(ids)
+    check(same_bits(before, after), "lookups at a served frontier differ "
+          "across the rotation")
+    with deterministic():
+        logits.append(eng.run(q, hop_seeds=hs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.refresh_feature()
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    with deterministic():
+        logits.append(eng.run(q, hop_seeds=hs))
+    check(same_bits(logits[0], logits[1]) and same_bits(logits[0],
+                                                         logits[2]),
+          "engine logits differ across the rotation or the refresh")
+    moved = int(((frontiers[0] >= 0) & torch.isin(
+        frontiers[0], torch.cat([promote, demote]).to(torch.int32))).sum())
+    print(f"rotation: numpy-placement int8 store, {hot} hot rows, built "
+          f"with its fused engine in {setup_s:.2f} s; {ROTATE_PAIRS} pairs "
+          f"(promoted nodes seen {seen[0]}..{seen[1]} times in phase 6's "
+          f"16 frontiers, demoted {seen[2]}..{seen[3]}); rotate_hot_set "
+          f"{rotate_ms:.3f} ms, refresh_feature {refresh_ms:.3f} ms (host "
+          f"clock + synchronize); lookups at one served frontier "
+          f"({ids.shape[0]} ids, {moved} slots on rotated nodes) equal bit "
+          f"for bit before and after; engine logits equal before, between "
+          f"rotation and refresh, and after; on {card}", flush=True)
+    return {"pairs": ROTATE_PAIRS, "rotate_ms": rotate_ms,
+            "refresh_ms": refresh_ms, "setup_s": setup_s,
+            "frontier_ids": int(ids.shape[0]), "rotated_slots": moved,
+            "promote_seen": seen[:2], "demote_seen": seen[2:]}
+
+
+def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
+    """(e) ``ShardTensor`` over 100-dim product-scale features, 25% in
+    the device group and the rest pinned, fp32 and int8: a lookup at a
+    served frontier equal to the plain version (device rows indexed on
+    the card, host rows indexed on the host and copied), one host-read
+    launch, its own time against the copy-rate bound."""
+    import torch
+    from quiver_tpu_torch import ShardTensor
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.ops.kernels import fused
+    eng, store = ctx["eng"], ctx["store"]
+    ids, _, _ = fused.fused_multihop(
+        eng._indptr, eng._indices, eng.pad_seeds(ctx["requests"][0]),
+        store.device_part, SIZES, ctx["hop_seeds"][0], ROW_CAP,
+        store.feature_order, store.cache_rows)
+    feat = torch.randn(nodes, DIM, generator=gen, device=dev)
+    n_dev = nodes // 4
+    idl = ids.long()
+    valid = (idl >= 0) & (idl < nodes)
+    in_dev, in_host = valid & (idl < n_dev), valid & (idl >= n_dev)
+    hids = torch.where(in_host, idl - n_dev, -1).to(torch.int32)
+    out = {}
+    for policy, kname in ((None, "gather_rows_kernel"),
+                          ("int8", "gather_rows_packed_kernel")):
+        name = policy or "fp32"
+        t0 = time.perf_counter()
+        st = ShardTensor(dtype_policy=policy, device=dev)
+        st.append(feat[:n_dev], 0)
+        st.append(feat[n_dev:], -1)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(all(t.is_pinned() for t in quant.tier_parts(st._host_data)
+                  if t is not None), f"ShardTensor {name}: host group not "
+              "pinned")
+        kernels.reset_launches()
+        got = sync_free(lambda: st[ids], f"ShardTensor {name} lookup")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check(launches["gather_rows"] == 1 and sum(launches.values()) == 1,
+              f"ShardTensor {name} launches {launches}")
+        dev_rows = st.device_tensor_list[0]
+        host_rows = st.cpu_tensor
+
+        def plain():
+            want = torch.zeros((ids.shape[0], DIM), device=dev)
+            want[in_dev] = dev_rows[idl[in_dev]]
+            want[in_host] = host_rows[(idl[in_host] - n_dev).cpu()].to(dev)
+            return want
+        check(same_bits(got, plain()), f"ShardTensor {name} lookup differs "
+              "from its plain version")
+        ms = cuda_ms(lambda: st[ids], iters)
+        own = own_ms(lambda: st[ids], kname, iters)
+        plain_ms = cuda_ms(plain, 3)
+        b_ms, b_by, host_bytes, dev_bytes, distinct = host_gather_bound(
+            st._host_data, hids, h2d)
+        share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+        pinned = (nodes - n_dev) * (quant.packed_stride(DIM) if policy
+                                    else 4 * DIM)
+        print(f"shard_tensor {name}: {nodes - n_dev} pinned host rows "
+              f"({pinned} B), "
+              f"{n_dev} on the card, built in {build_s:.2f} s; lookup at a "
+              f"served frontier ({ids.shape[0]} ids, {int(in_dev.sum())} "
+              f"device rows, {int(in_host.sum())} host rows, {distinct} "
+              f"distinct) equal to the plain version bit for bit, 1 "
+              f"gather_rows launch, no host synchronisation; lookup "
+              f"{ms:.4f} ms, host read own {fmt_ms(own)}{share}, plain "
+              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {host_bytes}"
+              f" B from the host at {h2d / 1e9:.2f} GB/s); on {card}",
+              flush=True)
+        out[name] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "host_bytes": host_bytes, "launches_per_lookup": 1,
+                     "ids": int(ids.shape[0]),
+                     "host_rows": int(in_host.sum()), "build_s": build_s}
+        del st, dev_rows, host_rows, got
+    return out
+
+
+def phase_metered(dev, gen, nodes, indptr, indices, card, ctx, topo,
+                  batches, h2d):
+    """Phase 9: the device counters through the serve and train steps
+    and the sampler, a rotation of the hot set under a serving engine,
+    and ``ShardTensor``."""
+    secs, rec = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+    rec["serving"] = part("(a)", metered_serving, dev, ctx, card)
+    rec["training"] = part("(b)", metered_training, dev, gen, nodes, indptr,
+                           indices, card)
+    rec["sampler"] = part("(c)", metered_sampler, dev, topo, batches, card)
+    rot = part("(d)", rotation_check, dev, gen, nodes, ctx, card)
+    st = part("(e)", shard_tensor_check, dev, gen, nodes, ctx, h2d, card, 10)
+    print(f"phase 9: {sum(secs.values()):.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    return rec, rot, st
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -2240,13 +2819,16 @@ def main() -> int:
     launches.update(split_launches)
     del eng, requests, served, feat, featq
     train_launches = phase_train(dev, gen, NODES, indptr, indices, card)
-    host_tier, tiered_launches = phase_tiered(dev, gen, NODES, indptr,
-                                              indices, card, BATCHES,
-                                              iters=20)
+    host_tier, tiered_launches, tiered_ctx = phase_tiered(
+        dev, gen, NODES, indptr, indices, card, BATCHES, iters=20)
     arms, topo_gathers, host_launches, h2d, topo, batches = phase_sampler(
         dev, gen, NODES, indptr, indices, card)
     weighted, weight_gathers_rec, weighted_host_l = phase_weighted(
         dev, gen, NODES, indptr, indices, deg, topo, batches, h2d, card)
+    metered, rotation, shard = phase_metered(
+        dev, gen, NODES, indptr, indices, card, tiered_ctx, topo, batches,
+        h2d)
+    del tiered_ctx
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2299,6 +2881,14 @@ def main() -> int:
     line["sampler"] = [{k: v for k, v in arm.items()} for arm in
                        arms.values()]
     line["weighted"] = weighted
+    line["metrics"] = metered
+    line["rotation"] = rotation
+    line["shard_tensor"] = shard
+    gather_entry["shard_tensor"] = {
+        "name": "gather_rows over the ShardTensor's pinned host group",
+        "launches_per_lookup": 1,
+        **{k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
+                                  "bound_by")} for k, v in shard.items()}}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

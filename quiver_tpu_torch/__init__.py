@@ -8,20 +8,27 @@ the TPU kernels, which the serve and train steps run through the fused
 walk, are CUDA kernels for Hopper (``csrc/``), built at first use. The
 train steps are in ``parallel`` (``build_train_step``). ``Feature`` is
 the tiered store: its hot tier on the card, its cold tier in pinned host
-memory that the card's row gather reads. ``GraphSageSampler`` samples
-k-hop neighbourhoods with the topology on the card (HBM mode) or pinned
-in host memory (HOST mode), read by the card's gathers.
+memory that the card's row gather reads; ``ShardTensor`` is the
+reference's row store over a device group and a pinned host group.
+``GraphSageSampler`` samples k-hop neighbourhoods with the topology on
+the card (HBM mode) or pinned in host memory (HOST mode), read by the
+card's gathers. ``metrics`` holds the device counters the metered steps,
+lookups and samplers return (``collect_metrics=True``) and their host
+side (``StepStats``, ``MetricsSink``, ``SloBudget``).
 """
 
 __version__ = "0.1.0"
 
 from .feature import DeviceConfig, Feature
+from .metrics import Collector, MetricsSink, SloBudget, StepStats
 from .models import GAT, GraphSAGE
 from .ops.quant import quantize
 from .pyg import GraphSageSampler, SampleJob
 from .serving import ServeEngine, build_serve_step
+from .shard_tensor import ShardTensor, ShardTensorConfig
 from .utils import CSRTopo, parse_size
 
-__all__ = ["CSRTopo", "DeviceConfig", "Feature", "GAT", "GraphSAGE",
-           "GraphSageSampler", "SampleJob", "ServeEngine",
-           "build_serve_step", "parse_size", "quantize"]
+__all__ = ["CSRTopo", "Collector", "DeviceConfig", "Feature", "GAT",
+           "GraphSAGE", "GraphSageSampler", "MetricsSink", "SampleJob",
+           "ServeEngine", "ShardTensor", "ShardTensorConfig", "SloBudget",
+           "StepStats", "build_serve_step", "parse_size", "quantize"]

@@ -33,6 +33,13 @@ path, ``budget`` more on unique overflow, and the batch's cold slots
 when the raw cold count overflows too): the unique rows on the dedup
 narrow path, the cold slots on the compaction path, and the cold slots
 alone when they overflow the budget.
+
+``lookup_tiered(collect_metrics=True)`` also returns the lookup's device
+counters (``metrics.py``): hot and cold rows on the classification mask,
+and the dedup table's statistics, recorded where the JAX lookup records
+them (outside its branches), so a predicated branch that is not taken
+records nothing. ``rotate_hot_set`` swaps rows between the tiers online;
+a store pickles with its pinned tier as a CPU copy.
 """
 
 from __future__ import annotations
@@ -42,10 +49,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import metrics
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
 from .ops.kernels.gather import gather_rows
-from .parallel.train import _METRICS
 from .utils.device import resolve_device
 from .utils.placement import pinned_put
 from .utils.reorder import reindex_feature
@@ -53,7 +60,7 @@ from .utils.sizes import parse_size
 
 _MULTI = "ROADMAP Queue 1 item 7 (multi-GPU)"
 _LATER = ("ROADMAP Queue 1 item 3 (what is left of the Feature store: "
-          "the disk tier, rotate_hot_set, cold prefetch)")
+          "the disk tier and the cold prefetch, after item 5)")
 
 
 class DeviceConfig:
@@ -275,12 +282,16 @@ class Feature:
         return rows * (ids_i >= 0).to(rows.dtype)[:, None]
 
     def _lookup_tiered(self, dev_part, host_part, ids, order,
-                       masked: bool = False):
+                       masked: bool = False, collector=None):
         """The offload lookup (the JAX package's ``lookup_tiered_body``):
         hot rows from the device tier, cold rows read from the host tier
         by ``gather_rows``, without a host synchronisation. ``masked``:
         -1 ids give zero rows, and padding counts as hot (it never takes
-        a cold budget slot)."""
+        a cold budget slot). ``collector`` (a ``metrics.Collector``)
+        records one lookup and its valid hot and cold slots (padding
+        excluded), and the dedup table's statistics where JAX records
+        them: once, when ``dedup_cold`` is on and the budget is below
+        the batch; the compaction fallback records nothing."""
         ids_raw = ids.to(torch.int32)
         cache_rows = self.cache_rows
         cold_total = quant.tier_rows(host_part)
@@ -314,6 +325,17 @@ class Feature:
         hot = t < cache_rows
         if masked:
             hot = hot | (ids_raw < 0)
+        if collector is not None:
+            collector.add(metrics.LOOKUP_CALLS, 1)
+            if masked:
+                vmask = ids_raw >= 0
+                hot_valid = (hot & vmask).sum(dtype=torch.int32)
+                n_valid = vmask.sum(dtype=torch.int32)
+            else:
+                hot_valid = hot.sum(dtype=torch.int32)
+                n_valid = n
+            collector.add(metrics.HOT_ROWS, hot_valid)
+            collector.add(metrics.COLD_ROWS, n_valid - hot_valid)
         cold_idx = (t - cache_rows).clamp(0, max(cold_total - 1, 0))
         budget = _resolve_cold_budget(self.dedup_cold, self.cold_budget, n)
         dedup = bool(self.dedup_cold)
@@ -321,8 +343,8 @@ class Feature:
             if dedup and budget < n:
                 # no hot tier: every slot is cold, dedup still bounds the
                 # host read to unique rows
-                return finish(dedup_take(host_part, cold_idx, budget)
-                              .to(out_dt))
+                return finish(dedup_take(host_part, cold_idx, budget,
+                                         collector=collector).to(out_dt))
             return finish(gather_rows(host_part, cold_idx).to(out_dt))
         zero = torch.zeros_like(t)
         if budget >= n:
@@ -372,7 +394,8 @@ class Feature:
         # unique overflow, the compaction path (which keeps its own
         # traffic bound) is taken instead
         valid_pos = (ids_raw >= 0) if masked else None
-        uniq, inv, n_uniq = unique_within_budget(t, budget, valid=valid_pos)
+        uniq, inv, n_uniq = unique_within_budget(t, budget, valid=valid_pos,
+                                                 collector=collector)
         uover = n_uniq > budget
         safe_u = uniq.clamp(0, total - 1)
         hot_u = safe_u < cache_rows
@@ -436,11 +459,54 @@ class Feature:
 
     def lookup_tiered(self, node_idx, masked: bool = False,
                       collect_metrics: bool = False):
-        """``feature[ids]`` (``masked``: -1 ids give zero rows). The
-        device counters of ``collect_metrics=True`` are later work."""
-        if collect_metrics:
-            raise NotImplementedError(_METRICS)
-        return self.getitem_masked(node_idx) if masked else self[node_idx]
+        """``feature[ids]`` (``masked``: -1 ids give zero rows), or
+        ``(rows, counters)`` with ``collect_metrics=True``: a
+        ``[metrics.NUM_COUNTERS]`` int32 vector with the lookup's hot
+        and cold rows (the observed hit rate) and, with ``dedup_cold``,
+        the batch's duplicate statistics. The rows are the unmetered
+        lookup's, bit for bit. An offload store and a store with no cold
+        tier count on the card, without a host synchronisation; a
+        ``host_placement="numpy"`` store, whose lookup goes through the
+        host anyway, counts there and returns a CPU vector with the dup
+        statistics only (``DEDUP_TOTAL``/``DEDUP_UNIQUE``: that path
+        runs no compaction, so no dedup call or overflow is claimed), as
+        JAX does. The prefetch, IO and fault slots stay 0: this store
+        has no disk tier."""
+        if not collect_metrics:
+            return self.getitem_masked(node_idx) if masked \
+                else self[node_idx]
+        ids = self._ids(node_idx)
+        if self._host_offload is not None:
+            col = metrics.Collector(self.device)
+            rows = self._lookup_tiered(self.device_part, self._host_offload,
+                                       ids, self.feature_order, masked, col)
+            return rows, col.counters()
+        rows = self.getitem_masked(ids) if masked else self[ids]
+        if self.host_part is None:
+            # no cold tier: every valid slot is a hot-tier hit
+            col = metrics.Collector(self.device)
+            col.add(metrics.LOOKUP_CALLS, 1)
+            col.add(metrics.HOT_ROWS, (ids >= 0).sum(dtype=torch.int32)
+                    if masked else ids.shape[0])
+            return rows, col.counters()
+        ids_np = ids.cpu().numpy().astype(np.int64)
+        valid = (ids_np >= 0) if masked else np.ones_like(ids_np, bool)
+        if self.feature_order is not None:
+            order = self.feature_order.cpu().numpy()
+            t = order[np.clip(ids_np, 0, order.shape[0] - 1)]
+        else:
+            t = np.clip(ids_np, 0, max(self.size(0) - 1, 0))
+        vec = np.zeros((metrics.NUM_COUNTERS,), np.int32)
+        hot = int(((t < self.cache_rows) & valid).sum())
+        vec[metrics.LOOKUP_CALLS] = 1
+        vec[metrics.HOT_ROWS] = hot
+        vec[metrics.COLD_ROWS] = int(valid.sum()) - hot
+        n = int(ids_np.shape[0])
+        if self.dedup_cold and _resolve_cold_budget(
+                self.dedup_cold, self.cold_budget, n) < n:
+            vec[metrics.DEDUP_TOTAL] = int(valid.sum())
+            vec[metrics.DEDUP_UNIQUE] = int(np.unique(t[valid]).size)
+        return rows, torch.from_numpy(vec)
 
     def close(self):
         """Nothing to stop: the staging pipelines that the JAX store
@@ -457,9 +523,6 @@ class Feature:
     def read_mmap(self, ids):
         raise NotImplementedError(_LATER)
 
-    def rotate_hot_set(self, promote, demote):
-        raise NotImplementedError(_LATER)
-
     def enable_cold_prefetch(self, *args, **kwargs):
         raise NotImplementedError(_LATER)
 
@@ -469,8 +532,115 @@ class Feature:
     def share_ipc(self):
         raise NotImplementedError(_MULTI)
 
+    # -- online hot-set rotation ----------------------------------------------
+    def rotate_hot_set(self, promote, demote):
+        """Swap ``demote`` (hot nodes) out of the hot tier for
+        ``promote`` (cold nodes), online: the stored bytes of each row
+        (codes and sidecars of an int8 tier) move between the tiers
+        as they are, and ``feature_order`` swaps the two nodes' storage
+        rows, so every lookup gives the same bits before and after.
+
+        The hot tier and ``feature_order`` become new tensors (the old
+        ones are not written, so an engine still holding them keeps
+        serving the store as it was); the host tier is updated in place,
+        as in JAX. A ``ServeEngine`` built over this store serves its
+        own copy of the tiers until ``engine.refresh_feature()``.
+
+        Refused (``ValueError``, nothing moved) without a
+        ``feature_order``, without a hot tier, without a
+        ``host_placement="numpy"`` host tier (an offload tier is pinned
+        as it was built), with different hot and cold dtype policies (a
+        row would be re-encoded), with ``promote``/``demote`` not
+        pairing 1:1 as unique ids, out of range, or not currently cold
+        and hot. Returns ``{"rotated": k}``."""
+        if self.feature_order is None:
+            raise ValueError(
+                "rotate_hot_set needs a hot-order store (feature_order "
+                "is None; construct with a csr_topo)")
+        if not self.cache_rows or self.device_part is None:
+            raise ValueError("rotate_hot_set needs a non-empty hot tier")
+        if self.host_part is None:
+            raise ValueError(
+                "rotate_hot_set needs a numpy host tier (offloaded cold "
+                "tiers are pinned as they were built)")
+        if self.dtype_policy["hot"] != self.dtype_policy["cold"]:
+            raise ValueError(
+                f"rotate_hot_set needs identical hot/cold dtype "
+                f"policies (got {self.dtype_policy!r}); rows crossing "
+                "tiers would re-encode and break bit-identity")
+        promote = np.unique(_cpu_tensor(promote).numpy().astype(np.int64)
+                            .reshape(-1))
+        demote = np.unique(_cpu_tensor(demote).numpy().astype(np.int64)
+                           .reshape(-1))
+        if promote.size != demote.size:
+            raise ValueError(
+                f"promote/demote must pair 1:1, got {promote.size} vs "
+                f"{demote.size} unique ids")
+        if promote.size == 0:
+            return {"rotated": 0}
+        order = self.feature_order.cpu().numpy().astype(np.int64)
+        n = order.shape[0]
+        for ids, what in ((promote, "promote"), (demote, "demote")):
+            if ids[0] < 0 or ids[-1] >= n:
+                raise ValueError(f"{what} ids out of range [0, {n})")
+        rp = order[promote]            # storage rows, must be cold
+        rd = order[demote]             # storage rows, must be hot
+        if not (rp >= self.cache_rows).all():
+            raise ValueError("promote ids must currently be cold rows")
+        if not (rd < self.cache_rows).all():
+            raise ValueError("demote ids must currently be hot rows")
+        rd_dev = torch.from_numpy(rd).to(self.device)
+        host_rows = torch.from_numpy(rp - self.cache_rows)
+        new_dev = []
+        for dl, hl in zip(quant.tier_parts(self.device_part),
+                          quant.tier_parts(self.host_part)):
+            if dl is None:
+                continue
+            down = dl.index_select(0, rd_dev).cpu()
+            up = hl.index_select(0, host_rows).to(self.device)
+            new_dev.append(dl.clone().index_copy_(0, rd_dev, up))
+            hl.index_copy_(0, host_rows, down)
+        self.device_part = quant.QuantizedTensor(*new_dev) \
+            if quant.is_quantized(self.device_part) else new_dev[0]
+        order[promote] = rd
+        order[demote] = rp
+        self.feature_order = torch.from_numpy(order).to(self.device,
+                                                        torch.int32)
+        return {"rotated": int(promote.size)}
+
+    # -- pickling ------------------------------------------------------------
     def __getstate__(self):
-        raise NotImplementedError(f"pickling a Feature: {_LATER}")
+        """The store's state with every tensor on the CPU: a pinned
+        offload tier goes out as a plain CPU copy (unpacked) in
+        ``host_part`` and is pinned again on load."""
+        state = dict(self.__dict__)
+        state["_host_offload"] = None
+        if self._host_offload is not None:
+            state["host_part"] = quant.tree_map_tier(
+                lambda t: torch.empty(t.shape, dtype=t.dtype).copy_(t),
+                self._host_offload)
+        for k in ("device_part", "feature_order"):
+            if state[k] is not None:
+                state[k] = quant.tree_map_tier(torch.Tensor.cpu, state[k])
+        return state
+
+    def __setstate__(self, state):
+        """Device tensors return to the store's device (the card unless
+        it was the CPU; with no card, loading a card's store raises); an
+        offload tier is pinned again. Pickles without ``cold_budget``,
+        ``dedup_cold`` or ``dtype_policy`` load with their defaults."""
+        self.__dict__.update(state)
+        self.__dict__.setdefault("cold_budget", None)
+        self.__dict__.setdefault("dedup_cold", False)
+        self.__dict__.setdefault("dtype_policy", {"hot": None, "cold": None})
+        self.device = resolve_device(self.device)
+        for k in ("device_part", "feature_order"):
+            if getattr(self, k) is not None:
+                setattr(self, k, quant.tree_map_tier(
+                    lambda t: t.to(self.device).contiguous(),
+                    getattr(self, k)))
+        self._host_offload = None
+        self._maybe_offload_host()
 
     # -- shape protocol ------------------------------------------------------
     @property

@@ -14,6 +14,10 @@ the port predicates the ids of each branch's gather: a slot the branch
 would not read gets -1, which ``gather_rows`` skips (it reads nothing
 for it and leaves its output row as it is). Both branches run on the
 card; only the taken one reads the table.
+
+``collector`` (a ``metrics.Collector``) records the dedup statistics the
+JAX functions record: one call, the counted ids, the true distinct count
+and whether it overflowed the budget, from values already computed.
 """
 
 from __future__ import annotations
@@ -21,13 +25,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import metrics
 from . import quant
 from .kernels.gather import gather_rows
 
 I32_MAX = 2**31 - 1
 
 
-def unique_within_budget(ids: torch.Tensor, budget: int, valid=None):
+def unique_within_budget(ids: torch.Tensor, budget: int, valid=None,
+                         collector=None):
     """Compact the distinct values of ``ids`` into a static-size table.
 
     Returns ``(uniq, inv, n_uniq)``, all int32 on ``ids``' device:
@@ -41,7 +47,9 @@ def unique_within_budget(ids: torch.Tensor, budget: int, valid=None):
 
     ``valid`` (optional [n] bool) excludes positions from the count by
     keying them to int32 max, so ids must stay below it. Equal to the
-    JAX function's outputs, fill included."""
+    JAX function's outputs, fill included. ``collector`` records
+    ``DEDUP_CALLS``, ``DEDUP_TOTAL``, ``DEDUP_UNIQUE`` and
+    ``DEDUP_OVERFLOW`` on the card, reading nothing back."""
     ids = ids.to(torch.int32)
     key = ids if valid is None else torch.where(
         valid, ids, torch.full_like(ids, I32_MAX))
@@ -58,23 +66,32 @@ def unique_within_budget(ids: torch.Tensor, budget: int, valid=None):
     uniq.scatter_(0, tgt.long(), skey)
     uniq = uniq[:budget]
     inv = torch.searchsorted(uniq, key).clamp_(0, budget - 1)
+    if collector is not None:
+        collector.add(metrics.DEDUP_CALLS, 1)
+        collector.add(metrics.DEDUP_TOTAL, ids.shape[0] if valid is None
+                      else valid.sum(dtype=torch.int32))
+        collector.add(metrics.DEDUP_UNIQUE, n_uniq)
+        collector.add(metrics.DEDUP_OVERFLOW, n_uniq > budget)
     return uniq, inv.to(torch.int32), n_uniq
 
 
 def dedup_take(table, ids: torch.Tensor, budget: int,
-               valid=None) -> torch.Tensor:
+               valid=None, collector=None) -> torch.Tensor:
     """``table[clip(ids)]`` reading each distinct id once: the narrow
     read is a ``[budget, dim]`` gather of the unique rows, expanded to
     the positions; on unique overflow the full positional gather is
     taken instead, as the JAX function's ``lax.cond`` does. Rows at
     excluded (``valid=False``) positions are meaningless: callers mask
     them. ``table`` is a tensor or ``QuantizedTensor`` (dequant fused),
-    on ``ids``' device or, on a card, in pinned host memory."""
+    on ``ids``' device or, on a card, in pinned host memory.
+    ``collector`` goes to :func:`unique_within_budget` (nothing is
+    recorded when ``budget >= len(ids)``, as in JAX)."""
     n = ids.shape[0]
     last = max(quant.tier_rows(table) - 1, 0)
     if budget >= n:
         return gather_rows(table, ids.clamp(0, last).to(torch.int32))
-    uniq, inv, n_uniq = unique_within_budget(ids, budget, valid=valid)
+    uniq, inv, n_uniq = unique_within_budget(ids, budget, valid=valid,
+                                             collector=collector)
     over = n_uniq > budget
     live = (torch.arange(budget, device=ids.device) < n_uniq) & ~over
     skip = torch.full_like(uniq, -1)

@@ -7,8 +7,8 @@ or the windowed weighted draw) and compacts its picks into the next
 hop's frontier. All hops draw, in order, from the one
 ``torch.Generator`` the call is given, where the JAX function folds its
 key per hop. The topology and the weights lie on the seeds' device or
-in pinned host memory (``sample.take``). The metrics collector is later
-work and raises ``NotImplementedError``.
+in pinned host memory (``sample.take``). A ``metrics.Collector``
+records the final frontier's valid slots and its capacity.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import metrics
 from .sample import (LayerSample, _draw_offsets, _draw_positions,
                      as_index_rows, as_index_rows_overlapping,
                      compact_ids, compact_layer, edge_row_ids, permute_csr,
@@ -25,14 +26,11 @@ from .sample import (LayerSample, _draw_offsets, _draw_positions,
                      suggest_hub_cap, take)
 from .weighted import sample_layer_weighted, sample_layer_weighted_window
 
-_METRICS = "ROADMAP Queue 1 item 1 'serve: collect_metrics'"
 _METHODS = ("exact", "rotation", "window")
 
 
-def _check_knobs(method, edge_weight, indices_rows, weight_rows,
-                 collector):
-    """The JAX function's coupled-parameter ``ValueError``s, then the
-    knob that is later work."""
+def _check_knobs(method, edge_weight, indices_rows, weight_rows):
+    """The JAX function's coupled-parameter ``ValueError``s."""
     if method not in _METHODS:
         raise ValueError(f"unknown sampling method {method!r}")
     windowed = method in ("rotation", "window")
@@ -59,8 +57,6 @@ def _check_knobs(method, edge_weight, indices_rows, weight_rows,
             "windowed weighted sampling needs indices_rows from the same "
             "shuffle as weight_rows (reshuffle_csr with "
             "extra=(edge_weight,), then as_index_rows* both)")
-    if collector is not None:
-        raise NotImplementedError(f"collector: {_METRICS}")
 
 
 def _skip_hop_draws(generator, method, bs, sizes, device):
@@ -141,9 +137,10 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     ``generator`` is a ``torch.Generator`` on the seeds' device; the
     topology arrays lie there or in pinned host memory. ``seeds_dense``
     promises the hop-0 seeds are valid-first (-1 fill only at the tail);
-    later hops always are. ``collector`` raises ``NotImplementedError``
-    after the JAX function's ``ValueError`` checks."""
-    _check_knobs(method, edge_weight, indices_rows, weight_rows, collector)
+    later hops always are. ``collector`` (a ``metrics.Collector``)
+    records ``FRONTIER_VALID`` (the final frontier's valid slots, on
+    the card) and ``FRONTIER_CAP`` (its static capacity)."""
+    _check_knobs(method, edge_weight, indices_rows, weight_rows)
     windowed = method in ("rotation", "window")
     after = None
     if windowed and indices_rows is None and edge_weight is None:
@@ -188,6 +185,10 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
         cur = layer.n_id
     if after is not None:
         generator.set_state(after)
+    if collector is not None:
+        collector.add(metrics.FRONTIER_VALID,
+                      (cur >= 0).sum(dtype=torch.int32))
+        collector.add(metrics.FRONTIER_CAP, int(cur.shape[0]))
     return cur, layers
 
 

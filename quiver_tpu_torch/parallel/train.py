@@ -22,10 +22,11 @@ only the fused walk's picks, which come from the kernels' counter hash,
 match the JAX package's bit for bit.
 
 ``dedup_gather`` (True or an int unique budget) swaps the split
-route's gather for :func:`dedup_feature_gather`. The data-parallel
-``build_e2e_train_step`` and ``collect_metrics`` are later items of
-ROADMAP Queue 1; asking for ``collect_metrics`` raises
-``NotImplementedError``.
+route's gather for :func:`dedup_feature_gather`. ``collect_metrics``
+adds the step's device counter vector (``metrics.Collector``: the
+final frontier's fill, and the dedup gather's statistics) to its
+outputs. The data-parallel ``build_e2e_train_step`` is a later item of
+ROADMAP Queue 1 (item 7).
 """
 
 from __future__ import annotations
@@ -35,15 +36,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import metrics
 from ..ops import quant
 from ..ops.dedup import unique_within_budget
 from ..ops.kernels.fused import fused_multihop
 from ..ops.kernels.gather import gather_rows
 from ..ops.sample_multihop import _METHODS, sample_multihop
 from ..pyg.sage_sampler import Adj, layer_shapes
-
-_METRICS = "ROADMAP Queue 1 'serve: collect_metrics'"
-
 
 class TrainState(NamedTuple):
     """The model (its parameters), its optimizer (its moments) and the
@@ -97,11 +96,13 @@ def layers_to_adjs(layers, batch_size: int, sizes: Sequence[int]):
     return adjs[::-1]
 
 
-def masked_feature_gather(feat, n_id: torch.Tensor,
-                          feature_order=None) -> torch.Tensor:
+def masked_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
+                          collector=None) -> torch.Tensor:
     """Feature rows for a -1-padded frontier, through the optional
     hot-order indirection; padded rows come back zeroed. ``feat`` is a
-    tensor or a ``QuantizedTensor`` (dequant fused into the gather)."""
+    tensor or a ``QuantizedTensor`` (dequant fused into the gather).
+    ``collector`` is taken for the gathers' common signature and records
+    nothing (one tier: nothing tiered to count), as in JAX."""
     ids = n_id.long()
     if feature_order is not None:
         ids = feature_order.long()[ids.clamp(min=0)]
@@ -111,21 +112,24 @@ def masked_feature_gather(feat, n_id: torch.Tensor,
 
 
 def dedup_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
-                         budget: Optional[int] = None) -> torch.Tensor:
+                         budget: Optional[int] = None,
+                         collector=None) -> torch.Tensor:
     """:func:`masked_feature_gather` reading each distinct valid id once
     (default budget ``max(len(n_id) // 4, 256)``): a ``[budget, dim]``
     gather of the unique rows expanded to the positions. When the unique
     count overflows the budget, every slot is gathered instead; as in
     ``ops.dedup``, that read is predicated (ids -1 unless overflowed,
     through ``gather_rows``), so the host never picks the branch. Equal
-    to the JAX function in both branches."""
+    to the JAX function in both branches. ``collector`` records the
+    unique table's statistics (``unique_within_budget``)."""
     n = n_id.shape[0]
     if budget is None:
         budget = quant.default_cold_budget(n)
     if budget >= n:
         return masked_feature_gather(feat, n_id, feature_order)
     valid = n_id >= 0
-    uniq, inv, n_uniq = unique_within_budget(n_id, budget, valid=valid)
+    uniq, inv, n_uniq = unique_within_budget(n_id, budget, valid=valid,
+                                             collector=collector)
     ids = n_id.long().clamp(min=0)
     hi = quant.tier_rows(feat) - 1
     if feature_order is not None:
@@ -146,20 +150,26 @@ def _dedup_gather_fn(dedup_gather):
     if dedup_gather is None:
         return None
     budget = None if dedup_gather is True else int(dedup_gather)
-    return lambda feat, n_id, forder: dedup_feature_gather(
-        feat, n_id, forder, budget)
+    return lambda feat, n_id, forder, collector=None: dedup_feature_gather(
+        feat, n_id, forder, budget, collector=collector)
 
 
 def _fused_multihop_x(feat, forder, indptr, indices, seeds,
                       sizes: Sequence[int], hop_seeds: Sequence[int],
-                      row_cap: int = 2048, hot_rows: Optional[int] = None):
+                      row_cap: int = 2048, hot_rows: Optional[int] = None,
+                      collector=None):
     """The fused frontier walk (``ops.kernels.fused.fused_multihop``):
     interior hops run the sampling kernel, the leaf hop samples and
     gathers in one kernel. Hop ``i`` draws from ``hop_seeds[i]``.
-    Returns ``(x, layers)``."""
-    _, layers, x = fused_multihop(
+    Returns ``(x, layers)``; ``collector`` records the final frontier's
+    valid slots and capacity."""
+    n_id, layers, x = fused_multihop(
         indptr, indices, seeds, feat, list(sizes), hop_seeds,
         row_cap=row_cap, feature_order=forder, hot_rows=hot_rows)
+    if collector is not None:
+        collector.add(metrics.FRONTIER_VALID,
+                      (n_id >= 0).sum(dtype=torch.int32))
+        collector.add(metrics.FRONTIER_CAP, int(n_id.shape[0]))
     return x, layers
 
 
@@ -192,17 +202,13 @@ def _check_method(method: str):
 
 
 def _step_knobs(fused_hot_hop, row_cap, sizes, method, dedup_gather,
-                collect_metrics, indices_stride=None, hub_frac=None):
-    """The knobs of the train and serve steps: the method, the fused
-    walk's (see :func:`_fused_knobs`), then the one that is later
-    work."""
+                indices_stride=None, hub_frac=None):
+    """The knobs of the train and serve steps: the method, then the
+    fused walk's (see :func:`_fused_knobs`)."""
     _check_method(method)
-    fused = _fused_knobs(fused_hot_hop, row_cap, sizes, method,
-                         dedup_gather=dedup_gather,
-                         indices_stride=indices_stride, hub_frac=hub_frac)
-    if collect_metrics:
-        raise NotImplementedError(_METRICS)
-    return fused
+    return _fused_knobs(fused_hot_hop, row_cap, sizes, method,
+                        dedup_gather=dedup_gather,
+                        indices_stride=indices_stride, hub_frac=hub_frac)
 
 
 def _check_rows(method: str, indices_rows, kind: str) -> bool:
@@ -222,7 +228,8 @@ def _check_rows(method: str, indices_rows, kind: str) -> bool:
 
 
 def _split_sample(indptr, indices, seeds, sizes, generator, method="exact",
-                  indices_rows=None, indices_stride=None, hub_frac=None):
+                  indices_rows=None, indices_stride=None, hub_frac=None,
+                  collector=None):
     """The split route's sampling: ``sample_multihop`` under the step's
     batch contract (distinct valid seeds first, so ``seeds_dense``).
     ``indices_stride`` counts only with a rows view, as in JAX."""
@@ -230,29 +237,35 @@ def _split_sample(indptr, indices, seeds, sizes, generator, method="exact",
         indptr, indices, seeds, sizes, generator, method=method,
         indices_rows=indices_rows,
         indices_stride=indices_stride if indices_rows is not None else None,
-        seeds_dense=True, hub_frac=hub_frac)
+        seeds_dense=True, hub_frac=hub_frac, collector=collector)
 
 
 def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
-          hot_rows: Optional[int] = None, gather=None, **sampling):
+          hot_rows: Optional[int] = None, gather=None, collector=None,
+          **sampling):
     """One batch's ``(x, layers)``. ``fused`` (the packed knobs) takes
     the fused walk, hop ``i`` seeded with ``hop_seeds[i]``; ``None``
     takes the split route: :func:`_split_sample` with the ``sampling``
     knobs (``method``, ``indices_rows``, ``indices_stride``,
     ``hub_frac``), all hops drawing from one generator seeded with
     ``hop_seeds[0]`` on the seeds' device, then ``gather(feat, n_id,
-    forder)`` (default the masked gather) over the final frontier."""
+    forder)`` (default the masked gather) over the final frontier.
+    ``collector`` (a ``metrics.Collector``, or None) goes to the walk or
+    the sampler, and to the gather as ``collector=``."""
     if len(hop_seeds) != len(sizes):
         raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
                          f"{len(hop_seeds)} seeds")
     if fused is not None:
         return _fused_multihop_x(feat, forder, indptr, indices, seeds,
                                  sizes, hop_seeds, hot_rows=hot_rows,
-                                 **fused)
+                                 collector=collector, **fused)
     n_id, layers = _split_sample(indptr, indices, seeds, sizes,
                                  _generator(seeds.device, hop_seeds[0]),
-                                 **sampling)
-    return (gather or masked_feature_gather)(feat, n_id, forder), layers
+                                 collector=collector, **sampling)
+    gather = gather or masked_feature_gather
+    if collector is None:
+        return gather(feat, n_id, forder), layers
+    return gather(feat, n_id, forder, collector=collector), layers
 
 
 def _model_loss(model, x, adjs, labels, batch_size: int,
@@ -269,7 +282,7 @@ def _model_loss(model, x, adjs, labels, batch_size: int,
 
 def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
                 seeds, labels, hop_seeds, dropout_seed, fused=None,
-                gather=None, **sampling):
+                gather=None, collector=None, **sampling):
     """The step's loss over one batch's walk (:func:`_walk`, the split
     route taking the ``sampling`` knobs). The walk runs without
     autograd: ``x`` and the layers are constants of the step.
@@ -279,7 +292,8 @@ def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
     every slot."""
     with torch.no_grad():
         x, layers = _walk(fused, feat, forder, indptr, indices, seeds,
-                          sizes, hop_seeds, gather=gather, **sampling)
+                          sizes, hop_seeds, gather=gather,
+                          collector=collector, **sampling)
     adjs = layers_to_adjs(layers, batch_size, sizes)
     return _model_loss(model, x, adjs, labels, batch_size, dropout_seed)
 
@@ -303,7 +317,8 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
                      fused_row_cap: int = 2048):
     """Single-device train step:
     ``step(state, feat, forder, indptr, indices, seeds, labels,
-    hop_seeds, dropout_seed, indices_rows=None) -> (state, loss)``.
+    hop_seeds, dropout_seed, indices_rows=None) -> (state, loss)``, or
+    ``(state, loss, counters)`` with ``collect_metrics=True``.
     ``model`` is any module with ``forward(x, adjs, generator=None)``
     (``GraphSAGE``, ``GAT``).
 
@@ -338,11 +353,19 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     ``torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)``, both
     adding ``eps`` outside the square root of the bias-corrected second
     moment. torch updates the parameters and moments in place, so JAX's
-    ``donate`` has no counterpart."""
+    ``donate`` has no counterpart.
+
+    ``collect_metrics=True`` adds one output, the step's
+    ``[metrics.NUM_COUNTERS]`` int32 counter vector on the device: the
+    final frontier's valid slots and capacity on either route, and with
+    ``dedup_gather`` the unique table's statistics. It is counted with
+    tensor ops on values the step computes anyway: no host
+    synchronisation, and the loss and the update are the ones of the
+    step without it, bit for bit. Feed it to ``metrics.StepStats``."""
     sizes = [int(k) for k in sizes]
     fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
-                        dedup_gather, collect_metrics,
-                        indices_stride=indices_stride, hub_frac=hub_frac)
+                        dedup_gather, indices_stride=indices_stride,
+                        hub_frac=hub_frac)
     gather = _dedup_gather_fn(dedup_gather)
 
     def step(state: TrainState, feat, forder, indptr, indices, seeds,
@@ -358,10 +381,15 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
                             indices_stride=indices_stride,
                             hub_frac=hub_frac)
         model.train()
+        col = metrics.Collector(seeds.device) if collect_metrics else None
         loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
                            indices, seeds, labels, hop_seeds, dropout_seed,
-                           fused=fused, gather=gather, **sampling)
-        return _update(state, model, optimizer, loss), loss.detach()
+                           fused=fused, gather=gather, collector=col,
+                           **sampling)
+        new_state = _update(state, model, optimizer, loss)
+        if col is None:
+            return new_state, loss.detach()
+        return new_state, loss.detach(), col.counters()
 
     return step
 

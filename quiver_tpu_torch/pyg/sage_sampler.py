@@ -25,9 +25,12 @@ topology does. Random numbers come from one ``torch.Generator`` on the
 sampler's device, seeded from ``seed``, where the JAX sampler keeps a
 key chain.
 
+``collect_metrics=True`` keeps each ``sample()``'s device counter vector
+(``metrics.py``: the final frontier's valid slots and capacity) on
+``last_counters``, counted on the card without a host synchronisation.
 ``mode="CPU"`` and ``MixedGraphSageSampler`` wait for the native CPU
-engine (ROADMAP Queue 1 item 5), ``collect_metrics`` for item 1; they
-raise ``NotImplementedError`` naming their items.
+engine (ROADMAP Queue 1 item 5) and raise ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ import torch
 from ..ops.sample import (as_index_rows, as_index_rows_overlapping,
                           compact_layer, compose_slot_map, edge_row_ids,
                           reshuffle_csr, sample_layer, sample_prob)
-from ..ops.sample_multihop import _METRICS, sample_multihop
+from .. import metrics
+from ..ops.sample_multihop import sample_multihop
 from ..utils.device import resolve_device
 from ..utils.placement import pinned_put
 
@@ -151,8 +155,6 @@ class GraphSageSampler:
                 "rotation/window")
         if mode == "CPU":
             raise NotImplementedError(f"mode='CPU': {_ENGINE}")
-        if collect_metrics:
-            raise NotImplementedError(f"collect_metrics: {_METRICS}")
         self.mode = mode
         self.sizes = [int(k) for k in sizes]
         self.csr_topo = csr_topo
@@ -163,6 +165,8 @@ class GraphSageSampler:
         self.layout = layout
         self.shuffle = shuffle
         self.allow_fallback = allow_fallback
+        self.collect_metrics = bool(collect_metrics)
+        self.last_counters = None
         # wide_exact: exact mode reads through a rows view of the
         # indices, +E (pair) or +2E (overlap) in the topology's tier;
         # False keeps the scattered draw with no extra copy
@@ -330,7 +334,9 @@ class GraphSageSampler:
     # -- core -----------------------------------------------------------------
     def sample(self, input_nodes):
         """Returns ``(n_id, batch_size, adjs)``, the adjs outermost hop
-        first, ready for layer-wise message passing (PyG's order)."""
+        first, ready for layer-wise message passing (PyG's order). With
+        ``collect_metrics`` the batch's counter vector lands on
+        ``last_counters``."""
         self.lazy_init_quiver()
         seeds = torch.as_tensor(input_nodes).to(self.device, torch.int32)
         bs = int(seeds.shape[0])
@@ -351,11 +357,15 @@ class GraphSageSampler:
             eid = self._eid_map() if self.with_eid else None
         stride = 128 if rows is not None and self.layout == "overlap" \
             else None
+        col = metrics.Collector(self.device) if self.collect_metrics \
+            else None
         n_id, layers = sample_multihop(
             indptr, indices, seeds, self.sizes, self.generator,
             edge_weight=weights, method=self.sampling, indices_rows=rows,
             eid=eid, indices_stride=stride, weight_rows=w_rows,
-            hub_frac=self._exact_hub_frac())
+            hub_frac=self._exact_hub_frac(), collector=col)
+        if col is not None:
+            self.last_counters = col.counters()
         adjs = [Adj(edge_index=torch.stack([layer.col, layer.row]),
                     e_id=layer.e_id, size=(shape.n_id_cap, shape.num_seeds),
                     mask=layer.col >= 0)

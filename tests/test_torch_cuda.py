@@ -38,7 +38,15 @@ pinned fp32 weight rows (128 and 256 wide) through ``gather_rows``, each
 equal to its plain version with -1 ids; ``GraphSageSampler(edge_weight=
 ...)`` in HOST mode gives HBM mode's samples bit for bit (exact,
 rotation, window), free of host synchronisation; GAT's forward and
-backward on the card are within 1e-4 of the CPU's."""
+backward on the card are within 1e-4 of the CPU's.
+
+The metered lookup, train step, engine and sampler run on the card
+without a host synchronisation, their counters equal to the CPU's and
+their results to the unmetered ones (compared under torch's
+deterministic algorithms, so that the model's sums run in one order);
+a rotated store looks up the same bits and its engine serves the same
+logits before and after ``refresh_feature``; ``ShardTensor``'s pinned
+host group, read by the card, equals the same store on the CPU."""
 
 import numpy as np
 import pytest
@@ -595,7 +603,7 @@ def test_sampler_host_equals_hbm_without_sync(graph, kw):
         assert torch.equal(a.e_id, b.e_id) and a.size == b.size
 
 
-# -- weighted sampling and GAT -------------------------------------------------
+# -- weighted sampling and GAT ------------------------------------------------
 
 @pytest.mark.parametrize("n_ids", [33, 270_336])
 @pytest.mark.parametrize("kind", GATHER_IDS)
@@ -705,3 +713,178 @@ def test_gat_forward_backward_on_card_equals_cpu(graph):
     for n, g in gg.items():
         assert float((g - gc[n]).abs().max()) <= \
             1e-4 * max(float(gc[n].abs().max()), 1e-30), n
+
+
+# -- device counters, rotation and ShardTensor --------------------------------
+
+@pytest.mark.parametrize("budget", [None, 64])
+def test_metered_lookup_runs_without_host_sync(graph, budget):
+    """The offload store's metered lookup on the card: no host
+    synchronisation, the counters on the card and equal to the same
+    store's on the CPU, the rows those of the unmetered lookup."""
+    card, cpu = _stores(graph, dedup_cold=True, cold_budget=budget)
+    ids = torch.cat([graph["seeds"], graph["seeds"][:500]]).contiguous()
+    for masked in (False, True):
+        q = ids if masked else ids.clamp(min=0)
+        plain = card.lookup_tiered(q, masked=masked)
+        rows, vec = _sync_free(lambda: card.lookup_tiered(
+            q, masked=masked, collect_metrics=True))
+        assert vec.device.type == "cuda" and vec.dtype == torch.int32
+        _, want = cpu.lookup_tiered(q.cpu(), masked=masked,
+                                    collect_metrics=True)
+        assert torch.equal(vec.cpu(), want)
+        assert torch.equal(_bits(rows.cpu()), _bits(plain.cpu()))
+
+
+def _deterministic(fn):
+    """``fn()`` with torch's deterministic algorithms (the model's
+    ``index_add_`` sums in a fixed order instead of by atomics), so two
+    runs can be compared bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _sync_free(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_metered_steps_and_sampler_run_without_host_sync(graph):
+    """The metered fused train step, the metered tiered engine and the
+    metered sampler (HBM and HOST) on the card: no host
+    synchronisation, counters equal to the CPU's on the same hop seeds,
+    losses, logits and samples equal to the unmetered ones (under
+    deterministic algorithms)."""
+    from quiver_tpu_torch import metrics
+    sizes, bs = [4, 3], 64
+    seeds = graph["seeds"][graph["seeds"] >= 0][:bs].contiguous()
+    labels = torch.arange(bs, device=seeds.device, dtype=torch.int32) % 5
+    feat = graph["feat"][:, :DIM].contiguous()
+    model = GraphSAGE(DIM, 16, 5, 2, dropout=0.0).cuda()
+    args = (feat, None, graph["indptr"], graph["indices"], seeds, labels,
+            [5, 6], 7)
+    outs = {}
+    for metered in (True, False):
+        m = copy.deepcopy(model)
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        step = build_train_step(m, opt, sizes, bs, fused_hot_hop=True,
+                                fused_row_cap=ROW_CAP,
+                                collect_metrics=metered)
+        outs[metered] = _deterministic(lambda: step(init_state(m, opt),
+                                                    *args))
+        outs[metered] += ([p.detach().clone() for p in m.parameters()],)
+        if metered:
+            _sync_free(lambda: step(init_state(m, opt), *args))
+    assert torch.equal(outs[True][1], outs[False][1])
+    assert all(torch.equal(a, b) for a, b in zip(outs[True][-1],
+                                                  outs[False][-1]))
+    vec = outs[True][2].cpu()
+    n_id, _, _ = fused.fused_multihop(graph["indptr"], graph["indices"],
+                                      seeds, feat, sizes, [5, 6], ROW_CAP)
+    assert int(vec[metrics.FRONTIER_VALID]) == int((n_id >= 0).sum())
+    assert int(vec[metrics.FRONTIER_CAP]) == n_id.shape[0]
+
+    card, cpu = _stores(graph, dedup_cold=True)
+    topo = (graph["indptr"], graph["indices"])
+    state = GraphSAGE(DIM, 16, 5, 2).state_dict()
+    mk = lambda store, dev, metered: ServeEngine(
+        GraphSAGE(DIM, 16, 5, 2), state,
+        topo if dev is None else tuple(t.cpu() for t in topo), store,
+        [[4, 3]], 64, fused_hot_hop=True, fused_row_cap=ROW_CAP,
+        collect_metrics=metered, device=dev)
+    eng, ref = mk(card, None, True), mk(cpu, "cpu", True)
+    ids = torch.arange(20, 60, dtype=torch.int32, device="cuda")
+    eng.run(ids, hop_seeds=[3, 4])
+    _sync_free(lambda: eng.run(ids, hop_seeds=[3, 4]))
+    out = _deterministic(lambda: eng.run(ids, hop_seeds=[3, 4]))
+    plain = mk(card, None, False)
+    assert torch.equal(out, _deterministic(
+        lambda: plain.run(ids, hop_seeds=[3, 4])))
+    ref.run(ids.cpu(), hop_seeds=[3, 4])
+    assert torch.equal(eng.last_counters.cpu(), ref.last_counters)
+
+    for mode in ("HBM", "HOST"):
+        s = GraphSageSampler(CSRTopo(indptr=graph["indptr"],
+                                     indices=graph["indices"]), [5, 4],
+                             mode=mode, seed=2, collect_metrics=True)
+        s.sample(seeds)
+        n_id, _, _ = _sync_free(lambda: s.sample(seeds))
+        vec = s.last_counters.cpu()
+        assert int(vec[metrics.FRONTIER_VALID]) == int((n_id >= 0).sum())
+        assert int(vec[metrics.FRONTIER_CAP]) == n_id.shape[0]
+
+
+def test_rotation_on_the_card(graph):
+    """``rotate_hot_set`` on a numpy-placement store on the card: lookups
+    give the same bits before and after, an engine serves the old store
+    until ``refresh_feature`` and the same logits after it."""
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    feat = graph["feat"][:, :DIM].cpu().numpy()
+    store = Feature(device_cache_size=(N // 4) * (DIM + 8), csr_topo=topo,
+                    dtype_policy="int8").from_cpu_tensor(feat)
+    ids = torch.cat([graph["seeds"], graph["seeds"][:300]]).contiguous()
+    before = store.getitem_masked(ids)
+    eng = ServeEngine(GraphSAGE(DIM, 16, 5, 2), None,
+                      (graph["indptr"], graph["indices"]), store,
+                      [[4, 3]], 64, fused_hot_hop=True,
+                      fused_row_cap=ROW_CAP)
+    q = torch.arange(20, 60, dtype=torch.int32)
+    run = lambda: _deterministic(lambda: eng.run(q, hop_seeds=[3, 4]))
+    want = run()
+    order = store.feature_order.cpu().numpy()
+    promote = np.flatnonzero(order >= store.cache_rows)[:50]
+    demote = np.flatnonzero(order < store.cache_rows)[-50:]
+    assert store.rotate_hot_set(promote, demote) == {"rotated": 50}
+    assert torch.equal(_bits(store.getitem_masked(ids).cpu()),
+                       _bits(before.cpu()))
+    assert torch.equal(run(), want)
+    eng.refresh_feature()
+    assert torch.equal(run(), want)
+
+
+@pytest.mark.parametrize("policy", [None, "bf16", "int8"])
+def test_shard_tensor_host_group_equals_plain(graph, policy):
+    """The pinned host group read by the card (``gather_rows`` with -1
+    ids off the group) equals the same store on the CPU bit for bit,
+    with no host synchronisation."""
+    from quiver_tpu_torch import ShardTensor
+    feat = graph["feat"][:, :WIDE].cpu()
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        st = ShardTensor(dtype_policy=policy, device=dev)
+        st.append(feat[:700], 0)
+        st.append(feat[700:2000], -1)
+        st.append(feat[2000:2500], 1)
+        st.append(feat[2500:], -1)
+        stores[dev] = st
+    assert all(t.is_pinned() for t in quant.tier_parts(
+        stores["cuda"]._host_data) if t is not None)
+    ids = torch.cat([graph["seeds"].long(),
+                     torch.tensor([N, N + 5, -3], device="cuda")])
+    fused.reset_launches()
+    got = _sync_free(lambda: stores["cuda"][ids])
+    assert fused.LAUNCHES["gather_rows"] == 1
+    assert torch.equal(_bits(got.cpu()), _bits(stores["cpu"][ids.cpu()]))
+
+
+def test_pickled_offload_store_on_the_card(graph):
+    """A card store pickles with its pinned tier as a CPU copy and comes
+    back on the card, pinned and packed again, looking up the same bits."""
+    import pickle
+    card, _ = _stores(graph, dedup_cold=True, cold_budget=64)
+    back = pickle.loads(pickle.dumps(card))
+    assert back.device_part.data.is_cuda and back.feature_order.is_cuda
+    assert back._host_offload.data.is_pinned()
+    assert back._host_offload.data.stride(0) == card._host_offload.data \
+        .stride(0)
+    ids = torch.cat([graph["seeds"], graph["seeds"][:500]]).contiguous()
+    assert torch.equal(_bits(back.lookup_tiered(ids, masked=True)),
+                       _bits(card.lookup_tiered(ids, masked=True)))
+    assert (back.cold_budget, back.dedup_cold) == (64, True)

@@ -488,15 +488,17 @@ def test_deferred_pieces_raise():
         Feature(host_placement="disk", device="cpu")
     for call in (lambda: t.set_mmap_file("x.npy", None),
                  lambda: t.read_mmap([0]),
-                 lambda: t.rotate_hot_set([1], [2]),
                  lambda: t.enable_cold_prefetch(),
                  lambda: t.stage_frontier([0]), lambda: t.prefetch([0])):
         with pytest.raises(NotImplementedError, match="item 3"):
             call()
+    # rotation, pickling and the counters are ported (test_torch_rotation.py,
+    # test_torch_metrics.py): this store has no feature_order to rotate
+    with pytest.raises(ValueError, match="feature_order"):
+        t.rotate_hot_set([1], [2])
     import pickle
-    with pytest.raises(NotImplementedError, match="item 3"):
-        pickle.dumps(t)
-    with pytest.raises(NotImplementedError, match="collect_metrics"):
-        t.lookup_tiered([0, 1], collect_metrics=True)
+    assert torch.equal(pickle.loads(pickle.dumps(t))[[0, 1]], t[[0, 1]])
+    rows, counters = t.lookup_tiered([0, 1], collect_metrics=True)
+    assert torch.equal(rows, t[[0, 1]]) and counters.shape == (25,)
     t.close()
     t.close()

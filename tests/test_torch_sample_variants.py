@@ -620,8 +620,11 @@ def test_multihop_refusals(graph):
     _eq(layers[0].n_id[:4], np.arange(4), "weighted frontier")
     deg = torch.from_numpy(np.diff(indptr)[:4])
     assert int(layers[0].edge_count) == int(deg.clamp(max=2).sum())
-    with pytest.raises(NotImplementedError, match="collect_metrics"):
-        sample_multihop(ip, ix, seeds, [2], _gen(0), collector=object())
+    # the collector is ported (tests/test_torch_metrics.py)
+    from quiver_tpu_torch.metrics import FRONTIER_CAP, Collector
+    col = Collector()
+    n_id, _ = sample_multihop(ip, ix, seeds, [2], _gen(0), collector=col)
+    assert int(col.counters()[FRONTIER_CAP]) == n_id.shape[0]
     with pytest.raises(ValueError, match="stride=128 requires"):
         sample_multihop(ip, ix, seeds, [2], _gen(0), method="rotation",
                         indices_rows=sample.as_index_rows(ix),

@@ -148,15 +148,19 @@ def test_deferred_pieces_raise(setup):
     with pytest.raises(ValueError, match="dedup_gather"):
         ServeEngine(*args, fused_hot_hop=True, dedup_gather=True,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="collect_metrics"):
-        ServeEngine(*args, fused_hot_hop=True, collect_metrics=True,
-                    device="cpu")
+    # collect_metrics and refresh_feature are ported
+    # (tests/test_torch_metrics.py, tests/test_torch_rotation.py)
+    metered = ServeEngine(*args, fused_hot_hop=True, collect_metrics=True,
+                          device="cpu")
+    metered.run(np.array([3, 7], np.int32))
+    assert metered.last_counters.shape == (25,)
     store = Feature(device_cache_size=100 * DIM * 4, device="cpu") \
         .from_cpu_tensor(s["feat"])
     eng = ServeEngine(*args[:3], store, [SIZES], CAP, fused_hot_hop=True,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="rotate_hot_set"):
-        eng.refresh_feature()
+    assert eng.refresh_feature() is eng
+    with pytest.raises(ValueError, match="Feature store"):
+        ServeEngine(*args, device="cpu").refresh_feature()
     with pytest.raises(ValueError, match="fused_hot_rows"):
         build_serve_step(args[0], SIZES, CAP, fused_hot_hop=True,
                          gather=lambda feat, n_id, forder: feat)

@@ -295,9 +295,9 @@ def test_knob_validation():
         build_train_step(model, opt, [4], 8, fused_hot_hop=True,
                          dedup_gather=True)
     assert callable(build_train_step(model, opt, [4], 8, dedup_gather=True))
-    with pytest.raises(NotImplementedError, match="collect_metrics"):
-        build_train_step(model, opt, [4], 8, fused_hot_hop=True,
-                         collect_metrics=True)
+    # collect_metrics is ported (tests/test_torch_metrics.py)
+    assert callable(build_train_step(model, opt, [4], 8, fused_hot_hop=True,
+                                     collect_metrics=True))
     # the windowed methods build on the split route (their steps are
     # driven in test_windowed_train_steps); the fused walk refuses them
     # and the layout knobs, as in JAX
@@ -457,10 +457,11 @@ def test_sample_multihop_compaction_matches_jax(data):
 
 
 def test_sample_multihop_refuses_later_variants(data):
-    """The collector is later work and raises; weighted sampling runs
-    (the pool draw, also under a windowed method without rows views;
-    tests/test_torch_weighted.py), as do the rotation, window, rows-view
-    and edge-id knobs (tests/test_torch_sampler.py)."""
+    """Weighted sampling runs (the pool draw, also under a windowed
+    method without rows views; tests/test_torch_weighted.py), as do the
+    rotation, window, rows-view and edge-id knobs
+    (tests/test_torch_sampler.py), and the collector, which counts the
+    final frontier (tests/test_torch_metrics.py)."""
     ip, ix, sd = (_t(data[k]) for k in ("indptr", "indices", "seeds"))
     gen = torch.Generator().manual_seed(0)
     deg = np.diff(data["indptr"])
@@ -470,8 +471,12 @@ def test_sample_multihop_refuses_later_variants(data):
         _, layers = sample_multihop(ip, ix, sd, [2], gen, **kw)
         want = np.minimum(deg[data["seeds"][valid]], 2).sum()
         assert int(layers[0].edge_count) == want
-    with pytest.raises(NotImplementedError, match="collect_metrics"):
-        sample_multihop(ip, ix, sd, [2], gen, collector=object())
+    from quiver_tpu_torch import metrics
+    col = metrics.Collector()
+    n_id, _ = sample_multihop(ip, ix, sd, [2], gen, collector=col)
+    vec = col.counters()
+    assert int(vec[metrics.FRONTIER_VALID]) == int((n_id >= 0).sum())
+    assert int(vec[metrics.FRONTIER_CAP]) == n_id.shape[0]
 
 
 # -- the windowed methods through the steps ------------------------------------
