@@ -150,7 +150,45 @@ Phases:
    int8: a lookup at a served frontier equal to the plain version, one
    ``gather_rows`` launch, its own time against the copy-rate bound.
    Results on ``metrics``, ``rotation`` and ``shard_tensor`` lines;
-10. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+10. the host side of training (``pipeline.py``, ``native/``,
+   ``MixedGraphSageSampler``, ``inference.py``, ``checkpoint.py``):
+   (a) ``examples/train_products_synthetic.py``'s tiered loop at phase
+   5's configuration over phase 6's store (int8, 25% hot by degree,
+   ``dedup_cold=True``, the cold tier packed and pinned):
+   ``build_split_train_step``'s ``sample_fn`` for batch i+1 and
+   ``feature.prefetch(n_id)`` (the lookup on the pipeline worker's own
+   stream) while ``step_fn`` runs batch i, beside the same loop serial
+   from a copy of the state: 8 steps of each under torch's deterministic
+   algorithms with losses and parameters equal bit for bit, then 32
+   timed steps of each in turns (serial, buffered, buffered, serial):
+   step p50/p99 (host clock, ``float(loss)`` each step as the example
+   does), sampled edges/s, 3 ``gather_rows`` launches a step, the loss
+   falling (last-8 mean below 0.7 of the first-8), device ms and idle
+   share over 4 more steps; one ``sample_ahead`` pass over an HBM
+   ``GraphSageSampler`` equal to serial ``sample()`` calls; (b)
+   ``GraphSageSampler(mode="CPU")`` (the native C++ engine, built by
+   ``g++`` into ``build/quiver_tpu_torch/``) on the graph of phase 1
+   copied to the host once: 16 batches at [15, 10, 5], batch 1024,
+   SEPS, ms per batch and the engine's threads, every batch again with
+   edge ids held to the contract, one hop of 1,024 seeds uniform and
+   weighted equal to the plain numpy version bit for bit; (c)
+   ``MixedGraphSageSampler`` over a job of 64 batches, the device side
+   in HBM and then HOST mode (with edge ids): every batch once and held
+   to the contract, the HOST side's topology gathers launched, each
+   engine's share, SEPS and EMA times beside phase 7's arms; (d)
+   ``layerwise_inference`` of (a)'s buffered model over all nodes
+   (batch 4096, ``max_degree`` 256): seconds and windows per layer,
+   4,096 nodes of every layer (the 64 largest degrees and isolated rows
+   among them) within 1e-4 of a plain full-neighbourhood mean by
+   ``index_add_`` over the CSR; (e) ``save_state``/``restore_state`` of
+   (a)'s state under ``build/``, one more step from both equal bit for
+   bit; (f) an injected ``"pipeline.worker"`` fault (``faults.py``): the
+   worker dies before it claims the queued lookup, ``ensure_worker()``
+   restarts it and ``Future.result()`` gives the rows; a failing lookup
+   surfaces through ``Future.result()`` and ``pipelined``; closed, no
+   worker thread is left. Results on ``pipeline``, ``cpu_sampler``,
+   ``mixed``, ``inference`` and ``checkpoint`` lines;
+11. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -158,9 +196,11 @@ Phases:
    ``served_launch_own_ms``, and the topology variants of phase 7 under
    ``host_topology``, and the weight reads of phase 8 under
    ``host_weights``, and the ``ShardTensor`` host read under
-   ``shard_tensor``; the arms' records under ``sampler``, phase 8's
-   under ``weighted``, phase 9's under ``metrics``, ``rotation`` and
-   ``shard_tensor``), then the last line ``{"ok": true, "device":
+   ``shard_tensor``, and ``launches_per_buffered_step`` from phase 10
+   (a) with the mixed sampler's HOST launches under
+   ``mixed_host_launches``; the arms' records under ``sampler``, phase
+   8's under ``weighted``, phase 9's under ``metrics``, ``rotation`` and
+   ``shard_tensor``, phase 10's under ``host_side``), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -2697,6 +2737,611 @@ def phase_metered(dev, gen, nodes, indptr, indices, card, ctx, topo,
     return rec, rot, st
 
 
+HOST_EQUAL_STEPS = 8           # steps of each loop held bit for bit
+HOST_STEPS = 32                # timed steps of each loop, in two halves
+CPU_BATCHES = 16               # timed batches of the native engine
+MIXED_BATCHES = 64             # the mixed sampler's job
+INFER_BATCH, INFER_MAX_DEG = 4096, 256
+INFER_CHECK = 4096             # nodes held to the plain mean
+
+
+class _ListJob:
+    """A ``SampleJob`` over fixed batches, shuffled by a seeded
+    permutation of their order."""
+
+    def __init__(self, batches, seed):
+        import torch
+        self.batches = list(batches)
+        self.gen = torch.Generator().manual_seed(seed)
+        self.order = list(range(len(self.batches)))
+
+    def __getitem__(self, i):
+        return self.batches[self.order[i]]
+
+    def __len__(self):
+        return len(self.batches)
+
+    def shuffle(self):
+        import torch
+        self.order = torch.randperm(len(self.batches),
+                                    generator=self.gen).tolist()
+
+
+def host_training(dev, gen, nodes, indptr, indices, card, topo):
+    """(a) The example's tiered path at phase 5's configuration over phase
+    6's store: ``build_split_train_step``'s ``sample_fn`` for batch i+1
+    and ``feature.prefetch(n_id)`` while ``step_fn`` runs batch i, beside
+    the same loop serial. Returns its record and the context (d)-(f)
+    use."""
+    import torch
+    from quiver_tpu_torch import Feature, GraphSAGE, GraphSageSampler
+    from quiver_tpu_torch import tracing
+    from quiver_tpu_torch.async_sampler import sample_ahead
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.parallel import build_split_train_step, init_state
+    from quiver_tpu_torch.parallel.train import draw_int32
+
+    t0 = time.perf_counter()
+    feat, labels = make_train_data(dev, gen, nodes)
+    store = Feature(
+        device_cache_size=(nodes // 4) * quant.row_bytes(DIM, "int8"),
+        csr_topo=topo, dedup_cold=True, dtype_policy="int8",
+        host_placement="offload", device=dev).from_cpu_tensor(feat.cpu())
+    torch.cuda.synchronize()
+    check(store._host_offload.data.is_pinned(), "the cold tier is not "
+          "pinned")
+    build_s = time.perf_counter() - t0
+    model0 = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES), dropout=DROPOUT)
+    model0.load_state_dict(flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED)))
+    model0 = model0.to(dev)
+    order = torch.randperm(nodes, generator=gen, device=dev).to(torch.int32)
+    n_b = HOST_EQUAL_STEPS + HOST_STEPS + 5
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(n_b)]
+    ys = [labels[b.long()] for b in batches]
+    host = torch.Generator().manual_seed(SEED + 10)
+    seeds = [draw_int32(host, 2) for _ in batches]   # (sample, dropout)
+
+    def trainer(model):
+        opt = torch.optim.Adam(model.parameters(), lr=LR,
+                               betas=(0.9, 0.999), eps=1e-8)
+        sample_fn, step_fn = build_split_train_step(model, opt, SIZES,
+                                                    BATCH)
+        return dict(state=init_state(model, opt), sample_fn=sample_fn,
+                    step_fn=step_fn, losses=[], lat=[], edges=[], parts=[])
+
+    def serial(run, steps):
+        for i in steps:
+            t = time.perf_counter()
+            n_id, adjs = run["sample_fn"](indptr, indices, batches[i],
+                                          seeds[i][0])
+            t1 = time.perf_counter()
+            x = store[n_id]
+            t2 = time.perf_counter()
+            run["state"], loss = run["step_fn"](
+                run["state"], x, adjs, ys[i], seeds[i][1])
+            t3 = time.perf_counter()
+            run["losses"].append(float(loss))
+            t4 = time.perf_counter()
+            run["lat"].append((t4 - t) * 1e3)
+            # host ms: sample_fn, lookup, step_fn (dispatch), the wait
+            run["parts"].append((1e3 * (t1 - t), 1e3 * (t2 - t1),
+                                 1e3 * (t3 - t2), 1e3 * (t4 - t3)))
+            run["edges"].append(sum(a.mask.sum() for a in adjs))
+
+    def buffered(run, steps):
+        def stage(i):
+            t = time.perf_counter()
+            n_id, adjs = run["sample_fn"](indptr, indices, batches[i],
+                                          seeds[i][0])
+            t1 = time.perf_counter()
+            fut = store.prefetch(n_id)
+            return adjs, fut, ys[i], (1e3 * (t1 - t),
+                                      1e3 * (time.perf_counter() - t1))
+
+        t = time.perf_counter()
+        nxt = stage(steps[0])
+        for j, i in enumerate(steps):
+            adjs, fut, y, _ = nxt
+            staged = (0.0, 0.0)
+            if j + 1 < len(steps):
+                nxt = stage(steps[j + 1])
+                staged = nxt[3]
+            t2 = time.perf_counter()
+            x = fut.result()
+            t3 = time.perf_counter()
+            run["state"], loss = run["step_fn"](run["state"], x, adjs, y,
+                                                seeds[i][1])
+            t4 = time.perf_counter()
+            run["losses"].append(float(loss))
+            now = time.perf_counter()
+            run["lat"].append((now - t) * 1e3)
+            # host ms: sample_fn and prefetch of batch i+1, the wait for
+            # batch i's rows, step_fn (dispatch), the wait for its loss
+            run["parts"].append(staged + (1e3 * (t3 - t2), 1e3 * (t4 - t3),
+                                          1e3 * (now - t4)))
+            t = now
+            run["edges"].append(sum(a.mask.sum() for a in adjs))
+
+    runs = {"serial": trainer(copy.deepcopy(model0)),
+            "buffered": trainer(copy.deepcopy(model0))}
+    loops = {"serial": serial, "buffered": buffered}
+    eq = range(HOST_EQUAL_STEPS)
+    with deterministic():
+        for name in ("serial", "buffered"):
+            loops[name](runs[name], eq)
+    torch.cuda.synchronize()
+    for name in runs:
+        for k in ("lat", "edges", "parts"):
+            runs[name][k].clear()
+    check(runs["serial"]["losses"] == runs["buffered"]["losses"],
+          f"buffered losses {runs['buffered']['losses']} differ from the "
+          f"serial loop's {runs['serial']['losses']}")
+    check(all(same_bits(a, b) for a, b in zip(
+        runs["serial"]["state"].model.parameters(),
+        runs["buffered"]["state"].model.parameters())),
+          "buffered parameters differ from the serial loop's")
+    print(f"pipeline: {HOST_EQUAL_STEPS} steps double-buffered and serial "
+          f"from copies of one state on the same batches and seeds "
+          f"(torch's deterministic algorithms on): losses and parameters "
+          f"equal bit for bit; losses "
+          f"{' '.join(f'{v:.4f}' for v in runs['serial']['losses'])}",
+          flush=True)
+
+    # timed, in turns: serial, buffered, buffered, serial
+    half = HOST_STEPS // 2
+    first = range(HOST_EQUAL_STEPS, HOST_EQUAL_STEPS + half)
+    second = range(HOST_EQUAL_STEPS + half, HOST_EQUAL_STEPS + HOST_STEPS)
+    launches = {}
+    tracing.clear()
+    tracing.enable()             # the worker's pipeline.* spans
+    for name, steps in (("serial", first), ("buffered", first),
+                        ("buffered", second), ("serial", second)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        loops[name](runs[name], steps)
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            launches.setdefault(name, {}).setdefault(k, 0)
+            launches[name][k] += v
+    tracing.disable()
+    spans = {}
+    for r in tracing.records():
+        spans.setdefault(r[0], []).append(1e3 * r[3])
+    tracing.clear()
+    check(len(spans.get("pipeline.execute", [])) == HOST_STEPS,
+          f"pipeline spans {[(k, len(v)) for k, v in spans.items()]}")
+    rec = {}
+    for name, run in runs.items():
+        lat = run["lat"]
+        edges = int(torch.stack(run["edges"]).sum())
+        p50, p99 = pcts(lat)
+        losses = run["losses"]
+        first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+        check(all(math.isfinite(v) for v in losses), f"{name} losses")
+        check(last8 < 0.7 * first8, f"{name} loss did not fall: first 8 "
+              f"mean {first8}, last 8 mean {last8}")
+        per = {k: v / HOST_STEPS for k, v in launches[name].items()}
+        check(per["gather_rows"] == 3 and per["gather_elems"] == 0
+              and per["fused_hot_hop"] == per["fused_sample_hop"] == 0,
+              f"{name} launches per step {per}")
+        rec[name] = dict(p50_ms=p50, p99_ms=p99,
+                         edges_per_s=edges / (sum(lat) / 1e3),
+                         edges_per_step=edges / HOST_STEPS,
+                         launches_per_step=per, losses=losses)
+        print(f"pipeline: {name}: {HOST_STEPS} steps of {BATCH} seeds, "
+              f"fanout {SIZES}, GraphSAGE {DIM}->{HIDDEN}->{HIDDEN}->"
+              f"{CLASSES}, dropout {DROPOUT}, Adam lr {LR}, int8 tiered "
+              f"store (25% hot, dedup_cold, cold tier packed and pinned): "
+              f"step p50 {p50:.3f} ms p99 {p99:.3f} ms (host clock, "
+              f"float(loss) each step), {edges / HOST_STEPS:.0f} sampled "
+              f"edges per step = {rec[name]['edges_per_s']:.6g} sampled "
+              f"edges/s; gather_rows launches per step "
+              f"{per['gather_rows']:g}; loss first-8 mean {first8:.4f}, "
+              f"last-8 mean {last8:.4f}; on {card}", flush=True)
+    prof_steps = range(HOST_EQUAL_STEPS + HOST_STEPS,
+                       HOST_EQUAL_STEPS + HOST_STEPS + 4)
+    for name in ("serial", "buffered"):
+        st: dict = {}
+        busy = device_profile(lambda: loops[name](runs[name], prof_steps),
+                              4, f"{name} step", top=6, stats=st)
+        rec[name].update(device_ms=busy, **st)
+        print(f"pipeline: {name}: device time per step {fmt_ms(busy)}, "
+              f"idle share {st.get('idle_share', float('nan')):.3f}, on "
+              f"{card}", flush=True)
+    for name in ("serial", "buffered"):
+        parts = runs[name]["parts"][:HOST_STEPS]
+        rec[name]["host_ms_parts"] = [sorted(p[k] for p in parts)[
+            len(parts) // 2] for k in range(len(parts[0]))]
+    lookup = sorted(spans["pipeline.execute"])[HOST_STEPS // 2]
+    qwait = sorted(spans["pipeline.queue_wait"])[HOST_STEPS // 2]
+    rec["buffered"]["worker_lookup_ms"] = lookup
+    print("pipeline: host ms a step (medians, host clock): serial: "
+          "sample_fn {:.3f}, lookup {:.3f}, step_fn {:.3f}, float(loss) "
+          "wait {:.3f}; buffered, main thread: sample_fn {:.3f}, prefetch "
+          "{:.3f}, result() wait {:.3f}, step_fn {:.3f}, float(loss) wait "
+          "{:.3f}".format(*rec["serial"]["host_ms_parts"],
+                          *rec["buffered"]["host_ms_parts"])
+          + f"; worker: lookup {lookup:.3f} (pipeline.execute spans), "
+          f"queue wait {qwait:.3f}; on {card}", flush=True)
+    gain = rec["serial"]["p50_ms"] / rec["buffered"]["p50_ms"]
+    print(f"pipeline: double-buffered step p50 {rec['buffered']['p50_ms']:.3f}"
+          f" ms against serial {rec['serial']['p50_ms']:.3f} ms ({gain:.3f}x)"
+          f"; prefetch pipeline stats {store._pool.stats()}; store built in "
+          f"{build_s:.2f} s; on {card}", flush=True)
+
+    # sample_ahead over an HBM sampler: the serial results, in order
+    ahead_b = batches[:8]
+    s1 = GraphSageSampler(topo, SIZES, seed=SEED, device=dev)
+    s2 = GraphSageSampler(topo, SIZES, seed=SEED, device=dev)
+    want = [s1.sample(b) for b in ahead_b]
+    got = list(sample_ahead(s2, ahead_b, feature=store, depth=2))
+    check(len(got) == len(want) and all(same_sample(a, b)
+                                        for a, b in zip(want, got)),
+          "sample_ahead differs from serial sample()")
+    print(f"pipeline: sample_ahead over GraphSageSampler(HBM) yields the "
+          f"{len(got)} serial sample() results in order, bit for bit "
+          "(stage_frontier: no disk tier, None)", flush=True)
+    ctx = dict(store=store, feat=feat, runs=runs, batches=batches, ys=ys,
+               seeds=seeds, trainer=trainer, serial=serial)
+    return rec, ctx
+
+
+def cpu_engine(dev, gen, nodes, indptr, indices, deg, card, topo, batches):
+    """(b) ``GraphSageSampler(mode="CPU")`` at the graph of phase 1, its
+    batches held to the contract, and one hop held bit for bit to the
+    plain numpy version."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import GraphSageSampler, native
+
+    t0 = time.perf_counter()
+    s = GraphSageSampler(topo, SIZES, mode="CPU", seed=SEED, device=dev)
+    s.lazy_init_quiver()
+    native.get_lib()
+    copy_s = time.perf_counter() - t0
+    warm = s.sample(batches[0])
+    torch.cuda.synchronize()
+    del warm
+    outs = []
+    t0 = time.perf_counter()
+    for b in batches[1:1 + CPU_BATCHES]:
+        outs.append(s.sample(b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    edges = int(sum(a.mask.sum() for o in outs for a in o[2]))
+    hw = native.get_lib().qt_hardware_threads()
+    # the same batches again with edge ids (CSR slots): the same picks,
+    # held to the contract
+    se = GraphSageSampler(topo, SIZES, mode="CPU", seed=SEED, device=dev,
+                          with_eid=True)
+    se.sample(batches[0])
+    checked = 0
+    for o, b in zip(outs, batches[1:1 + CPU_BATCHES]):
+        oe = se.sample(b)
+        check(torch.equal(o[0], oe[0]) and all(
+            torch.equal(x.edge_index, y.edge_index)
+            for x, y in zip(o[2], oe[2])), "CPU mode with edge ids drew "
+              "other picks")
+        checked += check_eid_contract("cpu_sampler", indptr, indices, oe)
+    # one hop of 1,024 seeds bit for bit against the plain version
+    ip, ix = (t.numpy() for t in s._placed)
+    hop = make_seeds(dev, gen, nodes, BATCH, deg).cpu().numpy()
+    w = example_weights(indices, deg).cpu().numpy()
+    t1 = time.perf_counter()
+    for name, run, plain in (
+            ("uniform", lambda: native.cpu_sample_layer(
+                ip, ix, hop, SIZES[0], seed=77, with_slots=True),
+             lambda: native.sample_layer_plain(
+                ip, ix, hop, SIZES[0], seed=77, with_slots=True)),
+            ("weighted", lambda: native.cpu_sample_layer_weighted(
+                ip, ix, w, hop, SIZES[0], seed=77, row_cap=ROW_CAP,
+                with_slots=True),
+             lambda: native.sample_layer_weighted_plain(
+                ip, ix, w, hop, SIZES[0], seed=77, row_cap=ROW_CAP,
+                with_slots=True))):
+        a, b = run(), plain()
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"native {name} hop differs from its plain version")
+    plain_s = time.perf_counter() - t1
+    rec = dict(seps=edges / wall, ms_per_batch=wall * 1e3 / CPU_BATCHES,
+               edges_per_batch=edges / CPU_BATCHES, hardware_threads=hw,
+               threads_per_call=[native.threads_used(0, BATCH * math.prod(
+                   1 + k for k in SIZES[:i])) for i in range(len(SIZES))],
+               host_copy_s=copy_s, edges_checked=checked)
+    print(f"cpu_sampler: GraphSageSampler(mode='CPU'), graph {nodes} nodes "
+          f"{indices.numel()} edges copied to the host once in "
+          f"{copy_s:.2f} s; {CPU_BATCHES} batches of {BATCH}, fanout "
+          f"{SIZES}: {rec['ms_per_batch']:.3f} ms per batch (host clock + "
+          f"synchronize, the batch on the card), {edges / CPU_BATCHES:.0f} "
+          f"sampled edges per batch, {rec['seps']:.6g} sampled edges/s; "
+          f"engine threads per hop {rec['threads_per_call']} of {hw} "
+          f"hardware threads; on {card}", flush=True)
+    print(f"cpu_sampler: every batch again with edge ids: the same picks, "
+          f"{checked} edges held to the contract (CSR slot of the target "
+          f"holding the source, min(deg, k) per target, distinct); one hop "
+          f"of {BATCH} seeds (hubs, isolated rows, -1 seeds), uniform and "
+          f"weighted (row_cap {ROW_CAP}) with slots, equal to the plain "
+          f"numpy version bit for bit ({plain_s:.2f} s)", flush=True)
+    return rec
+
+
+def mixed_sampler(dev, card, topo, order, arms):
+    """(c) ``MixedGraphSageSampler`` over a job of 64 batches, the device
+    side in HBM and then HOST mode."""
+    import torch
+    from quiver_tpu_torch import MixedGraphSageSampler
+    from quiver_tpu_torch.ops import kernels
+
+    job_b = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+             for i in range(MIXED_BATCHES)]
+    by_first = {int(b[0]): b for b in job_b}
+    rec = {}
+    for mode in ("HBM", "HOST"):
+        m = MixedGraphSageSampler(_ListJob(job_b, SEED), SIZES, topo,
+                                  device=dev, device_mode=mode, seed=SEED,
+                                  with_eid=True)
+        m.device_sampler.lazy_init_quiver()
+        m.device_sampler._ensure_exact_rows()
+        m.device_sampler._exact_hub_frac()
+        m.cpu_sampler.lazy_init_quiver()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = list(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        m.close()
+        seen = set()
+        edges = checked = 0
+        for o in outs:
+            first = int(o[0][0])
+            check(first in by_first and first not in seen and torch.equal(
+                o[0][:BATCH], by_first[first]), f"mixed {mode}: a batch "
+                  "yielded twice or not from the job")
+            seen.add(first)
+            checked += check_eid_contract(f"mixed {mode}", topo.indptr,
+                                          topo.indices, o)
+            edges += int(sum(a.mask.sum() for a in o[2]))
+        check(len(seen) == MIXED_BATCHES, f"mixed {mode}: {len(seen)} "
+              f"batches of {MIXED_BATCHES}")
+        host_reads = launches["gather_elems"] + launches["gather_rows"]
+        check((host_reads > 0) == (mode == "HOST"),
+              f"mixed {mode}: launches {launches}")
+        rec[mode] = dict(seps=edges / wall, ms=wall * 1e3,
+                         tasks=dict(m.tasks),
+                         device_ema_ms=1e3 * m._device_time,
+                         cpu_ema_ms=None if m._cpu_time is None
+                         else 1e3 * m._cpu_time,
+                         launches=launches, num_workers=m.num_workers)
+        share = m.tasks["cpu"] / MIXED_BATCHES
+        arm = {"HBM": "b", "HOST": "g"}[mode]
+        print(f"mixed: device_mode {mode}: {MIXED_BATCHES} batches of "
+              f"{BATCH}, each once, {checked} edges held to the contract; "
+              f"{wall * 1e3:.1f} ms, {edges / wall:.6g} sampled edges/s "
+              f"(with edge ids); device took {m.tasks['device']}, the "
+              f"native engine {m.tasks['cpu']} ({share:.3f}) on "
+              f"{m.num_workers} worker threads; EMA per task device "
+              f"{rec[mode]['device_ema_ms']:.3f} ms, host "
+              f"{fmt_ms(rec[mode]['cpu_ema_ms'])}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; phase 7 "
+              f"device-only arms: (a) {arms['a']['seps']:.6g}, ({arm}) "
+              f"{arms[arm]['seps']:.6g} sampled edges/s; on {card}",
+              flush=True)
+    return rec
+
+
+def host_inference(dev, gen, nodes, indptr, indices, deg, card, ctx):
+    """(d) ``layerwise_inference`` of (a)'s buffered model over every
+    node, 4,096 nodes (hubs among them) of each layer held to a plain
+    full-neighbourhood mean."""
+    import torch
+    from quiver_tpu_torch import inference
+
+    model = ctx["runs"]["buffered"]["state"].model
+    model.eval()
+    base = inference.sage_apply_layer(model)
+    inputs = {1: [], 2: []}            # each layer's input, batch by batch
+
+    def apply(i, x_self, mean):
+        if i in inputs:
+            inputs[i].append(x_self)
+        return base(i, x_self, mean)
+
+    ip64 = indptr.long()
+    host_deg = deg.cpu()
+    windows = sum(max(1, -(-int(host_deg[lo:lo + INFER_BATCH].max())
+                           // INFER_MAX_DEG))
+                  for lo in range(0, nodes, INFER_BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = inference.layerwise_inference(
+            apply, ip64, indices, ctx["feat"], len(SIZES),
+            batch_size=INFER_BATCH, max_degree=INFER_MAX_DEG)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(tuple(out.shape) == (nodes, CLASSES)
+          and bool(torch.isfinite(out).all()), "inference output")
+    xs = [ctx["feat"]] + [torch.cat(inputs[i])[:nodes] for i in (1, 2)]
+    del inputs
+    top = torch.argsort(deg, descending=True)[:64]
+    iso = torch.nonzero(deg == 0)[:16, 0]
+    rest = torch.randperm(nodes, generator=gen, device=dev)
+    rest = rest[~torch.isin(rest, torch.cat([top, iso]))]
+    nodes_c = torch.cat([top, iso, rest])[:INFER_CHECK]
+    d = (ip64[nodes_c + 1] - ip64[nodes_c])
+    seg = torch.repeat_interleave(torch.arange(nodes_c.numel(), device=dev),
+                                  d)
+    starts = torch.repeat_interleave(ip64[nodes_c], d)
+    offs = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(d, 0) - d, d)
+    src = indices[(starts + offs)].long()
+    worst = []
+    with torch.no_grad():
+        for layer in range(len(SIZES)):
+            x = xs[layer]
+            agg = torch.zeros((nodes_c.numel(), x.shape[1]), device=dev) \
+                .index_add_(0, seg, x[src])
+            mean = agg / d.clamp(min=1).to(x.dtype)[:, None]
+            want = base(layer, x[nodes_c], mean)
+            got = (xs[layer + 1] if layer + 1 < len(SIZES) else out)[nodes_c]
+            worst.append(max_abs(got, want))
+    check(max(worst) <= 1e-4, f"inference: layers differ from the plain "
+          f"mean by {worst}")
+    rec = dict(seconds=secs, windows_per_layer=windows,
+               batches_per_layer=-(-nodes // INFER_BATCH),
+               max_abs_err=worst, checked_nodes=int(nodes_c.numel()),
+               max_degree_checked=int(d.max()))
+    print(f"inference: layerwise_inference of the trained model over "
+          f"{nodes} nodes, 3 layers, batch {INFER_BATCH}, max_degree "
+          f"{INFER_MAX_DEG}: {secs:.2f} s, {rec['batches_per_layer']} "
+          f"batches and {windows} windows per layer; {INFER_CHECK} nodes "
+          f"(the 64 largest degrees up to {int(d.max())}, isolated rows) "
+          f"of each layer within {max(worst):.3g} of a plain "
+          f"full-neighbourhood mean (index_add_ over the CSR; tolerance "
+          f"1e-4); on {card}", flush=True)
+    return rec
+
+
+def host_checkpoint(dev, indptr, indices, card, ctx):
+    """(e) ``save_state``/``restore_state`` of (a)'s buffered state under
+    ``build/``; one more step from the original and from the restored
+    state agree bit for bit."""
+    import os
+    import torch
+    from quiver_tpu_torch import GraphSAGE, checkpoint
+
+    run = ctx["runs"]["buffered"]
+    path = os.path.join("build", "chip_smoke_checkpoint")
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, run["state"], step=run["state"].step)
+    save_s = time.perf_counter() - t0
+    fresh = ctx["trainer"](GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES),
+                                     dropout=DROPOUT).to(dev))
+    t0 = time.perf_counter()
+    fresh["state"] = checkpoint.restore_state(path, fresh["state"],
+                                              step=run["state"].step)
+    load_s = time.perf_counter() - t0
+    check(fresh["state"].step == run["state"].step, "restored step count")
+    i = len(ctx["batches"]) - 1
+    with deterministic():
+        for r in (run, fresh):
+            ctx["serial"](r, [i])
+    check(run["losses"][-1] == fresh["losses"][-1] and all(
+        same_bits(a, b) for a, b in zip(run["state"].model.parameters(),
+                                        fresh["state"].model.parameters())),
+          "a step from the restored state differs from the original's")
+    print(f"checkpoint: save_state {save_s:.2f} s, restore_state "
+          f"{load_s:.2f} s ({path}, step {run['state'].step}); one more "
+          f"step from the original and the restored state: loss "
+          f"{run['losses'][-1]:.6f} and parameters equal bit for bit; on "
+          f"{card}", flush=True)
+    return dict(save_s=save_s, restore_s=load_s, step=run["state"].step)
+
+
+def host_fault(card, ctx):
+    """(f) An injected ``"pipeline.worker"`` fault: the worker dies before
+    it claims the queued lookup, the watchdog restarts it, and the
+    lookup's ``Future.result()`` gives its rows; a stage that raises
+    surfaces through ``Future.result()`` and ``pipelined``; closed, the
+    pipeline leaves no thread."""
+    import threading
+    import torch
+    from quiver_tpu_torch import faults
+    from quiver_tpu_torch.pipeline import Pipeline, pipelined
+
+    store = ctx["store"]
+    ids = ctx["batches"][0]
+    want = store[ids]
+    name = "chip-smoke-fault"
+    p = Pipeline(depth=2, name=name)
+    plan = faults.install(faults.FaultPlan(seed=SEED, rules={
+        "pipeline.worker": faults.FaultRule("error", exc="runtime",
+                                            times=1)}))
+    try:
+        fut = p.submit(store.__getitem__, ids)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and p._box["thread"].is_alive():
+            time.sleep(0.005)
+        died = not p._box["thread"].is_alive()
+        check(died and not fut.done(), "the injected fault did not stop "
+              "the worker before its item")
+        check(p.ensure_worker(), "the watchdog did not restart the worker")
+        rows = fut.result(timeout=60)
+    finally:
+        faults.disarm()
+    check(torch.equal(rows, want), "the lookup after the restart differs")
+    # ids that cannot become a tensor: the lookup raises before it
+    # launches anything
+    bad_ids = ["not", "ids"]
+    bad = p.submit(store.__getitem__, bad_ids)
+    try:
+        bad.result(timeout=60)
+        raised = None
+    except TypeError as e:
+        raised = type(e).__name__
+    check(raised is not None, "a failing stage did not surface")
+    try:
+        list(pipelined(store.__getitem__, [ids, bad_ids], name=name))
+        check(False, "pipelined swallowed a failing stage")
+    except TypeError:
+        pass
+    stats = p.stats()
+    p.close()
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and any(
+            t.name == name for t in threading.enumerate()):
+        time.sleep(0.01)
+    left = [t.name for t in threading.enumerate() if t.name == name]
+    check(p.closed and not left, f"threads left after close: {left}")
+    check(stats["worker_restarts"] == 1 and plan.counts()[
+        "pipeline.worker"]["fires"] == 1, f"fault stats {stats}")
+    print(f"pipeline: injected 'pipeline.worker' fault (faults.FaultPlan): "
+          f"the worker died before claiming the queued lookup, "
+          f"ensure_worker() restarted it, Future.result() gave its rows "
+          f"bit for bit (worker_restarts {stats['worker_restarts']}); a "
+          f"failing lookup surfaced through Future.result() ({raised}) and "
+          f"through pipelined; closed with no worker thread left",
+          flush=True)
+    return dict(worker_restarts=stats["worker_restarts"],
+                stage_error=raised)
+
+
+def phase_host_side(dev, gen, nodes, indptr, indices, deg, card, topo,
+                    batches, arms):
+    """Phase 10: the host side of training (module doc)."""
+    import torch
+    secs, rec = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+    rec["pipeline"], ctx = part("(a)", host_training, dev, gen, nodes,
+                                indptr, indices, card, topo)
+    rec["cpu_sampler"] = part("(b)", cpu_engine, dev, gen, nodes, indptr,
+                              indices, deg, card, topo, batches)
+    order = torch.randperm(nodes, generator=gen, device=dev) \
+        .to(torch.int32)
+    rec["mixed"] = part("(c)", mixed_sampler, dev, card, topo, order, arms)
+    rec["inference"] = part("(d)", host_inference, dev, gen, nodes, indptr,
+                            indices, deg, card, ctx)
+    rec["checkpoint"] = part("(e)", host_checkpoint, dev, indptr, indices,
+                             card, ctx)
+    rec["fault"] = part("(f)", host_fault, card, ctx)
+    ctx["store"].close()
+    print(f"phase 10: {sum(secs.values()):.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = secs
+    return rec
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -2829,6 +3474,9 @@ def main() -> int:
         dev, gen, NODES, indptr, indices, card, tiered_ctx, topo, batches,
         h2d)
     del tiered_ctx
+    host_side = phase_host_side(dev, gen, NODES, indptr, indices, deg, card,
+                                topo, batches, arms)
+    buffered = host_side["pipeline"]["buffered"]["launches_per_step"]
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2840,7 +3488,8 @@ def main() -> int:
          "bound_by": kern[name].get("bound_by", "bytes"),
          "library_ms": kern[name].get("library_ms"),
          "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
-         "launches_per_tiered_batch": tiered_launches[name] / BATCHES}
+         "launches_per_tiered_batch": tiered_launches[name] / BATCHES,
+         "launches_per_buffered_step": buffered[name]}
         for name in SOURCES]}
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
     gather_entry["host_tier"] = {
@@ -2884,6 +3533,12 @@ def main() -> int:
     line["metrics"] = metered
     line["rotation"] = rotation
     line["shard_tensor"] = shard
+    line["host_side"] = host_side
+    gather_entry["mixed_host_launches"] = {
+        "device_mode": "HOST", "batches": MIXED_BATCHES,
+        "device_batches": host_side["mixed"]["HOST"]["tasks"]["device"],
+        **{k: v for k, v in host_side["mixed"]["HOST"]["launches"].items()
+           if v}}
     gather_entry["shard_tensor"] = {
         "name": "gather_rows over the ShardTensor's pinned host group",
         "launches_per_lookup": 1,

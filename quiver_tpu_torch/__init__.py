@@ -11,8 +11,13 @@ the tiered store: its hot tier on the card, its cold tier in pinned host
 memory that the card's row gather reads; ``ShardTensor`` is the
 reference's row store over a device group and a pinned host group.
 ``GraphSageSampler`` samples k-hop neighbourhoods with the topology on
-the card (HBM mode) or pinned in host memory (HOST mode), read by the
-card's gathers. ``metrics`` holds the device counters the metered steps,
+the card (HBM mode), pinned in host memory (HOST mode), read by the
+card's gathers, or on the host by the native C++ engine (CPU mode,
+``native/``); ``MixedGraphSageSampler`` shares a job's batches between
+the card and the engine. ``pipeline`` stages work on a worker thread
+(``Feature.prefetch``, ``async_sampler.sample_ahead``); ``inference``,
+``checkpoint`` and ``datasets`` are the evaluation, resume and data
+helpers. ``metrics`` holds the device counters the metered steps,
 lookups and samplers return (``collect_metrics=True``) and their host
 side (``StepStats``, ``MetricsSink``, ``SloBudget``).
 """
@@ -23,12 +28,13 @@ from .feature import DeviceConfig, Feature
 from .metrics import Collector, MetricsSink, SloBudget, StepStats
 from .models import GAT, GraphSAGE
 from .ops.quant import quantize
-from .pyg import GraphSageSampler, SampleJob
+from .pyg import GraphSageSampler, MixedGraphSageSampler, SampleJob
 from .serving import ServeEngine, build_serve_step
 from .shard_tensor import ShardTensor, ShardTensorConfig
 from .utils import CSRTopo, parse_size
 
 __all__ = ["CSRTopo", "Collector", "DeviceConfig", "Feature", "GAT",
-           "GraphSAGE", "GraphSageSampler", "MetricsSink", "SampleJob",
+           "GraphSAGE", "GraphSageSampler", "MetricsSink",
+           "MixedGraphSageSampler", "SampleJob",
            "ServeEngine", "ShardTensor", "ShardTensorConfig", "SloBudget",
            "StepStats", "build_serve_step", "parse_size", "quantize"]

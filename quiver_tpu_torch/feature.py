@@ -40,16 +40,25 @@ and the dedup table's statistics, recorded where the JAX lookup records
 them (outside its branches), so a predicated branch that is not taken
 records nothing. ``rotate_hot_set`` swaps rows between the tiers online;
 a store pickles with its pinned tier as a CPU copy.
+
+``prefetch(ids)`` runs a lookup on a depth-2 staging ``Pipeline``
+(``pipeline.py``) and returns a future of ``feature[ids]``: a training
+loop stages batch i+1's rows while the card runs batch i's step. On the
+card the worker launches the lookup on a CUDA stream of its own, so the
+lookup's kernels can run beside the step's, and hands the rows back
+through an event that the reader's stream waits for.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import Future
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import metrics
+from .pipeline import Pipeline
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
 from .ops.kernels.gather import gather_rows
@@ -60,7 +69,8 @@ from .utils.sizes import parse_size
 
 _MULTI = "ROADMAP Queue 1 item 7 (multi-GPU)"
 _LATER = ("ROADMAP Queue 1 item 3 (what is left of the Feature store: "
-          "the disk tier and the cold prefetch, after item 5)")
+          "the disk tier and the cold prefetch, with io.py and "
+          "prefetch.py)")
 
 
 class DeviceConfig:
@@ -105,6 +115,24 @@ def _resolve_cold_budget(dedup_cold, cold_budget, n: int) -> int:
     if cold_budget is not None:
         return cold_budget
     return quant.default_cold_budget(n)
+
+
+class _StagedRows(Future):
+    """The future :meth:`Feature.prefetch` returns. The worker sets it to
+    ``(rows, done)``, ``done`` the CUDA event recorded on the staging
+    stream after the lookup (None on the CPU). ``result()`` returns the
+    rows, and on the card first makes the caller's current stream wait
+    for ``done`` and records the rows' use on that stream, so the caching
+    allocator does not give their memory back to the staging stream while
+    the reader's kernels still run. Nothing waits for the card."""
+
+    def result(self, timeout=None):
+        rows, done = super().result(timeout)
+        if done is not None:
+            stream = torch.cuda.current_stream(rows.device)
+            stream.wait_event(done)
+            rows.record_stream(stream)
+        return rows
 
 
 def _cpu_tensor(a) -> torch.Tensor:
@@ -168,6 +196,8 @@ class Feature:
         self.device_part = None        # hot tier on the device
         self.host_part = None          # cold tier gathered on the host
         self._host_offload = None      # cold tier the card reads (pinned)
+        self._pool = None              # prefetch's staging pipeline
+        self._stage_stream = None      # its CUDA stream (on the card)
 
     # -- sizing (reference feature.py:74-82) --------------------------------
     def cal_size(self, cpu_tensor, cache_memory_budget: int) -> int:
@@ -508,14 +538,61 @@ class Feature:
             vec[metrics.DEDUP_UNIQUE] = int(np.unique(t[valid]).size)
         return rows, torch.from_numpy(vec)
 
+    # -- staging (JAX feature.py:767-796) ------------------------------------
+    def prefetch(self, node_idx):
+        """Start ``feature[node_idx]`` on the staging pipeline and return a
+        ``concurrent.futures.Future`` whose ``result()`` equals it bit for
+        bit. The pipeline has depth 2 (``submit`` blocks behind two
+        queued lookups), keeps submission order, and is stopped by
+        :meth:`close` (or when the store is collected).
+
+        The ids are copied before this returns, so the caller may reuse
+        their buffer. On the card the lookup runs on the worker's own
+        stream after an event recorded on the caller's current stream
+        (the ids' producer), and ``result()`` orders the reading stream
+        after it (:class:`_StagedRows`): neither thread waits for the
+        card, and the lookup itself makes no host synchronisation."""
+        if self._pool is None:
+            self._pool = Pipeline(depth=2, name="quiver-feature-prefetch",
+                                  future_type=_StagedRows)
+        ids = self._ids(node_idx).clone()
+        if ids.device.type != "cuda":
+            return self._pool.submit(self._staged, ids, None)
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(ids.device)
+        ready = torch.cuda.Event()
+        ready.record()
+        ids.record_stream(self._stage_stream)
+        return self._pool.submit(self._staged, ids, ready)
+
+    def _staged(self, ids, ready):
+        """The worker's half of :meth:`prefetch`: ``(rows, done)``."""
+        if ready is None:
+            return self[ids], None
+        stream = self._stage_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            rows = self[ids]
+            done = torch.cuda.Event()
+            done.record(stream)
+        return rows, done
+
     def close(self):
-        """Nothing to stop: the staging pipelines that the JAX store
-        shuts down here (``prefetch``, the cold prefetcher) are not
-        ported."""
+        """Stop the staging pipeline of :meth:`prefetch` (idempotent; the
+        next ``prefetch`` starts a new one). Without a call, the
+        pipeline's ``weakref.finalize`` stops its worker when the store
+        is collected."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.close()
+
+    def stage_frontier(self, node_idx):
+        """Publish a future batch's frontier to the cold-tier prefetcher.
+        This store has no disk tier, so no prefetcher is ever attached
+        and, as in the JAX package without one, this returns None."""
+        return None
 
     # -- later work ----------------------------------------------------------
-    def prefetch(self, node_idx):
-        raise NotImplementedError(_LATER)
 
     def set_mmap_file(self, path, disk_map, scale=None, zero=None):
         raise NotImplementedError(_LATER)
@@ -524,9 +601,6 @@ class Feature:
         raise NotImplementedError(_LATER)
 
     def enable_cold_prefetch(self, *args, **kwargs):
-        raise NotImplementedError(_LATER)
-
-    def stage_frontier(self, node_idx):
         raise NotImplementedError(_LATER)
 
     def share_ipc(self):
@@ -615,6 +689,7 @@ class Feature:
         ``host_part`` and is pinned again on load."""
         state = dict(self.__dict__)
         state["_host_offload"] = None
+        state["_pool"] = state["_stage_stream"] = None
         if self._host_offload is not None:
             state["host_part"] = quant.tree_map_tier(
                 lambda t: torch.empty(t.shape, dtype=t.dtype).copy_(t),
@@ -633,6 +708,8 @@ class Feature:
         self.__dict__.setdefault("cold_budget", None)
         self.__dict__.setdefault("dedup_cold", False)
         self.__dict__.setdefault("dtype_policy", {"hot": None, "cold": None})
+        self.__dict__.setdefault("_pool", None)
+        self.__dict__.setdefault("_stage_stream", None)
         self.device = resolve_device(self.device)
         for k in ("device_part", "feature_order"):
             if getattr(self, k) is not None:

@@ -21,10 +21,11 @@ writes (``{"ts": ..., "kind": ..., ...}``), and :func:`read_jsonl` reads
 either package's files: the slot numbers and names below are the JAX
 package's, so a record from one reads the same in the other.
 
-Not ported here: the cross-device merge (:func:`pmerge_counters`, ROADMAP
-Queue 1 item 7), pipeline statistics (:meth:`StepStats.watch_pipeline`,
-item 5), and the tracer line and injectable sink faults of the JAX
-package's ``report()`` and ``MetricsSink.emit`` (item 8).
+:meth:`StepStats.watch_pipeline` folds a staging ``Pipeline``'s queue
+statistics into the snapshot, :func:`report` carries the tracer's line
+(``tracing.py``), and ``MetricsSink.emit`` fires the ``"sink.write"``
+fault site (``faults.py``), as in the JAX package. Not ported here: the
+cross-device merge (:func:`pmerge_counters`, ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from . import faults, tracing
 
 # -- the device counter vector ---------------------------------------------
 #
@@ -329,8 +332,8 @@ class StepStats:
     with a ``_cache_size()``, as the JAX package does for its jitted
     steps; the port's steps run eagerly and have none, so they are
     skipped and no ``recompiles`` field appears.
-    ``watch_pipeline`` waits for the port of ``pipeline`` (ROADMAP
-    Queue 1 item 5)."""
+    ``watch_pipeline(p)`` folds a ``pipeline.Pipeline``'s queue depth
+    and wait statistics into the snapshot (its ``queue`` record)."""
 
     def __init__(self, fold_every: int = 64):
         self._fold_every = max(int(fold_every), 1)
@@ -341,6 +344,7 @@ class StepStats:
         self._steps = 0
         self._compile_fns: List = []
         self._compile_base: Optional[int] = None
+        self._pipelines: List = []
         self._lock = threading.Lock()
 
     # -- recording ----------------------------------------------------------
@@ -405,8 +409,8 @@ class StepStats:
         return sum(f._cache_size() for f in self._compile_fns)
 
     def watch_pipeline(self, pipeline) -> "StepStats":
-        raise NotImplementedError(
-            "watch_pipeline: ROADMAP Queue 1 item 5 (pipeline)")
+        self._pipelines.append(pipeline)
+        return self
 
     # -- reading ------------------------------------------------------------
     def counters(self) -> np.ndarray:
@@ -417,7 +421,8 @@ class StepStats:
     def snapshot(self) -> dict:
         """One JSONL-ready record (kind ``step_stats``): step latency
         percentiles, the accumulated raw counters and their derived
-        ratios, and the recompile delta of watched callables."""
+        ratios, the recompile delta of watched callables, and the merged
+        queue statistics of watched pipelines."""
         with self._lock:
             self._fold_locked()
             h = self._hist
@@ -446,6 +451,22 @@ class StepStats:
                 }
         if self._compile_fns:
             rec["recompiles"] = self._cache_total() - self._compile_base
+        if self._pipelines:
+            # counts and wait totals add across pipelines; peaks and the
+            # current depth take the max; the mean comes from the merged
+            # totals (a sum of per-pipeline means would inflate it)
+            merged: Dict[str, float] = {}
+            for p in self._pipelines:
+                for k, v in p.stats().items():
+                    if k == "mean_wait_s":
+                        continue
+                    merged[k] = max(merged.get(k, 0), v) \
+                        if (k.startswith("max_") or k == "depth") \
+                        else merged.get(k, 0) + v
+            done = merged.get("completed", 0) + merged.get("failed", 0)
+            merged["mean_wait_s"] = (merged.get("total_wait_s", 0.0) / done
+                                     if done else 0.0)
+            rec["queue"] = merged
         return rec
 
     def report(self) -> str:
@@ -489,6 +510,10 @@ class StepStats:
                 f"p99 {r['p99_ms']:.2f} ms, mean {r['mean_ms']:.2f} ms"))
         if "recompiles" in s:
             lines.append(f"recompiles since watch: {s['recompiles']}")
+        if "queue" in s:
+            q = s["queue"]
+            lines.append("pipeline: " + ", ".join(
+                f"{k}={round(v, 4)}" for k, v in sorted(q.items())))
         return "\n".join(lines)
 
 
@@ -683,6 +708,7 @@ class MetricsSink:
         rec.update({k: v for k, v in record.items() if k != "kind"})
         line = json.dumps(rec, default=_json_default)
         try:
+            faults.fire("sink.write")    # the injectable disk failure
             with self._lock:
                 if not self._meta_written:
                     self._meta_written = True
@@ -790,9 +816,9 @@ def stats() -> StepStats:
 
 def report(obj=None) -> str:
     """A telemetry summary: of a :class:`StepStats`, or of a raw counter
-    vector or stack. With no argument, the process-default stats and
-    every registered section (a section that raises renders its error
-    in its place)."""
+    vector or stack. With no argument, the process-default stats, the
+    tracer's status and every registered section (a section that raises
+    renders its error in its place)."""
     if obj is not None:
         if isinstance(obj, StepStats):
             return obj.report()
@@ -803,6 +829,9 @@ def report(obj=None) -> str:
         parts += [f"{k}={v:.3f}" for k, v in d.items() if v is not None]
         return "counters: " + (", ".join(parts) if parts else "(empty)")
     lines = [stats().report()]
+    tr = tracing.get_tracer()
+    lines.append(f"tracing: {'on' if tr.enabled else 'off'} "
+                 f"({len(tr)}/{tr.capacity} spans retained)")
     with _default_lock:
         sections = list(_report_sections.items())
     for name, fn in sections:

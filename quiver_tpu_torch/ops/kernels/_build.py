@@ -34,14 +34,18 @@ build_logs: dict = {}
 build_seconds: dict = {}
 
 # launches of each kernel since the last reset_launches(); a wrapper adds
-# one exactly where it launches its kernel
+# one exactly where it launches its kernel. Wrappers run on several
+# threads (a staging pipeline's worker beside the training loop), so the
+# read-modify-write is made under a lock.
 LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0, "sample_layer": 0,
             "gather_rows": 0, "gather_elems": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launched(err: int, name: str) -> None:
@@ -49,7 +53,8 @@ def launched(err: int, name: str) -> None:
     ``cudaGetLastError()``: raises if the launch failed, else counts it."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def find_nvcc() -> str:

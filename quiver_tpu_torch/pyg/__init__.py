@@ -1,3 +1,5 @@
-from .sage_sampler import Adj, GraphSageSampler, SampleJob, layer_shapes
+from .sage_sampler import (Adj, GraphSageSampler, MixedGraphSageSampler,
+                           SampleJob, layer_shapes)
 
-__all__ = ["Adj", "GraphSageSampler", "SampleJob", "layer_shapes"]
+__all__ = ["Adj", "GraphSageSampler", "MixedGraphSageSampler", "SampleJob",
+           "layer_shapes"]

@@ -46,7 +46,15 @@ their results to the unmetered ones (compared under torch's
 deterministic algorithms, so that the model's sums run in one order);
 a rotated store looks up the same bits and its engine serves the same
 logits before and after ``refresh_feature``; ``ShardTensor``'s pinned
-host group, read by the card, equals the same store on the CPU."""
+host group, read by the card, equals the same store on the CPU.
+
+The host side: ``Feature.prefetch`` stages lookups on the pipeline
+worker's own stream with no host synchronisation (the sync check covers
+the worker too) and returns the lookup's rows; CPU mode puts its batch
+on the card equal to the CPU device's sample; ``MixedGraphSageSampler``
+yields every batch once on the card, HOST mode through the topology
+gathers; ``layerwise_inference`` on the card is within 1e-4 of the
+CPU's."""
 
 import numpy as np
 import pytest
@@ -888,3 +896,90 @@ def test_pickled_offload_store_on_the_card(graph):
     assert torch.equal(_bits(back.lookup_tiered(ids, masked=True)),
                        _bits(card.lookup_tiered(ids, masked=True)))
     assert (back.cold_budget, back.dedup_cold) == (64, True)
+
+
+# -- the host side: staging, the native engine, the mixed sampler -------------
+
+
+def test_prefetch_on_the_worker_stream_without_sync(graph):
+    """``Feature.prefetch`` runs the tiered lookup on the pipeline's own
+    stream, with no host synchronisation on either thread, and the rows
+    read on the caller's stream equal the lookup's."""
+    card, cpu = _stores(graph, dedup_cold=True)
+    ids = [torch.cat([graph["seeds"], graph["seeds"][:i * 100]]).clamp(min=0)
+           .contiguous() for i in range(1, 5)]
+    want = [card[i] for i in ids]
+    fused.reset_launches()
+    got = _sync_free(lambda: [f.result(timeout=60) for f in
+                              [card.prefetch(i) for i in ids]])
+    assert fused.LAUNCHES["gather_rows"] > 0
+    assert card._stage_stream is not None
+    assert card._stage_stream != torch.cuda.current_stream()
+    for g, w, i in zip(got, want, ids):
+        assert torch.equal(_bits(g), _bits(w))
+        assert torch.equal(_bits(g.cpu()), _bits(cpu[i.cpu()]))
+    card.close()
+
+
+def test_cpu_mode_on_the_card_equals_the_cpu(graph):
+    """CPU mode with its batch put on the card (one pinned buffer, one
+    copy) gives the CPU device's sample bit for bit."""
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    seeds = graph["seeds"][:300]
+    outs = [GraphSageSampler(topo, [5, 3], device=dev, mode="CPU", seed=3,
+                             with_eid=True).sample(seeds)
+            for dev in ("cuda", "cpu")]
+    assert outs[0][0].is_cuda and torch.equal(outs[0][0].cpu(), outs[1][0])
+    for a, b in zip(outs[0][2], outs[1][2]):
+        assert a.edge_index.is_cuda
+        assert torch.equal(a.edge_index.cpu(), b.edge_index)
+        assert torch.equal(a.e_id.cpu(), b.e_id)
+
+
+@pytest.mark.parametrize("device_mode", ["HBM", "HOST"])
+def test_mixed_on_the_card(graph, device_mode):
+    from quiver_tpu_torch import MixedGraphSageSampler, SampleJob
+
+    class Job(SampleJob):
+        def __init__(self):
+            perm = torch.randperm(N, generator=torch.Generator()
+                                  .manual_seed(0)).to(torch.int32)
+            self.b = [perm[i * 100:(i + 1) * 100] for i in range(24)]
+
+        def __getitem__(self, i):
+            return self.b[i]
+
+        def __len__(self):
+            return len(self.b)
+
+        def shuffle(self):
+            pass
+
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    m = MixedGraphSageSampler(Job(), [5, 3], topo, device_mode=device_mode,
+                              num_workers=2)
+    fused.reset_launches()
+    try:
+        outs = list(m)
+    finally:
+        m.close()
+    assert len(outs) == 24 and all(o[0].is_cuda for o in outs)
+    assert sorted(tuple(o[0][:100].tolist()) for o in outs) == \
+        sorted(tuple(b.tolist()) for b in Job().b)
+    assert m.tasks["cpu"] >= 1
+    host_reads = fused.LAUNCHES["gather_elems"] + fused.LAUNCHES["gather_rows"]
+    assert (host_reads > 0) == (device_mode == "HOST")
+
+
+def test_layerwise_inference_on_the_card_equals_the_cpu(graph):
+    from quiver_tpu_torch import inference
+    model = GraphSAGE(WIDE, 32, 7, 2).to("cuda")
+    args = dict(batch_size=512, max_degree=64)
+    got = inference.layerwise_inference(
+        inference.sage_apply_layer(model), graph["indptr"], graph["indices"],
+        graph["feat"], 2, **args)
+    want = inference.layerwise_inference(
+        inference.sage_apply_layer(copy.deepcopy(model).cpu()),
+        graph["indptr"].cpu(), graph["indices"].cpu(), graph["feat"].cpu(),
+        2, **args)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -488,10 +488,14 @@ def test_deferred_pieces_raise():
         Feature(host_placement="disk", device="cpu")
     for call in (lambda: t.set_mmap_file("x.npy", None),
                  lambda: t.read_mmap([0]),
-                 lambda: t.enable_cold_prefetch(),
-                 lambda: t.stage_frontier([0]), lambda: t.prefetch([0])):
+                 lambda: t.enable_cold_prefetch()):
         with pytest.raises(NotImplementedError, match="item 3"):
             call()
+    # the staging pipeline is ported (tests/test_torch_host_side.py); with
+    # no disk tier no cold prefetcher is attached, as in the JAX package
+    assert t.stage_frontier([0]) is None
+    assert torch.equal(t.prefetch([0, 1]).result(timeout=30), t[[0, 1]])
+    t.close()
     # rotation, pickling and the counters are ported (test_torch_rotation.py,
     # test_torch_metrics.py): this store has no feature_order to rotate
     with pytest.raises(ValueError, match="feature_order"):

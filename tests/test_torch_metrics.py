@@ -159,8 +159,13 @@ def test_step_stats_fold_and_percentiles_equal_jax():
     # the port's steps run eagerly: nothing to watch, no recompiles field
     ours.watch_compiles(lambda: 0)
     assert "recompiles" not in ours.snapshot()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ours.watch_pipeline(object())
+    # watch_pipeline is ported: its queue record is held to JAX's in
+    # tests/test_torch_pipeline.py
+    from quiver_tpu_torch.pipeline import Pipeline
+    with Pipeline(depth=2) as p:
+        assert ours.watch_pipeline(p) is ours
+        p.submit(lambda: 0).result(timeout=10)
+        assert ours.snapshot()["queue"]["completed"] == 1
 
 
 def test_step_stats_folds_lazily():

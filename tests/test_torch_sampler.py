@@ -242,14 +242,19 @@ def test_allowed_combinations(topo):
     pytest.param(dict(mode="CPU", collect_metrics=True), "item 5",
                  id="kw3-collect_metrics")])
 def test_later_work_raises(topo, kw, item):
-    """The pieces still waiting on later items; weighted sampling on the
-    card or in HOST mode runs (``tests/test_torch_weighted.py``), in
-    CPU mode it waits for the native engine."""
+    """The CPU-mode samplers that waited for the native engine (ROADMAP
+    Queue 1 ``item``) now build and sample on the host, windowed methods
+    falling back to exact and no counters kept, as in the JAX package
+    (``tests/test_torch_mixed.py`` holds CPU mode to JAX's bit for
+    bit); no mode raises ``NotImplementedError`` any more."""
     kw = dict(kw)
     if isinstance(kw.get("edge_weight"), str):
         kw["edge_weight"] = np.ones(topo.edge_count, np.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        _sampler(topo, [3], **kw)
+    s = _sampler(topo, [3], **kw)
+    assert (s.mode, s.sampling) == ("CPU", "exact"), item
+    n_id, bs, adjs = s.sample(np.arange(5, dtype=np.int32))
+    assert bs == 5 and n_id.shape == (20,) and adjs[0].size == (20, 5)
+    assert s.last_counters is None
 
 
 def test_no_card_means_raise_not_cpu(topo):
