@@ -188,7 +188,50 @@ Phases:
    surfaces through ``Future.result()`` and ``pipelined``; closed, no
    worker thread is left. Results on ``pipeline``, ``cpu_sampler``,
    ``mixed``, ``inference`` and ``checkpoint`` lines;
-11. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+11. the disk tier and the cold prefetch (``partition.py``, ``io.py``,
+   ``prefetch.py``, ``Feature.set_mmap_file``): (a) phase 10 (a)'s
+   features (``centers[labels] + 0.5 * noise``) in descending-degree
+   storage order written by ``save_disk_tier(dtype_policy="int8")`` into
+   a temporary directory (its file system printed from ``/proc/mounts``),
+   ``load_disk_tier_store(hot_rows=`` a quarter of the nodes ``)`` and
+   ``set_local_order`` (node ids in, as JAX's disk path takes them);
+   a staging probe: the prefetcher with its default IO engine
+   (``io_engine="auto"``), 2 workers and queue depth 16 staging the first
+   50,000 unique cold rows of a batch's frontier (the frontier's density
+   kept), timed, with the engine chosen, extents, coalescing factor,
+   bytes, peak queue depth, and the card's sampler timed alone and while
+   it runs; then phase 10 (a)'s split training loop (GraphSAGE 100 -> 256
+   -> 256 -> 47, [15, 10, 5], batch 1024, Adam 3e-3, the masked lookup
+   ``getitem_masked(n_id)``) in four arms of 4 warm-up steps (under
+   torch's deterministic algorithms), 16 timed and 4 profiled steps: off
+   (every cold row read from the file), on with decoded rows, on with
+   packed int8 rows, and that again with ``evict_file_cache`` at the
+   start of every step (whether it drops pages is timed first); the
+   prefetch arms (a ring of 2^20 slots pinned, 2 workers, the
+   mmap engine: the probe shows why) sample and publish batch i+1 before
+   batch i's lookup, from the training thread. Each arm prints step
+   p50/p99 and sampled edges/s beside phase 10 (a)'s serial step and
+   phase 6's tiered batch, device time and idle share, and the ring's
+   hit rate, sync, staged, dropped and truncated rows; every lookup
+   equals the rows ``read_mmap`` decodes on the host, bit for bit, and
+   the four arms' losses and parameters after the warm-up are equal bit
+   for bit; the median staging task comes from ``pipeline.execute``
+   spans; the ring
+   gather (``gather_rows`` over the pinned ring, each layout) is held to
+   its plain version at a step's slots, with its own time against its
+   bound at phase 6's measured copy rate. Then the fence: a ring of 1.05x
+   one batch's unique cold rows with the stager publishing batch i+1
+   while the card reads batch i, 16 lookups equal to ``read_mmap``'s
+   rows; and ``sample_ahead(..., feature=store)`` over an HBM
+   ``GraphSageSampler``: batches equal to serial ``sample()``, lookups
+   exact, ring hits. (b) the JAX package's synthetic cold dataset at its
+   defaults (1,000,000 nodes, dim 128, avg_deg 15, hot_frac 0.05, int8,
+   skew 2), generated and loaded by the port, 16 batches of 1024 at [15,
+   10, 5] through ``sample_ahead`` with the prefetcher (mmap engine):
+   hit rate, sync rows, every lookup equal to the same store without
+   prefetch. Results
+   on ``disk`` and ``cold dataset`` lines;
+12. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -198,9 +241,11 @@ Phases:
    ``host_weights``, and the ``ShardTensor`` host read under
    ``shard_tensor``, and ``launches_per_buffered_step`` from phase 10
    (a) with the mixed sampler's HOST launches under
-   ``mixed_host_launches``; the arms' records under ``sampler``, phase
+   ``mixed_host_launches``, and the disk tier's ring gather under
+   ``disk_ring``; the arms' records under ``sampler``, phase
    8's under ``weighted``, phase 9's under ``metrics``, ``rotation`` and
-   ``shard_tensor``, phase 10's under ``host_side``), then the last line ``{"ok": true, "device":
+   ``shard_tensor``, phase 10's under ``host_side``, phase 11's under
+   ``disk_tier``), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -1183,7 +1228,8 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
                       "bound_ms": b_ms, "bound_by": "bytes",
                       "library_ms": None, "err": 0.0}
     del f32
-    rec = dict(recs["int8"], h2d_bytes_per_s=h2d, fp32=recs["fp32"])
+    rec = dict(recs["int8"], h2d_bytes_per_s=h2d, fp32=recs["fp32"],
+               batch_p50_ms=p50, batch_p99_ms=p99)
 
     # the served form: each of a tiered batch's host-tier launches
     per_launch = launch_own_ms(
@@ -3342,6 +3388,672 @@ def phase_host_side(dev, gen, nodes, indptr, indices, deg, card, topo,
     return rec
 
 
+DISK_WARMUP, DISK_TIMED, DISK_PROFILED = 4, 16, 4
+DISK_RING_ROWS = 1 << 20       # slots of the staging ring, (a) and (b)
+DISK_FENCE_LOOKUPS = 16
+DISK_AHEAD_BATCHES = 8
+PROBE_ROWS = 50_000            # cold rows the engine probe stages
+COLD_BATCHES = 16              # (b): batches through sample_ahead
+# the prefetcher's workers and queue depth; the arms stage through the
+# mmap engine (the module doc, phase 11)
+DISK_PREFETCH = dict(workers=2, io_qd=16)
+DISK_ARMS = [("off", None, False),
+             ("on decoded", dict(decode_staged=True), False),
+             ("on packed", dict(decode_staged=False), False),
+             ("on packed evicted", dict(decode_staged=False), True)]
+
+
+def fs_type(path) -> str:
+    """The file system type of ``path`` and its mount point, from
+    ``/proc/mounts`` (the longest mount point that holds it)."""
+    import os
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as fh:
+            for ln in fh:
+                parts = ln.split()
+                if len(parts) < 3:
+                    continue
+                mnt = parts[1]
+                inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+                if inside and len(mnt) > len(best):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        pass
+    return f"{kind} at {best or '?'}"
+
+
+def disk_reference(store, plain, n_id):
+    """The lookup's plain version: every row decoded on the host by
+    ``read_mmap`` (``plain``, all file rows, on the card), taken at the
+    ids' storage rows, -1 ids giving the masked lookup's zero rows."""
+    import torch
+    valid = n_id >= 0
+    t = torch.where(valid, store.feature_order[n_id.clamp(min=0).long()], 0)
+    return plain.index_select(0, t.long()) * valid.to(plain.dtype)[:, None]
+
+
+def ring_slots(store, n_id):
+    """The ring gather's ids for one masked lookup, read off the ring as
+    it stands: the slot of each staged cold row, -1 elsewhere."""
+    import numpy as np
+    import torch
+    ring = store._cold_prefetch._ring
+    valid = n_id >= 0
+    t = torch.where(valid, store.feature_order[n_id.clamp(min=0).long()],
+                    -1).cpu().numpy()
+    pos = np.flatnonzero(t >= store.cache_rows)
+    slots = np.full(t.shape[0], -1, np.int32)
+    slots[pos] = ring._slot_of[store.disk_map[t[pos]]]
+    return torch.from_numpy(slots).to(n_id.device)
+
+
+def ring_gather_timing(store, n_id, h2d, name):
+    """``gather_rows`` over the staging ring at one lookup's slots: equal
+    to its plain version, its wrapper, own and plain times, and its bound
+    (the distinct ring rows' bytes read at the measured pinned copy rate,
+    or the device bytes at 3.35 TB/s)."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    ring = store._cold_prefetch._ring
+    slots = ring_slots(store, n_id)
+    n = slots.shape[0]
+    got = torch.zeros((n, DIM), device=slots.device)
+    want = torch.zeros((n, DIM), device=slots.device)
+    gather.gather_rows(ring.table, slots, out=got)
+    gather.gather_rows_plain(ring.table, slots, out=want)
+    check(same_bits(got, want), f"ring gather ({name}) differs from its "
+          "plain version")
+    kernel = "gather_rows_packed_kernel" if quant.is_quantized(ring.table) \
+        else "gather_rows_kernel"
+    ms = cuda_ms(lambda: gather.gather_rows(ring.table, slots, out=got), 20)
+    # the profiler drops a kernel event now and then: a window that
+    # keeps at least half of them gives their median
+    durs = sorted(kernel_events(lambda: [gather.gather_rows(
+        ring.table, slots, out=got) for _ in range(20)], kernel))
+    own = durs[len(durs) // 2] if len(durs) >= 10 else None
+    plain_ms = cuda_ms(lambda: gather.gather_rows_plain(ring.table, slots,
+                                                        out=want), 3)
+    b_ms, b_by, host_b, dev_b, distinct = host_gather_bound(ring.table,
+                                                            slots, h2d)
+    share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+    print(f"disk ring gather_rows {name}: ids={n} staged hits={distinct} "
+          f"({quant.row_read_bytes(ring.table)} B a row): wrapper "
+          f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
+          f"{plain_ms:.4f} ms, reads {host_b} B of ring rows at the "
+          f"measured {h2d / 1e9:.2f} GB/s pinned-to-device copy rate and "
+          f"moves {dev_b} B on the card: bound {b_ms:.4f} ms ({b_by}), "
+          "exact", flush=True)
+    return {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": 0.0, "ids": n, "staged_hits": distinct,
+            "ring_bytes": host_b, "kernel": kernel}
+
+
+def staging_probe(store, path, sample, n_id, local, card):
+    """The prefetcher with its default IO engine (``io_engine="auto"``),
+    2 workers and queue depth 16 staging a slice of a products batch's
+    frontier: its first ``PROBE_ROWS`` unique cold rows in storage order,
+    so the slice keeps the frontier's density (and so its coalescing).
+    Timed, with its IO facts, the whole frontier's time at that rate,
+    and the card's sampler (the training thread's host work) timed alone
+    and while the staging runs."""
+    import torch
+    valid = n_id >= 0
+    t = store.feature_order[n_id[valid].long()]
+    rows = torch.unique(t[t >= store.cache_rows]).cpu()
+    probe_rows = rows[:PROBE_ROWS]
+    nodes = local.cpu()[probe_rows.long()]
+    t_alone = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample()
+        torch.cuda.synchronize()
+        t_alone.append((time.perf_counter() - t0) * 1e3)
+    pf = store.enable_cold_prefetch(DISK_RING_ROWS, **DISK_PREFETCH)
+    engine = pf.stats()["io"]["engine"]
+    t0 = time.perf_counter()
+    fut = pf.publish(nodes, block=True)
+    t_busy = []
+    while not fut.done() and len(t_busy) < 8:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sample()
+        torch.cuda.synchronize()
+        t_busy.append((time.perf_counter() - t1) * 1e3)
+    staged = fut.result(timeout=600)
+    stage_s = time.perf_counter() - t0
+    io = pf.stats()["io"]
+    store.close()
+    alone = sorted(t_alone)[1]
+    busy = sorted(t_busy)[len(t_busy) // 2] if t_busy else None
+    rate = staged / stage_s
+    parts = staging_parts(store, rows.numpy(), card)
+    print(f"disk staging probe: {staged} unique cold rows (the first of "
+          f"batch 0's {rows.numel()}, in storage order) published with "
+          f"io_engine='auto' (chose {engine!r} on {fs_type(path)}), "
+          f"workers 2, io_qd 16: staged in {stage_s:.3f} s = {rate:.0f} "
+          f"rows/s; {io['extents']} extents, coalescing factor "
+          f"{io['coalescing_factor']}, {io['bytes_read']} B read, peak "
+          f"queue depth {io['depth_peak']}, retries {io['retries']}; the "
+          f"whole frontier at that rate: {rows.numel() / rate:.2f} s; the "
+          f"card's sample_fn on the training thread {alone:.3f} ms alone, "
+          + ("not measured while staging" if busy is None else
+             f"{busy:.3f} ms while the staging runs (median of "
+             f"{len(t_busy)}, {busy / alone:.1f}x)") + f"; on {card}",
+          flush=True)
+    return {"engine": engine, "fs": fs_type(path), "rows": staged,
+            "frontier_cold_rows": int(rows.numel()), "seconds": stage_s,
+            "rows_per_s": rate, "io": io,
+            "frontier_seconds_at_rate": rows.numel() / rate,
+            "sample_ms_alone": alone, "sample_ms_while_staging": busy,
+            "staging_parts_ms": parts}
+
+
+def staging_parts(store, rows, card):
+    """A staging task's pieces, each timed alone on this thread over one
+    frontier's unique cold rows (``rows``, storage rows): the mmap read
+    of the file rows, their decode, and the writes into fresh rings of
+    2^20 slots, decoded and packed (the slots pinned, as on the card)."""
+    import numpy as np
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.prefetch import StagingRing
+    disk = store.disk_map[rows]
+    ms = {}
+    t0 = time.perf_counter()
+    codes = np.asarray(store.mmap_array[disk])
+    ms["mmap_read"] = (time.perf_counter() - t0) * 1e3
+    scale, zero = store.disk_scale[disk], store.disk_zero[disk]
+    t0 = time.perf_counter()
+    dec = quant.decode_np(codes, scale, zero)
+    ms["decode"] = (time.perf_counter() - t0) * 1e3
+    n = store.mmap_array.shape[0]
+    for name, args, side in (("ring_write_decoded", (dec,), None),
+                             ("ring_write_packed", (codes, scale, zero),
+                              np.float32)):
+        ring = StagingRing(DISK_RING_ROWS, DIM, args[0].dtype, n, side,
+                           device=store.device)
+        t0 = time.perf_counter()
+        ring.stage(disk, *args)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        del ring
+    print(f"disk staging parts: {rows.size} rows, each part alone on one "
+          f"thread: mmap read {ms['mmap_read']:.3f} ms, decode "
+          f"{ms['decode']:.3f} ms, ring write decoded "
+          f"{ms['ring_write_decoded']:.3f} ms, packed "
+          f"{ms['ring_write_packed']:.3f} ms; on {card}", flush=True)
+    return ms
+
+
+def time_calls(obj, name, log):
+    """Wrap the method ``name`` of the object ``obj`` (an instance
+    attribute over the class's) so that each call's ms go to
+    ``log[name]``: a staging task's parts, measured where they run."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    setattr(obj, name, timed)
+
+
+def eviction_check(store, tmp):
+    """Whether ``evict_file_cache`` drops the artifact's pages here: the
+    time of one ``read_mmap`` of 50,000 random rows read again warm, and
+    right after an eviction."""
+    import numpy as np
+    from quiver_tpu_torch.prefetch import evict_file_cache
+    n = store.mmap_array.shape[0]
+    rows = np.sort(np.random.default_rng(SEED).choice(
+        n, min(50_000, n // 2), replace=False))
+    store.read_mmap(rows)
+    t0 = time.perf_counter()
+    store.read_mmap(rows)
+    warm = (time.perf_counter() - t0) * 1e3
+    took = evict_file_cache(store.mmap_array.filename,
+                            mapped=store.mmap_array)
+    t0 = time.perf_counter()
+    store.read_mmap(rows)
+    cold = (time.perf_counter() - t0) * 1e3
+    fs = fs_type(tmp)
+    print(f"disk: evict_file_cache returned {took} on {fs}: {rows.size} "
+          f"random rows by read_mmap {warm:.3f} ms warm, {cold:.3f} ms right "
+          f"after "
+          f"the eviction ({cold / warm:.2f}x)"
+          + ("; tmpfs keeps the file in memory, nothing is dropped"
+             if fs.startswith("tmpfs") else ""), flush=True)
+    return {"returned": took, "fs": fs, "warm_ms": warm, "evicted_ms": cold}
+
+
+def disk_training(dev, gen, nodes, deg, indptr, indices, card, topo, h2d,
+                  refs):
+    """(a) The products-scale disk tier and phase 10 (a)'s split training
+    loop in four arms (see phase_disk). Returns its record."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import GraphSAGE, GraphSageSampler, metrics, tracing
+    from quiver_tpu_torch.async_sampler import sample_ahead
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import build_split_train_step, init_state
+    from quiver_tpu_torch.parallel.train import draw_int32
+    from quiver_tpu_torch.partition import (load_disk_tier_store,
+                                            save_disk_tier)
+    from quiver_tpu_torch.prefetch import evict_file_cache
+
+    tmp = tempfile.mkdtemp(prefix="qt_disk_")
+    try:
+        t0 = time.perf_counter()
+        feat, labels = make_train_data(dev, gen, nodes)
+        # storage row r holds the r-th node by degree: the hot set is the
+        # top quarter by degree, as phase 6 places it
+        order = torch.argsort(deg, descending=True, stable=True)
+        rows = feat[order].cpu()
+        del feat
+        made_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "disk")
+        save_disk_tier(rows, np.arange(nodes), path, dtype_policy="int8")
+        del rows
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hot = nodes // 4
+        store, _ = load_disk_tier_store(path, hot_rows=hot, device=dev)
+        store.set_local_order(order)
+        plain = store.read_mmap(np.arange(nodes)).to(dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        sizes = ", ".join(f"{k} {v} B" for k, v in files.items())
+        print(f"disk: artifact of {nodes} rows x {DIM} int8 written by "
+              f"save_disk_tier in {save_s:.2f} s ({sizes}) "
+              f"on {fs_type(tmp)}; features made in {made_s:.2f} s; "
+              f"load_disk_tier_store(hot_rows={hot}) with set_local_order "
+              f"(degree order) and every row decoded by read_mmap for the "
+              f"checks in {load_s:.2f} s", flush=True)
+
+        model0 = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES),
+                           dropout=DROPOUT)
+        model0.load_state_dict(flax_to_state_dict(random_flax_params(
+            DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED)))
+        model0 = model0.to(dev)
+        perm = torch.randperm(nodes, generator=gen, device=dev) \
+            .to(torch.int32)
+        n_b = DISK_WARMUP + DISK_TIMED + DISK_PROFILED
+        batches = [perm[i * BATCH:(i + 1) * BATCH].contiguous()
+                   for i in range(n_b)]
+        ys = [labels[b.long()] for b in batches]
+        host = torch.Generator().manual_seed(SEED + 11)
+        seeds = [draw_int32(host, 2) for _ in batches]
+        sample_fn, _ = build_split_train_step(model0, None, SIZES, BATCH)
+
+        def sample(i):
+            return sample_fn(indptr, indices, batches[i], seeds[i][0])
+
+        probe = staging_probe(store, tmp, lambda: sample(0),
+                              sample(0)[0], order, card)
+
+        def drive(run, steps, evict):
+            """Steps ``steps`` of one arm: with a prefetcher, batch i+1 is
+            sampled and published before batch i's lookup (from this
+            thread); the masked lookup, the split step, float(loss)."""
+            for i in steps:
+                t = time.perf_counter()
+                if evict:
+                    evict_file_cache(store.mmap_array.filename,
+                                     mapped=store.mmap_array)
+                te = time.perf_counter()
+                n_id, adjs = run["nxt"] or sample(i)
+                run["nxt"] = None
+                if run["ahead"] and i + 1 < n_b:
+                    run["nxt"] = sample(i + 1)
+                    store.stage_frontier(run["nxt"][0])
+                t1 = time.perf_counter()
+                x = store.getitem_masked(n_id)
+                t2 = time.perf_counter()
+                run["state"], loss = run["step_fn"](
+                    run["state"], x, adjs, ys[i], seeds[i][1])
+                run["losses"].append(float(loss))
+                t3 = time.perf_counter()
+                run["lat"].append((t3 - t) * 1e3)
+                run["parts"].append((1e3 * (te - t), 1e3 * (t1 - te),
+                                     1e3 * (t2 - t1), 1e3 * (t3 - t2)))
+                run["edges"].append(sum(a.mask.sum() for a in adjs))
+                run["xs"].append((n_id, x))
+
+        rec = {"probe": probe, "files": files, "save_s": save_s,
+               "load_s": load_s, "arms": {}}
+        runs = {}
+        pub_launches = {}
+        for name, kw, evict in DISK_ARMS:
+            store.close()
+            if kw is not None:
+                store.enable_cold_prefetch(DISK_RING_ROWS, io_engine="mmap",
+                                           **DISK_PREFETCH, **kw)
+            pf = store._cold_prefetch
+            parts_log = {}
+            if pf is not None:
+                time_calls(pf, "_stage_shard", parts_log)
+                time_calls(pf._ring, "stage", parts_log)
+            evicted = None
+            if evict:
+                evicted = eviction_check(store, tmp)
+            model = copy.deepcopy(model0)
+            opt = torch.optim.Adam(model.parameters(), lr=LR,
+                                   betas=(0.9, 0.999), eps=1e-8)
+            _, step_fn = build_split_train_step(model, opt, SIZES, BATCH)
+            run = dict(state=init_state(model, opt), step_fn=step_fn,
+                       ahead=pf is not None, nxt=None, losses=[], lat=[],
+                       parts=[], edges=[], xs=[])
+            if pf is not None:
+                run["nxt"] = sample(0)
+                store.stage_frontier(run["nxt"][0])
+            # the warm-up under deterministic algorithms: the arms' losses
+            # and parameters are compared bit for bit after it
+            with deterministic():
+                drive(run, range(DISK_WARMUP), evict)
+                torch.cuda.synchronize()
+            run["params"] = [p.detach().clone()
+                             for p in run["state"].model.parameters()]
+            before = pf.stats() if pf is not None else None
+            parts_log.clear()
+            for k in ("lat", "parts", "edges"):
+                run[k].clear()
+            tracing.clear()
+            tracing.enable()             # the staging tasks' spans
+            kernels.reset_launches()
+            drive(run, range(DISK_WARMUP, DISK_WARMUP + DISK_TIMED), evict)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            tracing.disable()
+            stage_ms = sorted(1e3 * r[3] for r in tracing.records()
+                              if r[0] == "pipeline.execute")
+            tracing.clear()
+            task_parts = {k: sorted(v)[len(v) // 2]
+                          for k, v in parts_log.items() if v}
+            after = pf.stats() if pf is not None else None
+            pub_launches[name] = launches
+            st = {}
+            busy = device_profile(
+                lambda: drive(run, range(DISK_WARMUP + DISK_TIMED, n_b),
+                              evict), DISK_PROFILED, f"disk {name} step",
+                top=6, stats=st)
+            # every lookup against its plain version (read_mmap)
+            for i, (n_id, x) in enumerate(run["xs"]):
+                check(same_bits(x, disk_reference(store, plain, n_id)),
+                      f"disk arm {name}: lookup {i} differs from "
+                      "read_mmap's rows")
+            n_checked = len(run["xs"])
+            last_n_id = run["xs"][-1][0]
+            run["xs"] = []
+            check(all(math.isfinite(v) for v in run["losses"]),
+                  f"disk arm {name}: non-finite loss")
+            p50, p99 = pcts(run["lat"])
+            edges = int(torch.stack(run["edges"]).sum())
+            parts = [sorted(p[k] for p in run["parts"])[
+                len(run["parts"]) // 2] for k in range(4)]
+            per = launches["gather_rows"] / DISK_TIMED
+            arm = dict(p50_ms=p50, p99_ms=p99,
+                       edges_per_s=edges / (sum(run["lat"]) / 1e3),
+                       edges_per_step=edges / DISK_TIMED,
+                       device_ms=busy, host_ms_parts=parts,
+                       gather_rows_per_step=per,
+                       launches={k: v for k, v in launches.items() if v},
+                       **st)
+            if pf is None:
+                check(launches["gather_rows"] == 0,
+                      f"the off arm launched {launches}")
+            else:
+                check(launches["gather_rows"] >= 1,
+                      f"disk arm {name}: the ring gather was not "
+                      f"launched in {DISK_TIMED} steps ({launches})")
+                d = {k: after[k] - before[k] for k in (
+                    "published", "dropped", "hit_rows", "sync_rows",
+                    "staged_rows", "truncated_rows")}
+                io = {k: after["io"][k] - before["io"][k]
+                      for k in ("extents", "rows_read", "bytes_read")}
+                tot = d["hit_rows"] + d["sync_rows"]
+                arm.update(
+                    hit_rate=d["hit_rows"] / tot if tot else None,
+                    sync_rows_per_step=d["sync_rows"] / DISK_TIMED,
+                    staged_rows_per_step=d["staged_rows"] / DISK_TIMED,
+                    published=d["published"], dropped=d["dropped"],
+                    truncated_rows=d["truncated_rows"],
+                    staging_ms_p50=(stage_ms[len(stage_ms) // 2]
+                                    if stage_ms else None),
+                    staging_parts_ms_p50=task_parts,
+                    io=dict(io, engine=after["io"]["engine"],
+                            depth_peak=after["io"]["depth_peak"]))
+                # the ring as the main path leaves it for a lookup: this
+                # batch's frontier staged
+                pf.publish(last_n_id, block=True).result(timeout=600)
+                arm["ring"] = ring_gather_timing(store, last_n_id, h2d, name)
+                _, vec = store.lookup_tiered(last_n_id, masked=True,
+                                             collect_metrics=True)
+                arm["metered_slots"] = {
+                    metrics.SLOT_NAMES[k]: int(vec[k]) for k in range(13, 23)}
+            if evict:
+                arm["eviction"] = evicted
+            rec["arms"][name] = arm
+            runs[name] = run
+            hit = "" if pf is None else (
+                f"; ring hit rate {arm['hit_rate']:.4f}, sync rows "
+                f"{arm['sync_rows_per_step']:.0f} a step, staged "
+                f"{arm['staged_rows_per_step']:.0f} a step, a staging task "
+                f"p50 {fmt_ms(arm['staging_ms_p50'])} (pipeline.execute "
+                f"spans; of it a worker's shard "
+                f"{fmt_ms(task_parts.get('_stage_shard'))}, its ring write "
+                f"{fmt_ms(task_parts.get('stage'))}, medians), "
+                f"{arm['published']} published, {arm['dropped']} "
+                f"dropped, {arm['truncated_rows']} truncated; IO engine "
+                f"{arm['io']['engine']}, {arm['io']['extents']} extents, "
+                f"{arm['io']['bytes_read']} B; gather_rows {per:g} "
+                "launches a step")
+            print(f"disk: arm {name}: {DISK_TIMED} steps (after "
+                  f"{DISK_WARMUP}) of {BATCH} seeds, fanout {SIZES}: step "
+                  f"p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+                  f"{arm['edges_per_s']:.6g} sampled edges/s; host ms "
+                  f"(medians) evict {parts[0]:.3f}, sample+publish "
+                  f"{parts[1]:.3f}, lookup {parts[2]:.3f}, step+float(loss) "
+                  f"{parts[3]:.3f}; device {fmt_ms(busy)} a step, idle "
+                  f"share {st.get('idle_share', float('nan')):.3f}{hit}; "
+                  f"{n_checked} lookups equal to read_mmap's rows bit for "
+                  f"bit; on {card}", flush=True)
+        store.close()
+        names = [a[0] for a in DISK_ARMS]
+        first = runs[names[0]]
+        for name in names[1:]:
+            check(runs[name]["losses"][:DISK_WARMUP]
+                  == first["losses"][:DISK_WARMUP],
+                  f"disk arm {name}: losses differ from the off arm's")
+            check(all(same_bits(a, b) for a, b in zip(
+                runs[name]["params"], first["params"])),
+                f"disk arm {name}: parameters differ from the off arm's")
+        print(f"disk: the {len(names)} arms' losses and parameters after "
+              f"the {DISK_WARMUP} warm-up steps (torch's deterministic "
+              f"algorithms on) equal bit for bit; the timed steps run "
+              f"without them, as phase 10 (a)'s: its serial step p50 "
+              f"{refs['serial_p50_ms']:.3f} ms, phase 6's tiered batch p50 "
+              f"{refs['tiered_p50_ms']:.3f} ms; on {card}", flush=True)
+        rec["launches"] = pub_launches
+
+        # the fence: a ring of 1.05x one batch's unique cold rows, the
+        # stager wrapping around while the card reads
+        n_ids = [sample(i)[0] for i in range(DISK_FENCE_LOOKUPS + 1)]
+        fo = store.feature_order
+        cold = max(int(((n >= 0) & (fo[n.clamp(min=0).long()] >= hot))
+                        .sum()) for n in n_ids)
+        cap = int(1.05 * cold)
+        store.enable_cold_prefetch(cap, io_engine="mmap", decode_staged=False,
+                                   **DISK_PREFETCH)
+        store.stage_frontier(n_ids[0])
+        xs = []
+        kernels.reset_launches()
+        for i in range(DISK_FENCE_LOOKUPS):
+            store.stage_frontier(n_ids[i + 1])
+            xs.append(store.getitem_masked(n_ids[i]))
+        torch.cuda.synchronize()
+        fence_launches = kernels.LAUNCHES["gather_rows"]
+        for i, x in enumerate(xs):
+            check(same_bits(x, disk_reference(store, plain, n_ids[i])),
+                  f"fence: lookup {i} differs from read_mmap's rows")
+        fst = store._cold_prefetch.stats()
+        store.close()
+        print(f"disk fence: ring of {cap} slots (1.05 x {cold} unique cold "
+              f"rows, the most of {DISK_FENCE_LOOKUPS + 1} batches), "
+              f"packed, the stager publishing batch i+1 while the card "
+              f"reads batch i: {DISK_FENCE_LOOKUPS} lookups equal to "
+              f"read_mmap's rows bit for bit; {fence_launches} ring "
+              f"gathers, {fst['hit_rows']} hit rows, {fst['sync_rows']} "
+              f"sync rows, {fst['dropped']} publications dropped",
+              flush=True)
+        rec["fence"] = {"capacity": cap, "batch_cold_rows": cold,
+                        "lookups": DISK_FENCE_LOOKUPS,
+                        "ring_gathers": fence_launches,
+                        "hit_rows": fst["hit_rows"],
+                        "sync_rows": fst["sync_rows"]}
+
+        # sample_ahead over the HBM sampler publishes through the store
+        store.enable_cold_prefetch(DISK_RING_ROWS, io_engine="mmap",
+                                   **DISK_PREFETCH)
+        ahead = batches[:DISK_AHEAD_BATCHES]
+        s1 = GraphSageSampler(topo, SIZES, seed=SEED, device=dev)
+        s2 = GraphSageSampler(topo, SIZES, seed=SEED, device=dev)
+        want = [s1.sample(b) for b in ahead]
+        got, xs = [], []
+        for out in sample_ahead(s2, ahead, feature=store, depth=2):
+            got.append(out)
+            xs.append(store.getitem_masked(out[0]))
+        check(len(got) == len(want) and all(
+            same_sample(a, b) for a, b in zip(want, got)),
+            "sample_ahead differs from serial sample()")
+        for out, x in zip(got, xs):
+            check(same_bits(x, disk_reference(store, plain, out[0])),
+                  "sample_ahead: a lookup differs from read_mmap's rows")
+        ast = store._cold_prefetch.stats()
+        check(ast["hit_rows"] > 0, f"sample_ahead: no ring hit ({ast})")
+        store.close()
+        print(f"disk sample_ahead: {len(got)} GraphSageSampler(HBM) batches "
+              f"equal to serial sample() bit for bit, published by the "
+              f"worker; ring hit rate {ast['hit_rate']:.4f} "
+              f"({ast['hit_rows']} hit, {ast['sync_rows']} sync rows, "
+              f"{ast['dropped']} of {ast['published']} dropped); lookups "
+              "equal to read_mmap's rows", flush=True)
+        rec["sample_ahead"] = {k: ast[k] for k in (
+            "published", "dropped", "hit_rows", "sync_rows", "hit_rate")}
+        del plain
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def disk_synthetic(dev, card):
+    """(b) The JAX package's synthetic cold dataset at its defaults,
+    generated and loaded by the port, 16 batches through sample_ahead
+    over a GraphSageSampler, held to the same store without prefetch."""
+    import shutil
+    import tempfile
+
+    import torch
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.async_sampler import sample_ahead
+    from quiver_tpu_torch.datasets import (generate_synthetic_cold_dataset,
+                                           load_synthetic_cold_dataset)
+    from quiver_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="qt_cold_")
+    try:
+        t0 = time.perf_counter()
+        meta = generate_synthetic_cold_dataset(tmp)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        topo, store, _ = load_synthetic_cold_dataset(
+            tmp, prefetch_rows=DISK_RING_ROWS, device=dev,
+            io_engine="mmap", **DISK_PREFETCH)
+        _, ref, _ = load_synthetic_cold_dataset(tmp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"cold dataset: generate_synthetic_cold_dataset at its "
+              f"defaults ({meta['nodes']} nodes, dim {meta['dim']}, "
+              f"{meta['edges']} edges, avg_deg {meta['avg_deg']}, hot_frac "
+              f"{meta['hot_frac']}, {meta['dtype_policy']}, skew "
+              f"{meta['skew']}) in {gen_s:.2f} s on {fs_type(tmp)}; loaded "
+              f"twice (with and without prefetch) in {load_s:.2f} s",
+              flush=True)
+        sampler = GraphSageSampler(topo, SIZES, seed=SEED, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        perm = torch.randperm(meta["nodes"], generator=g, device=dev) \
+            .to(torch.int32)
+        batches = [perm[i * BATCH:(i + 1) * BATCH]
+                   for i in range(COLD_BATCHES)]
+        xs, lat = [], []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        for n_id, bs, _ in sample_ahead(sampler, batches, feature=store):
+            xs.append((n_id, store.getitem_masked(n_id)))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            lat.append((now - t) * 1e3)
+            t = now
+        launches = kernels.LAUNCHES["gather_rows"]
+        check(launches >= 1, f"(b): the ring gather launched {launches} "
+              "times")
+        for i, (n_id, x) in enumerate(xs):
+            check(same_bits(x, ref.getitem_masked(n_id)),
+                  f"(b): lookup {i} differs from the store without "
+                  "prefetch")
+        st = store._cold_prefetch.stats()
+        store.close()
+        ref.close()
+        p50, p99 = pcts(lat)
+        print(f"cold dataset: {COLD_BATCHES} batches of {BATCH} at {SIZES} "
+              f"through sample_ahead and the masked lookup: p50 {p50:.3f} "
+              f"ms p99 {p99:.3f} ms a batch (host clock, synchronised); "
+              f"ring hit rate {st['hit_rate']}, {st['hit_rows']} hit rows, "
+              f"{st['sync_rows']} sync rows, {st['staged_rows']} staged, "
+              f"{st['dropped']} of {st['published']} publications dropped, "
+              f"{launches} ring gathers; every lookup equal to the store "
+              f"without prefetch bit for bit; on {card}", flush=True)
+        return {"meta": meta, "generate_s": gen_s, "load_s": load_s,
+                "p50_ms": p50, "p99_ms": p99, "ring_gathers": launches,
+                **{k: st[k] for k in ("published", "dropped", "hit_rows",
+                                      "sync_rows", "staged_rows",
+                                      "hit_rate")}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_disk(dev, gen, nodes, indptr, indices, deg, card, topo, h2d,
+               refs):
+    """Phase 11: the disk tier and the cold prefetch (module doc)."""
+    secs, rec = {}, {}
+    t0 = time.perf_counter()
+    rec["products"] = disk_training(dev, gen, nodes, deg, indptr, indices,
+                                    card, topo, h2d, refs)
+    secs["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["synthetic"] = disk_synthetic(dev, card)
+    secs["(b)"] = time.perf_counter() - t0
+    print(f"phase 11: {sum(secs.values()):.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = secs
+    return rec
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -3477,6 +4189,11 @@ def main() -> int:
     host_side = phase_host_side(dev, gen, NODES, indptr, indices, deg, card,
                                 topo, batches, arms)
     buffered = host_side["pipeline"]["buffered"]["launches_per_step"]
+    disk = phase_disk(dev, gen, NODES, indptr, indices, deg, card, topo,
+                      host_tier["h2d_bytes_per_s"], refs={
+                          "tiered_p50_ms": host_tier["batch_p50_ms"],
+                          "serial_p50_ms":
+                              host_side["pipeline"]["serial"]["p50_ms"]})
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3544,6 +4261,25 @@ def main() -> int:
         "launches_per_lookup": 1,
         **{k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
                                   "bound_by")} for k, v in shard.items()}}
+    line["disk_tier"] = disk
+    ring = {}
+    for name, arm in disk["products"]["arms"].items():
+        if "ring" in arm:
+            ring[name.replace("on ", "")] = dict(
+                arm["ring"], launches_per_disk_step=arm[
+                    "gather_rows_per_step"])
+    packed = disk["products"]["arms"]["on packed"]
+    gather_entry["disk_ring"] = {
+        "name": "gather_rows over the disk tier's staging ring (pinned)",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"],
+        "launches": sum(v["gather_rows"] for v in
+                        disk["products"]["launches"].values()),
+        "launches_per_disk_step": packed["gather_rows_per_step"],
+        **{k: packed["ring"][k] for k in (
+            "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"], "layouts": ring}
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,12 +23,16 @@ ready for ``Feature`` and the train steps. The file format is the JAX
 package's, and both packages load the same dump to the same topology,
 features, labels and splits.
 
-The synthetic cold-tier dataset of the JAX package
-(``generate_synthetic_cold_dataset``) waits for the port's disk tier.
+``generate_synthetic_cold_dataset`` writes the JAX package's synthetic
+papers100M-shaped dataset whose feature rows live on disk (a disk-tier
+artifact, ``partition.save_disk_tier``), the same graph, labels and
+codes from the same seed; ``load_synthetic_cold_dataset`` rebuilds it as
+a topology and a disk-tier ``Feature``.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 from typing import NamedTuple, Optional
@@ -188,6 +192,153 @@ def _gen_block(seed: int, lo: int, hi: int, total: int, shape_tail, fn):
         out[s - lo:e - lo] = block[s - b:e - b]
         b = be
     return out
+
+
+# -- synthetic bigger-than-RAM (papers100M-shaped) generator ----------------
+# The disk tier needs a graph whose feature rows need not fit in RAM: power-
+# law degrees sorted descending (identity storage order is the hot order, no
+# permutation needed), skewed neighbour popularity (frontiers hit hot rows
+# more than uniformly, as degree-proportional access does), and the feature
+# rows streamed in chunks into a quantized disk-tier artifact, so that the
+# full-width matrix is never made.
+
+_COLD_META = "meta.json"
+
+
+def generate_synthetic_cold_dataset(out_dir: str, nodes: int = 1_000_000,
+                                    dim: int = 128, avg_deg: int = 15,
+                                    hot_frac: float = 0.05,
+                                    dtype_policy: str = "int8",
+                                    skew: float = 2.0, classes: int = 64,
+                                    seed: int = 0,
+                                    chunk_rows: int = 1 << 17,
+                                    overwrite: bool = False) -> dict:
+    """Write the synthetic papers100M-shaped dataset of the JAX package
+    (``quiver_tpu/datasets.py``) whose feature rows live on disk::
+
+        out_dir/indptr.npy, indices.npy     (CSR; degrees descending)
+        out_dir/labels.npy
+        out_dir/hot_rows.npy                (first ceil(hot_frac * N)
+                                             rows, decoded: the hot tier)
+        out_dir/disk/...                    (save_disk_tier artifact of
+                                             all N rows; identity map)
+        out_dir/meta.json
+
+    Neighbour ids draw as ``floor(N * u**skew)``, dense on the low
+    (high-degree, hot) ids, so sampled frontiers show a realistic hot-tier
+    hit rate. The same seed gives the JAX package's files: the graph,
+    labels and artifact byte for byte; ``hot_rows.npy`` decoded by this
+    package's convention (``quant.decode_np``: the multiply rounded, then
+    the add), where JAX rounds once through float64, so a few of its
+    values may differ from JAX's file by one rounding. Returns the meta
+    dict."""
+    from .ops import quant
+    from .partition import save_disk_tier
+
+    if not 0.0 < hot_frac <= 1.0:
+        raise ValueError(f"hot_frac must be in (0, 1], got {hot_frac}")
+    os.makedirs(out_dir, exist_ok=True)
+    meta_path = os.path.join(out_dir, _COLD_META)
+    if os.path.exists(meta_path) and not overwrite:
+        raise FileExistsError(
+            f"{meta_path} exists; pass overwrite=True to replace it")
+    rng = np.random.default_rng(seed)
+
+    # graph: lognormal degrees sorted descending (storage order = hot
+    # order), neighbour popularity by the same ordering through u**skew
+    deg = np.clip(np.exp(rng.normal(np.log(max(avg_deg, 1)), 1.0,
+                                    nodes)), 0, 50_000).astype(np.int64)
+    deg[::-1].sort()                     # descending, in place
+    indptr = np.zeros(nodes + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    e = int(indptr[-1])
+    indices = np.lib.format.open_memmap(
+        os.path.join(out_dir, "indices.npy"), mode="w+", dtype=np.int32,
+        shape=(e,))
+
+    def draw_edges(r, k):
+        return np.minimum((nodes * r.random(k) ** skew),
+                          nodes - 1).astype(np.int32)
+
+    edge_chunk = max(chunk_rows * max(avg_deg, 1), 1 << 20)
+    for lo in range(0, e, edge_chunk):
+        hi = min(lo + edge_chunk, e)
+        indices[lo:hi] = _gen_block(seed + 1, lo, hi, e, (), draw_edges)
+    indices.flush()
+    del indices
+    np.save(os.path.join(out_dir, "indptr.npy"), indptr)
+    np.save(os.path.join(out_dir, "labels.npy"),
+            rng.integers(0, classes, nodes).astype(np.int32))
+
+    def read_chunk(lo, hi):
+        return _gen_block(
+            seed + 2, lo, hi, nodes, (dim,),
+            lambda r, k: r.standard_normal((k, dim)).astype(np.float32))
+
+    disk_dir = os.path.join(out_dir, "disk")
+    tier_meta = save_disk_tier((read_chunk, nodes, dim),
+                               np.arange(nodes, dtype=np.int64),
+                               disk_dir, dtype_policy=dtype_policy,
+                               overwrite=overwrite,
+                               chunk_rows=chunk_rows)
+
+    # the hot tier: the first rows of the artifact, decoded (chunked)
+    hot_rows = max(int(np.ceil(nodes * hot_frac)), 1)
+    mm = np.load(os.path.join(disk_dir, "disk_rows.npy"), mmap_mode="r")
+    sides = None
+    if tier_meta["dtype_policy"] == "int8":
+        sides = [np.load(os.path.join(disk_dir, f"disk_{k}.npy"))
+                 for k in ("scale", "zero")]
+    hot = np.lib.format.open_memmap(
+        os.path.join(out_dir, "hot_rows.npy"), mode="w+",
+        dtype=np.dtype(tier_meta["logical_dtype"]), shape=(hot_rows, dim))
+    for lo in range(0, hot_rows, chunk_rows):
+        hi = min(lo + chunk_rows, hot_rows)
+        rows = np.asarray(mm[lo:hi])
+        hot[lo:hi] = rows if sides is None else quant.decode_np(
+            rows, sides[0][lo:hi], sides[1][lo:hi])
+    hot.flush()
+    del mm, hot
+
+    meta = {"kind": "synthetic_cold", "nodes": nodes, "dim": dim,
+            "edges": e, "avg_deg": avg_deg, "hot_rows": hot_rows,
+            "hot_frac": hot_frac, "skew": skew, "classes": classes,
+            "seed": seed, "dtype_policy": tier_meta["dtype_policy"]}
+    with open(meta_path, "w") as fh:
+        json.dump(meta, fh)
+    return meta
+
+
+def load_synthetic_cold_dataset(out_dir: str,
+                                prefetch_rows: Optional[int] = None,
+                                depth: int = 2,
+                                decode_staged: bool = True,
+                                device=None, **prefetch_kwargs):
+    """Rebuild a generated dataset: ``(csr_topo, feature, meta)``, on
+    ``device`` (the card unless ``"cpu"``). The ``Feature`` holds
+    ``hot_rows.npy`` in its hot tier and every row on its disk tier;
+    ``prefetch_rows`` attaches the cold prefetcher with that ring
+    capacity, ``depth`` and ``decode_staged``, and ``prefetch_kwargs``
+    go to ``enable_cold_prefetch`` (``workers``, ``io_qd``, ...). The
+    caller owns ``feature.close()``."""
+    from .feature import DeviceConfig, Feature
+    from .partition import load_disk_tier
+
+    with open(os.path.join(out_dir, _COLD_META)) as fh:
+        meta = json.load(fh)
+    topo = CSRTopo(indptr=np.load(os.path.join(out_dir, "indptr.npy")),
+                   indices=np.load(os.path.join(out_dir, "indices.npy")),
+                   device=device)
+    store = Feature(device=device)
+    store.from_mmap(None, DeviceConfig(
+        [np.load(os.path.join(out_dir, "hot_rows.npy"))], None))
+    kwargs, _ = load_disk_tier(os.path.join(out_dir, "disk"))
+    store.set_mmap_file(**kwargs)
+    if prefetch_rows:
+        store.enable_cold_prefetch(prefetch_rows, depth=depth,
+                                   decode_staged=decode_staged,
+                                   **prefetch_kwargs)
+    return topo, store, meta
 
 
 def generate_drifting_trace(length: int, nodes: int,

@@ -1,7 +1,7 @@
 """Tiered feature store, single device (counterpart of
 ``quiver_tpu/feature.py``).
 
-Two tiers, by bandwidth:
+Three tiers, by bandwidth:
   1. the hot tier on the card: the hottest rows (degree-ordered through
      ``feature_order``, the reference's hot-order permutation), as many
      as ``device_cache_size`` bytes hold under the hot dtype policy;
@@ -13,7 +13,17 @@ Two tiers, by bandwidth:
      scale and zero in one host row that the gather reads at once. With
      ``host_placement="numpy"`` it is a plain CPU tensor: a lookup
      brings its ids to the host, indexes there and copies the rows to
-     the card.
+     the card;
+  3. the disk tier (``set_mmap_file``): an mmap'd ``[rows, dim]`` file,
+     int8 with resident sidecars or plain, and ``disk_map`` from storage
+     row to file row. When it is attached, every row past the hot tier
+     is read from it: a lookup brings its translated ids to the host,
+     reads the cold rows and copies them into the card's output. With
+     ``enable_cold_prefetch`` a prefetcher (``prefetch.py``) stages the
+     rows of published frontiers (``stage_frontier``) into a ring in
+     pinned memory ahead of the lookup, which reads the ring's hits with
+     the CUDA row gather straight into its output and the misses from
+     the file.
 
 Lookup ids pass through ``feature_order`` before tier dispatch. Every
 entry point runs on the card unless the caller passes ``device="cpu"``;
@@ -39,7 +49,8 @@ counters (``metrics.py``): hot and cold rows on the classification mask,
 and the dedup table's statistics, recorded where the JAX lookup records
 them (outside its branches), so a predicated branch that is not taken
 records nothing. ``rotate_hot_set`` swaps rows between the tiers online;
-a store pickles with its pinned tier as a CPU copy.
+a store pickles with its pinned tier as a CPU copy (and a disk store
+without its prefetcher, as in JAX).
 
 ``prefetch(ids)`` runs a lookup on a depth-2 staging ``Pipeline``
 (``pipeline.py``) and returns a future of ``feature[ids]``: a training
@@ -57,7 +68,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import metrics
+from . import faults, metrics
 from .pipeline import Pipeline
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
@@ -68,9 +79,6 @@ from .utils.reorder import reindex_feature
 from .utils.sizes import parse_size
 
 _MULTI = "ROADMAP Queue 1 item 7 (multi-GPU)"
-_LATER = ("ROADMAP Queue 1 item 3 (what is left of the Feature store: "
-          "the disk tier and the cold prefetch, with io.py and "
-          "prefetch.py)")
 
 
 class DeviceConfig:
@@ -141,10 +149,13 @@ def _cpu_tensor(a) -> torch.Tensor:
     return t.cpu()
 
 
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+def _load_sidecar(s):
+    """A disk tier's sidecar given as a path, an array or a tensor."""
+    if s is None:
+        return None
+    if isinstance(s, str):
+        return np.load(s)
+    return s.detach().cpu().numpy() if torch.is_tensor(s) else np.asarray(s)
 
 
 class Feature:
@@ -198,6 +209,12 @@ class Feature:
         self._host_offload = None      # cold tier the card reads (pinned)
         self._pool = None              # prefetch's staging pipeline
         self._stage_stream = None      # its CUDA stream (on the card)
+        self.mmap_array = None         # the disk tier: np.memmap rows
+        self.disk_map = None           # int64 numpy, storage -> file row
+        self.disk_scale = None         # numpy int8 sidecars [rows, 1]
+        self.disk_zero = None
+        self._cold_prefetch = None     # prefetch.ColdPrefetcher
+        self._order_np = None          # (feature_order, its host copy)
 
     # -- sizing (reference feature.py:74-82) --------------------------------
     def cal_size(self, cpu_tensor, cache_memory_budget: int) -> int:
@@ -222,7 +239,7 @@ class Feature:
         store set it, and this table is permuted by it either way."""
         tensor = _cpu_tensor(cpu_tensor)
         if self.dtype is not None:
-            tensor = tensor.to(_torch_dtype(self.dtype))
+            tensor = tensor.to(quant.torch_dtype(self.dtype))
         budget = parse_size(self.device_cache_size)
         if self.csr_topo is not None:
             if self.csr_topo.feature_order is None:
@@ -446,6 +463,8 @@ class Feature:
     # -- lookup (reference feature.py:296-333) ------------------------------
     def __getitem__(self, node_idx):
         ids = self._ids(node_idx)
+        if self.mmap_array is not None:
+            return self._lookup_disk(ids)
         if self._host_offload is not None:
             return self._lookup_tiered(self.device_part, self._host_offload,
                                        ids, self.feature_order)
@@ -474,16 +493,54 @@ class Feature:
         return out.index_copy_(0, pos.to(self.device),
                                host_rows.to(self.device, out_dt))
 
+    def _lookup_disk(self, ids, valid=None):
+        """The lookup of a store with a disk tier (JAX's ``__getitem__``
+        and ``_read_cold`` over ``disk_map``): hot rows gathered on the
+        device into the output, the translated ids brought to the host
+        (one synchronisation), and every row past the hot tier read from
+        the disk tier into its position: through the prefetcher's ring
+        where one is attached (its hits by one row gather on the ring,
+        its misses from the file), else from the file. Where ``valid``
+        (a device bool mask) is False the slot reads no disk row."""
+        t = self._translate(ids, self.feature_order)
+        if valid is not None:
+            t = torch.where(valid, t, -1)
+        out_dt = self._disk_dtype()
+        if self.device_part is None:
+            out = torch.zeros((ids.shape[0], self.dim()), dtype=out_dt,
+                              device=self.device)
+        else:
+            out_dt = torch.promote_types(
+                quant.tier_dtype(self.device_part), out_dt)
+            out = self._gather_cached(self.device_part, t).to(out_dt)
+        t_h = t.cpu().numpy()                  # the host path: one sync
+        pos = np.flatnonzero(t_h >= self.cache_rows)
+        if pos.size == 0:
+            return out
+        disk_rows = self.disk_map[t_h[pos]]
+        pf = self._cold_prefetch
+        if pf is not None:
+            pf.gather(disk_rows, pos, out, self._dequant_disk)
+            return out
+        rows = self._dequant_disk(disk_rows)
+        return out.index_copy_(0, torch.from_numpy(pos).to(self.device),
+                               rows.to(self.device, out_dt))
+
     def getitem_masked(self, node_idx):
         """``feature[clip(ids)]`` with -1 ids giving zero rows."""
         ids = self._ids(node_idx)
-        if self._host_offload is not None:
+        if self._host_offload is not None and self.mmap_array is None:
             return self._lookup_tiered(self.device_part, self._host_offload,
                                        ids, self.feature_order, True)
-        if self.host_part is None:
+        if self.host_part is None and self._host_offload is None \
+                and self.mmap_array is None:
             return self._lookup_cached_masked(self.device_part, ids,
                                               self.feature_order)
         safe = ids.clamp(0, self.size(0) - 1)
+        if self.mmap_array is not None:
+            # a -1 slot reads no disk row (JAX reads node 0's for it)
+            rows = self._lookup_disk(safe, valid=ids >= 0)
+            return rows * (ids >= 0).to(rows.dtype)[:, None]
         rows = self[safe]
         return rows * (ids >= 0).to(rows.dtype)[:, None]
 
@@ -500,19 +557,28 @@ class Feature:
         host anyway, counts there and returns a CPU vector with the dup
         statistics only (``DEDUP_TOTAL``/``DEDUP_UNIQUE``: that path
         runs no compaction, so no dedup call or overflow is claimed), as
-        JAX does. The prefetch, IO and fault slots stay 0: this store
-        has no disk tier."""
+        JAX does. A disk store counts there too, and adds the prefetcher's
+        slots: the ring hits and synchronous reads of this lookup, the
+        rows staged and the IO facts since the last metered lookup
+        (``PREFETCH_*``, ``IO_*``, ``STAGING_RESTARTS``); a masked
+        lookup's -1 slots read no disk row and count in none of them,
+        where JAX reads and counts node 0's row for each. The host path
+        also takes the faults fired since the last metered lookup
+        (``FAULTS_INJECTED``)."""
         if not collect_metrics:
             return self.getitem_masked(node_idx) if masked \
                 else self[node_idx]
         ids = self._ids(node_idx)
-        if self._host_offload is not None:
+        if self._host_offload is not None and self.mmap_array is None:
             col = metrics.Collector(self.device)
             rows = self._lookup_tiered(self.device_part, self._host_offload,
                                        ids, self.feature_order, masked, col)
             return rows, col.counters()
+        pf = self._cold_prefetch
+        pf_before = pf.counters() if pf is not None else None
         rows = self.getitem_masked(ids) if masked else self[ids]
-        if self.host_part is None:
+        if self.host_part is None and self._host_offload is None \
+                and self.mmap_array is None:
             # no cold tier: every valid slot is a hot-tier hit
             col = metrics.Collector(self.device)
             col.add(metrics.LOOKUP_CALLS, 1)
@@ -521,8 +587,8 @@ class Feature:
             return rows, col.counters()
         ids_np = ids.cpu().numpy().astype(np.int64)
         valid = (ids_np >= 0) if masked else np.ones_like(ids_np, bool)
-        if self.feature_order is not None:
-            order = self.feature_order.cpu().numpy()
+        order = self._order_host()
+        if order is not None:
             t = order[np.clip(ids_np, 0, order.shape[0] - 1)]
         else:
             t = np.clip(ids_np, 0, max(self.size(0) - 1, 0))
@@ -536,6 +602,23 @@ class Feature:
                 self.dedup_cold, self.cold_budget, n) < n:
             vec[metrics.DEDUP_TOTAL] = int(valid.sum())
             vec[metrics.DEDUP_UNIQUE] = int(np.unique(t[valid]).size)
+        if pf_before is not None:
+            # hits and sync reads are this lookup's (the prefetcher's
+            # gather ran inside it, on this thread); staged rows and IO
+            # facts are what the worker did since the last metered
+            # lookup: a batch's publication runs during the previous step
+            d = pf.counters() - pf_before
+            vec[metrics.PREFETCH_HIT_ROWS] = int(d[0])
+            vec[metrics.PREFETCH_SYNC_ROWS] = int(d[1])
+            vec[metrics.PREFETCH_STAGED_ROWS] = pf.drain_staged()
+            io = pf.drain_io()
+            vec[metrics.IO_EXTENTS] = int(io[0])
+            vec[metrics.IO_READ_ROWS] = int(io[1])
+            vec[metrics.IO_READ_BYTES] = int(min(io[2], 2**31 - 1))
+            vec[metrics.IO_DEPTH_PEAK] = int(io[3])
+            vec[metrics.IO_RETRIES] = int(io[4])
+            vec[metrics.STAGING_RESTARTS] = int(io[5])
+        vec[metrics.FAULTS_INJECTED] = faults.drain_injected()
         return rows, torch.from_numpy(vec)
 
     # -- staging (JAX feature.py:767-796) ------------------------------------
@@ -561,7 +644,7 @@ class Feature:
         if self._stage_stream is None:
             self._stage_stream = torch.cuda.Stream(ids.device)
         ready = torch.cuda.Event()
-        ready.record()
+        ready.record(torch.cuda.current_stream(ids.device))
         ids.record_stream(self._stage_stream)
         return self._pool.submit(self._staged, ids, ready)
 
@@ -578,30 +661,200 @@ class Feature:
         return rows, done
 
     def close(self):
-        """Stop the staging pipeline of :meth:`prefetch` (idempotent; the
-        next ``prefetch`` starts a new one). Without a call, the
-        pipeline's ``weakref.finalize`` stops its worker when the store
-        is collected."""
+        """Stop the staging pipelines (idempotent): the pipeline of
+        :meth:`prefetch` (the next ``prefetch`` starts a new one) and,
+        when attached, the cold-tier prefetcher (detached). Without a
+        call, each pipeline's ``weakref.finalize`` stops its worker when
+        the store is collected."""
         pool, self._pool = self._pool, None
         if pool is not None:
             pool.close()
+        pf, self._cold_prefetch = self._cold_prefetch, None
+        if pf is not None:
+            pf.close()
+
+    # -- cold-tier (disk) prefetch (JAX feature.py:928-976) -------------------
+    def enable_cold_prefetch(self, capacity_rows: int = 65_536,
+                             depth: int = 2, decode_staged: bool = True,
+                             wait_inflight: bool = True,
+                             workers: int = 1, io_qd: int = 16,
+                             io_cap_bytes: int = 1 << 20,
+                             io_engine: str = "auto", io_model=None):
+        """Attach a frontier-keyed asynchronous prefetcher to the disk
+        tier (:meth:`set_mmap_file` first): publish a future batch's
+        frontier with :meth:`stage_frontier` (or drive the loop with
+        ``async_sampler.sample_ahead``) and its disk reads overlap the
+        current step; lookups read the staging ring first, a miss waits
+        for a staging task still in flight (``wait_inflight``) and then
+        reads the file, counted (``metrics.PREFETCH_SYNC_ROWS``), never
+        wrong.
+
+        ``capacity_rows`` ring slots (pinned on the card; decoded rows
+        with ``decode_staged``, else an int8 tier's packed rows);
+        ``depth`` publications in flight; ``workers`` staging workers
+        shard each publication's unique rows, read as coalesced extents
+        at queue depth ``io_qd`` of at most ``io_cap_bytes`` each by
+        ``io.ExtentReader`` (``io_engine`` "auto" probes ``O_DIRECT``
+        and falls back to buffered ``preadv``, "direct" and "pread"
+        force one, "mmap" reads through the mmap; ``io_model`` is a
+        ``StorageModel`` for tests). Returns the
+        :class:`~quiver_tpu_torch.prefetch.ColdPrefetcher` (attaching
+        again closes the previous one)."""
+        if self.mmap_array is None or self.disk_map is None:
+            raise ValueError("enable_cold_prefetch needs an mmap disk "
+                             "tier (call set_mmap_file first)")
+        from .prefetch import ColdPrefetcher
+        if self._cold_prefetch is not None:
+            self._cold_prefetch.close()
+        self._order_host()          # the worker reads the host copy
+        self._cold_prefetch = ColdPrefetcher(
+            self, capacity_rows, depth=depth,
+            decode_staged=decode_staged, wait_inflight=wait_inflight,
+            workers=workers, io_qd=io_qd, io_cap_bytes=io_cap_bytes,
+            io_engine=io_engine, io_model=io_model)
+        return self._cold_prefetch
 
     def stage_frontier(self, node_idx):
-        """Publish a future batch's frontier to the cold-tier prefetcher.
-        This store has no disk tier, so no prefetcher is ever attached
-        and, as in the JAX package without one, this returns None."""
-        return None
+        """Publish a future batch's frontier ids (-1 padding fine; card
+        ids are copied to the host without blocking) to the cold-tier
+        prefetcher. Returns the staging ``Future``, or None when no
+        prefetcher is attached or it is saturated (the publication is
+        dropped; the lookup then reads the file)."""
+        pf = self._cold_prefetch
+        if pf is None:
+            return None
+        return pf.publish(node_idx)
 
-    # -- later work ----------------------------------------------------------
-
+    # -- the disk tier (JAX feature.py:978-1106) ---------------------------
     def set_mmap_file(self, path, disk_map, scale=None, zero=None):
-        raise NotImplementedError(_LATER)
+        """Attach the disk tier: ``path`` an ``.npy`` file of ``[rows,
+        dim]`` rows (mmap'd, never loaded), ``disk_map`` a 1-D integer
+        array (numpy or tensor) from storage row to file row spanning
+        the whole logical id space (it defines ``shape[0]``; entries
+        below ``cache_rows`` are never read), ``scale``/``zero`` (paths
+        or arrays, ``[rows]`` or ``[rows, 1]``) the sidecars of an int8
+        file, kept resident. Every row past the hot tier is then read
+        from the file. Validated as JAX validates it, with its messages:
+        a short map, cold entries outside the file, a width or dtype
+        that contradicts the store, or one sidecar without the other
+        raise. Attaching again closes an enabled prefetcher (its ring
+        indexes the old file); call :meth:`enable_cold_prefetch` again
+        after."""
+        arr = np.load(path, mmap_mode="r")
+        if arr.ndim != 2:
+            raise ValueError(
+                f"mmap feature file must be [rows, dim], got shape "
+                f"{arr.shape}")
+        dm = disk_map.detach().cpu().numpy() if torch.is_tensor(disk_map) \
+            else np.asarray(disk_map)
+        if dm.ndim != 1 or not np.issubdtype(dm.dtype, np.integer):
+            raise ValueError(
+                "disk_map must be a 1-D integer array mapping storage "
+                f"row -> mmap row, got shape {dm.shape} dtype {dm.dtype}")
+        if dm.shape[0] < self.cache_rows:
+            raise ValueError(
+                f"disk_map has {dm.shape[0]} entries but the HBM tier "
+                f"already holds {self.cache_rows} rows — the map must "
+                "span the full logical id space (it defines shape[0])")
+        cold = dm[self.cache_rows:]
+        bad = int(((cold < 0) | (cold >= arr.shape[0])).sum())
+        if bad:
+            raise ValueError(
+                f"{bad} disk_map entries in the cold region (storage "
+                f"rows >= {self.cache_rows}) fall outside the mmap's "
+                f"{arr.shape[0]} rows — negative entries wrap in numpy "
+                "fancy indexing and would gather garbage rows silently")
+        dim = None
+        for tier in (self.device_part, self.host_part, self._host_offload):
+            if tier is not None:
+                dim = quant.tier_dim(tier)
+                break
+        if dim is not None and arr.shape[1] != dim:
+            raise ValueError(
+                f"mmap rows are {arr.shape[1]} wide but the store's "
+                f"resident tiers are {dim} wide")
+        ds, dz = _load_sidecar(scale), _load_sidecar(zero)
+        if (ds is None) != (dz is None):
+            raise ValueError("quantized disk tier needs BOTH scale and "
+                             "zero sidecars")
+        if ds is not None:
+            ds = ds[:, None] if ds.ndim == 1 else ds
+            dz = dz[:, None] if dz.ndim == 1 else dz
+            want = (arr.shape[0], 1)
+            if tuple(ds.shape) != want or tuple(dz.shape) != want:
+                raise ValueError(
+                    f"scale/zero sidecars must be [rows, 1] aligned "
+                    f"with the mmap ({want}), got {tuple(ds.shape)} / "
+                    f"{tuple(dz.shape)}")
+            if arr.dtype != np.int8:
+                raise ValueError(
+                    "scale/zero sidecars mark an int8-quantized tier "
+                    f"but the mmap dtype is {arr.dtype}")
+        else:
+            if arr.dtype == np.int8:
+                raise ValueError(
+                    "int8 mmap without scale/zero sidecars would be "
+                    "returned as raw codes — pass the sidecars (or "
+                    "store the file dequantized)")
+            if self.dtype_policy["cold"] == "int8":
+                raise ValueError(
+                    "store's cold dtype policy is int8 but the mmap "
+                    f"tier is un-sidecar'd {arr.dtype} — quantize the "
+                    "file (partition.save_disk_tier) or drop the policy")
+        self.mmap_array = arr
+        self.disk_map = dm.astype(np.int64, copy=False)
+        self.disk_scale = ds
+        self.disk_zero = dz
+        if self._cold_prefetch is not None:
+            self._cold_prefetch.close()
+            self._cold_prefetch = None
+
+    def _disk_dtype(self) -> torch.dtype:
+        """The dtype of the disk tier's decoded rows."""
+        src = self.mmap_array if self.disk_scale is None else self.disk_scale
+        return quant.torch_dtype(src.dtype)
+
+    def _dequant_disk(self, disk_rows: np.ndarray) -> torch.Tensor:
+        """File rows ``disk_rows`` read through the mmap and decoded
+        (``quant.decode_np``), as a CPU tensor."""
+        rows = np.asarray(self.mmap_array[disk_rows])
+        if self.disk_scale is not None:
+            rows = quant.decode_np(rows, self.disk_scale[disk_rows],
+                                   self.disk_zero[disk_rows])
+        return torch.from_numpy(rows)
 
     def read_mmap(self, ids):
-        raise NotImplementedError(_LATER)
+        """File rows ``ids`` (file row ids, not node ids), decoded, as a
+        CPU tensor: the disk tier's plain read."""
+        if self.mmap_array is None:
+            raise ValueError("read_mmap needs an mmap disk tier (call "
+                             "set_mmap_file first)")
+        ids = ids.detach().cpu().numpy() if torch.is_tensor(ids) \
+            else np.asarray(ids)
+        return self._dequant_disk(ids)
 
-    def enable_cold_prefetch(self, *args, **kwargs):
-        raise NotImplementedError(_LATER)
+    def set_local_order(self, local_order):
+        """Take node ids through a node-local order (reference
+        feature.py:283-294): ``local_order[r]`` is the node stored at row
+        ``r``, and ``feature_order`` becomes its inverse."""
+        lo = local_order.detach().cpu().numpy() \
+            if torch.is_tensor(local_order) else np.asarray(local_order)
+        lo = lo.astype(np.int64).reshape(-1)
+        order = np.zeros(lo.shape[0], np.int32)
+        order[lo] = np.arange(lo.shape[0], dtype=np.int32)
+        self.feature_order = torch.from_numpy(order).to(self.device)
+        self._order_np = (self.feature_order, order)
+
+    def _order_host(self) -> Optional[np.ndarray]:
+        """Host copy of ``feature_order``, cached by the tensor's
+        identity (a rotation or a new order makes a new tensor)."""
+        if self.feature_order is None:
+            return None
+        if self._order_np is None \
+                or self._order_np[0] is not self.feature_order:
+            self._order_np = (self.feature_order,
+                              self.feature_order.cpu().numpy())
+        return self._order_np[1]
 
     def share_ipc(self):
         raise NotImplementedError(_MULTI)
@@ -623,20 +876,22 @@ class Feature:
         Refused (``ValueError``, nothing moved) without a
         ``feature_order``, without a hot tier, without a
         ``host_placement="numpy"`` host tier (an offload tier is pinned
-        as it was built), with different hot and cold dtype policies (a
+        as it was built; a disk store adapts through ``stage_frontier``
+        instead), with different hot and cold dtype policies (a
         row would be re-encoded), with ``promote``/``demote`` not
         pairing 1:1 as unique ids, out of range, or not currently cold
         and hot. Returns ``{"rotated": k}``."""
         if self.feature_order is None:
             raise ValueError(
                 "rotate_hot_set needs a hot-order store (feature_order "
-                "is None; construct with a csr_topo)")
+                "is None — construct with a csr_topo or set_local_order)")
         if not self.cache_rows or self.device_part is None:
             raise ValueError("rotate_hot_set needs a non-empty hot tier")
-        if self.host_part is None:
+        if self.host_part is None or self.mmap_array is not None:
             raise ValueError(
-                "rotate_hot_set needs a numpy host tier (offloaded cold "
-                "tiers are pinned as they were built)")
+                "rotate_hot_set needs a numpy host tier (disk/mmap "
+                "stores promote through stage_frontier; offloaded cold "
+                "tiers are pinned immutably)")
         if self.dtype_policy["hot"] != self.dtype_policy["cold"]:
             raise ValueError(
                 f"rotate_hot_set needs identical hot/cold dtype "
@@ -652,7 +907,7 @@ class Feature:
                 f"{demote.size} unique ids")
         if promote.size == 0:
             return {"rotated": 0}
-        order = self.feature_order.cpu().numpy().astype(np.int64)
+        order = self._order_host().astype(np.int64)
         n = order.shape[0]
         for ids, what in ((promote, "promote"), (demote, "demote")):
             if ids[0] < 0 or ids[-1] >= n:
@@ -686,10 +941,14 @@ class Feature:
     def __getstate__(self):
         """The store's state with every tensor on the CPU: a pinned
         offload tier goes out as a plain CPU copy (unpacked) in
-        ``host_part`` and is pinned again on load."""
+        ``host_part`` and is pinned again on load. A disk tier goes out
+        as its rows (the mmap pickles as an array, as in JAX) without its
+        prefetcher: threads do not pickle, and a loaded store reads the
+        file rows synchronously until ``enable_cold_prefetch``."""
         state = dict(self.__dict__)
         state["_host_offload"] = None
         state["_pool"] = state["_stage_stream"] = None
+        state["_cold_prefetch"] = state["_order_np"] = None
         if self._host_offload is not None:
             state["host_part"] = quant.tree_map_tier(
                 lambda t: torch.empty(t.shape, dtype=t.dtype).copy_(t),
@@ -708,8 +967,9 @@ class Feature:
         self.__dict__.setdefault("cold_budget", None)
         self.__dict__.setdefault("dedup_cold", False)
         self.__dict__.setdefault("dtype_policy", {"hot": None, "cold": None})
-        self.__dict__.setdefault("_pool", None)
-        self.__dict__.setdefault("_stage_stream", None)
+        for k in ("_pool", "_stage_stream", "mmap_array", "disk_map",
+                  "disk_scale", "disk_zero", "_cold_prefetch", "_order_np"):
+            self.__dict__.setdefault(k, None)
         self.device = resolve_device(self.device)
         for k in ("device_part", "feature_order"):
             if getattr(self, k) is not None:
@@ -724,10 +984,14 @@ class Feature:
     def shape(self):
         cold = self.host_part if self.host_part is not None \
             else self._host_offload
-        rows = self.cache_rows + (0 if cold is None
-                                  else quant.tier_rows(cold))
+        if self.disk_map is not None:
+            # the disk map spans the whole logical id space
+            rows = int(self.disk_map.shape[0])
+        else:
+            rows = self.cache_rows + (0 if cold is None
+                                      else quant.tier_rows(cold))
         dim = None
-        for tier in (self.device_part, cold):
+        for tier in (self.device_part, cold, self.mmap_array):
             if tier is not None:
                 dim = quant.tier_dim(tier)
                 break

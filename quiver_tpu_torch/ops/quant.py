@@ -162,6 +162,23 @@ def take_np(t, ids) -> torch.Tensor:
                        torch.as_tensor(ids))
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy dtype (or a torch one, returned as it is) as torch's."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def decode_np(codes: np.ndarray, scale: np.ndarray,
+              zero: np.ndarray) -> np.ndarray:
+    """The dequant of numpy int8 rows: ``code * scale`` rounded, then
+    ``+ zero`` rounded, in the sidecars' dtype; the bits of
+    :func:`take_np`, :func:`gather_rows` and the kernels. The disk tier's
+    reads and its staging workers decode with it, in numpy, so that they
+    make no torch call."""
+    return codes.astype(scale.dtype) * scale + zero
+
+
 def tree_map_tier(fn, t):
     """Apply ``fn`` to the tier's storage leaves (placement, pinning)
     keeping the ``QuantizedTensor`` wrapper."""

@@ -621,7 +621,7 @@ class MixedGraphSageSampler:
         out = self.device_sampler.sample(seeds)
         if out[0].is_cuda:
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(out[0].device))
             done.synchronize()
         self._device_time = self._ema(self._device_time,
                                       time.perf_counter() - t0)

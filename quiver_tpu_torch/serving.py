@@ -158,7 +158,14 @@ def _feature_gather(feature):
     The pinned cold tier is the engine's own copy, as in JAX, where it
     is committed once: on the CPU, where nothing is pinned, it is
     copied too, so a rotation (which updates the store's host tier in
-    place) never reaches an engine that has not refreshed."""
+    place) never reaches an engine that has not refreshed. A store with
+    a disk tier is refused, as in JAX: its cold reads are driven by the
+    host."""
+    if feature.mmap_array is not None:
+        raise ValueError(
+            "ServeEngine cannot fuse a disk/mmap-tier Feature store "
+            "(its cold reads are host-driven); serve from a store whose "
+            "tiers are HBM/host arrays")
     host = feature._host_offload
     if host is None and feature.host_part is not None:
         host = pinned_put(feature.host_part, feature.device,

@@ -54,7 +54,14 @@ the worker too) and returns the lookup's rows; CPU mode puts its batch
 on the card equal to the CPU device's sample; ``MixedGraphSageSampler``
 yields every batch once on the card, HOST mode through the topology
 gathers; ``layerwise_inference`` on the card is within 1e-4 of the
-CPU's."""
+CPU's.
+
+The disk tier: the cold prefetcher's staging ring in pinned memory, read
+on the card by ``gather_rows`` (decoded fp32 rows, and packed int8 rows
+the kernel decodes), equals its plain version and the store on the CPU;
+with a ring of 1.05x one batch's cold rows and the stager wrapping around
+while the card reads, every lookup is still exact (the fence); with two
+cards, the events go on the ids' card."""
 
 import numpy as np
 import pytest
@@ -983,3 +990,101 @@ def test_layerwise_inference_on_the_card_equals_the_cpu(graph):
         graph["indptr"].cpu(), graph["indices"].cpu(), graph["feat"].cpu(),
         2, **args)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+# -- the disk tier: the staging ring read by the card ---------------------------
+
+
+def _disk_stores(graph, tmp_path, **pf):
+    """The graph's features as an int8 disk-tier artifact (a quarter of
+    the rows hot, ``graph["forder"]`` as the node order), loaded on the
+    card (with ``pf`` the cold prefetcher) and on the CPU."""
+    from quiver_tpu_torch.partition import (load_disk_tier_store,
+                                            save_disk_tier)
+    d = str(tmp_path / "disk")
+    save_disk_tier(graph["feat"].cpu(), np.arange(N), d, dtype_policy="int8")
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        s, _ = load_disk_tier_store(d, hot_rows=N // 4, device=dev,
+                                    **({"prefetch_rows": pf.pop("rows"),
+                                        **pf} if pf and dev == "cuda"
+                                       else {}))
+        s.set_local_order(graph["forder"].cpu())
+        stores[dev] = s
+    return stores
+
+
+@pytest.mark.parametrize("decode_staged", [True, False])
+def test_disk_ring_gather_equals_plain(graph, tmp_path, decode_staged):
+    """The ring in pinned memory, read by ``gather_rows`` on the card
+    (decoded fp32 rows, or packed int8 rows decoded by the kernel),
+    equals the plain gather over the same ring and the store on the
+    CPU, masked and not, bit for bit."""
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows_plain
+    stores = _disk_stores(graph, tmp_path, rows=2 * N,
+                          decode_staged=decode_staged, workers=2)
+    card, cpu = stores["cuda"], stores["cpu"]
+    ring = card._cold_prefetch._ring
+    data = ring.table.data if decode_staged is False else ring.table
+    assert data.is_pinned()
+    for i in range(4):
+        ids = graph["seeds"][i * 200:(i + 1) * 200 + 300].contiguous()
+        card.stage_frontier(ids).result(timeout=60)
+        fused.reset_launches()
+        got = card.getitem_masked(ids)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["gather_rows"] >= 1
+        assert torch.equal(_bits(got.cpu()),
+                           _bits(cpu.getitem_masked(ids.cpu())))
+    slots = torch.from_numpy(ring._slot_of[ring.ids[ring.ids >= 0]]) \
+        .to(torch.int32)
+    want = gather_rows_plain(ring.table, slots)
+    got = gather.gather_rows(ring.table, slots.cuda())
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    assert card._cold_prefetch.stats()["hit_rows"] > 0
+    card.close()
+
+
+def test_disk_ring_fence_holds_under_wraparound(graph, tmp_path):
+    """A ring of 1.05x one batch's unique cold rows with the stager
+    publishing the next batch while the card still reads the current
+    one: every lookup equals the CPU store bit for bit."""
+    order = graph["forder"].cpu().numpy()
+    batches = [torch.from_numpy(np.random.default_rng(s).choice(
+        N, 900, replace=False).astype(np.int32)).cuda() for s in range(17)]
+    cold = max(int((order[b.cpu().numpy()] >= N // 4).sum())
+               for b in batches)
+    stores = _disk_stores(graph, tmp_path, rows=int(cold * 1.05),
+                          workers=2)
+    card, cpu = stores["cuda"], stores["cpu"]
+    card.stage_frontier(batches[0]).result(timeout=60)
+    outs = []
+    for i in range(16):
+        card.stage_frontier(batches[i + 1])
+        outs.append(card[batches[i]])
+    torch.cuda.synchronize()
+    for b, o in zip(batches, outs):
+        assert torch.equal(_bits(o.cpu()), _bits(cpu[b.cpu()]))
+    st = card._cold_prefetch.stats()
+    assert st["hit_rows"] > 0
+    card.close()
+
+
+def test_events_on_the_ids_device_with_two_cards(graph):
+    """With two cards, ``Feature.prefetch`` and the prefetcher's id copy
+    record their events on the second card's stream: the rows are the
+    lookup's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from quiver_tpu_torch import prefetch
+    dev = torch.device("cuda", 1)
+    feat = graph["feat"].cpu()
+    store = Feature(device_cache_size=(N // 4) * WIDE * 4,
+                    host_placement="offload", device=dev) \
+        .from_cpu_tensor(feat)
+    ids = graph["seeds"].clamp(min=0).to(dev)
+    assert torch.equal(store.prefetch(ids).result(timeout=60), store[ids])
+    host, ready = prefetch._snapshot(ids)
+    ready.synchronize()
+    assert torch.equal(host, ids.cpu())
+    store.close()

@@ -486,13 +486,13 @@ def test_deferred_pieces_raise():
         Feature(cache_policy="nope", device="cpu")
     with pytest.raises(ValueError, match="host_placement"):
         Feature(host_placement="disk", device="cpu")
-    for call in (lambda: t.set_mmap_file("x.npy", None),
-                 lambda: t.read_mmap([0]),
+    # the disk tier is ported (tests/test_torch_disk_tier.py): without one
+    # attached, its reads and the cold prefetch refuse, and no prefetcher
+    # is attached, as in the JAX package
+    for call in (lambda: t.read_mmap([0]),
                  lambda: t.enable_cold_prefetch()):
-        with pytest.raises(NotImplementedError, match="item 3"):
+        with pytest.raises(ValueError, match="set_mmap_file first"):
             call()
-    # the staging pipeline is ported (tests/test_torch_host_side.py); with
-    # no disk tier no cold prefetcher is attached, as in the JAX package
     assert t.stage_frontier([0]) is None
     assert torch.equal(t.prefetch([0, 1]).result(timeout=30), t[[0, 1]])
     t.close()
