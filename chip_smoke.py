@@ -231,7 +231,43 @@ Phases:
    hit rate, sync rows, every lookup equal to the same store without
    prefetch. Results
    on ``disk`` and ``cold dataset`` lines;
-12. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+12. the request path (``MicroBatchServer`` and ``rpc.py``) over phase
+   6's tiered store: ``ServeEngine(fused_hot_hop=True,
+   collect_metrics=True)`` with phase 3's model and weights, the ladder
+   [[15, 10, 5], [6, 4, 2]], ``batch_cap`` 1024, warmed up before any
+   server starts; ``examples/serve_sage.py``'s server settings
+   (``max_wait_ms`` 2, ``queue_depth`` 1024, ``slo_p99_ms`` 50,
+   ``shed_queue_frac`` 0.25). (a) 2 x 1024 + 3 distinct ids and 64
+   duplicates staged into a paused server (``max_wait_ms`` 250 and
+   ``queue_depth`` 4,096, so they fit and the batches fill) through an
+   engine that records each batch's hop
+   seeds: 3 batches (1024, 1024, 3), 2 ``fused_sample_hop`` + 1
+   ``fused_hot_hop`` + phase 6's host-tier ``gather_rows`` launches per
+   server batch, every future's row within 1e-4 of its batch replayed;
+   (b) the example's open-loop Poisson trace (2,000 requests/s for 3 s,
+   one client thread, ids uniform) with the ``serve.*`` spans on:
+   per-request p50/p99 beside phase 6's bare tiered batch, batches, fill,
+   variant mix, rejections, ``health()``, the SLO block, the spans'
+   p50/p99 against ``max_wait_ms``, the engine's bare batch per variant,
+   device ms and idle share over 4 blocks of 1,024 requests on a fresh
+   server at full quality (no SLO target, no queue trigger), and the
+   readback's time; (c) 4,096 requests at once into a server with no
+   SLO target, twice, the second time with the fill cap at 256:
+   ``OverloadError`` at the door, every admitted future resolved, a shed batch in the capped
+   burst, the ladder back at 0 after ``calm_batches`` calm ones; (d)
+   tenancy
+   (``default_tenant_classes(50.0)``): a best_effort flood from one
+   thread and an interactive trickle from another, no interactive
+   request rejected or displaced, the classes' counts adding to the
+   server's; (e) ``RpcServer`` on 127.0.0.1 and an ``RpcClient``: 256
+   lookups one at a time (finite ``[47]`` rows, round-trip p50/p99), a 1
+   ms budget back as ``DeadlineExceeded``, then 64 traced lookups: each
+   client's trace id among the replica's ``serve.*`` spans, the round
+   trip by span; (f) a ``serve.execute`` fault fails
+   exactly its batch and the next serves; a ``serve.coalesce`` fault
+   breaks the server (queued futures and ``submit`` get
+   ``ServerClosed``). Results on ``server`` lines;
+13. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -242,11 +278,12 @@ Phases:
    ``shard_tensor``, and ``launches_per_buffered_step`` from phase 10
    (a) with the mixed sampler's HOST launches under
    ``mixed_host_launches``, and the disk tier's ring gather under
-   ``disk_ring``; the arms' records under ``sampler``, phase
-   8's under ``weighted``, phase 9's under ``metrics``, ``rotation`` and
-   ``shard_tensor``, phase 10's under ``host_side``, phase 11's under
-   ``disk_tier``), then the last line ``{"ok": true, "device":
-   {...}}``.
+   ``disk_ring``, and ``launches_per_server_batch`` from phase 12 (a);
+   the arms' records under ``sampler``, phase 8's under ``weighted``,
+   phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
+   phase 10's under ``host_side``, phase 11's under ``disk_tier``,
+   phase 12's under ``server``), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
 the script exits 2 at once. TF32 is switched off for matrix products and
@@ -255,6 +292,7 @@ cuDNN, so the model runs in full fp32.
 
 from __future__ import annotations
 
+import asyncio
 import copy
 import json
 import math
@@ -865,8 +903,11 @@ def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
     hop seeds and dropout seed, once through the kernel walk (the step's
     own loss) and once through the plain walk: equal frontier and COOs,
     the loss within ``LOSS_TOL``, each gradient within ``GRAD_TOL`` of
-    its tensor's largest entry (``index_add_`` and the backward of
-    ``x_src[s]`` sum with atomics in another order on each run)."""
+    its tensor's largest entry. Both steps run under torch's
+    deterministic algorithms: with atomics, ``index_add_`` and the
+    backward of ``x_src[s]`` sum in another order on each run, and that
+    noise alone reached 2.2e-4 of a gradient's largest entry on the
+    card (int8, one run in about twenty)."""
     import torch
     from quiver_tpu_torch.ops.kernels import fused
     from quiver_tpu_torch.parallel import layers_to_adjs, train
@@ -879,13 +920,14 @@ def check_walks_agree(model, table, name, indptr, indices, seeds, labels,
     for a, b in zip(layers, rl):
         check(torch.equal(a.row, b.row) and torch.equal(a.col, b.col),
               f"train {name}: layer COO differs from the plain walk")
-    loss_k, grads_k = grads_of(copy.deepcopy(model), lambda m: (
-        train._fused_loss(m, sizes, BATCH, table, None, indptr, indices,
-                          seeds, labels, hop_seeds, dropout_seed,
-                          fused={"row_cap": ROW_CAP})))
-    loss_p, grads_p = grads_of(copy.deepcopy(model), lambda m: (
-        train._model_loss(m, rx, layers_to_adjs(rl, BATCH, sizes), labels,
-                          BATCH, dropout_seed)))
+    with deterministic():
+        loss_k, grads_k = grads_of(copy.deepcopy(model), lambda m: (
+            train._fused_loss(m, sizes, BATCH, table, None, indptr,
+                              indices, seeds, labels, hop_seeds,
+                              dropout_seed, fused={"row_cap": ROW_CAP})))
+        loss_p, grads_p = grads_of(copy.deepcopy(model), lambda m: (
+            train._model_loss(m, rx, layers_to_adjs(rl, BATCH, sizes),
+                              labels, BATCH, dropout_seed)))
     check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_TOL,
           f"train {name}: loss {loss_k} against the plain walk's {loss_p}")
     worst = 0.0
@@ -4054,6 +4096,648 @@ def phase_disk(dev, gen, nodes, indptr, indices, deg, card, topo, h2d,
     return rec
 
 
+SERVER_LADDER = [SIZES, [6, 4, 2]]   # serve_sage.py's shed rung: ~0.4x
+SERVER_CFG = dict(max_wait_ms=2.0, queue_depth=1024, slo_p99_ms=50.0,
+                  shed_queue_frac=0.25)   # examples/serve_sage.py:98-100
+SCATTER_DUPS = 64              # (a): duplicates staged beside originals
+TRACE_RATE = 2000.0            # (b): examples/serve_sage.py's defaults
+TRACE_SECONDS = 3.0
+OVERLOAD_BURST = 4096          # (c)
+OVERLOAD_FILL_CAP = 256        # (c): the second burst's fill cap
+FLOOD = 20_000                 # (d): best_effort submissions at most
+TRICKLE = 200                  # (d): interactive, one each 5 ms
+RPC_LOOKUPS = 256              # (e)
+RPC_TRACED = 64                # (e): lookups with tracing on
+SERVER_TOL = 1e-4              # a future's row against its batch's replay
+SCATTER_WAIT_MS = 250.0        # (a): staged batches fill to the cap
+SCATTER_QUEUE = 4096           # (a): holds the 2,115 staged requests
+
+
+class RecordingEngine:
+    """The engine as ``MicroBatchServer`` sees it: each ``run`` draws its
+    hop seeds from the engine's generator, records ``(seeds, variant,
+    hop_seeds)`` and serves with them, so every batch can be replayed."""
+
+    def __init__(self, eng):
+        self._eng = eng
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
+
+    def run(self, seeds, variant=0):
+        hs = self._eng.draw_hop_seeds(len(self._eng.variants[variant]))
+        self.calls.append((seeds.copy(), variant, hs))
+        return self._eng.run(seeds, variant, hop_seeds=hs)
+
+
+def ms_pcts(lat_s):
+    p50, p99 = pcts(lat_s)
+    return 1e3 * p50, 1e3 * p99
+
+
+def span_ms(recs, name):
+    """p50/p99 ms of the recorded spans called ``name``."""
+    durs = [r[3] for r in recs if r[0] == name]
+    return (None, None) if not durs else ms_pcts(durs)
+
+
+def server_scatter(eng, nodes, hot_per_batch):
+    """(a): 2 x 1024 + 3 distinct ids with 64 duplicates beside their
+    originals, staged into a paused server (``max_wait_ms`` 250 and
+    ``queue_depth`` 4,096, so that they fit and the batches fill); every
+    future's row against its batch replayed with the batch's hop seeds;
+    the launches per server batch."""
+    import numpy as np
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig
+    from quiver_tpu_torch.ops import kernels
+    rng = np.random.default_rng(SEED + 12)
+    ids = rng.choice(nodes, 2 * BATCH + 3, replace=False)
+    plan = []
+    for i, nid in enumerate(ids):
+        plan.append(int(nid))
+        if i % 32 == 0 and len(plan) - i - 1 < SCATTER_DUPS:
+            plan.append(int(nid))          # lands in its original's batch
+    rec_eng = RecordingEngine(eng)
+    # a queue that holds the staged requests, and a wait long enough that
+    # the staged batches fill to the cap however the executor's dispatch
+    # holds the interpreter lock meanwhile
+    srv = MicroBatchServer(rec_eng, ServeConfig(**dict(
+        SERVER_CFG, max_wait_ms=SCATTER_WAIT_MS,
+        queue_depth=SCATTER_QUEUE)), start=False)
+    kernels.reset_launches()
+    futs = [srv.submit(n) for n in plan]
+    t0 = time.perf_counter()
+    srv.start()
+    rows = [f.result(timeout=120) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    snap = srv.snapshot()["serving"]
+    srv.close()
+    batches = len(rec_eng.calls)
+    fills = [int((s >= 0).sum()) for s, _, _ in rec_eng.calls]
+    check(len(plan) == len(ids) + SCATTER_DUPS, "scatter plan")
+    check(fills == [BATCH, BATCH, 3], f"server batches filled {fills}, "
+          f"expected [{BATCH}, {BATCH}, 3]")
+    check(launches["fused_sample_hop"] == 2 * batches
+          and launches["fused_hot_hop"] == batches
+          and launches["gather_rows"] == hot_per_batch * batches
+          and launches["sample_layer"] == launches["gather_elems"] == 0,
+          f"server launches {launches} over {batches} batches")
+    where = {}
+    for k, (s, _, _) in enumerate(rec_eng.calls):
+        for slot, nid in enumerate(s.tolist()):
+            if nid >= 0:
+                where[nid] = (k, slot)
+    replay = [eng.run(s, v, hop_seeds=hs).cpu().numpy()
+              for s, v, hs in rec_eng.calls]
+    err = 0.0
+    for nid, row in zip(plan, rows):
+        k, slot = where[nid]
+        check(row.shape == (CLASSES,) and np.isfinite(row).all(),
+              "a served row is not finite [47]")
+        err = max(err, float(np.abs(row - replay[k][slot]).max()))
+    check(err <= SERVER_TOL, f"a served row differs from its batch's "
+          f"replay by {err}")
+    dup_shared = sum(1 for a, b in zip(plan, plan[1:]) if a == b)
+    print(f"server (a): {len(plan)} requests ({len(ids)} distinct, "
+          f"{dup_shared} duplicates sharing their original's slot) in "
+          f"{batches} batches (max_wait_ms {SCATTER_WAIT_MS}, queue_depth "
+          f"{SCATTER_QUEUE}), fills "
+          f"{fills}, variants "
+          f"{[v for _, v, _ in rec_eng.calls]}, {wall * 1e3:.3f} ms; "
+          f"every row within {err:.3g} of its batch's replay (tolerance "
+          f"{SERVER_TOL}); launches per server batch: fused_sample_hop "
+          f"{launches['fused_sample_hop'] / batches:g}, fused_hot_hop "
+          f"{launches['fused_hot_hop'] / batches:g}, gather_rows (host "
+          f"tier) {launches['gather_rows'] / batches:g}", flush=True)
+    return {"requests": len(plan), "distinct": len(ids), "batches": batches,
+            "fills": fills, "variants": [v for _, v, _ in rec_eng.calls],
+            "max_abs_err": err, "serving": snap}, launches, batches
+
+
+def server_trace(eng, nodes, card, hot_per_batch, bare_p50):
+    """(b): ``examples/serve_sage.py``'s open-loop Poisson trace from one
+    client thread, with the ``serve.*`` spans on; then the engine's bare
+    batch per variant, the device time and idle share of 4 blocks of
+    1,024 requests through a server at full quality, and the readback's
+    own time."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import (MicroBatchServer, OverloadError,
+                                  ServeConfig, serving, tracing)
+    from quiver_tpu_torch.ops import kernels
+    rng = np.random.default_rng(SEED + 13)
+    n_req = int(TRACE_RATE * TRACE_SECONDS)
+    gaps = rng.exponential(1.0 / TRACE_RATE, n_req)
+    ids = rng.integers(0, nodes, n_req)
+    tracing.clear()
+    tracing.enable()
+    srv = MicroBatchServer(eng, ServeConfig(**SERVER_CFG))
+    lat, rejected, futs = [], 0, []
+    kernels.reset_launches()
+    t_next = t0 = time.perf_counter()
+    for k in range(n_req):
+        t_next += gaps[k]
+        delay = t_next - time.perf_counter()
+        if delay > 0.0015:
+            time.sleep(delay - 0.001)
+        t_sub = time.perf_counter()
+        try:
+            f = srv.submit(int(ids[k]))
+        except OverloadError:
+            rejected += 1
+            continue
+        f.add_done_callback(
+            lambda _, t=t_sub: lat.append(time.perf_counter() - t))
+        futs.append(f)
+    offered_s = time.perf_counter() - t0
+    rows = [f.result(timeout=120) for f in futs]
+    served_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    srv.close()            # joins the executor: every span is filed
+    tracing.disable()
+    spans = tracing.records()
+    tracing.clear()
+    snap = srv.snapshot()
+    sv = snap["serving"]
+    check(all(r.shape == (CLASSES,) and np.isfinite(r).all() for r in rows),
+          "trace: a served row is not finite [47]")
+    check(sv["completed"] == len(futs) and sv["failed"] == 0,
+          f"trace: {sv['completed']} of {len(futs)} completed")
+    b = sv["batches"]
+    check(launches["fused_sample_hop"] == 2 * b
+          and launches["fused_hot_hop"] == b
+          and launches["gather_rows"] == hot_per_batch * b,
+          f"trace launches {launches} over {b} batches")
+    p50, p99 = ms_pcts(lat)
+    health = srv.health()
+    waits = {n: span_ms(spans, n) for n in (
+        "serve.coalesce_wait", "serve.batch_coalesce", "serve.dispatch",
+        "serve.scatter", "serve.admission_wait")}
+    fmt = lambda x: "n/a" if x[0] is None else f"{x[0]:.3f}/{x[1]:.3f}"
+    print(f"server (b): {n_req} requests offered over {offered_s:.3f} s "
+          f"({n_req / offered_s:.1f} req/s, Poisson, one client thread), "
+          f"{len(futs)} admitted, {rejected} rejected at admission, "
+          f"{sv['deadline_expired']} deadline-shed; served in "
+          f"{served_s:.3f} s; per-request latency p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms (client clock, submit to result; the server's "
+          f"histogram: p50 {snap['request']['p50_ms']} p99 "
+          f"{snap['request']['p99_ms']}) against phase 6's bare tiered "
+          f"batch p50 {bare_p50:.3f} ms on {card}", flush=True)
+    print(f"server (b): {b} batches, mean fill {sv['mean_batch_fill']:.2f}"
+          f", variant mix {sv['variant_batches']}, shed level "
+          f"{sv['shed_level']}, health {health}", flush=True)
+    print("server (b): span p50/p99 ms (max_wait_ms 2.0): " + ", ".join(
+        f"{n} {fmt(v)}" for n, v in waits.items()) + f"; batch wall "
+          f"p50 {snap['wall']['p50_ms']} p99 {snap['wall']['p99_ms']}",
+          flush=True)
+    sl = snap["slo"]
+    print(f"server (b): slo target {sl['target_p99_ms']} ms, short burn "
+          f"{sl['windows']['short']['burn_rate']}, long burn "
+          f"{sl['windows']['long']['burn_rate']}, budget remaining "
+          f"{sl['budget_remaining']}, shedding {sl['shedding']}, "
+          f"{sl['total']}", flush=True)
+
+    # the same engine's batches alone, one thread, per variant
+    bare = {}
+    for v in range(len(SERVER_LADDER)):
+        blat = []
+        for _ in range(8):
+            blk = rng.choice(nodes, BATCH, replace=False)
+            t = time.perf_counter()
+            eng.run(blk, v)
+            torch.cuda.synchronize()
+            blat.append(time.perf_counter() - t)
+        bare[v] = ms_pcts(blat)[0]
+    print(f"server (b): the engine's bare batch (one thread, 8 batches "
+          f"each) p50 variant 0 {bare[0]:.3f} ms, variant 1 "
+          f"{bare[1]:.3f} ms", flush=True)
+
+    # 4 blocks of 1,024 distinct ids under the profiler, each submitted at
+    # once and waited for, on a fresh server at full quality (the trace's
+    # SLO budget stays burnt for its 30 s window, and a block submitted
+    # at once presses the queue): no SLO target, no queue trigger
+    blocks = [rng.choice(nodes, BATCH, replace=False) for _ in range(4)]
+    srv = MicroBatchServer(eng, ServeConfig(**dict(
+        SERVER_CFG, slo_p99_ms=None, shed_queue_frac=1.0)))
+
+    def four():
+        for blk in blocks:
+            for f in srv.submit_many(int(n) for n in blk):
+                f.result(timeout=60)
+    four()
+    prof = {}
+    before = srv.snapshot()["serving"]
+    dev_ms = device_profile(four, 4, f"block of {BATCH} requests",
+                            stats=prof)
+    after = srv.snapshot()["serving"]
+    srv.close()
+    prof_batches = after["batches"] - before["batches"]
+    prof_mix = [a - b for a, b in zip(after["variant_batches"],
+                                      before["variant_batches"])]
+    if dev_ms is not None:
+        dev_ms = 4 * dev_ms / prof_batches
+        print(f"server (b): the 4 blocks ran as {prof_batches} server "
+              f"batches (variant mix {prof_mix}): device {dev_ms:.3f} ms "
+              "per server batch", flush=True)
+
+    out = eng.run(blocks[0])
+    torch.cuda.synchronize()
+    rb = []
+    for _ in range(20):
+        t = time.perf_counter()
+        serving._readback(out)
+        rb.append(time.perf_counter() - t)
+    rb_ms = 1e3 * sorted(rb)[len(rb) // 2]
+    print(f"server (b): readback of the [{BATCH}, {CLASSES}] fp32 logits "
+          f"(one device-to-host copy into a fresh host array) "
+          f"{rb_ms:.4f} ms (median of 20, host clock, logits ready)",
+          flush=True)
+    return {"offered": n_req, "offered_s": offered_s, "admitted": len(futs),
+            "rejected": rejected, "request_p50_ms": p50,
+            "request_p99_ms": p99, "bare_tiered_p50_ms": bare_p50,
+            "batches": b, "mean_fill": sv["mean_batch_fill"],
+            "variant_batches": sv["variant_batches"],
+            "health": health, "slo": sl, "spans_ms": waits,
+            "bare_batch_p50_ms": bare,
+            "device_ms_per_batch": dev_ms, "profiled_batches": prof_batches,
+            "profiled_variant_batches": prof_mix,
+            **prof, "readback_ms": rb_ms,
+            "launches": launches}
+
+
+def overload_burst(srv, ids):
+    """Submit ``ids`` at once into a running server and wait for every
+    admitted future; the burst's counts and batches."""
+    from quiver_tpu_torch import OverloadError
+    import numpy as np
+    before = srv.snapshot()["serving"]
+    futs, rejected = [], 0
+    for n in ids:
+        try:
+            futs.append(srv.submit(int(n)))
+        except OverloadError:
+            rejected += 1
+    rows = [f.result(timeout=120) for f in futs]
+    after = srv.snapshot()["serving"]
+    check(rejected > 0 and rejected + len(futs) == len(ids)
+          and after["rejected"] - before["rejected"] == rejected,
+          f"overload: {rejected} rejected, {len(futs)} admitted")
+    check(len(rows) == len(futs) and all(np.isfinite(r).all()
+                                         for r in rows),
+          "overload: an admitted future did not resolve to a finite row")
+    return {"admitted": len(futs), "rejected": rejected,
+            "batches": after["batches"] - before["batches"],
+            "variant_batches": [a - b for a, b in zip(
+                after["variant_batches"], before["variant_batches"])],
+            "shed_level": after["shed_level"]}
+
+
+def server_overload(eng, nodes):
+    """(c): 4,096 requests at once into a running server of depth 1,024
+    with no SLO target (the rejections would keep an SLO budget burning
+    for its 30 s window, so the ladder could not come back within the
+    phase): once as it is, then with the fill cap at 256
+    (``set_batch_fill_cap``), so that a batch leaves queue behind it;
+    then lone requests until the ladder is back at 0."""
+    import numpy as np
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig
+    cfg = dict(SERVER_CFG, slo_p99_ms=None)
+    rng = np.random.default_rng(SEED + 14)
+    srv = MicroBatchServer(eng, ServeConfig(**cfg))
+    bursts = {}
+    for name, cap in (("full", None), ("cap", OVERLOAD_FILL_CAP)):
+        srv.set_batch_fill_cap(cap)
+        bursts[name] = overload_burst(
+            srv, rng.integers(0, nodes, OVERLOAD_BURST))
+    srv.set_batch_fill_cap(None)
+    capped = bursts["cap"]
+    check(capped["variant_batches"][1] >= 1,
+          f"overload: queue pressure shed no batch ({capped})")
+    # the hysteresis: one step back after calm_batches calm decisions in
+    # a row; the burst's own tail may already have made some of them
+    calm_batches = srv.config.calm_batches
+    needed = calm_batches - srv._calm if capped["shed_level"] else 0
+    calm = 0
+    while srv.snapshot()["serving"]["shed_level"] and calm < calm_batches:
+        srv.submit(int(rng.integers(0, nodes))).result(timeout=60)
+        calm += 1
+    after = srv.snapshot()["serving"]
+    srv.close()
+    check(after["shed_level"] == 0 and calm == needed,
+          f"overload: the ladder came back after {calm} calm batches, "
+          f"{needed} expected (calm_batches {calm_batches})")
+    for name, b in bursts.items():
+        print(f"server (c): {OVERLOAD_BURST} requests at once into a queue "
+              f"of {SERVER_CFG['queue_depth']}, fill cap "
+              f"{BATCH if name == 'full' else OVERLOAD_FILL_CAP}: "
+              f"{b['admitted']} admitted (all resolved), {b['rejected']} "
+              f"rejected with OverloadError; {b['batches']} batches, "
+              f"variant mix {b['variant_batches']}, shed level after "
+              f"{b['shed_level']}", flush=True)
+    print(f"server (c): the ladder back at 0 after {calm} more calm "
+          f"batches, as the hysteresis requires (calm_batches "
+          f"{calm_batches})", flush=True)
+    return {**bursts, "calm_batches_to_recover": calm}
+
+
+def server_tenancy(eng, nodes):
+    """(d): a best_effort flood from one thread and an interactive
+    trickle from another into a server with ``default_tenant_classes(
+    50.0)``."""
+    import numpy as np
+    import threading
+    from quiver_tpu_torch import (MicroBatchServer, OverloadError,
+                                  ServeConfig, default_tenant_classes)
+    rng = np.random.default_rng(SEED + 15)
+    srv = MicroBatchServer(eng, ServeConfig(**SERVER_CFG),
+                           tenants=default_tenant_classes(50.0))
+    flood_ids = rng.integers(0, nodes, FLOOD)
+    trickle_ids = rng.integers(0, nodes, TRICKLE)
+    be_futs, be_rejected, stop = [], [0], threading.Event()
+
+    def flood():
+        for n in flood_ids:
+            if stop.is_set():
+                return
+            try:
+                be_futs.append(srv.submit(int(n), tenant="best_effort"))
+            except OverloadError:
+                be_rejected[0] += 1
+
+    th = threading.Thread(target=flood, name="best-effort-flood")
+    th.start()
+    ia_futs, ia_refused = [], []
+    try:
+        for n in trickle_ids:
+            try:
+                ia_futs.append(srv.submit(int(n), tenant="interactive"))
+            except OverloadError as e:
+                ia_refused.append(e)
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    check(not th.is_alive(), "tenancy: the flood thread did not stop")
+    ia_rows, ia_failed = [], 0
+    for f in ia_futs:
+        try:
+            ia_rows.append(f.result(timeout=120))
+        except OverloadError:
+            ia_failed += 1
+    be_done = be_lost = 0
+    for f in be_futs:
+        try:
+            f.result(timeout=120)
+            be_done += 1
+        except OverloadError:
+            be_lost += 1               # displaced after admission
+    tens = {t["tenant"]: t for t in srv.tenant_snapshots()}
+    agg = srv.snapshot()["serving"]
+    srv.close()
+    ia, be = tens["interactive"], tens["best_effort"]
+    check(not ia_refused and ia_failed == 0 and ia["rejected"] == 0
+          and ia["displaced"] == 0 and ia["completed"] == len(ia_futs)
+          == TRICKLE, f"tenancy: interactive refused {len(ia_refused)}, "
+          f"displaced {ia_failed} ({ia})")
+    check(be["rejected"] + be["displaced"] > 0,
+          "tenancy: best_effort absorbed no shed")
+    for key in ("requests", "completed", "rejected", "displaced",
+                "deadline_expired", "failed"):
+        total = sum(t[key] for t in tens.values())
+        check(total == agg[key], f"tenancy: the classes' {key} add to "
+              f"{total}, the server counted {agg[key]}")
+    print(f"server (d): best_effort flood {len(be_futs) + be_rejected[0]} "
+          f"submitted, {be['completed']} completed, {be['rejected']} "
+          f"rejected, {be['displaced']} displaced, p50/p99 "
+          f"{be['latency']['p50_ms']}/{be['latency']['p99_ms']} ms; "
+          f"interactive {TRICKLE} (one each 5 ms), {ia['completed']} "
+          f"completed, 0 rejected, 0 displaced, p50/p99 "
+          f"{ia['latency']['p50_ms']}/{ia['latency']['p99_ms']} ms; "
+          f"{agg['batches']} batches, variant mix "
+          f"{agg['variant_batches']}; per-class counts add to the "
+          f"server's", flush=True)
+    keep = ("requests", "completed", "rejected", "displaced", "shed",
+            "latency")
+    return {name: {k: t[k] for k in keep} for name, t in tens.items()} | {
+        "aggregate": {k: agg[k] for k in ("requests", "completed",
+                                          "rejected", "displaced",
+                                          "batches", "variant_batches")}}
+
+
+async def rpc_round_trip(port, msg):
+    """One raw frame to a replica on 127.0.0.1 and its answer."""
+    from quiver_tpu_torch import rpc
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        rpc.write_frame(writer, msg)
+        await writer.drain()
+        return await rpc.read_frame(reader)
+    finally:
+        writer.close()
+        await writer.wait_closed()
+
+
+def server_rpc(eng, nodes):
+    """(e): ``RpcServer`` over a server on 127.0.0.1 and an ``RpcClient``
+    looking up 256 nodes one at a time; a spent budget on the wire and
+    through the client; 64 more lookups with tracing on, each client's
+    trace context among the replica's ``serve.*`` spans, and the round
+    trip by span."""
+    import numpy as np
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig, rpc, tracing
+    rng = np.random.default_rng(SEED + 16)
+    srv = MicroBatchServer(eng, ServeConfig(**SERVER_CFG))
+    front = rpc.RpcServer(srv, host="127.0.0.1", port=0)
+    cli = rpc.RpcClient({"r0": ("127.0.0.1", front.port)}, retries=0,
+                        hedge=False)
+    try:
+        rtt = []
+        for n in rng.integers(0, nodes, RPC_LOOKUPS):
+            t0 = time.perf_counter()
+            row = cli.lookup(int(n), budget_ms=5000.0)
+            rtt.append(time.perf_counter() - t0)
+            check(row.shape == (CLASSES,) and np.isfinite(row).all(),
+                  "rpc: a row is not finite [47]")
+        # a budget spent before arrival, on the wire; then a 1 ms budget
+        # through a client that may retry once: the budget runs out
+        wire = asyncio.run(rpc_round_trip(front.port, {
+            "op": "lookup", "id": 1, "node": int(rng.integers(0, nodes)),
+            "budget_ms": 0.0}))
+        check(wire.get("error") == "DeadlineExceeded"
+              and front.shed_deadline == 1,
+              f"rpc: a spent budget came back as {wire}")
+        late = rpc.RpcClient({"r0": ("127.0.0.1", front.port)}, retries=1,
+                             hedge=False, backoff_ms=1.0)
+        spent = None
+        try:
+            late.lookup(int(rng.integers(0, nodes)), budget_ms=1.0)
+        except rpc.DeadlineExceeded as e:
+            spent = e
+        finally:
+            late.close()
+        check(spent is not None, "rpc: a 1 ms budget came back with a row, "
+              "not DeadlineExceeded")
+        # traced lookups, each under a context the client injects: its
+        # trace id on the replica's serve spans, and the round trip by
+        # span
+        tracing.clear()
+        tracing.enable()
+        try:
+            tids = []
+            for n in rng.integers(0, nodes, RPC_TRACED):
+                ctx = tracing.inject({})
+                cli.lookup(int(n), budget_ms=5000.0, context=ctx)
+                tids.append(ctx[tracing.CTX_TRACE_ID])
+            # the executor files a batch's serve.request spans after it
+            # resolves the futures: wait for the last batch's
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline and not set(tids) <= {
+                    r[4] for r in tracing.records()
+                    if r[0] == "serve.request"}:
+                time.sleep(0.01)
+            spans = tracing.records()
+        finally:
+            tracing.disable()
+            tracing.clear()
+        names = sorted({r[0] for r in spans
+                        if r[4] == tids[0] and r[0].startswith("serve.")})
+        served = {r[4] for r in spans if r[0] == "serve.request"}
+        check("serve.request" in names and served >= set(tids),
+              f"rpc: a client's trace id is not among the replica's serve "
+              f"spans ({names}, {len(served & set(tids))} of {len(tids)})")
+        by_span = {n: span_ms(spans, n) for n in (
+            "rpc.lookup", "rpc.attempt", "serve.request",
+            "serve.admission_wait", "serve.coalesce_wait",
+            "serve.dispatch", "serve.scatter")}
+        stats = cli.stats()
+    finally:
+        cli.close()
+        front.close()
+        srv.close()
+    p50, p99 = ms_pcts(rtt)
+    print(f"server (e): RpcClient -> RpcServer on 127.0.0.1, "
+          f"{RPC_LOOKUPS} lookups one at a time: round trip p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms; a spent budget came back on "
+          f"the wire as {wire['error']}, a 1 ms budget as "
+          f"DeadlineExceeded ({spent}); front-end deadline sheds "
+          f"{front.shed_deadline}; the client's trace id on the replica's "
+          f"spans {names}", flush=True)
+    print(f"server (e): {RPC_TRACED} traced lookups, span p50/p99 ms: "
+          + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+                      for n, v in by_span.items() if v[0] is not None),
+          flush=True)
+    return {"lookups": RPC_LOOKUPS, "rtt_p50_ms": p50, "rtt_p99_ms": p99,
+            "wire_spent_budget": wire, "deadline_exceeded": str(spent),
+            "front_shed_deadline": front.shed_deadline,
+            "traced_spans": names, "traced_spans_ms": by_span,
+            "client": stats}
+
+
+def server_faults(eng, nodes):
+    """(f): one ``serve.execute`` fault fails exactly its batch and the
+    next batch serves; a ``serve.coalesce`` fault breaks the server."""
+    import numpy as np
+    from quiver_tpu_torch import (MicroBatchServer, ServeConfig,
+                                  ServerClosed, faults)
+    from quiver_tpu_torch.faults import FaultPlan, FaultRule
+    rng = np.random.default_rng(SEED + 17)
+    ids = [int(n) for n in rng.choice(nodes, 48, replace=False)]
+    srv = MicroBatchServer(eng, ServeConfig(**SERVER_CFG), start=False)
+    first = srv.submit_many(ids[:16])
+    faults.install(FaultPlan(rules={"serve.execute": FaultRule(
+        "error", exc="runtime", times=1)}))
+    try:
+        srv.start()
+        errs = []
+        for f in first:
+            try:
+                f.result(timeout=60)
+            except RuntimeError as e:
+                errs.append(e)
+        check(len(errs) == 16 and all("injected" in str(e) for e in errs),
+              f"faults: the execute fault failed {len(errs)} of 16")
+    finally:
+        faults.disarm()
+    rows = [f.result(timeout=60) for f in srv.submit_many(ids[16:32])]
+    s = srv.snapshot()["serving"]
+    srv.close()
+    check(all(np.isfinite(r).all() for r in rows) and s["failed"] == 16
+          and s["completed"] == 16,
+          f"faults: after the execute fault {s}")
+
+    broken = MicroBatchServer(eng, ServeConfig(**SERVER_CFG), start=False)
+    staged = broken.submit_many(ids[32:])
+    faults.install(FaultPlan(rules={"serve.coalesce": FaultRule(
+        "error", exc="runtime")}))
+    try:
+        broken.start()
+        closed = 0
+        for f in staged:
+            try:
+                f.result(timeout=60)
+            except ServerClosed:
+                closed += 1
+        deadline = time.monotonic() + 10.0
+        while broken.health()["score"] != 0.0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        refused = False
+        try:
+            broken.submit(ids[0])
+        except ServerClosed:
+            refused = True
+    finally:
+        faults.disarm()
+        broken.close()
+    check(closed == len(staged) and refused,
+          f"faults: coalesce fault: {closed} of {len(staged)} queued futures "
+          f"failed with ServerClosed, submit refused {refused}")
+    print(f"server (f): a serve.execute fault failed exactly its batch's 16 "
+          f"futures and the next batch served 16; a serve.coalesce fault "
+          f"failed all {closed} queued futures with ServerClosed, health 0, "
+          f"submit refused with ServerClosed", flush=True)
+    return {"execute": {"failed": 16, "served_after": 16},
+            "coalesce": {"queued_failed": closed, "submit_refused": refused}}
+
+
+def phase_server(dev, nodes, card, ctx, hot_per_batch, bare_p50):
+    """Phase 12: the request path (module doc). Returns its record, the
+    launches of (a) and its batch count."""
+    from quiver_tpu_torch import GraphSAGE, ServeEngine
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    secs, rec = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES))
+    params = flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED))
+    eng = part("warmup", lambda: ServeEngine(
+        model, params, ctx["topo"], ctx["store"], SERVER_LADDER, BATCH,
+        fused_hot_hop=True, fused_row_cap=ROW_CAP, collect_metrics=True,
+        seed=SEED, device=dev).warmup())
+    rec["scatter"], launches, batches = part(
+        "(a)", server_scatter, eng, nodes, hot_per_batch)
+    rec["trace"] = part("(b)", server_trace, eng, nodes, card,
+                        hot_per_batch, bare_p50)
+    rec["overload"] = part("(c)", server_overload, eng, nodes)
+    rec["tenancy"] = part("(d)", server_tenancy, eng, nodes)
+    rec["rpc"] = part("(e)", server_rpc, eng, nodes)
+    rec["faults"] = part("(f)", server_faults, eng, nodes)
+    print(f"phase 12: {sum(secs.values()):.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = secs
+    rec["ladder"] = SERVER_LADDER
+    rec["config"] = SERVER_CFG
+    return rec, launches, batches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -4185,7 +4869,6 @@ def main() -> int:
     metered, rotation, shard = phase_metered(
         dev, gen, NODES, indptr, indices, card, tiered_ctx, topo, batches,
         h2d)
-    del tiered_ctx
     host_side = phase_host_side(dev, gen, NODES, indptr, indices, deg, card,
                                 topo, batches, arms)
     buffered = host_side["pipeline"]["buffered"]["launches_per_step"]
@@ -4194,6 +4877,10 @@ def main() -> int:
                           "tiered_p50_ms": host_tier["batch_p50_ms"],
                           "serial_p50_ms":
                               host_side["pipeline"]["serial"]["p50_ms"]})
+    server, server_launches, server_batches = phase_server(
+        dev, NODES, card, tiered_ctx,
+        tiered_launches["gather_rows"] // BATCHES, host_tier["batch_p50_ms"])
+    del tiered_ctx
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4206,7 +4893,8 @@ def main() -> int:
          "library_ms": kern[name].get("library_ms"),
          "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
          "launches_per_tiered_batch": tiered_launches[name] / BATCHES,
-         "launches_per_buffered_step": buffered[name]}
+         "launches_per_buffered_step": buffered[name],
+         "launches_per_server_batch": server_launches[name] / server_batches}
         for name in SOURCES]}
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
     gather_entry["host_tier"] = {
@@ -4262,6 +4950,7 @@ def main() -> int:
         **{k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
                                   "bound_by")} for k, v in shard.items()}}
     line["disk_tier"] = disk
+    line["server"] = server
     ring = {}
     for name, arm in disk["products"]["arms"].items():
         if "ring" in arm:

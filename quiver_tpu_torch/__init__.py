@@ -19,7 +19,10 @@ the card and the engine. ``pipeline`` stages work on a worker thread
 ``checkpoint`` and ``datasets`` are the evaluation, resume and data
 helpers. ``metrics`` holds the device counters the metered steps,
 lookups and samplers return (``collect_metrics=True``) and their host
-side (``StepStats``, ``MetricsSink``, ``SloBudget``).
+side (``StepStats``, ``MetricsSink``, ``SloBudget``). ``MicroBatchServer``
+is the request path over a ``ServeEngine`` (admission, coalescing,
+quality and load shedding, tenancy, health), and ``rpc`` its socket
+front end (``RpcServer``) and client (``RpcClient``).
 """
 
 __version__ = "0.1.0"
@@ -29,12 +32,21 @@ from .metrics import Collector, MetricsSink, SloBudget, StepStats
 from .models import GAT, GraphSAGE
 from .ops.quant import quantize
 from .pyg import GraphSageSampler, MixedGraphSageSampler, SampleJob
-from .serving import ServeEngine, build_serve_step
+from .rpc import (DeadlineExceeded, RpcClient, RpcError, RpcServer,
+                  ServerClosed)
+from .serving import (MicroBatchServer, OverloadError, ServeConfig,
+                      ServeEngine, TenantClass, build_serve_step,
+                      default_tenant_classes)
 from .shard_tensor import ShardTensor, ShardTensorConfig
 from .utils import CSRTopo, parse_size
 
-__all__ = ["CSRTopo", "Collector", "DeviceConfig", "Feature", "GAT",
-           "GraphSAGE", "GraphSageSampler", "MetricsSink",
-           "MixedGraphSageSampler", "SampleJob",
-           "ServeEngine", "ShardTensor", "ShardTensorConfig", "SloBudget",
-           "StepStats", "build_serve_step", "parse_size", "quantize"]
+from . import rpc, serving
+
+__all__ = ["CSRTopo", "Collector", "DeadlineExceeded", "DeviceConfig",
+           "Feature", "GAT", "GraphSAGE", "GraphSageSampler",
+           "MetricsSink", "MicroBatchServer", "MixedGraphSageSampler",
+           "OverloadError", "RpcClient", "RpcError", "RpcServer",
+           "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",
+           "ShardTensor", "ShardTensorConfig", "SloBudget", "StepStats",
+           "TenantClass", "build_serve_step", "default_tenant_classes",
+           "parse_size", "quantize", "rpc", "serving"]

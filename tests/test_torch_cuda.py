@@ -61,7 +61,13 @@ on the card by ``gather_rows`` (decoded fp32 rows, and packed int8 rows
 the kernel decodes), equals its plain version and the store on the CPU;
 with a ring of 1.05x one batch's cold rows and the stager wrapping around
 while the card reads, every lookup is still exact (the fence); with two
-cards, the events go on the ids' card."""
+cards, the events go on the ids' card.
+
+The request path: a ``MicroBatchServer`` over a fused engine on the card
+reads each batch back into a host array of its own (no row of one batch
+aliases another's, and every row equals its batch's replay), serves an
+engine on the last visible card from its executor thread (skips on one
+card), and fails a batch whose run raises without a retry."""
 
 import numpy as np
 import pytest
@@ -1088,3 +1094,111 @@ def test_events_on_the_ids_device_with_two_cards(graph):
     ready.synchronize()
     assert torch.equal(host, ids.cpu())
     store.close()
+
+
+class _Recorded:
+    """An engine as ``MicroBatchServer`` sees it, drawing each batch's
+    hop seeds itself so the batch can be replayed, and recording the
+    executor thread's current card."""
+
+    def __init__(self, eng):
+        self._eng = eng
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
+
+    def run(self, seeds, variant=0):
+        hs = self._eng.draw_hop_seeds(len(self._eng.variants[variant]))
+        self.calls.append((seeds.copy(), variant, hs,
+                           torch.cuda.current_device()))
+        return self._eng.run(seeds, variant, hop_seeds=hs)
+
+
+def _server_engine(graph, dev):
+    topo = CSRTopo(indptr=graph["indptr"].to(dev),
+                   indices=graph["indices"].to(dev), device=dev)
+    feat = quant.quantize(graph["feat"][:, :DIM].contiguous().to(dev),
+                          "int8")
+    return ServeEngine(GraphSAGE(DIM, 16, 5, 2), None, topo, feat, [[4, 3]],
+                       64, fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                       device=dev).warmup()
+
+
+def _served_rows(eng, ids, batches):
+    """Serve ``batches`` staged batches of ``ids`` through a server over
+    ``eng``; every row checked against its batch's replay."""
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig
+    rec = _Recorded(eng)
+    srv = MicroBatchServer(rec, ServeConfig(max_wait_ms=50.0,
+                                            queue_depth=512,
+                                            shed_queue_frac=1.0),
+                           start=False)
+    futs = [srv.submit(int(i)) for i in ids]
+    srv.start()
+    rows = [f.result(timeout=60) for f in futs]
+    srv.close()
+    assert len(rec.calls) == batches
+    for (seeds, v, hs, _), k in zip(rec.calls, range(batches)):
+        want = eng.run(seeds, v, hop_seeds=hs).cpu().numpy()
+        for j in range(k * 64, min((k + 1) * 64, len(ids))):
+            np.testing.assert_allclose(rows[j], want[j - k * 64],
+                                       atol=1e-4, rtol=1e-4)
+    return rows, rec
+
+
+def test_server_readback_gives_each_batch_its_rows(graph):
+    """Two batches read back to two host arrays: no row of the first
+    is a view into the second's array, and the first batch's rows keep
+    their values after the second lands."""
+    eng = _server_engine(graph, graph["seeds"].device)
+    ids = np.arange(20, 148)                 # two full batches of 64
+    rows, _ = _served_rows(eng, ids, 2)
+    kept = [r.copy() for r in rows[:64]]
+    assert all(isinstance(r, np.ndarray) for r in rows)
+    assert not np.shares_memory(rows[0], rows[64])
+    _served_rows(eng, np.arange(200, 264), 1)
+    assert all(np.array_equal(a, b) for a, b in zip(kept, rows[:64]))
+
+
+def test_server_executor_serves_the_last_card(graph):
+    """An engine on the last visible card: the executor thread enters
+    that card before each run, and the rows are its batch's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", n - 1)
+    eng = _server_engine(graph, dev)
+    assert eng.device == dev
+    _, rec = _served_rows(eng, np.arange(20, 84), 1)
+    assert [c[3] for c in rec.calls] == [n - 1]
+
+
+def test_server_failing_run_fails_its_futures_without_retry(graph):
+    """A batch whose ``engine.run`` raises fails its futures with that
+    exception, runs nowhere else, and the next batch serves on the
+    card."""
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig
+    eng = _server_engine(graph, graph["seeds"].device)
+    real, calls = eng.run, []
+
+    def boom(seeds, variant=0, hop_seeds=None):
+        calls.append(seeds.copy())
+        raise RuntimeError("the card fell over")
+
+    eng.run = boom
+    srv = MicroBatchServer(eng, ServeConfig(max_wait_ms=5.0), start=False)
+    try:
+        futs = [srv.submit(i) for i in range(20, 30)]
+        srv.start()
+        for f in futs:
+            with pytest.raises(RuntimeError, match="fell over"):
+                f.result(timeout=60)
+        assert len(calls) == 1
+        eng.run = real
+        row = srv.submit(31).result(timeout=60)
+        assert row.shape == (5,) and np.isfinite(row).all()
+        s = srv.snapshot()["serving"]
+        assert s["failed"] == 10 and s["completed"] == 1
+    finally:
+        srv.close()

@@ -325,7 +325,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, quiver_tpu_torch, quiver_tpu_torch.parallel.train"
             ", quiver_tpu_torch.ops.sample_multihop, "
             "quiver_tpu_torch.models.sage, "
-            "quiver_tpu_torch.pyg.sage_sampler, quiver_tpu_torch.ops.sample\n"
+            "quiver_tpu_torch.pyg.sage_sampler, quiver_tpu_torch.ops.sample, "
+            "quiver_tpu_torch.rpc, quiver_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'quiver_tpu' or "
             "m.startswith('quiver_tpu.')]\n"
