@@ -267,7 +267,52 @@ Phases:
    exactly its batch and the next serves; a ``serve.coalesce`` fault
    breaks the server (queued futures and ``submit`` get
    ``ServerClosed``). Results on ``server`` lines;
-13. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+13. heterogeneous graphs at MAG240M's widths (``hetero.py``,
+   ``hetero_feature.py``, ``models/rgcn.py``, ``models/mag.py``; the
+   OGB-LSC MAG240M R-GNN baseline's widths: 768-wide features, 153
+   classes, hidden 1024, sizes [25, 15] per relation, batch 1024, dropout
+   0.5, lr 0.001), cut in node counts only: ``tests/test_mag240m_scale.py``'s
+   typed graph from seed 0 (2,000,000 papers citing about 20 papers,
+   600,000 authors writing about 3 papers each, 30,000 institutions
+   employing about 2 authors each), ``examples/hetero_rgcn.py``'s
+   features (noise, papers shifted by twice their class centre) made on
+   the card, its stores: papers int8 with a quarter of the rows hot by
+   cites degree and the rest pinned as 896-byte packed rows
+   (``host_placement="offload"``, ``dedup_cold=True``, ``cold_budget``
+   500,000, above a step's 425,984 paper slots), authors and
+   institutions fp32 on the card; the host's resident memory before,
+   at its peak during and after the build. (a) R-GCN through
+   ``HeteroGraphSageSampler`` (exact, ``frontier_cap={"inst": 30000}``)
+   and ``HeteroFeature.lookup``, the step inline as the example writes
+   it, one warm-up step then 32 timed: one ``gather_rows`` launch a
+   step and no other kernel of the port, the loss falling (last-8 mean
+   below the first-8's), step p50/p99, sampled edges/s, device ms and
+   idle share over 4 more steps, top kernels; on one more batch the
+   frontier capacities (26,624 / 25,600 after hop 0; 425,984 / 424,960 /
+   30,000 after hop 1), the paper lookup's counters (no dedup overflow,
+   cold rows within the budget), the institution cap masking no edge,
+   and ``sample()`` and ``lookup()`` under sync "error"; then the row
+   gather at D=768 at that frontier's cold ids (the step's form with -1
+   where hot and ``out=``, dense, and an fp32 pinned table) equal to its
+   plain version bit for bit, wrapper, own, back-to-back (10 calls
+   between two events, where the profiler drops events) and plain ms
+   against the bound at the measured copy rate; (b) the lookup through the kernel
+   against the lookup through the gather's plain version bit for bit,
+   and one step from the same parameters on each under torch's
+   deterministic algorithms (loss within 1e-4, gradients within 1e-4 of
+   their largest entry); (c) rotation overlap+butterfly and window
+   pair+sort, reshuffle times and 8 batches each, edges/s, the contract
+   on every batch (each edge's ``e_id`` a slot of its target holding
+   its source, ``min(deg, k)`` edges per target at distinct slots,
+   frontiers distinct and prefixed); (d) exponential weights on cites
+   with ``with_eid`` (``examples/hetero_rgcn.py --weighted``), 8 steps,
+   the edge-id contract on every step's sample; (e) ``MAG240MGNN``
+   graphsage and gat (4 heads) over paper-cites-paper through
+   ``GraphSageSampler`` and the paper store, 8 steps each, one
+   ``gather_rows`` a step; (f) ``HeteroFeature.prefetch`` of two
+   frontiers equal to ``lookup`` bit for bit, staged on its own stream
+   without a host synchronisation. Results on ``hetero`` lines;
+14. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -278,11 +323,14 @@ Phases:
    ``shard_tensor``, and ``launches_per_buffered_step`` from phase 10
    (a) with the mixed sampler's HOST launches under
    ``mixed_host_launches``, and the disk tier's ring gather under
-   ``disk_ring``, and ``launches_per_server_batch`` from phase 12 (a);
+   ``disk_ring``, and ``launches_per_server_batch`` from phase 12 (a),
+   and ``launches_per_hetero_step`` from phase 13 (a) with the D=768
+   gather under ``hetero``;
    the arms' records under ``sampler``, phase 8's under ``weighted``,
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
-   phase 12's under ``server``), then the last line ``{"ok": true,
+   phase 12's under ``server``, phase 13's under ``hetero``), then the
+   last line ``{"ok": true,
    "device": {...}}``.
 
 Any failure exits non-zero without that last line; with no CUDA device
@@ -413,6 +461,24 @@ def kernel_events(run, kernel: str, warmup=None):
               + "; ".join(f"{n} x{c}" for n, c in seen.items())[:600],
               flush=True)
     return [ms for _, ms in sorted(hits)]
+
+
+def burst_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn`` over ``iters`` calls issued back to
+    back between two CUDA events (after one warm-up call): for a ``fn``
+    that launches one kernel and nothing else, that kernel's time with
+    the card kept busy, where the profiler's events are missing."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def launch_own_ms(run, kernel: str, units: int):
@@ -4738,6 +4804,737 @@ def phase_server(dev, nodes, card, ctx, hot_per_batch, bare_p50):
     return rec, launches, batches
 
 
+MAG_COUNTS = {"paper": 2_000_000, "author": 600_000, "inst": 30_000}
+MAG_CITES = ("paper", "cites", "paper")
+MAG_WRITES = ("author", "writes", "paper")
+MAG_EMPLOYS = ("inst", "employs", "author")
+MAG_RELS = [(MAG_CITES, 20), (MAG_WRITES, 3), (MAG_EMPLOYS, 2)]
+MAG_DIM, MAG_HIDDEN, MAG_CLASSES = 768, 1024, 153
+MAG_SIZES = [25, 15]
+MAG_LR = 1e-3                  # the OGB-LSC MAG240M R-GNN baseline's
+MAG_STEPS = 32                 # (a): timed steps after one warm-up
+MAG_ARM_STEPS = 8              # (c)-(e): batches or steps of each arm
+MAG_INST_CAP = 30_000
+MAG_COLD_BUDGET = 500_000      # above a step's 425,984 paper slots
+MAG_FP32_ROWS = 2**19          # the fp32 host table of the width check
+
+
+class host_rss_peak:
+    """The process's resident host memory before a block and its peak
+    during it, in bytes: ``/proc/self/status``'s VmRSS sampled every 5 ms
+    on a thread."""
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("VmRSS:"):
+                    return int(ln.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = self.rss()
+        self._stop = threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self.rss())
+        self._t = threading.Thread(target=watch, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.after = self.rss()
+        self.peak = max(self.peak, self.after)
+
+
+def mag_graph(dev):
+    """``tests/test_mag240m_scale.py``'s typed graph from seed 0 (numpy,
+    the recipe's draws), placed on the card: papers cite about 20 papers,
+    about 3 authors write each paper, about 2 institutions employ each
+    author. Returns the ``HeteroCSRTopo``."""
+    import numpy as np
+    from quiver_tpu_torch import CSRTopo, HeteroCSRTopo
+    rng = np.random.default_rng(SEED)
+    rels = {}
+    for et, avg in MAG_RELS:
+        n_dst, n_src = MAG_COUNTS[et[2]], MAG_COUNTS[et[0]]
+        deg = rng.integers(1, 2 * avg, n_dst).astype(np.int64)
+        indptr = np.zeros(n_dst + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        indices = rng.integers(0, n_src, int(indptr[-1]), dtype=np.int32)
+        rels[et] = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    return HeteroCSRTopo(rels, MAG_COUNTS)
+
+
+def mag_features(dev, gen):
+    """``examples/hetero_rgcn.py``'s features at 768 wide, made on the
+    card from the seed: noise for every type, papers shifted by twice
+    their class centre; labels for the papers."""
+    import torch
+    n = MAG_COUNTS["paper"]
+    labels = torch.randint(0, MAG_CLASSES, (n,), generator=gen, device=dev)
+    centers = torch.randn(MAG_CLASSES, MAG_DIM, generator=gen, device=dev)
+    feats = {t: torch.empty(c, MAG_DIM, device=dev)
+             for t, c in MAG_COUNTS.items()}
+    for t, f in feats.items():
+        for lo in range(0, f.shape[0], 1 << 18):
+            hi = min(lo + (1 << 18), f.shape[0])
+            f[lo:hi] = torch.randn(hi - lo, MAG_DIM, generator=gen,
+                                   device=dev)
+            if t == "paper":
+                f[lo:hi] += 2.0 * centers[labels[lo:hi]]
+    return feats, labels
+
+
+def check_hetero_contract(name, topo, seeds, layers, sizes, weighted=()):
+    """On the card, every valid edge of every hop: its ``e_id`` a CSR
+    slot in its target's row holding its source; ``min(deg, k)`` edges
+    per valid target and none for padding; distinct slots per target
+    (unless the relation draws with replacement); each frontier distinct
+    and starting with the frontier before the hop. Returns the edges
+    checked."""
+    import torch
+    pre = {"paper": seeds}
+    edges = 0
+    for hop, layer in enumerate(layers[::-1]):
+        for t, f in layer.frontier.items():
+            if f is None:
+                continue
+            valid = f[f >= 0]
+            check(torch.unique(valid).numel() == valid.numel()
+                  and bool((f[valid.numel():] == -1).all()),
+                  f"{name}: frontier {t} after hop {hop} not distinct and "
+                  "valid-first")
+            if pre.get(t) is not None:
+                before = pre[t][pre[t] >= 0]
+                check(torch.equal(valid[:before.numel()], before),
+                      f"{name}: frontier {t} after hop {hop} does not "
+                      "start with the frontier before it")
+        for et, adj in layer.adjs.items():
+            t = topo.rels[et]
+            indptr, indices = t.indptr.long(), t.indices
+            k = sizes[hop]
+            dst_front, src_front = pre[et[2]], layer.frontier[et[0]]
+            s = dst_front.shape[0]
+            src, dst = adj.edge_index.long()
+            ok = src >= 0
+            e = adj.e_id.long()
+            g_dst = dst_front.long()[dst.clamp(min=0)]
+            slot = e.clamp(min=0)
+            check(torch.equal(ok, adj.mask) and bool((e[~ok] == -1).all()),
+                  f"{name} {et}: mask and e_id fill disagree")
+            check(bool((dst == torch.where(ok, torch.arange(
+                      s, device=dst.device).repeat_interleave(k), -1)).all()),
+                  f"{name} {et}: targets out of place")
+            inrow = (indptr[g_dst] <= slot) & (slot < indptr[g_dst + 1])
+            holds = indices.long()[slot] == src_front.long()[src.clamp(min=0)]
+            check(bool((inrow & holds)[ok].all()),
+                  f"{name} {et}: {int((~(inrow & holds) & ok).sum())} edges "
+                  "whose e_id is not a slot of their target holding their "
+                  "source")
+            per = ok.reshape(s, k).sum(1)
+            dv = dst_front >= 0
+            dl = dst_front.long().clamp(min=0)
+            deg = (indptr[dl + 1] - indptr[dl]).clamp(max=k)
+            check(torch.equal(per, torch.where(dv, deg, 0)),
+                  f"{name} {et}: edges per target differ from min(deg, k)")
+            if et not in weighted:
+                srt = torch.where(ok, e, -1).reshape(s, k).sort(1).values
+                dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+                check(not bool(dup.any()),
+                      f"{name} {et}: a target picked one slot twice")
+            edges += int(ok.sum())
+        pre = {t: f for t, f in layer.frontier.items()}
+    return edges
+
+
+def mag_step_fn(sampler, store, model, opt, labels, gen):
+    """``examples/hetero_rgcn.py``'s step, inline as there: sample, look
+    up the frontier's rows, the model's logits of the seeds, cross
+    entropy, Adam. Returns ``(loss, valid sampled edges, layers)``, the
+    first two on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    def step(seeds):
+        _, bs, layers = sampler.sample(seeds)
+        x = store.lookup(layers[0].frontier)
+        model.train()
+        logits = model(x, layers, generator=gen)[:bs]
+        loss = F.cross_entropy(logits, labels[seeds.long()])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        edges = sum(a.mask.sum() for lay in layers
+                    for a in lay.adjs.values())
+        return loss.detach(), edges, layers
+    return step
+
+
+def timed_steps(step, batches, what):
+    """One warm-up call, then one synchronised call per batch timed on the
+    host clock, the launch counts set to 0 between them. Returns
+    ``(latencies ms, losses, edges, warm-up ms)``."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batches[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    lat, losses, edges = [], [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        loss, e = step(b)[:2]
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        edges.append(e)
+    losses = torch.stack(losses).tolist()
+    check(all(math.isfinite(v) for v in losses), f"{what}: losses {losses}")
+    return lat, losses, int(torch.stack(edges).sum()), warm_ms
+
+
+def mag_rgcn(dev, topo, edge_types):
+    import torch
+    from quiver_tpu_torch.models import RGCN
+    from quiver_tpu_torch.models.convert import (random_rgcn_flax_params,
+                                                 rgcn_flax_to_state_dict)
+    dims = {t: MAG_DIM for t in MAG_COUNTS}
+    model = RGCN(dims, MAG_HIDDEN, MAG_CLASSES, len(MAG_SIZES), "paper",
+                 edge_types, dropout=DROPOUT)
+    model.load_state_dict(rgcn_flax_to_state_dict(random_rgcn_flax_params(
+        dims, MAG_HIDDEN, MAG_CLASSES, edge_types, seed=SEED)))
+    model = model.to(dev)
+    return model, torch.optim.Adam(model.parameters(), lr=MAG_LR)
+
+
+def hetero_gathers(store, frontier, h2d, iters):
+    """The paper lookup's host read at a step's frontier: the packed int8
+    tier (896-byte rows) in the step's form (every slot, -1 where hot,
+    into the rows) and dense, and an fp32 pinned table of 768-wide rows
+    on the same ids; each against its plain version bit for bit, then
+    timed (wrapper, own, plain) against its bound. Returns the records
+    and the step's ids."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    f = store["paper"]
+    tab = f._host_offload
+    t = f.feature_order.long()[frontier.long().clamp(min=0)]
+    cold = (frontier >= 0) & (t >= f.cache_rows)
+    holes = torch.where(cold, t - f.cache_rows, -1).to(torch.int32)
+    dense = holes[holes >= 0].contiguous()
+    f32 = quant.dequantize(quant.QuantizedTensor(
+        *(c[:MAG_FP32_ROWS] for c in tab))).pin_memory()
+    n = holes.shape[0]
+    base = torch.full((n, MAG_DIM), 7.5, device=frontier.device)
+    recs = {}
+    for name, table, ids, out, kname in (
+            ("int8 step", tab, holes, base, "gather_rows_packed_kernel"),
+            ("int8 dense", tab, dense, None, "gather_rows_packed_kernel"),
+            ("fp32", f32, dense % MAG_FP32_ROWS, None, "gather_rows_kernel")):
+        def run(plain=False):
+            fn = gather.gather_rows_plain if plain else gather.gather_rows
+            return fn(table, ids) if out is None else fn(table, ids,
+                                                         out=out.clone())
+        got, want = run(), run(True)
+        check(same_bits(got, want), f"hetero gather {name} at D={MAG_DIM} "
+              "differs from its plain version")
+        del got, want
+        ms = cuda_ms(run, iters)
+        # the kernel alone: into one buffer, no clone
+        dst = None if out is None else out.clone()
+        alone = (lambda: gather.gather_rows(table, ids)) if dst is None \
+            else (lambda: gather.gather_rows(table, ids, out=dst))
+        own = own_ms(alone, kname, iters)
+        burst = burst_ms(alone, iters)
+        del dst
+        plain_ms = cuda_ms(lambda: run(True), 3)
+        b_ms, b_by, host_bytes, dev_bytes, distinct = host_gather_bound(
+            table, ids, h2d)
+        share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+        stride = table.data.stride(0) if quant.is_quantized(table) \
+            else MAG_DIM * 4
+        print(f"hetero gather_rows {name}: {ids.shape[0]} ids, {distinct} "
+              f"distinct rows, D={MAG_DIM}, {stride}-byte host rows: "
+              f"wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}{share}, "
+              f"{iters} back to back {burst:.4f} ms a call (bound / burst "
+              f"{b_ms / burst:.0%}), plain {plain_ms:.4f} ms; reads {host_bytes} B from the host at "
+              f"{h2d / 1e9:.2f} GB/s and moves {dev_bytes} B on the card: "
+              f"bound {b_ms:.4f} ms ({b_by}); equal to the plain version "
+              "bit for bit", flush=True)
+        recs[name] = {"ids": int(ids.shape[0]), "distinct_rows": distinct,
+                      "row_stride_bytes": int(stride), "ms": ms,
+                      "own_ms": own, "burst_ms": burst,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": "bytes", "library_ms": None,
+                      "max_abs_err": 0.0}
+    del f32
+    return recs
+
+
+def hetero_train(dev, topo, store, labels, order, card):
+    """(a): the R-GCN on the exact sampler, timed, counted and profiled;
+    the cold budget and the institution cap checked; the sample and the
+    lookup held sync-free. Returns the record, the launches of the timed
+    steps, the model and optimiser, and a step's frontier."""
+    import torch
+    from quiver_tpu_torch import HeteroGraphSageSampler, metrics
+    from quiver_tpu_torch.ops import kernels
+    sampler = HeteroGraphSageSampler(
+        topo, MAG_SIZES, seed_type="paper", seed=SEED,
+        frontier_cap={"inst": MAG_INST_CAP}, device=dev)
+    t0 = time.perf_counter()
+    _, bs, layers = sampler.sample(order[:BATCH])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    edge_types = [list(lay.adjs) for lay in layers]
+    model, opt = mag_rgcn(dev, topo, edge_types)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = mag_step_fn(sampler, store, model, opt, labels, gen)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(MAG_STEPS + 6)]
+    lat, losses, edges, warm_ms = timed_steps(
+        step, batches[:1 + MAG_STEPS], "R-GCN")
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["gather_rows"] = MAG_STEPS
+    check(launches == want, f"R-GCN step launches {launches}: one "
+          "gather_rows a step expected")
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(last < first, f"R-GCN loss did not fall: first 8 mean {first}, "
+          f"last 8 mean {last}")
+    p50, p99 = pcts(lat)
+    wall_s = sum(lat) / 1e3
+    print(f"hetero (a) R-GCN {MAG_DIM}->{MAG_HIDDEN}->{MAG_CLASSES}, "
+          f"sizes {MAG_SIZES} per relation, batch {BATCH}, dropout "
+          f"{DROPOUT}, Adam lr {MAG_LR}, exact wide sampler: {MAG_STEPS} "
+          f"steps, step p50 {p50:.3f} ms p99 {p99:.3f} ms (host clock + "
+          f"synchronize; sample, lookup, forward, backward, Adam; the "
+          f"warm-up step {warm_ms:.3f} ms, the sampler's first sample and "
+          f"set-up {setup_s:.3f} s), {edges} sampled edges = "
+          f"{edges / wall_s:.6g} sampled edges/s; gather_rows launches per "
+          f"step {launches['gather_rows'] / MAG_STEPS:g}, no other "
+          f"kernel of the port; loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f}, mean of the first 8 {first:.4f}, of the last "
+          f"8 {last:.4f} (ln {MAG_CLASSES} = {math.log(MAG_CLASSES):.4f}); "
+          f"every loss: {' '.join(f'{v:.4f}' for v in losses)}; on {card}",
+          flush=True)
+    prof = {}
+    busy = device_profile(lambda: [step(b) for b in batches[-5:-1]], 4,
+                          "R-GCN step", stats=prof)
+
+    # the frontier of one more batch: its capacities, the cold budget,
+    # the institution cap, and the sync checks
+    seeds = batches[-1]
+    sampler.sample(seeds)
+    _, _, layers = sync_free(lambda: sampler.sample(seeds), "hetero sample")
+    x = sync_free(lambda: store.lookup(layers[0].frontier),
+                  "HeteroFeature.lookup")
+    caps = {t: (None if f is None else int(f.shape[0]))
+            for t, f in layers[0].frontier.items()}
+    inner = {t: (None if f is None else int(f.shape[0]))
+             for t, f in layers[1].frontier.items()}
+    k0, k1 = MAG_SIZES           # hetero.py's capacities, worked out
+    p0, a0 = BATCH * (1 + k0), BATCH * k0
+    check(inner == {"author": a0, "inst": None, "paper": p0} and caps == {
+              "author": a0 + p0 * k1, "inst": min(a0 * k1, MAG_INST_CAP),
+              "paper": p0 * (1 + k1)},
+          f"frontier capacities {inner} then {caps}")
+    paper = layers[0].frontier["paper"]
+    _, vec = store["paper"].lookup_tiered(paper, masked=True,
+                                          collect_metrics=True)
+    vec = vec.tolist()
+    check(vec[metrics.DEDUP_OVERFLOW] == 0 and
+          vec[metrics.COLD_ROWS] <= MAG_COLD_BUDGET,
+          f"paper lookup counters {vec}: the cold budget overflowed")
+    emp = layers[0].adjs[MAG_EMPLOYS]
+    authors = layers[1].frontier["author"]
+    ip = topo.rels[MAG_EMPLOYS].indptr.long()
+    a = authors.long().clamp(min=0)
+    want_e = int(torch.where(authors >= 0, (ip[a + 1] - ip[a]).clamp(
+        max=MAG_SIZES[1]), 0).sum())
+    n_inst = int(layers[0].counts["inst"])
+    check(int(emp.mask.sum()) == want_e and n_inst <= MAG_INST_CAP,
+          f"the institution cap masked edges: {int(emp.mask.sum())} of "
+          f"{want_e}, {n_inst} institutions")
+    valid = {t: int((f >= 0).sum()) for t, f in layers[0].frontier.items()
+             if f is not None}
+    out_gb = sum(v.numel() * 4 for v in x.values()) / 1e9
+    print(f"hetero (a) frontier capacities after hop 0 {inner}, after hop "
+          f"1 {caps}; valid {valid}; lookup output {out_gb:.3f} GB fp32; "
+          f"paper lookup: hot rows {vec[metrics.HOT_ROWS]}, cold rows "
+          f"{vec[metrics.COLD_ROWS]} (budget {MAG_COLD_BUDGET}, dedup "
+          f"overflows {vec[metrics.DEDUP_OVERFLOW]}); employs: "
+          f"{int(emp.mask.sum())} edges = sum of min(deg, "
+          f"{MAG_SIZES[1]}), {n_inst} institutions under the cap "
+          f"{MAG_INST_CAP} (no edge masked); sample() and lookup() free of "
+          "host synchronisation", flush=True)
+    rec = {"steps": MAG_STEPS, "step_p50_ms": p50, "step_p99_ms": p99,
+           "warmup_ms": warm_ms, "sampler_setup_s": setup_s,
+           "edges_per_s": edges / wall_s, "loss_first8": first,
+           "loss_last8": last, "losses": losses,
+           "device_ms_per_step": busy, **prof,
+           "gather_rows_per_step": launches["gather_rows"] / MAG_STEPS,
+           "frontier_caps": caps, "frontier_valid": valid,
+           "paper_hot_rows": vec[metrics.HOT_ROWS],
+           "paper_cold_rows": vec[metrics.COLD_ROWS],
+           "lookup_output_gb": out_gb}
+    return rec, launches, model, opt, layers, seeds, sampler
+
+
+def hetero_plain(store, model, layers, seeds, labels, card):
+    """(b): the paper lookup through the kernel against the same lookup
+    through the gather's plain version (same card tensors) bit for bit,
+    and one R-GCN step from the same parameters on each, deterministic:
+    the loss within ``LOSS_TOL`` and each gradient within ``GRAD_TOL``
+    of its largest entry."""
+    import torch
+    import torch.nn.functional as F
+    from quiver_tpu_torch import feature
+    from quiver_tpu_torch.ops.kernels import gather
+    frontier = layers[0].frontier
+    x_k = store.lookup(frontier)
+    feature.gather_rows = gather.gather_rows_plain
+    try:
+        t0 = time.perf_counter()
+        x_p = store.lookup(frontier)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        feature.gather_rows = gather.gather_rows
+    for t in x_k:
+        check(same_bits(x_k[t], x_p[t]), f"hetero lookup {t}: the kernel's "
+              "rows differ from the plain version's")
+
+    def loss_of(m, x):
+        m.eval()       # dropout off: the two runs see the same network
+        return F.cross_entropy(m(x, layers)[:BATCH], labels[seeds.long()])
+    with deterministic():
+        loss_k, grads_k = grads_of(copy.deepcopy(model),
+                                   lambda m: loss_of(m, x_k))
+        loss_p, grads_p = grads_of(copy.deepcopy(model),
+                                   lambda m: loss_of(m, x_p))
+    check(abs(loss_k - loss_p) <= LOSS_TOL,
+          f"R-GCN loss {loss_k} through the kernel, {loss_p} plain")
+    worst, exact = 0.0, loss_k == loss_p
+    for n, g in grads_k.items():
+        rel = max_abs(g, grads_p[n]) / max(float(grads_p[n].abs().max()),
+                                           1e-30)
+        check(rel <= GRAD_TOL, f"R-GCN gradient {n}: {rel:.3g} of its "
+              "largest entry from the plain walk's")
+        worst = max(worst, rel)
+        exact = exact and same_bits(g, grads_p[n])
+    print(f"hetero (b) the lookup through gather_rows_packed_kernel equals "
+          f"the lookup through the plain version bit for bit "
+          f"({', '.join(f'{t} {tuple(v.shape)}' for t, v in x_k.items())}; "
+          f"the plain lookup {plain_s:.3f} s); one step from the same "
+          f"parameters, deterministic: loss {loss_k:.6f} vs {loss_p:.6f}, "
+          f"{len(grads_k)} gradients within {worst:.3g} of their largest "
+          f"entry ({'bit for bit' if exact else 'not bit for bit'}); on "
+          f"{card}", flush=True)
+    return {"lookup_bit_equal": True, "loss_kernel": loss_k,
+            "loss_plain": loss_p, "grad_worst_rel": worst,
+            "step_bit_equal": exact}
+
+
+def hetero_modes(dev, topo, order, card):
+    """(c): rotation (butterfly, overlap) and window (sort, pair), the
+    sampler alone on ``MAG_ARM_STEPS`` batches each: reshuffle time,
+    sampled edges per second, and the contract on every batch."""
+    import torch
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    recs = {}
+    for name, kw in (("rotation overlap+butterfly",
+                      dict(sampling="rotation", layout="overlap",
+                           shuffle="butterfly")),
+                     ("window pair+sort", dict(sampling="window"))):
+        s = HeteroGraphSageSampler(
+            topo, MAG_SIZES, seed_type="paper", seed=SEED, with_eid=True,
+            frontier_cap={"inst": MAG_INST_CAP}, device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.reshuffle()
+        torch.cuda.synchronize()
+        shuffle_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        s.reshuffle()
+        torch.cuda.synchronize()
+        again_ms = (time.perf_counter() - t0) * 1e3
+        batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+                   for i in range(MAG_ARM_STEPS + 1)]
+        s.sample(batches[0])
+        lat, outs = [], []
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = s.sample(b)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            outs.append((b, out[2]))
+        edges = sum(check_hetero_contract(f"hetero (c) {name}", topo, b, ls,
+                                          MAG_SIZES) for b, ls in outs)
+        p50, p99 = pcts(lat)
+        seps = edges / (sum(lat) / 1e3)
+        print(f"hetero (c) {name}: reshuffle {shuffle_ms:.3f} ms (first), "
+              f"{again_ms:.3f} ms (second), then {MAG_ARM_STEPS} batches: "
+              f"sample p50 {p50:.3f} ms p99 {p99:.3f} ms, {edges} sampled "
+              f"edges = {seps:.6g} sampled edges/s; every edge's e_id a slot"
+              " of its target holding its source, min(deg, k) edges per "
+              "target at distinct slots, frontiers distinct and prefixed; "
+              f"on {card}", flush=True)
+        recs[name] = {"reshuffle_ms": [shuffle_ms, again_ms],
+                      "sample_p50_ms": p50, "sample_p99_ms": p99,
+                      "edges_per_s": seps, "edges": edges}
+        del s, outs
+    return recs
+
+
+def hetero_weighted(dev, gen, topo, store, labels, model, opt, order,
+                    card):
+    """(d): ``examples/hetero_rgcn.py --weighted``: exponential weights on
+    cites, ``with_eid``, ``MAG_ARM_STEPS`` training steps; the edge-id
+    contract on every sampled edge of every step."""
+    import torch
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    from quiver_tpu_torch.ops import kernels
+    e = topo.rels[MAG_CITES].edge_count
+    w = torch.empty(e, device=dev).exponential_(1.0, generator=gen)
+    s = HeteroGraphSageSampler(
+        topo, MAG_SIZES, seed_type="paper", seed=SEED,
+        edge_weight={MAG_CITES: w}, with_eid=True,
+        frontier_cap={"inst": MAG_INST_CAP}, device=dev)
+    inner = mag_step_fn(s, store, model, opt, labels,
+                        torch.Generator(device=dev).manual_seed(SEED + 1))
+    seen = []
+
+    def step(seeds):
+        out = inner(seeds)
+        seen.append((seeds, out[2]))
+        return out
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(MAG_ARM_STEPS + 1)]
+    lat, losses, edges, warm_ms = timed_steps(step, batches,
+                                              "weighted R-GCN")
+    launches = kernels.LAUNCHES["gather_rows"]
+    check(launches == MAG_ARM_STEPS,
+          f"weighted steps launched gather_rows {launches} times")
+    checked = sum(check_hetero_contract(
+        "hetero (d) weighted", topo, b, ls, MAG_SIZES, weighted={MAG_CITES})
+        for b, ls in seen)
+    p50, p99 = pcts(lat)
+    seps = edges / (sum(lat) / 1e3)
+    print(f"hetero (d) weighted cites (exponential weights), with_eid: "
+          f"{MAG_ARM_STEPS} R-GCN steps, step p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms (warm-up {warm_ms:.3f} ms), {edges} sampled edges "
+          f"= {seps:.6g} sampled edges/s, gather_rows launches per step "
+          f"{launches / MAG_ARM_STEPS:g}, losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; the edge-id contract on "
+          f"{checked} edges of the {len(seen)} steps' samples; on {card}",
+          flush=True)
+    return {"step_p50_ms": p50, "step_p99_ms": p99, "edges_per_s": seps,
+            "losses": losses, "edges_checked": checked,
+            "gather_rows_per_step": launches / MAG_ARM_STEPS}
+
+
+def hetero_mag240m(dev, topo, store, labels, order, card):
+    """(e): ``MAG240MGNN`` (graphsage, then gat with 4 heads) on the
+    paper-cites-paper projection: the port's ``GraphSageSampler`` over
+    the cites topology and the paper store's masked lookup,
+    ``MAG_ARM_STEPS`` training steps each after one warm-up."""
+    import torch
+    import torch.nn.functional as F
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.models import MAG240MGNN
+    from quiver_tpu_torch.models.convert import (mag_flax_to_state_dict,
+                                                 random_mag_flax_params)
+    from quiver_tpu_torch.ops import kernels
+    sampler = GraphSageSampler(topo.rels[MAG_CITES], MAG_SIZES, device=dev,
+                               seed=SEED)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(MAG_ARM_STEPS + 1)]
+    recs = {}
+    for variant in ("graphsage", "gat"):
+        model = MAG240MGNN(variant, MAG_DIM, MAG_HIDDEN, MAG_CLASSES,
+                           len(MAG_SIZES), heads=4, dropout=DROPOUT)
+        model.load_state_dict(mag_flax_to_state_dict(random_mag_flax_params(
+            variant, MAG_DIM, MAG_HIDDEN, MAG_CLASSES, len(MAG_SIZES),
+            heads=4, seed=SEED)))
+        model = model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=MAG_LR)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def step(seeds):
+            n_id, bs, adjs = sampler.sample(seeds)
+            x = store["paper"].getitem_masked(n_id)
+            model.train()
+            loss = F.cross_entropy(model(x, adjs, generator=gen)[:bs],
+                                   labels[seeds.long()])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach(), sum(a.mask.sum() for a in adjs)
+        lat, losses, edges, warm_ms = timed_steps(step, batches,
+                                                  f"MAG240MGNN {variant}")
+        launches = dict(kernels.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want["gather_rows"] = MAG_ARM_STEPS
+        check(launches == want, f"MAG240MGNN {variant} launches {launches}")
+        p50, p99 = pcts(lat)
+        seps = edges / (sum(lat) / 1e3)
+        print(f"hetero (e) MAG240MGNN {variant} {MAG_DIM}->{MAG_HIDDEN}"
+              f"{' (4 heads)' if variant == 'gat' else ''}->MLP->"
+              f"{MAG_CLASSES} on paper-cites-paper, GraphSageSampler "
+              f"{MAG_SIZES}, int8 paper store: {MAG_ARM_STEPS} steps, step "
+              f"p50 {p50:.3f} ms p99 {p99:.3f} ms (warm-up {warm_ms:.3f} "
+              f"ms), {edges} sampled edges = {seps:.6g} sampled edges/s, "
+              f"gather_rows launches per step "
+              f"{launches['gather_rows'] / MAG_ARM_STEPS:g}, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; on {card}",
+              flush=True)
+        recs[variant] = {"step_p50_ms": p50, "step_p99_ms": p99,
+                         "edges_per_s": seps, "losses": losses,
+                         "gather_rows_per_step":
+                             launches["gather_rows"] / MAG_ARM_STEPS}
+        del model, opt
+    return recs
+
+
+def hetero_prefetch(sampler, store, order, card):
+    """(f): ``HeteroFeature.prefetch`` of two frontiers at once equals
+    ``lookup`` bit for bit, staged on its own stream of the ids' card
+    without a host synchronisation."""
+    import torch
+    frontiers = [sampler.sample(order[i * BATCH:(i + 1) * BATCH]
+                                .contiguous())[2][0].frontier
+                 for i in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sync_free(lambda: [f.result(timeout=120) for f in
+                             [store.prefetch(x) for x in frontiers]],
+                    "HeteroFeature.prefetch")
+    torch.cuda.synchronize()
+    pf_ms = (time.perf_counter() - t0) * 1e3
+    dev = frontiers[0]["paper"].device
+    check(set(store._streams) == {dev} and
+          store._streams[dev] != torch.cuda.current_stream(dev),
+          "the prefetch did not stage on its own stream of the ids' card")
+    for g, f in zip(got, frontiers):
+        want = store.lookup(f)
+        check(list(g) == list(want) and all(same_bits(g[t], want[t])
+                                            for t in want),
+              "HeteroFeature.prefetch differs from lookup")
+    del got
+    print(f"hetero (f) HeteroFeature.prefetch of 2 frontiers at once: "
+          f"{pf_ms:.3f} ms to both results (host clock), staged on the "
+          f"pipeline's own stream of {dev}, no host synchronisation, equal "
+          f"to lookup bit for bit; on {card}", flush=True)
+    return {"two_frontiers_ms": pf_ms, "bit_equal": True}
+
+
+def phase_hetero(dev, card):
+    """Phase 13: the typed-graph path at MAG240M's widths (module doc).
+    Returns its record and the launches of (a)'s timed steps."""
+    import torch
+    from quiver_tpu_torch import HeteroFeature
+    from quiver_tpu_torch.ops import quant
+    secs = {}
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    with host_rss_peak() as mem:
+        t0 = time.perf_counter()
+        topo = mag_graph(dev)
+        feats, labels = mag_features(dev, gen)
+        torch.cuda.synchronize()
+        secs["graph and features"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = HeteroFeature.from_cpu_tensors(
+            feats, configs={"paper": dict(
+                device_cache_size=(MAG_COUNTS["paper"] // 4)
+                * quant.row_bytes(MAG_DIM, "int8"),
+                csr_topo=topo.rels[MAG_CITES], dtype_policy="int8",
+                host_placement="offload", dedup_cold=True,
+                cold_budget=MAG_COLD_BUDGET)},
+            default=dict(device_cache_size=MAG_COUNTS["author"] * MAG_DIM
+                         * 4, device=dev))
+        del feats
+        torch.cuda.synchronize()
+        secs["stores"] = time.perf_counter() - t0
+    paper = store["paper"]
+    stride = paper._host_offload.data.stride(0)
+    check(paper.cache_rows == MAG_COUNTS["paper"] // 4 and stride == 896
+          and all(store[t].cache_rows == MAG_COUNTS[t]
+                  and store[t]._host_offload is None
+                  and store[t].host_part is None for t in ("author", "inst")),
+          f"store layout: paper hot rows {paper.cache_rows}, packed stride "
+          f"{stride}")
+    growth = mem.peak - mem.before
+    check(growth < 8e9, f"building the stores grew host memory by "
+          f"{growth / 1e9:.2f} GB")
+    pinned = quant.tier_rows(paper._host_offload) * stride
+    edges = ", ".join(f"{et[1]} {t.edge_count} edges"
+                      for et, t in topo.rels.items())
+    print(f"hetero setup: {edges} over {MAG_COUNTS}; features {MAG_DIM} "
+          f"wide made on the card; graph and features "
+          f"{secs['graph and features']:.2f} s, stores "
+          f"{secs['stores']:.2f} s; paper int8, {paper.cache_rows} rows hot "
+          f"by cites degree, {quant.tier_rows(paper._host_offload)} pinned "
+          f"as {stride}-byte packed rows ({pinned / 1e9:.3f} GB); author "
+          f"and inst fp32 on the card; host RSS before {mem.before / 1e9:.3f}"
+          f" GB, peak during the build {mem.peak / 1e9:.3f} GB (+"
+          f"{growth / 1e9:.3f} GB), after {mem.after / 1e9:.3f} GB; on "
+          f"{card}", flush=True)
+    order = torch.randperm(MAG_COUNTS["paper"], generator=gen,
+                           device=dev).to(torch.int32)
+    span = 64 * BATCH
+    h2d, _ = h2d_rate(dev)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+    train, launches, model, opt, layers, seeds, sampler = part(
+        "(a)", hetero_train, dev, topo, store, labels, order, card)
+    rec = {"config": {"counts": MAG_COUNTS, "dim": MAG_DIM,
+                      "hidden": MAG_HIDDEN, "classes": MAG_CLASSES,
+                      "sizes": MAG_SIZES, "batch": BATCH, "lr": MAG_LR,
+                      "dropout": DROPOUT, "inst_cap": MAG_INST_CAP,
+                      "cold_budget": MAG_COLD_BUDGET},
+           "setup": {"seconds": dict(secs), "host_rss_before": mem.before,
+                     "host_rss_peak": mem.peak, "host_rss_after": mem.after,
+                     "pinned_bytes": pinned},
+           "train": train}
+    rec["gather"] = part("gathers", hetero_gathers, store,
+                         layers[0].frontier["paper"], h2d, 10)
+    rec["gather"]["h2d_bytes_per_s"] = h2d
+    rec["plain"] = part("(b)", hetero_plain, store, model, layers, seeds,
+                        labels, card)
+    del layers
+    rec["modes"] = part("(c)", hetero_modes, dev, topo, order[span:], card)
+    rec["weighted"] = part("(d)", hetero_weighted, dev, gen, topo, store,
+                           labels, model, opt, order[2 * span:], card)
+    del model, opt
+    rec["mag240m"] = part("(e)", hetero_mag240m, dev, topo, store, labels,
+                          order[3 * span:], card)
+    rec["prefetch"] = part("(f)", hetero_prefetch, sampler, store,
+                           order[4 * span:], card)
+    store.close()
+    total = time.perf_counter() - t_phase
+    print(f"phase 13: {total:.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = dict(secs, total=total)
+    return rec, launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -4880,7 +5677,9 @@ def main() -> int:
     server, server_launches, server_batches = phase_server(
         dev, NODES, card, tiered_ctx,
         tiered_launches["gather_rows"] // BATCHES, host_tier["batch_p50_ms"])
-    del tiered_ctx
+    del tiered_ctx, topo, batches, indptr, indices, deg
+    torch.cuda.empty_cache()
+    hetero, hetero_launches = phase_hetero(dev, card)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4894,7 +5693,8 @@ def main() -> int:
          "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
          "launches_per_tiered_batch": tiered_launches[name] / BATCHES,
          "launches_per_buffered_step": buffered[name],
-         "launches_per_server_batch": server_launches[name] / server_batches}
+         "launches_per_server_batch": server_launches[name] / server_batches,
+         "launches_per_hetero_step": hetero_launches[name] / MAG_STEPS}
         for name in SOURCES]}
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
     gather_entry["host_tier"] = {
@@ -4969,6 +5769,22 @@ def main() -> int:
             "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         "h2d_bytes_per_s": host_tier["h2d_bytes_per_s"], "layouts": ring}
+    step_gather = hetero["gather"]["int8 step"]
+    gather_entry["hetero"] = {
+        "name": "gather_rows_packed_kernel over the paper store's pinned "
+                "int8 tier at D=768 (896-byte rows), one launch a hetero "
+                "step",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"],
+        "launches": hetero_launches["gather_rows"],
+        "launches_per_hetero_step": hetero_launches["gather_rows"] / MAG_STEPS,
+        **{k: step_gather[k] for k in (
+            "max_abs_err", "ms", "own_ms", "burst_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")},
+        "h2d_bytes_per_s": hetero["gather"]["h2d_bytes_per_s"],
+        "variants": {k: v for k, v in hetero["gather"].items()
+                     if isinstance(v, dict)}}
+    line["hetero"] = hetero
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ card's gathers, or on the host by the native C++ engine (CPU mode,
 the card and the engine. ``pipeline`` stages work on a worker thread
 (``Feature.prefetch``, ``async_sampler.sample_ahead``); ``inference``,
 ``checkpoint`` and ``datasets`` are the evaluation, resume and data
-helpers. ``metrics`` holds the device counters the metered steps,
+helpers. ``HeteroCSRTopo``, ``HeteroGraphSageSampler`` and
+``HeteroFeature`` are the typed-graph path (one topology, sampler draw
+and tiered store per relation or node type), which ``models.RGCN`` and
+``models.MAG240MGNN`` consume. ``metrics`` holds the device counters the metered steps,
 lookups and samplers return (``collect_metrics=True``) and their host
 side (``StepStats``, ``MetricsSink``, ``SloBudget``). ``MicroBatchServer``
 is the request path over a ``ServeEngine`` (admission, coalescing,
@@ -28,6 +31,8 @@ front end (``RpcServer``) and client (``RpcClient``).
 __version__ = "0.1.0"
 
 from .feature import DeviceConfig, Feature
+from .hetero import HeteroCSRTopo, HeteroGraphSageSampler
+from .hetero_feature import HeteroFeature
 from .metrics import Collector, MetricsSink, SloBudget, StepStats
 from .models import GAT, GraphSAGE
 from .ops.quant import quantize
@@ -44,6 +49,7 @@ from . import rpc, serving
 
 __all__ = ["CSRTopo", "Collector", "DeadlineExceeded", "DeviceConfig",
            "Feature", "GAT", "GraphSAGE", "GraphSageSampler",
+           "HeteroCSRTopo", "HeteroFeature", "HeteroGraphSageSampler",
            "MetricsSink", "MicroBatchServer", "MixedGraphSageSampler",
            "OverloadError", "RpcClient", "RpcError", "RpcServer",
            "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",

@@ -236,8 +236,15 @@ class Feature:
         """Build both tiers from a host table (numpy or a tensor). With a
         ``csr_topo`` the rows are stored degree-descending: the topo's
         ``feature_order`` is computed here, or reused when an earlier
-        store set it, and this table is permuted by it either way."""
-        tensor = _cpu_tensor(cpu_tensor)
+        store set it, and this table is permuted by it either way. A
+        table already on the store's card is permuted and quantized
+        there, and only its cold tier comes to host memory (a table of
+        gigabytes then never lies in host memory whole)."""
+        on_card = torch.is_tensor(cpu_tensor) and cpu_tensor.is_cuda \
+            and self.device.type == "cuda" and cpu_tensor.device.index == (
+                torch.cuda.current_device() if self.device.index is None
+                else self.device.index)
+        tensor = cpu_tensor.detach() if on_card else _cpu_tensor(cpu_tensor)
         if self.dtype is not None:
             tensor = tensor.to(quant.torch_dtype(self.dtype))
         budget = parse_size(self.device_cache_size)
@@ -247,7 +254,7 @@ class Feature:
                 self.csr_topo.feature_order = new_order
             order = self.csr_topo.feature_order
             storage = torch.empty_like(tensor)
-            storage.index_copy_(0, order.cpu().long(), tensor)
+            storage.index_copy_(0, order.to(tensor.device).long(), tensor)
             tensor = storage
             self.feature_order = order.to(self.device, torch.int32)
         cache_part, host_part = self.partition(tensor, budget)
@@ -256,7 +263,7 @@ class Feature:
         self.host_part = None
         if host_part.shape[0]:
             self.host_part = quant.tree_map_tier(
-                torch.Tensor.contiguous,
+                lambda t: t.cpu().contiguous(),
                 quant.quantize(host_part, self.dtype_policy["cold"]))
         self._maybe_offload_host()
         return self

@@ -88,7 +88,10 @@ def quantize(x, policy):
     xf = x.to(torch.float32)
     mn = xf.amin(dim=1, keepdim=True)
     mx = xf.amax(dim=1, keepdim=True)
-    scale = (mx - mn) / 255.0
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently from the
+    # true division the CPU (and JAX) does; this divides on every device
+    scale = (mx - mn) / mx.new_tensor(255.0)
     # constant rows (mn == mx) get slope 1 so dequant returns mn exactly
     scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
     code = torch.clamp(torch.round((xf - mn) / scale) - 128, -128, 127)

@@ -67,7 +67,17 @@ The request path: a ``MicroBatchServer`` over a fused engine on the card
 reads each batch back into a host array of its own (no row of one batch
 aliases another's, and every row equals its batch's replay), serves an
 engine on the last visible card from its executor thread (skips on one
-card), and fails a batch whose run raises without a retry."""
+card), and fails a batch whose run raises without a retry.
+
+Heterogeneous graphs: the typed sampler (exact, rotation, weighted) and
+``HeteroFeature.lookup`` on the card make no host synchronisation and
+look up the CPU stores' bits, the paper tier read by one packed
+``gather_rows`` launch; that gather at MAG240M's width 768 (896-byte
+packed rows, and fp32 rows) equals its plain version bit for bit;
+``HeteroFeature.prefetch`` stages on the ids' card (the second card's
+case skips on one card); one R-GCN step on the card is within 1e-4 of
+the CPU's under torch's deterministic algorithms; a store built from a
+table on the card stores the host build's bits."""
 
 import numpy as np
 import pytest
@@ -1202,3 +1212,206 @@ def test_server_failing_run_fails_its_futures_without_retry(graph):
         assert s["failed"] == 10 and s["completed"] == 1
     finally:
         srv.close()
+
+
+# -- heterogeneous graphs -------------------------------------------------------
+
+HETERO = {"paper": 3000, "author": 1000, "inst": 100}
+H_CITES = ("paper", "cites", "paper")
+H_WRITES = ("author", "writes", "paper")
+H_EMPLOYS = ("inst", "employs", "author")
+H_DIM = 768                        # MAG240M's width: 896-byte packed rows
+
+
+@pytest.fixture(scope="module")
+def hetero():
+    """A MAG240M-shaped typed graph at a small node count, 768-wide
+    features, as numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = np.random.default_rng(2)
+
+    def rel(n_dst, n_src, avg):
+        deg = g.integers(1, 2 * avg, n_dst)
+        indptr = np.zeros(n_dst + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        return indptr, g.integers(0, n_src, int(indptr[-1])).astype(np.int32)
+    raw = {H_CITES: rel(3000, 3000, 20), H_WRITES: rel(3000, 1000, 3),
+           H_EMPLOYS: rel(1000, 100, 2)}
+    feats = {t: g.standard_normal((c, H_DIM)).astype(np.float32)
+             for t, c in HETERO.items()}
+    return raw, feats
+
+
+def _hetero_parts(hetero, dev):
+    """The typed topology and the stores on ``dev``: papers int8 with a
+    quarter hot by cites degree and the rest pinned (offload), a cold
+    budget above any frontier (one host read a lookup), the other types
+    whole on the device."""
+    from quiver_tpu_torch import HeteroCSRTopo, HeteroFeature
+    raw, feats = hetero
+    topo = HeteroCSRTopo({et: CSRTopo(indptr=ip, indices=ix, device=dev)
+                          for et, (ip, ix) in raw.items()}, HETERO)
+    store = HeteroFeature.from_cpu_tensors(
+        feats, configs={"paper": dict(
+            device_cache_size=(HETERO["paper"] // 4) * (H_DIM + 8),
+            csr_topo=topo.rels[H_CITES], dtype_policy="int8",
+            host_placement="offload", dedup_cold=True,
+            cold_budget=1 << 20)},
+        default=dict(device_cache_size="1G", device=dev))
+    return topo, store
+
+
+@pytest.mark.parametrize("policy", [None, "int8"])
+def test_store_from_a_card_table_equals_the_host_build(hetero, policy):
+    """``Feature.from_cpu_tensor`` given the table on the card (permuted
+    and quantized there) stores the bits of the build from the host
+    table, both tiers, and looks up the same rows."""
+    raw, feats = hetero
+    topo = CSRTopo(indptr=raw[H_CITES][0], indices=raw[H_CITES][1])
+    stores = [Feature(device_cache_size=(HETERO["paper"] // 4) * H_DIM,
+                      csr_topo=topo, dtype_policy=policy,
+                      host_placement="offload").from_cpu_tensor(t)
+              for t in (feats["paper"],
+                        torch.from_numpy(feats["paper"]).cuda())]
+    a, b = stores
+    assert a.cache_rows == b.cache_rows > 0
+    for x, y in zip(quant.tier_parts(a.device_part),
+                    quant.tier_parts(b.device_part)):
+        if x is not None:
+            assert y.is_cuda and torch.equal(_bits(x), _bits(y))
+    for x, y in zip(quant.tier_parts(a._host_offload),
+                    quant.tier_parts(b._host_offload)):
+        if x is not None:
+            assert y.is_pinned() and torch.equal(_bits(x), _bits(y))
+    ids = torch.randperm(HETERO["paper"], device="cuda")[:1000]
+    assert torch.equal(_bits(a[ids]), _bits(b[ids]))
+
+
+def test_hetero_sample_and_lookup_without_host_sync(hetero):
+    """The typed sampler and the stores' lookup on the card make no host
+    synchronisation, launch the packed row gather, and look up the CPU
+    stores' bits on the same frontier."""
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    topo, store = _hetero_parts(hetero, "cuda")
+    _, cpu_store = _hetero_parts(hetero, "cpu")
+    assert store["paper"]._host_offload.data.stride(0) == 896
+    seeds = torch.randperm(3000, generator=torch.Generator()
+                           .manual_seed(0))[:256].cuda()
+    for kw in (dict(), dict(sampling="rotation", layout="overlap"),
+               dict(edge_weight={H_CITES: np.ones(
+                   hetero[0][H_CITES][1].shape[0], np.float32)},
+                   with_eid=True)):
+        s = HeteroGraphSageSampler(topo, [5, 3], seed_type="paper",
+                                   frontier_cap={"inst": 100}, **kw)
+        s.sample(seeds)                    # set-up: rows views, meta
+        fused.reset_launches()
+        _, _, layers = _sync_free(lambda: s.sample(seeds))
+        x = _sync_free(lambda: store.lookup(layers[0].frontier))
+        assert fused.LAUNCHES["gather_rows"] == 1
+        want = cpu_store.lookup({t: None if f is None else f.cpu()
+                                 for t, f in layers[0].frontier.items()})
+        assert list(x) == list(want) == ["author", "inst", "paper"]
+        for t in want:
+            assert torch.equal(_bits(x[t].cpu()), _bits(want[t]))
+    store.close()
+
+
+@pytest.mark.parametrize("kind", ["packed", "fp32"])
+def test_hetero_width_768_gather_equals_plain(hetero, kind):
+    """The row gather at MAG240M's width over a pinned host tier (packed
+    int8 rows of 896 bytes, or fp32 rows of 3,072), with and without
+    ``out=`` and -1 ids, equal to its plain version bit for bit."""
+    feat = torch.from_numpy(hetero[1]["paper"])
+    tab = pinned_put(quant.quantize(feat, "int8") if kind == "packed"
+                     else feat, torch.device("cuda"), "the test table")
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 3000, (20_000,), generator=g,
+                        dtype=torch.int32).cuda()
+    holes = torch.where(torch.arange(20_000, device="cuda") % 7 == 0, -1,
+                        ids)
+    fused.reset_launches()
+    got = gather.gather_rows(tab, ids)
+    assert torch.equal(_bits(got), _bits(gather.gather_rows_plain(tab, ids)))
+    out = torch.full((20_000, H_DIM), 3.0, device="cuda")
+    got = gather.gather_rows(tab, holes, out=out.clone())
+    want = gather.gather_rows_plain(tab, holes, out=out.clone())
+    assert torch.equal(_bits(got), _bits(want))
+    assert fused.LAUNCHES["gather_rows"] == 2
+
+
+def test_hetero_prefetch_on_the_ids_stream(hetero):
+    """``HeteroFeature.prefetch`` records its event on the ids' card's
+    current stream, looks up on that card's staging stream without a
+    host synchronisation, and returns ``lookup``'s bits."""
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    topo, store = _hetero_parts(hetero, "cuda")
+    s = HeteroGraphSageSampler(topo, [5, 3], seed_type="paper")
+    frontiers = [s.sample(torch.arange(i * 64, (i + 1) * 64).cuda())[2][0]
+                 .frontier for i in range(3)]
+    want = [store.lookup(f) for f in frontiers]
+    got = _sync_free(lambda: [fut.result(timeout=60) for fut in
+                              [store.prefetch(f) for f in frontiers]])
+    dev = frontiers[0]["paper"].device
+    assert set(store._streams) == {dev}
+    assert store._streams[dev] != torch.cuda.current_stream(dev)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for t in w:
+            assert torch.equal(_bits(g[t]), _bits(w[t]))
+    store.close()
+
+
+def test_hetero_prefetch_events_on_the_second_card(hetero):
+    """With two cards, a store on the second card stages on that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    dev = torch.device("cuda", 1)
+    topo, store = _hetero_parts(hetero, dev)
+    s = HeteroGraphSageSampler(topo, [5, 3], seed_type="paper", device=dev)
+    frontier = s.sample(torch.arange(64))[2][0].frontier
+    got = store.prefetch(frontier).result(timeout=60)
+    assert set(store._streams) == {frontier["paper"].device}
+    for t, w in store.lookup(frontier).items():
+        assert torch.equal(_bits(got[t]), _bits(w))
+    store.close()
+
+
+def test_rgcn_step_on_card_equals_cpu(hetero):
+    """One R-GCN training step (cross-entropy over the seeds, Adam) on
+    the card from a sampled block: the loss within 1e-4 and every
+    gradient within 1e-4 of its largest entry of the same step on the
+    CPU, both under torch's deterministic algorithms."""
+    from quiver_tpu_torch import HeteroGraphSageSampler
+    from quiver_tpu_torch.models import RGCN
+    topo, store = _hetero_parts(hetero, "cuda")
+    s = HeteroGraphSageSampler(topo, [5, 3], seed_type="paper")
+    _, bs, layers = s.sample(torch.arange(128).cuda())
+    x = store.lookup(layers[0].frontier)
+    torch.manual_seed(0)
+    model = RGCN({t: H_DIM for t in HETERO}, 64, 11, 2, "paper",
+                 [list(lay.adjs) for lay in layers], dropout=0.0).cuda()
+    cpu = copy.deepcopy(model).cpu()
+    cpu_layers = [type(lay)(adjs={et: a.to("cpu")
+                                  for et, a in lay.adjs.items()},
+                            frontier={}, counts={}) for lay in layers]
+    y = torch.arange(bs, device="cuda") % 11
+    res = []
+    for m, ls, dev in ((model, layers, "cuda"), (cpu, cpu_layers, "cpu")):
+        def step():
+            opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+            loss = torch.nn.functional.cross_entropy(
+                m({t: v.to(dev) for t, v in x.items()}, ls)[:bs], y.to(dev))
+            opt.zero_grad()
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+            opt.step()
+            return loss.item(), grads
+        res.append(_deterministic(step))
+    (lg, gg), (lc, gc) = res
+    assert abs(lg - lc) <= 1e-4
+    for n, g in gg.items():
+        assert float((g - gc[n]).abs().max()) <= \
+            1e-4 * max(float(gc[n].abs().max()), 1e-30), n
+    store.close()
