@@ -312,7 +312,31 @@ Phases:
    ``gather_rows`` a step; (f) ``HeteroFeature.prefetch`` of two
    frontiers equal to ``lookup`` bit for bit, staged on its own stream
    without a host synchronisation. Results on ``hetero`` lines;
-14. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+14. the partitioned store across ranks (``DistFeature``, the
+   ``all_to_all`` exchange of ``comm.py``) on the graph of phase 1 with
+   phase 5's data as an int8 table: (a) world size 1 over NCCL in this
+   process: ``ShardedServeEngine(fused_hot_hop=True)`` over
+   ``DistFeature.from_partition`` serving 16 batches (p50/p99, device
+   time and idle share, 3 ``fused_sample_hop`` and 2 ``gather_rows``
+   launches a batch and no other, host synchronisations counted by
+   ``set_sync_debug_mode("warn")``, the dense lookup under "error"),
+   its logits equal to the single-store fused ``ServeEngine``'s bit for
+   bit on every batch and its frontier rows to the fused walk's; the
+   exchange's two ``gather_rows`` launches (the owner's read of raw
+   packed rows, the unbucket with the int8 decode) against their plain
+   versions, with own times, bounds and ``index_select``; three metered
+   arms (dense, ``exchange_cap=True``, the cap planned by
+   ``plan_exchange_cap`` from the dup factor the second arm measures):
+   p50/p99 and the ``EXCH_*`` and dedup counters; then 32 steps each of
+   ``build_dist_train_step`` and ``build_e2e_train_step(fused_hot_hop=
+   True)`` (step p50/p99, edges/s, the loss falling, launches per step);
+   (b) 4 ranks over gloo sharing the card (``RankPool``, below),
+   the rows partitioned by ``partition_feature_without_replication``
+   over ``sample_prob`` of four train sets: every rank's logits on 2
+   batches of a dense and a planned-cap arm equal to (a)'s single-store
+   logits bit for bit, and one dist step's loss equal to the
+   data-parallel step's on every rank. Results on ``sharded`` lines;
+15. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -325,11 +349,14 @@ Phases:
    ``mixed_host_launches``, and the disk tier's ring gather under
    ``disk_ring``, and ``launches_per_server_batch`` from phase 12 (a),
    and ``launches_per_hetero_step`` from phase 13 (a) with the D=768
-   gather under ``hetero``;
+   gather under ``hetero``, and ``launches_per_sharded_batch``,
+   ``launches_per_dist_step`` and ``launches_per_e2e_step`` from phase
+   14 (a) with the exchange's gathers under ``exchange``;
    the arms' records under ``sampler``, phase 8's under ``weighted``,
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
-   phase 12's under ``server``, phase 13's under ``hetero``), then the
+   phase 12's under ``server``, phase 13's under ``hetero``, phase 14's
+   under ``sharded``), then the
    last line ``{"ok": true,
    "device": {...}}``.
 
@@ -344,9 +371,15 @@ import asyncio
 import copy
 import json
 import math
+import os
+import queue
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+from typing import NamedTuple
 
 SEED = 0
 NODES = 2_450_000
@@ -2515,7 +2548,6 @@ def metered_training(dev, gen, nodes, indptr, indices, card):
     one state on the same batches and seeds: losses and parameters
     bit-equal, the frontier fill of each step, ``StepStats`` and a
     ``MetricsSink`` JSONL read back."""
-    import os
     import torch
     from quiver_tpu_torch import GraphSAGE, metrics
     from quiver_tpu_torch.models.convert import (flax_to_state_dict,
@@ -3366,7 +3398,6 @@ def host_checkpoint(dev, indptr, indices, card, ctx):
     """(e) ``save_state``/``restore_state`` of (a)'s buffered state under
     ``build/``; one more step from the original and from the restored
     state agree bit for bit."""
-    import os
     import torch
     from quiver_tpu_torch import GraphSAGE, checkpoint
 
@@ -3514,7 +3545,6 @@ DISK_ARMS = [("off", None, False),
 def fs_type(path) -> str:
     """The file system type of ``path`` and its mount point, from
     ``/proc/mounts`` (the longest mount point that holds it)."""
-    import os
     path = os.path.realpath(path)
     best, kind = "", "unknown"
     try:
@@ -3744,9 +3774,6 @@ def disk_training(dev, gen, nodes, deg, indptr, indices, card, topo, h2d,
                   refs):
     """(a) The products-scale disk tier and phase 10 (a)'s split training
     loop in four arms (see phase_disk). Returns its record."""
-    import os
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -4072,8 +4099,6 @@ def disk_synthetic(dev, card):
     """(b) The JAX package's synthetic cold dataset at its defaults,
     generated and loaded by the port, 16 batches through sample_ahead
     over a GraphSageSampler, held to the same store without prefetch."""
-    import shutil
-    import tempfile
 
     import torch
     from quiver_tpu_torch import GraphSageSampler
@@ -5535,6 +5560,727 @@ def phase_hetero(dev, card):
     return rec, launches
 
 
+# -- rank processes: phase 14 (b) and the multi-rank tests ------------------
+#
+# ``RankPool(world_size)`` spawns ``world_size`` processes that join one
+# ``torch.distributed`` group through a ``file://`` rendezvous in a fresh
+# temporary directory (no TCP port to collide with another pool on the
+# machine) and then run the calls they are sent: ``pool.run(fn, *args)``
+# calls ``fn(ctx, *args)`` on every rank at once and returns the ranks'
+# results in rank order. Phase 14 (b) and the port's multi-rank CPU tests
+# (``tests/test_torch_comm.py`` and the others, one pool a module) drive
+# their ranks through it: one spawn and many calls, since each spawn
+# imports torch anew.
+#
+# Every wait is bounded. The group's ``timeout`` bounds each collective, so
+# a rank whose peers died or took another branch raises instead of
+# hanging; ``run`` waits at most ``call_timeout`` for the results, and
+# after a failure or a timeout the pool is closed (its processes ended) and
+# refuses further calls.
+#
+# ``fn`` must be importable by name (a module-level function); its
+# arguments and results cross processes by pickle (``torch.multiprocessing``:
+# CUDA tensors go as IPC handles, which the sender must keep alive while
+# the ranks use them). CPU tensors in a result come back as numpy arrays,
+# bf16 ones as tensors.
+
+
+class RankContext(NamedTuple):
+    """What a call runs with on its rank: the rank, the world size, and
+    the groups by size (``groups[world_size]`` the whole group; a
+    subgroup of the first ``h`` ranks at ``groups[h]``, None on the
+    ranks outside it)."""
+
+    rank: int
+    world_size: int
+    groups: dict
+
+
+def _rank_host(obj):
+    """``obj`` with CPU tensors as numpy arrays (bf16 ones, which numpy
+    lacks, stay tensors), through lists, tuples and dicts."""
+    import torch
+    if torch.is_tensor(obj) and obj.device.type == "cpu" \
+            and obj.dtype != torch.bfloat16:
+        return obj.detach().numpy().copy()
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_rank_host(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _rank_host(v) for k, v in obj.items()}
+    return obj
+
+
+def _rank_main(rank, world_size, backend, init_method, timeout, subgroups,
+               tasks, results):
+    """A rank's loop: join the group, make the subgroups, run calls
+    until told to stop (None)."""
+    import torch
+    import torch.distributed as tdist
+    try:
+        from quiver_tpu_torch import init_distributed
+        if backend == "nccl":
+            torch.cuda.set_device(0 if torch.cuda.device_count() == 1
+                                  else rank)
+        init_distributed(backend, init_method, world_size, rank, timeout)
+        groups = {world_size: tdist.group.WORLD}
+        for h in subgroups:
+            grp = tdist.new_group(list(range(h)))
+            groups[h] = grp if rank < h else None
+        ctx = RankContext(rank, world_size, groups)
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+        return
+    results.put((rank, True, "ready"))
+    while True:
+        task = tasks.get()
+        if task is None:
+            break
+        fn, args = task
+        try:
+            results.put((rank, True, _rank_host(fn(ctx, *args))))
+        except Exception:
+            results.put((rank, False, traceback.format_exc()))
+    tdist.destroy_process_group()
+
+
+class RankPool:
+    """``world_size`` spawned ranks of one process group (``backend``
+    ``"gloo"`` or ``"nccl"``), each group collective bounded by
+    ``timeout`` seconds; ``subgroups`` lists sizes ``h`` of subgroups
+    of the first ``h`` ranks to make as well. Use as a context manager,
+    or call :meth:`close`."""
+
+    def __init__(self, world_size: int, backend: str = "gloo",
+                 timeout: float = 60.0, subgroups=(),
+                 call_timeout: float = 300.0):
+        import torch.multiprocessing as mp
+        self.world_size = int(world_size)
+        self.call_timeout = float(call_timeout)
+        self._dir = tempfile.mkdtemp(prefix="qt_ranks_")
+        ctx = mp.get_context("spawn")
+        self._tasks = [ctx.Queue() for _ in range(self.world_size)]
+        self._results = ctx.Queue()
+        init_method = "file://" + os.path.join(self._dir, "rendezvous")
+        self._procs = [
+            ctx.Process(target=_rank_main,
+                        args=(r, self.world_size, backend, init_method,
+                              float(timeout), tuple(subgroups),
+                              self._tasks[r], self._results),
+                        daemon=True)
+            for r in range(self.world_size)]
+        self._closed = False
+        for p in self._procs:
+            p.start()
+        self._collect("start")
+
+    def _collect(self, what: str) -> list:
+        out = [None] * self.world_size
+        errors = []
+        try:
+            for _ in range(self.world_size):
+                rank, ok, val = self._results.get(timeout=self.call_timeout)
+                if ok:
+                    out[rank] = val
+                else:
+                    errors.append(f"rank {rank}:\n{val}")
+        except queue.Empty:
+            errors.append(f"no result within {self.call_timeout:g} s")
+        if errors:
+            self.close()
+            raise RuntimeError(f"RankPool {what} failed; the pool is "
+                               "closed:\n" + "\n".join(errors))
+        return out
+
+    def run(self, fn, *args) -> list:
+        """``fn(ctx, *args)`` on every rank; the results in rank order."""
+        if self._closed:
+            raise RuntimeError("the RankPool is closed")
+        for q in self._tasks:
+            q.put((fn, args))
+        return self._collect(getattr(fn, "__name__", "call"))
+
+    def close(self):
+        """Stop the ranks (ending any that do not stop within the group
+        timeout) and remove the rendezvous directory."""
+        if self._closed:
+            return
+        self._closed = True
+        for q in self._tasks:
+            q.put(None)
+        for p in self._procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+SHARD_BATCHES = 16             # (a): timed sharded batches of each arm
+SHARD_STEPS = 32               # (a): timed steps of each train step
+SHARD_RANKS = 4                # (b): gloo ranks sharing the card
+SHARD_CHECK_BATCHES = 2        # (b): batches of each arm held to (a)
+SHARD_TIMEOUT = 300.0          # (b): the group's collective timeout, s
+SHARD_TRAIN_FRAC = 5           # (b): a fifth of the nodes train
+
+
+def gather_calls(fn):
+    """``fn()`` with every ``gather_rows`` call of the exchange
+    (``comm.gather_rows``) recorded: ``(result, [(table, ids, out),
+    ...])``, ``out`` a copy of the destination as it was passed."""
+    from quiver_tpu_torch import comm
+    calls, real = [], comm.gather_rows
+
+    def spy(table, ids, out=None):
+        calls.append((table, ids.clone(),
+                      None if out is None else out.clone()))
+        return real(table, ids, out=out)
+    comm.gather_rows = spy
+    try:
+        return fn(), calls
+    finally:
+        comm.gather_rows = real
+
+
+def exchange_gather_timing(calls, card, iters):
+    """Each recorded exchange gather against its plain version (bit for
+    bit), with its own time, the wrapper's, the plain version's,
+    ``index_select``'s where it computes the same function (the owner's
+    read of raw rows), and the bound: ids read once, each live row read
+    once (its data bytes, not a packed row's padding) and written once,
+    at 3.35 TB/s."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    out = {}
+    for name, (table, ids, dest) in zip(("owner read", "unbucket+decode"),
+                                        calls):
+        if dest is None:
+            run = lambda: gather.gather_rows(table, ids)    # noqa: E731
+            plain = lambda: gather.gather_rows_plain(table, ids)  # noqa
+            got, want = run(), plain()
+            live = ids.shape[0]
+        else:
+            got = gather.gather_rows(table, ids, out=dest.clone())
+            want = gather.gather_rows_plain(table, ids, out=dest.clone())
+            buf = dest.clone()        # the timed calls rewrite one block
+            run = lambda: gather.gather_rows(table, ids,     # noqa: E731
+                                             out=buf)
+            plain = lambda: gather.gather_rows_plain(      # noqa: E731
+                table, ids, out=buf)
+            live = int((ids >= 0).sum())
+        check(same_bits(got, want), f"exchange {name}: kernel differs from "
+              "its plain version")
+        kernel = ("gather_rows_packed_kernel" if quant.is_quantized(table)
+                  else "gather_rows_kernel")
+        # the out= form skips -1 ids: it reads and writes live rows only
+        row_in = quant.row_read_bytes(table)
+        row_out = got.shape[1] * got.element_size()
+        nbytes = 4 * ids.shape[0] + (row_in + row_out) * live
+        lib = None
+        if dest is None:
+            idx = ids.long()
+            lib = cuda_ms(lambda: table.index_select(0, idx), iters)
+        rec = {"ids": int(ids.shape[0]), "live_rows": live,
+               "row_bytes_in": int(row_in),
+               "row_bytes_out": int(row_out),
+               "max_abs_err": 0.0, "ms": cuda_ms(run, iters),
+               "own_ms": own_ms(run, kernel, iters),
+               "burst_ms": burst_ms(run, iters),
+               "plain_ms": cuda_ms(plain, iters),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": lib, "kernel": kernel}
+        out[name] = rec
+        print(f"sharded gather_rows {name}: {rec['ids']} ids "
+              f"({live} live), {kernel}, own {fmt_ms(rec['own_ms'])}, "
+              f"back to back {rec['burst_ms']:.4f} ms a call, wrapper "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"index_select {fmt_ms(lib)}, bound {rec['bound_ms']:.4f} ms "
+              f"({nbytes} bytes at 3.35 TB/s); equal to its plain version; "
+              f"on {card}", flush=True)
+    return out
+
+
+def count_syncs(fn) -> int:
+    """The host synchronisations ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in seen)
+
+
+def sage(dev, dropout=0.0):
+    """Phase 3's GraphSAGE (100 -> 256 -> 256 -> 47) with its random
+    weights from the seed, and those weights as a state dict."""
+    from quiver_tpu_torch import GraphSAGE
+    from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 random_flax_params)
+    params = flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, CLASSES, len(SIZES), seed=SEED))
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES), dropout=dropout)
+    model.load_state_dict(params)
+    return model.to(dev), params
+
+
+def sharded_arm(eng, requests, hop_seeds):
+    """One arm's timed batches (metered): host-clock latencies, the
+    counters of each batch and the host synchronisations of one."""
+    import torch
+    lat, counters = [], []
+    for ids, hs in zip(requests, hop_seeds):
+        t0 = time.perf_counter()
+        eng.run(ids, hop_seeds=hs)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        counters.append(eng.last_counters.cpu())
+    syncs = count_syncs(lambda: eng.run(requests[0], hop_seeds=hop_seeds[0]))
+    return lat, torch.stack(counters), syncs
+
+
+def sharded_world1(dev, card, g, group):
+    """(a): the sharded serve path and both train steps at world size 1
+    over NCCL, in this process."""
+    import torch
+    from quiver_tpu_torch import (DistFeature, PartitionInfo, ServeEngine,
+                                  ShardedServeEngine, TorchComm, metrics)
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.parallel.train import draw_int32
+    from quiver_tpu_torch.pyg.sage_sampler import layer_shapes
+
+    t0 = time.perf_counter()
+    info = PartitionInfo(hosts=1, global2host=torch.zeros(NODES,
+                                                          dtype=torch.int32))
+    dist = DistFeature.from_partition(g["feat"], info,
+                                      TorchComm(0, 1, group=group),
+                                      dtype_policy="int8", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    topo = (g["indptr"], g["indices"])
+    model, params = sage(dev)
+    eng = ShardedServeEngine(model, None, topo, dist, [SIZES], BATCH,
+                             fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                             seed=SEED).warmup()
+    single = ServeEngine(sage(dev)[0], None, topo, g["featq"], [SIZES],
+                         BATCH, fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                         seed=SEED, device=dev).warmup()
+    host = torch.Generator().manual_seed(SEED + 14)
+    requests = [torch.randperm(NODES, generator=g["gen"], device=dev)[:BATCH]
+                for _ in range(SHARD_BATCHES)]
+    hop_seeds = [draw_int32(host, len(SIZES)) for _ in requests]
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    lat, outs = [], []
+    for ids, hs in zip(requests, hop_seeds):
+        t0 = time.perf_counter()
+        outs.append(eng.run(ids, hop_seeds=hs))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    check(launches == {"fused_sample_hop": len(SIZES) * SHARD_BATCHES,
+                       "fused_hot_hop": 0, "sample_layer": 0,
+                       "gather_rows": 2 * SHARD_BATCHES, "gather_elems": 0},
+          f"sharded serve launches {launches}")
+    for o in outs:
+        check(tuple(o.shape) == (BATCH, CLASSES)
+              and bool(torch.isfinite(o).all()), "sharded logits")
+    p50, p99 = pcts(lat)
+    stats = {}
+    busy = device_profile(lambda: [eng.run(r) for r in requests[:4]], 4,
+                          "sharded batch", stats=stats)
+    syncs = count_syncs(lambda: eng.run(requests[0],
+                                        hop_seeds=hop_seeds[0]))
+    n_id, _ = fused.fused_sample_multihop(
+        g["indptr"], g["indices"], eng.pad_seeds(requests[0]), SIZES,
+        hop_seeds[0], ROW_CAP)
+    sync_free(lambda: dist[n_id], "the dense exchange")
+    print(f"sharded (a): world size 1 over NCCL, int8 store packed "
+          f"{dist.shard.data.stride(0)}-byte rows, {NODES} rows, built in "
+          f"{build_s:.2f} s; {SHARD_BATCHES} batches of {BATCH}, fanout "
+          f"{SIZES}, batch p50 {p50:.3f} ms p99 {p99:.3f} ms (host clock "
+          f"+ synchronize), device {fmt_ms(busy)} per batch, idle share "
+          f"{stats.get('idle_share', float('nan')):.3f}; launches per batch "
+          f"fused_sample_hop {launches['fused_sample_hop'] / SHARD_BATCHES:g}"
+          f", gather_rows {launches['gather_rows'] / SHARD_BATCHES:g}; host "
+          f"synchronisations per batch {syncs} (the dense lookup alone: "
+          f"none); on {card}", flush=True)
+
+    # the single-store fused engine over the same rows and hop seeds
+    want = []
+    with deterministic():
+        for ids, hs in zip(requests, hop_seeds):
+            a, b = eng.run(ids, hop_seeds=hs), single.run(ids, hop_seeds=hs)
+            check(same_bits(a, b), "sharded logits differ from the "
+                  "single-store fused engine's")
+            want.append(b)
+    x, calls = gather_calls(lambda: dist[n_id])
+    _, _, x1 = fused.fused_multihop(g["indptr"], g["indices"],
+                                    eng.pad_seeds(requests[0]), g["featq"],
+                                    SIZES, hop_seeds[0], ROW_CAP)
+    valid = n_id >= 0
+    check(same_bits(x[valid], x1[valid]) and not x[~valid].view(
+        torch.int32).any(), "sharded frontier rows differ from the fused "
+        "walk's")
+    print(f"sharded (a) check: {SHARD_BATCHES} batches' logits equal to the "
+          "single-store fused ServeEngine's bit for bit (deterministic "
+          f"algorithms on); batch 0's {int(valid.sum())} frontier rows equal "
+          "to the fused walk's, padding +0.0", flush=True)
+    gathers = exchange_gather_timing(calls, card, iters=20)
+
+    # the exchange's arms, metered: dense, the default cap, the cap
+    # planned from the dup factor the default arm measures
+    frontier = layer_shapes(BATCH, SIZES)[-1].n_id_cap
+    arms = {}
+    for name in ("dense", "default cap", "planned cap"):
+        if name == "planned cap":
+            c = arms["default cap"]["counters_sum"]
+            dup = frontier * SHARD_BATCHES / max(c[metrics.DEDUP_UNIQUE], 1)
+            dist.exchange_cap = info.plan_exchange_cap(
+                frontier, degree=g["deg"], dup_factor=dup).cap
+        else:
+            dist.exchange_cap = None if name == "dense" else True
+        arm_eng = ShardedServeEngine(sage(dev)[0], None, topo, dist,
+                                     [SIZES], BATCH, collect_metrics=True,
+                                     fused_hot_hop=True,
+                                     fused_row_cap=ROW_CAP, seed=SEED)
+        arm_eng.warmup()
+        lat_a, counters, arm_syncs = sharded_arm(arm_eng, requests,
+                                                 hop_seeds)
+        c = counters.long().sum(0).tolist()
+        d = metrics.derive(counters.long().sum(0))
+        a50, a99 = pcts(lat_a)
+        arms[name] = {
+            "exchange_cap": dist.exchange_cap, "p50_ms": a50, "p99_ms": a99,
+            "fallbacks": c[metrics.EXCH_FALLBACK],
+            "bucket_max": int(counters[:, metrics.EXCH_BUCKET_MAX].max()),
+            "frontier_valid": c[metrics.FRONTIER_VALID],
+            "dedup_total": c[metrics.DEDUP_TOTAL],
+            "dedup_unique": c[metrics.DEDUP_UNIQUE],
+            "host_syncs_per_batch": arm_syncs, "counters_sum": c,
+            "derived": {k: v for k, v in d.items() if v is not None}}
+        print(f"sharded (a) {name}: exchange_cap {dist.exchange_cap}, "
+              f"p50 {a50:.3f} ms p99 {a99:.3f} ms, EXCH_CALLS "
+              f"{c[metrics.EXCH_CALLS]}, EXCH_FALLBACK "
+              f"{c[metrics.EXCH_FALLBACK]} of {SHARD_BATCHES}, "
+              f"EXCH_BUCKET_MAX {arms[name]['bucket_max']}, EXCH_CAP "
+              f"{int(counters[:, metrics.EXCH_CAP].max())}, frontier valid "
+              f"{c[metrics.FRONTIER_VALID]} of {c[metrics.FRONTIER_CAP]}, "
+              f"dedup {c[metrics.DEDUP_TOTAL]} ids -> "
+              f"{c[metrics.DEDUP_UNIQUE]} unique, host synchronisations per "
+              f"batch {arm_syncs}; on {card}", flush=True)
+    dist.exchange_cap = None
+    rec = {"world_size": 1, "backend": "nccl", "build_s": build_s,
+           "batch_p50_ms": p50, "batch_p99_ms": p99, "device_ms": busy,
+           "idle_share": stats.get("idle_share"),
+           "launches_per_batch": {k: v / SHARD_BATCHES
+                                  for k, v in launches.items() if v},
+           "host_syncs_per_batch": syncs, "gathers": gathers,
+           "arms": arms, "frontier_cap": frontier}
+    return rec, launches, dist, requests, hop_seeds, want
+
+
+def shard_train_steps(dev, card, g, group, dist):
+    """(a): ``build_dist_train_step`` over the int8 shard and
+    ``build_e2e_train_step(fused_hot_hop=True)`` over the int8 table,
+    one warm-up and SHARD_STEPS timed steps each."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import (build_dist_train_step,
+                                           build_e2e_train_step, init_state,
+                                           rank_step_seeds, train)
+    order = torch.randperm(NODES, generator=g["gen"], device=dev) \
+        .to(torch.int32)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(SHARD_STEPS + 1)]
+    ys = [g["labels"][b.long()] for b in batches]
+    seeds = [rank_step_seeds(SEED + i, 0, len(SIZES))
+             for i in range(len(batches))]
+    out, launches = {}, {}
+    for name in ("dist", "e2e fused"):
+        model = sage(dev, DROPOUT)[0]
+        opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        if name == "dist":
+            step = build_dist_train_step(model, opt, SIZES, BATCH, group,
+                                         dist._rows_per_host)
+            args = (dist.shard, dist._g2h, dist._g2l)
+        else:
+            step = build_e2e_train_step(model, opt, SIZES, BATCH, group,
+                                        fused_hot_hop=True,
+                                        fused_row_cap=ROW_CAP)
+            args = (g["featq"], None)
+        state = init_state(model, opt)
+        state, _ = step(state, *args, g["indptr"], g["indices"], batches[0],
+                        ys[0], *seeds[0])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        lat, losses = [], []
+        for i in range(1, len(batches)):
+            t0 = time.perf_counter()
+            state, loss = step(state, *args, g["indptr"], g["indices"],
+                               batches[i], ys[i], *seeds[i])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        launches[name] = dict(kernels.LAUNCHES)
+        losses = torch.stack(losses).tolist()
+        first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+        check(all(math.isfinite(v) for v in losses) and last < 0.7 * first,
+              f"{name} step: loss did not fall ({first} -> {last})")
+        want = ({"gather_rows": 2 * SHARD_STEPS} if name == "dist" else
+                {"fused_sample_hop": (len(SIZES) - 1) * SHARD_STEPS,
+                 "fused_hot_hop": SHARD_STEPS})
+        check(nonzero(launches[name]) == want,
+              f"{name} step launches {launches[name]}")
+        edges = 0
+        for i in range(1, len(batches)):
+            if name == "dist":
+                _, layers = train._split_sample(
+                    g["indptr"], g["indices"], batches[i], SIZES,
+                    torch.Generator(device=dev).manual_seed(seeds[i][0][0]))
+            else:
+                _, layers = train._fused_multihop_x(
+                    g["featq"], None, g["indptr"], g["indices"], batches[i],
+                    SIZES, seeds[i][0], ROW_CAP)
+            edges += sum(int(lay.edge_count) for lay in layers)
+        p50, p99 = pcts(lat)
+        out[name] = {"step_p50_ms": p50, "step_p99_ms": p99,
+                     "edges_per_s": edges / (sum(lat) / 1e3),
+                     "first8_loss": first, "last8_loss": last,
+                     "launches_per_step": {k: v / SHARD_STEPS for k, v in
+                                           nonzero(launches[name]).items()}}
+        print(f"sharded (a) train {name}: {SHARD_STEPS} steps of {BATCH} "
+              f"seeds, world size 1, step p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+              f"{edges} sampled edges = {out[name]['edges_per_s']:.6g} "
+              f"edges/s, loss mean of the first 8 {first:.4f}, of the last "
+              f"8 {last:.4f}; launches per step "
+              f"{out[name]['launches_per_step']}; on {card}", flush=True)
+    return out, launches
+
+
+def _shard_serve_rank(ctx, dev, batch, indptr, indices, feat, g2h, params,
+                      requests, hop_seeds, caps):
+    """(b), on each rank: the sharded engine over this rank's partition
+    under every cap, on the check batches (deterministic algorithms on,
+    so the logits can be held to the single-store engine's)."""
+    import torch
+    from quiver_tpu_torch import (DistFeature, PartitionInfo,
+                                  ShardedServeEngine, TorchComm, metrics)
+    group = ctx.groups[ctx.world_size]
+    info = PartitionInfo(host=ctx.rank, hosts=ctx.world_size,
+                         global2host=g2h)
+    t0 = time.perf_counter()
+    dist = DistFeature.from_partition(
+        feat, info, TorchComm(ctx.rank, ctx.world_size, group=group),
+        dtype_policy="int8", device=dev)
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s, "rows_per_host": dist._rows_per_host}
+    for name, cap in caps.items():
+        dist.exchange_cap = cap
+        model = sage(dev)[0]
+        eng = ShardedServeEngine(model, params, (indptr, indices), dist,
+                                 [SIZES], batch, collect_metrics=True,
+                                 fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                                 seed=SEED)
+        logits, lat, fallbacks = [], [], 0
+        with deterministic():
+            for ids, hs in zip(requests, hop_seeds):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits.append(eng.run(ids, hop_seeds=hs).cpu())
+                lat.append((time.perf_counter() - t0) * 1e3)
+                fallbacks += int(eng.last_counters[metrics.EXCH_FALLBACK])
+        out[name] = {"logits": logits, "ms": lat, "fallbacks": fallbacks}
+    return out
+
+
+def _shard_train_rank(ctx, dev, batch, indptr, indices, feat, featq, labels,
+                      g2h, params, seeds_all, step_seed):
+    """(b), on each rank: one dist step over the rank's partition and one
+    data-parallel step over the whole table from the same parameters,
+    seeds and streams (deterministic algorithms on): the losses."""
+    import torch
+    from quiver_tpu_torch import DistFeature, PartitionInfo, TorchComm
+    from quiver_tpu_torch.parallel import (build_dist_train_step,
+                                           build_e2e_train_step, init_state,
+                                           rank_step_seeds)
+    group = ctx.groups[ctx.world_size]
+    info = PartitionInfo(host=ctx.rank, hosts=ctx.world_size,
+                         global2host=g2h)
+    dist = DistFeature.from_partition(
+        feat, info, TorchComm(ctx.rank, ctx.world_size, group=group),
+        dtype_policy="int8", device=dev)
+    mine = seeds_all[ctx.rank * batch:(ctx.rank + 1) * batch]
+    ys = labels[mine.long()]
+    hs, drop = rank_step_seeds(step_seed, ctx.rank, len(SIZES))
+    out = {}
+    with deterministic():
+        for name in ("dist", "e2e"):
+            model = sage(dev, DROPOUT)[0]
+            model.load_state_dict(params)
+            opt = torch.optim.Adam(model.parameters(), lr=LR)
+            if name == "dist":
+                step = build_dist_train_step(model, opt, SIZES, batch, group,
+                                             dist._rows_per_host)
+                args = (dist.shard, dist._g2h, dist._g2l)
+            else:
+                step = build_e2e_train_step(model, opt, SIZES, batch, group)
+                args = (featq, None)
+            t0 = time.perf_counter()
+            _, loss = step(init_state(model, opt), *args, indptr, indices,
+                           mine, ys, hs, drop)
+            out[name] = float(loss)
+            out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def sharded_ranks(dev, card, g, params, requests, hop_seeds, want, dup):
+    """(b): SHARD_RANKS gloo ranks on this card, the rows partitioned by
+    the probability partitioner over ``sample_prob``: every rank's
+    sharded logits equal to (a)'s single-store ones bit for bit (dense
+    and planned-cap arms), and the dist step's loss equal to the
+    data-parallel step's."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import (PartitionInfo,
+                                  partition_feature_without_replication)
+    from quiver_tpu_torch.ops import sample_prob
+    from quiver_tpu_torch.pyg.sage_sampler import layer_shapes
+
+    t0 = time.perf_counter()
+    train = torch.randperm(NODES, generator=g["gen"], device=dev)[
+        :NODES // SHARD_TRAIN_FRAC].chunk(SHARD_RANKS)
+    probs = [sample_prob(g["indptr"], g["indices"], t, SIZES, NODES).cpu()
+             for t in train]
+    prob_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts, _ = partition_feature_without_replication(probs)
+    g2h = np.zeros(NODES, np.int32)
+    for h, part in enumerate(parts):
+        g2h[part] = h
+    part_s = time.perf_counter() - t0
+    info = PartitionInfo(hosts=SHARD_RANKS, global2host=g2h)
+    frontier = layer_shapes(BATCH, SIZES)[-1].n_id_cap
+    plan = info.plan_exchange_cap(frontier, degree=g["deg"], dup_factor=dup)
+    print(f"sharded (b): {SHARD_RANKS} partitions of "
+          f"{info.local_sizes} rows from sample_prob over {SHARD_RANKS} "
+          f"train sets of {NODES // SHARD_TRAIN_FRAC // SHARD_RANKS} "
+          f"({prob_s:.2f} s) and partition_feature_without_replication "
+          f"({part_s:.2f} s); planned cap {plan.cap} (dup factor "
+          f"{dup:.4f}, heaviest owner {plan.owner_frac:.4f} of the degree "
+          f"mass, balanced {plan.balanced_cap})", flush=True)
+    caps = {"dense": None, "planned cap": plan.cap}
+    t0 = time.perf_counter()
+    with RankPool(SHARD_RANKS, backend="gloo", timeout=SHARD_TIMEOUT,
+                  call_timeout=2 * SHARD_TIMEOUT) as pool:
+        spawn_s = time.perf_counter() - t0
+        served = pool.run(_shard_serve_rank, dev, BATCH, g["indptr"],
+                          g["indices"],
+                          g["feat"], g2h, params,
+                          requests[:SHARD_CHECK_BATCHES],
+                          hop_seeds[:SHARD_CHECK_BATCHES], caps)
+        seeds_all = torch.randperm(NODES, generator=g["gen"], device=dev)[
+            :SHARD_RANKS * BATCH].to(torch.int32)
+        trained = pool.run(_shard_train_rank, dev, BATCH, g["indptr"],
+                           g["indices"], g["feat"], g["featq"], g["labels"],
+                           g2h, params, seeds_all, SEED + 1414)
+    for rank, r in enumerate(served):
+        for name in caps:
+            for a, b in zip(r[name]["logits"], want):
+                check(same_bits(torch.as_tensor(a).to(dev), b),
+                      f"(b) rank {rank} {name}: sharded logits differ from "
+                      "the single-store engine's")
+    for rank, r in enumerate(trained):
+        check(r["dist"] == r["e2e"] == trained[0]["dist"],
+              f"(b) rank {rank}: dist loss {r['dist']} != e2e {r['e2e']}")
+    r0 = served[0]
+    rec = {"ranks": SHARD_RANKS, "backend": "gloo", "device": str(dev),
+           "partition_rows": info.local_sizes,
+           "rows_per_host": r0["rows_per_host"], "spawn_s": spawn_s,
+           "planned_cap": plan.cap, "dup_factor": dup,
+           "arms": {name: {"ms": r0[name]["ms"],
+                           "fallbacks": r0[name]["fallbacks"]}
+                    for name in caps},
+           "train_loss": trained[0]["dist"],
+           "dist_step_ms": trained[0]["dist_ms"],
+           "e2e_step_ms": trained[0]["e2e_ms"]}
+    print(f"sharded (b): {SHARD_RANKS} ranks over gloo on {card}, spawned "
+          f"in {spawn_s:.2f} s, shard of {r0['rows_per_host']} rows built in "
+          f"{r0['build_s']:.2f} s; every rank's logits equal to (a)'s "
+          f"single-store logits bit for bit on {SHARD_CHECK_BATCHES} "
+          f"batches of each arm (dense {['%.1f' % v for v in r0['dense']['ms']]}"
+          f" ms, planned cap {['%.1f' % v for v in r0['planned cap']['ms']]} "
+          f"ms a batch on rank 0, deterministic algorithms on; fallbacks "
+          f"{r0['planned cap']['fallbacks']} of {SHARD_CHECK_BATCHES}); the "
+          f"dist step's loss {trained[0]['dist']:.6f} equal to the "
+          f"data-parallel step's on every rank (rank 0: dist "
+          f"{trained[0]['dist_ms']:.1f} ms, e2e {trained[0]['e2e_ms']:.1f} "
+          "ms, first calls)", flush=True)
+    return rec
+
+
+def phase_sharded(dev, card):
+    """Phase 14: the partitioned store across ranks. (a) world size 1
+    over NCCL in this process: the sharded serve path at full width, its
+    exchange gathers and arms, and both train steps; (b) SHARD_RANKS
+    gloo ranks sharing the card, held to (a). Returns the record and the
+    launches of (a)'s sharded serve run and train steps."""
+    import torch
+    import torch.distributed as tdist
+    from quiver_tpu_torch import init_distributed
+    from quiver_tpu_torch.ops import quant
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, deg = make_graph(dev, gen, NODES)   # phase 1's graph
+    feat, labels = make_train_data(dev, gen, NODES)
+    g = {"gen": gen, "indptr": indptr, "indices": indices, "deg": deg,
+         "feat": feat, "featq": quant.quantize(feat, "int8"),
+         "labels": labels}
+    tmp = tempfile.mkdtemp(prefix="qt_nccl_")
+    group = init_distributed("nccl" if dev.type == "cuda" else "gloo",
+                             f"file://{tmp}/rendezvous", 1, 0,
+                             timeout=SHARD_TIMEOUT)
+    try:
+        rec_a, launches, dist, requests, hop_seeds, want = sharded_world1(
+            dev, card, g, group)
+        train_rec, train_launches = shard_train_steps(dev, card, g, group,
+                                                      dist)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec_a["train"] = train_rec
+    c = rec_a["arms"]["default cap"]["counters_sum"]
+    from quiver_tpu_torch import metrics
+    dup = rec_a["frontier_cap"] * SHARD_BATCHES / max(
+        c[metrics.DEDUP_UNIQUE], 1)
+    del dist
+    _, params = sage(dev)
+    rec_b = sharded_ranks(dev, card, g, params, requests, hop_seeds, want,
+                          dup)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 14: {secs:.1f} s: (a) world size 1 over NCCL, (b) "
+          f"{SHARD_RANKS} gloo ranks", flush=True)
+    return {"a": rec_a, "b": rec_b, "seconds": secs}, launches, \
+        train_launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -5680,6 +6426,9 @@ def main() -> int:
     del tiered_ctx, topo, batches, indptr, indices, deg
     torch.cuda.empty_cache()
     hetero, hetero_launches = phase_hetero(dev, card)
+    torch.cuda.empty_cache()
+    sharded, sharded_launches, shard_train_launches = phase_sharded(dev,
+                                                                    card)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -5694,7 +6443,13 @@ def main() -> int:
          "launches_per_tiered_batch": tiered_launches[name] / BATCHES,
          "launches_per_buffered_step": buffered[name],
          "launches_per_server_batch": server_launches[name] / server_batches,
-         "launches_per_hetero_step": hetero_launches[name] / MAG_STEPS}
+         "launches_per_hetero_step": hetero_launches[name] / MAG_STEPS,
+         "launches_per_sharded_batch":
+             sharded_launches[name] / SHARD_BATCHES,
+         "launches_per_dist_step":
+             shard_train_launches["dist"][name] / SHARD_STEPS,
+         "launches_per_e2e_step":
+             shard_train_launches["e2e fused"][name] / SHARD_STEPS}
         for name in SOURCES]}
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
     gather_entry["host_tier"] = {
@@ -5785,6 +6540,25 @@ def main() -> int:
         "variants": {k: v for k, v in hetero["gather"].items()
                      if isinstance(v, dict)}}
     line["hetero"] = hetero
+    exch = sharded["a"]["gathers"]
+    gather_entry["exchange"] = {
+        "name": "gather_rows in the all_to_all exchange: the owner's read "
+                "of its packed int8 shard (raw 128-byte rows, "
+                "gather_rows_kernel) and the unbucket of the received "
+                "block with the int8 decode (gather_rows_packed_kernel), "
+                "phase 14 (a) at world size 1",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"],
+        "launches": sharded_launches["gather_rows"],
+        "launches_per_sharded_batch":
+            sharded_launches["gather_rows"] / SHARD_BATCHES,
+        "launches_per_dist_step":
+            shard_train_launches["dist"]["gather_rows"] / SHARD_STEPS,
+        **{k: exch["owner read"][k] for k in (
+            "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "variants": exch}
+    line["sharded"] = sharded
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,34 +25,61 @@ lookups and samplers return (``collect_metrics=True``) and their host
 side (``StepStats``, ``MetricsSink``, ``SloBudget``). ``MicroBatchServer``
 is the request path over a ``ServeEngine`` (admission, coalescing,
 quality and load shedding, tenancy, health), and ``rpc`` its socket
-front end (``RpcServer``) and client (``RpcClient``).
+front end (``RpcServer``) and client (``RpcClient``). Across ranks of a
+``torch.distributed`` process group (``comm.init_distributed``),
+``DistFeature`` partitions the table by a ``PartitionInfo``
+(``partition.py``'s partitioners and artifacts) and looks rows up by the
+``all_to_all`` exchange of ``comm.py`` (``TorchComm``);
+``ShardedServeEngine`` serves over it, and ``parallel`` holds the
+multi-host (``build_dist_train_step``) and data-parallel
+(``build_e2e_train_step``) train steps.
 """
 
 __version__ = "0.1.0"
 
-from .feature import DeviceConfig, Feature
+from .comm import HostRankTable, TorchComm, get_comm_id, init_distributed
+from .feature import (DeviceConfig, DistFeature, ExchangeCapPlan, Feature,
+                      PartitionInfo)
 from .hetero import HeteroCSRTopo, HeteroGraphSageSampler
 from .hetero_feature import HeteroFeature
-from .metrics import Collector, MetricsSink, SloBudget, StepStats
+from .metrics import (Collector, MetricsSink, SloBudget, StepStats,
+                      pmerge_counters)
 from .models import GAT, GraphSAGE
 from .ops.quant import quantize
+from .parallel import build_dist_train_step, build_e2e_train_step
+from .partition import (load_partition_info,
+                        load_quantized_feature_partition,
+                        load_quiver_feature_partition,
+                        partition_feature_without_replication,
+                        quiver_partition_feature, save_partition_info,
+                        save_quantized_feature_partition)
 from .pyg import GraphSageSampler, MixedGraphSageSampler, SampleJob
 from .rpc import (DeadlineExceeded, RpcClient, RpcError, RpcServer,
                   ServerClosed)
 from .serving import (MicroBatchServer, OverloadError, ServeConfig,
-                      ServeEngine, TenantClass, build_serve_step,
+                      ServeEngine, ShardedServeEngine, TenantClass,
+                      build_serve_step, build_sharded_serve_step,
                       default_tenant_classes)
 from .shard_tensor import ShardTensor, ShardTensorConfig
 from .utils import CSRTopo, parse_size
 
-from . import rpc, serving
+from . import comm, rpc, serving
 
 __all__ = ["CSRTopo", "Collector", "DeadlineExceeded", "DeviceConfig",
-           "Feature", "GAT", "GraphSAGE", "GraphSageSampler",
-           "HeteroCSRTopo", "HeteroFeature", "HeteroGraphSageSampler",
-           "MetricsSink", "MicroBatchServer", "MixedGraphSageSampler",
-           "OverloadError", "RpcClient", "RpcError", "RpcServer",
+           "DistFeature", "ExchangeCapPlan", "Feature", "GAT", "GraphSAGE",
+           "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
+           "HeteroGraphSageSampler", "HostRankTable", "MetricsSink",
+           "MicroBatchServer", "MixedGraphSageSampler", "OverloadError",
+           "PartitionInfo", "RpcClient", "RpcError", "RpcServer",
            "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",
-           "ShardTensor", "ShardTensorConfig", "SloBudget", "StepStats",
-           "TenantClass", "build_serve_step", "default_tenant_classes",
-           "parse_size", "quantize", "rpc", "serving"]
+           "ShardTensor", "ShardTensorConfig", "ShardedServeEngine",
+           "SloBudget", "StepStats", "TenantClass", "TorchComm",
+           "build_dist_train_step", "build_e2e_train_step",
+           "build_serve_step", "build_sharded_serve_step", "comm",
+           "default_tenant_classes", "get_comm_id", "init_distributed",
+           "load_partition_info", "load_quantized_feature_partition",
+           "load_quiver_feature_partition", "parse_size",
+           "partition_feature_without_replication", "pmerge_counters",
+           "quantize", "quiver_partition_feature", "rpc",
+           "save_partition_info", "save_quantized_feature_partition",
+           "serving"]

@@ -63,12 +63,15 @@ through an event that the reader's stream waits for.
 from __future__ import annotations
 
 from concurrent.futures import Future
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import faults, metrics
+from .comm import (build_dist_lookup_fn, cap_for_expected_load,
+                   default_exchange_cap)
 from .pipeline import Pipeline
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
@@ -78,7 +81,7 @@ from .utils.placement import pinned_put
 from .utils.reorder import reindex_feature
 from .utils.sizes import parse_size
 
-_MULTI = "ROADMAP Queue 1 item 7 (multi-GPU)"
+_MULTI = "ROADMAP Queue 1 item 7, part 2 (multi-GPU: one process over cards)"
 
 
 class DeviceConfig:
@@ -1009,3 +1012,284 @@ class Feature:
 
     def dim(self) -> int:
         return self.shape[1]
+
+
+# -- the partitioned store across ranks --------------------------------------
+
+
+class ExchangeCapPlan(NamedTuple):
+    """Degree-mass-aware sizing of the compact exchange's per-owner
+    request slots (the ``exchange_cap`` knob)."""
+
+    cap: int             # per-owner request slots ([H, cap] block)
+    unique_budget: int   # cap * hosts: the compact unique table's size
+    owner_frac: float    # the heaviest owner's expected request share
+    balanced_cap: int    # the ownership-blind sizing, for the log
+
+
+class PartitionInfo:
+    """Placement across hosts (reference feature.py:461-526):
+    ``global2host`` maps node -> owning host, ``replicate`` (optional)
+    lists the nodes every host also keeps at the tail of its shard, and
+    ``global2local`` maps node -> row on its owner (a replicated node:
+    its row in *this* host's tail). The maps are int32 CPU tensors;
+    ``device`` is taken for the reference's signature, and a
+    ``DistFeature`` copies the maps to its own device."""
+
+    def __init__(self, device=None, host: int = 0, hosts: int = 1,
+                 global2host=None, replicate=None):
+        self.host = host
+        self.hosts = hosts
+        self.global2host = torch.as_tensor(
+            quant._host(global2host).astype(np.int32))
+        self.replicate = None if replicate is None else torch.as_tensor(
+            quant._host(replicate).astype(np.int32))
+        self.node_count = int(self.global2host.shape[0])
+        self._init_global2local()
+
+    def _init_global2local(self):
+        g2h = self.global2host.numpy()
+        g2l = np.zeros(self.node_count, dtype=np.int32)
+        self.local_sizes = []
+        for h in range(self.hosts):
+            owned = np.flatnonzero(g2h == h)
+            g2l[owned] = np.arange(owned.size, dtype=np.int32)
+            self.local_sizes.append(int(owned.size))
+        if self.replicate is not None:
+            rep = self.replicate.numpy()
+            base = self.local_sizes[self.host]
+            g2l[rep] = base + np.arange(rep.size, dtype=np.int32)
+        self.global2local = torch.from_numpy(g2l)
+
+    def plan_exchange_cap(self, frontier_cap: int, degree=None,
+                          dup_factor: float = 8.0,
+                          slack: float = 1.25) -> ExchangeCapPlan:
+        """Size the compact exchange's per-owner request slots from this
+        partition's skew: a frontier of ``frontier_cap`` slots holds about
+        ``frontier_cap / dup_factor`` distinct ids, and each owner's share
+        of them follows its nodes' degree mass (``degree``) or, without
+        degrees, its node count. ``cap`` is the heaviest owner's expected
+        load with ``slack`` headroom; pass it as ``exchange_cap``. An
+        overflow costs no correctness (the dense exchange takes over),
+        only the traffic bound."""
+        uniq = max(int(frontier_cap / max(dup_factor, 1.0)), self.hosts)
+        g2h = self.global2host.numpy()
+        if degree is not None:
+            deg = quant._host(degree).astype(np.float64)
+            mass = np.zeros(self.hosts, np.float64)
+            np.add.at(mass, g2h, deg[:g2h.shape[0]])
+        else:
+            mass = np.bincount(g2h, minlength=self.hosts).astype(
+                np.float64)
+        frac = float(mass.max() / (mass.sum() or 1.0))
+        frac = max(frac, 1.0 / self.hosts)
+        cap = min(cap_for_expected_load(uniq * frac, slack),
+                  int(frontier_cap))
+        balanced = cap_for_expected_load(uniq / self.hosts, slack)
+        return ExchangeCapPlan(cap, cap * self.hosts, frac, balanced)
+
+    def dispatch(self, ids):
+        """Split request ids per owning host; replicated ids resolve
+        locally. Returns (per-host local-row arrays, per-host positions),
+        numpy."""
+        ids_np = quant._host(ids).astype(np.int64)
+        g2h = self.global2host.numpy()
+        g2l = self.global2local.numpy()
+        owner = g2h[ids_np]
+        if self.replicate is not None:
+            rep = np.zeros(self.node_count, bool)
+            rep[self.replicate.numpy()] = True
+            owner = np.where(rep[ids_np], self.host, owner)
+        host_ids, host_pos = [], []
+        for h in range(self.hosts):
+            pos = np.flatnonzero(owner == h)
+            host_ids.append(g2l[ids_np[pos]])
+            host_pos.append(pos)
+        return host_ids, host_pos
+
+
+class DistFeature:
+    """Cross-host feature lookup (reference feature.py:529-567):
+    dispatch, exchange, local read, scatter.
+
+    Two modes:
+    - **process group** (:meth:`from_partition`, a ``comm`` with a
+      group): each rank holds its own shard and ``dist[ids]`` takes this
+      rank's ``[B]`` ids (-1 fill) and runs ``comm.dist_lookup_local``,
+      the ``all_to_all`` exchange; every rank of the group looks up
+      together, with the same ``B``. Rank ``h`` gets slice ``h`` of what
+      the JAX package's ``dist[ids]`` returns for the ``[H*B]``
+      concatenation;
+    - **local/peers** (a ``Feature`` and ``comm.peers``): host-driven
+      dispatch for single-process tests of the protocol, as in JAX; not
+      a production path.
+
+    ``dedup_cold`` (True, or an int budget of the whole group's batch,
+    as in JAX) runs the exchange over each rank's unique ids (a table of
+    ``budget / H`` per rank, default ``max(H*B // 4, H)`` rounded up to
+    a multiple of ``H``) and expands them back; when any rank's unique
+    count overflows, every rank looks up the whole batch instead (one
+    ``all_reduce(MAX)`` and one ``.item()``, the JAX path's one scalar
+    synchronisation). ``exchange_cap`` (``True | int | None``) compacts
+    the exchange itself (``comm.dist_lookup_local``); True sizes it per
+    batch (``comm.default_exchange_cap``), an int pins it (prefer
+    ``info.plan_exchange_cap(...).cap``). ``collect_metrics`` puts each
+    lookup's device counters on ``last_counters`` (this rank's ``[1,
+    N]`` block, or with ``merge_counters`` the group's ``[N]`` vector,
+    merged on the device). Rows are the same bits with any of these."""
+
+    def __init__(self, feature: Optional[Feature], info: PartitionInfo,
+                 comm, dedup_cold=False, exchange_cap=None,
+                 collect_metrics=False, merge_counters=False):
+        self.feature = feature
+        self.info = info
+        self.comm = comm
+        self.dedup_cold = dedup_cold
+        self.exchange_cap = exchange_cap
+        self.collect_metrics = bool(collect_metrics)
+        self.merge_counters = bool(merge_counters)
+        if self.merge_counters and not self.collect_metrics:
+            raise ValueError("merge_counters=True requires "
+                             "collect_metrics=True")
+        self.last_counters = None
+        self.shard = None              # this rank's [rows_per_host, dim]
+        self.device = None if feature is None else feature.device
+        self._rows_per_host = None
+        self._g2h = self._g2l = None
+        self._rep_args = None
+        self._lookup_fns = {}
+
+    @classmethod
+    def from_partition(cls, feat, info: PartitionInfo, comm, dtype=None,
+                       dedup_cold=False, dtype_policy=None,
+                       exchange_cap=None, collect_metrics=False,
+                       merge_counters=False, device=None) -> "DistFeature":
+        """This rank's store from the full feature array (numpy or a
+        tensor on any device) and the placement: the rows the partition
+        gives rank ``comm.rank``, then the replicated nodes' rows (its
+        tail), zero-padded to ``rows_per_host``, the largest shard over
+        the ranks, so every rank's block has one shape. The shard lies on
+        ``device`` (the card unless ``"cpu"``).
+
+        ``dtype`` casts the rows first; ``dtype_policy`` ("bf16", "fp16",
+        "int8") stores them narrow and the exchange ships them narrow: an
+        int8 shard lies in packed rows (``quant.pack``) that cross the
+        wire as they are and are decoded after it."""
+        if comm.group is None:
+            raise ValueError("from_partition needs a comm with a process "
+                             "group")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        feat = feat.to(dev) if torch.is_tensor(feat) else \
+            torch.as_tensor(np.asarray(feat), device=dev)
+        if dtype is not None:
+            feat = feat.to(quant.torch_dtype(dtype))
+        g2h = info.global2host.numpy()
+        rep = None if info.replicate is None else info.replicate.numpy()
+        rep_rows = 0 if rep is None else rep.size
+        rows_per_host = max(s + rep_rows for s in info.local_sizes)
+        rows = np.flatnonzero(g2h == comm.rank)
+        if rep is not None:
+            rows = np.concatenate([rows, rep])
+        store = torch.zeros((rows_per_host, feat.shape[1]),
+                            dtype=feat.dtype, device=dev)
+        store[:rows.size] = feat[torch.as_tensor(rows, device=dev)]
+        self = cls(None, info, comm, dedup_cold=dedup_cold,
+                   exchange_cap=exchange_cap,
+                   collect_metrics=collect_metrics,
+                   merge_counters=merge_counters)
+        shard = quant.quantize(store, quant.resolve_policy(dtype_policy))
+        if quant.is_quantized(shard):
+            shard = quant.pack(shard, device=dev)
+        self.shard = shard
+        self.device = dev
+        self._rows_per_host = rows_per_host
+        self._g2h = info.global2host.to(dev)
+        self._g2l = info.global2local.to(dev)
+        if rep is not None:
+            n = info.node_count
+            is_rep = torch.zeros(n, dtype=torch.bool)
+            is_rep[torch.as_tensor(rep).long()] = True
+            rep_rank = torch.zeros(n, dtype=torch.int32)
+            rep_rank[torch.as_tensor(rep).long()] = torch.arange(
+                rep_rows, dtype=torch.int32)
+            bases = torch.tensor(info.local_sizes, dtype=torch.int32)
+            self._rep_args = tuple(t.to(dev) for t in
+                                   (is_rep, rep_rank, bases))
+        return self
+
+    def _ids(self, ids) -> torch.Tensor:
+        t = ids if torch.is_tensor(ids) else torch.as_tensor(np.asarray(ids))
+        return t.reshape(-1).to(device=self.device, dtype=torch.int32)
+
+    def _getitem_dedup(self, ids):
+        """The exchange over this rank's unique ids, expanded back; None
+        when the table cannot help (its budget reaches the batch) or a
+        rank's unique count overflows it. The int32-max fill of the
+        table reads the last node's row, and the batch's -1 padding
+        dedups to one zero row, as in JAX."""
+        hosts = self.info.hosts
+        n = ids.shape[0] * hosts
+        budget = (int(self.dedup_cold)
+                  if not isinstance(self.dedup_cold, bool)
+                  else max(n // 4, hosts))
+        budget = min(-(-budget // hosts) * hosts, n)
+        if budget >= n:
+            return None
+        uniq, inv, n_uniq = unique_within_budget(ids, budget // hosts)
+        over = (n_uniq > budget // hosts).to(torch.int32).reshape(1)
+        dist.all_reduce(over, op=dist.ReduceOp.MAX, group=self.comm.group)
+        if over.item():
+            return None
+        return gather_rows(self._getitem_plain(uniq), inv)
+
+    def _getitem_plain(self, ids):
+        b = ids.shape[0]
+        cap = self.exchange_cap
+        if cap is True:
+            cap = default_exchange_cap(b, self.info.hosts)
+        elif cap is not None:
+            cap = int(cap)
+        key = (b, cap, self.collect_metrics, self.merge_counters)
+        fn = self._lookup_fns.get(key)
+        if fn is None:
+            fn = build_dist_lookup_fn(
+                self.comm.group, self._rows_per_host, b,
+                with_replicate=self._rep_args is not None,
+                exchange_cap=cap, collect_metrics=self.collect_metrics,
+                merge_counters=self.merge_counters)
+            self._lookup_fns[key] = fn
+        args = (ids, self._g2h, self._g2l, self.shard)
+        if self._rep_args is not None:
+            args += self._rep_args
+        if self.collect_metrics:
+            out, self.last_counters = fn(*args)
+            return out
+        return fn(*args)
+
+    def __getitem__(self, ids):
+        if self.shard is not None:
+            ids = self._ids(ids)
+            if self.dedup_cold:
+                out = self._getitem_dedup(ids)
+                if out is not None:
+                    return out
+            return self._getitem_plain(ids)
+        host_ids, host_pos = self.info.dispatch(ids)
+        my = self.info.host
+        n = int(quant._host(ids).reshape(-1).shape[0])
+        local_rows = self.feature[torch.as_tensor(host_ids[my])] \
+            if host_ids[my].size else None
+        remote = self.comm.exchange(host_ids, self.feature)
+        dtype = local_rows.dtype if local_rows is not None \
+            else torch.float32
+        out = torch.zeros((n, self.feature.shape[1]), dtype=dtype,
+                          device=self.feature.device)
+        if local_rows is not None:
+            out[torch.as_tensor(host_pos[my])] = local_rows.to(dtype)
+        for h, rows in enumerate(remote):
+            if rows is not None and host_pos[h].size:
+                out[torch.as_tensor(host_pos[h])] = rows.to(out.device,
+                                                            dtype)
+        return out

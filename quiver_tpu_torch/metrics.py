@@ -24,8 +24,9 @@ package's, so a record from one reads the same in the other.
 :meth:`StepStats.watch_pipeline` folds a staging ``Pipeline``'s queue
 statistics into the snapshot, :func:`report` carries the tracer's line
 (``tracing.py``), and ``MetricsSink.emit`` fires the ``"sink.write"``
-fault site (``faults.py``), as in the JAX package. Not ported here: the
-cross-device merge (:func:`pmerge_counters`, ROADMAP Queue 1 item 7).
+fault site (``faults.py``), as in the JAX package.
+:func:`pmerge_counters` merges a vector across the ranks of a
+``torch.distributed`` process group (``comm.py``).
 """
 
 from __future__ import annotations
@@ -200,12 +201,20 @@ def merge_counters(a, b):
     return torch.where(_max_mask(dev), torch.maximum(a, b), a + b)
 
 
-def pmerge_counters(vec, axis: str):
-    """The cross-device merge of the JAX package (``psum`` on additive
-    slots, ``pmax`` on ``MAX_SLOTS`` over a mesh axis) is multi-GPU
-    work: ROADMAP Queue 1 item 7."""
-    raise NotImplementedError(
-        "pmerge_counters: ROADMAP Queue 1 item 7 (multi-GPU)")
+def pmerge_counters(vec, group=None):
+    """The cross-rank merge of a counter vector on the device: every rank
+    of ``group`` (the default group when None) calls it together and
+    gets the one global vector, ``all_reduce(SUM)`` on additive slots and
+    ``all_reduce(MAX)`` on ``MAX_SLOTS`` (the JAX package's ``psum`` and
+    ``pmax`` over a mesh axis). Two collectives on an int32 vector: no
+    host synchronisation, nothing read back."""
+    import torch.distributed as dist
+    vec = torch.as_tensor(vec).to(torch.int32)
+    summed = vec.clone()
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    peaked = vec.clone()
+    dist.all_reduce(peaked, op=dist.ReduceOp.MAX, group=group)
+    return torch.where(_max_mask(vec.device), peaked, summed)
 
 
 def merge_named_counters(a: Dict[str, int],

@@ -115,3 +115,29 @@ def unique_np(ids, valid=None) -> np.ndarray:
         mask &= valid.detach().cpu().numpy() if torch.is_tensor(valid) \
             else np.asarray(valid)
     return np.unique(ids[mask])
+
+
+def compact_exchange_slots(ids, cap: int, hosts: int, owner=None) -> int:
+    """The compact exchange's branch structure for one rank's batch, on
+    the host: request slots shipped per collective direction, ``cap *
+    hosts`` on the compact path, the whole batch on overflow (more valid
+    unique ids than the ``min(cap * hosts, batch)`` table, or an owner's
+    bucket past ``cap``) or when ``cap`` cannot beat the dense block.
+    ``owner`` maps id -> owning host (``PartitionInfo.global2host``);
+    None models a balanced hash partition (``id % hosts``)."""
+    ids = ids.detach().cpu().numpy() if torch.is_tensor(ids) \
+        else np.asarray(ids)
+    n = int(ids.shape[0])
+    if cap is None or cap >= n:
+        return n
+    uniq = np.unique(ids[ids >= 0])
+    if uniq.size > min(cap * hosts, n):
+        return n
+    if owner is None:
+        own = uniq % hosts
+    else:
+        own = (owner.detach().cpu().numpy() if torch.is_tensor(owner)
+               else np.asarray(owner))[uniq]
+    if np.bincount(own, minlength=hosts).max(initial=0) > cap:
+        return n
+    return cap * hosts

@@ -107,6 +107,13 @@ def _leaves(feat):
     return data, scale, zero, stride
 
 
+def packed_row_stride(feat):
+    """The row stride in bytes of an int8 table in packed rows
+    (``quant.pack``), None for any other table; raises on a layout that
+    ``gather_rows`` does not take."""
+    return _leaves(feat)[3]
+
+
 def _check_out(out, n, dim, dtype, dev):
     if not torch.is_tensor(out) or out.dtype != dtype \
             or tuple(out.shape) != (n, dim) or not out.is_contiguous() \

@@ -218,13 +218,15 @@ def packed_stride(dim: int) -> int:
 
 
 def pack(t: QuantizedTensor, stride: Optional[int] = None,
-         pin: bool = False) -> QuantizedTensor:
-    """The int8 tier ``t`` (fp32 sidecars) copied into one host buffer of
-    packed rows (pinned when ``pin``), returned as the same
-    ``QuantizedTensor`` whose three leaves are strided views into that
-    buffer. ``stride`` (a multiple of 16 that holds the row) defaults to
+         pin: bool = False, device=None) -> QuantizedTensor:
+    """The int8 tier ``t`` (fp32 sidecars) copied into one buffer of
+    packed rows on ``device`` (the CPU by default; pinned when ``pin``),
+    returned as the same ``QuantizedTensor`` whose three leaves are
+    strided views into that buffer (:func:`packed_views`). ``stride`` (a
+    multiple of 16 that holds the row) defaults to
     :func:`packed_stride`."""
-    data, scale, zero = (x.cpu() for x in t)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    data, scale, zero = (x.to(dev) for x in t)
     if data.dtype != torch.int8 or data.dim() != 2 \
             or scale.dtype != torch.float32 or zero.dtype != torch.float32:
         raise ValueError("pack takes int8 [n, d] codes with fp32 sidecars")
@@ -235,12 +237,21 @@ def pack(t: QuantizedTensor, stride: Optional[int] = None,
         raise ValueError(f"a packed row of width {d} needs a stride that "
                          f"is a multiple of 16 of at least {side + 8}, "
                          f"not {stride}")
-    buf = torch.zeros((n, stride), dtype=torch.uint8, pin_memory=pin)
+    buf = torch.zeros((n, stride), dtype=torch.uint8, device=dev,
+                      pin_memory=pin)
     buf[:, :d] = data.view(torch.uint8)
     for off, side_t in ((side, scale), (side + 4, zero)):
         buf[:, off:off + 4] = side_t.reshape(n, 1).contiguous() \
             .view(torch.uint8)
-    return QuantizedTensor(buf[:, :d].view(torch.int8),
+    return packed_views(buf, d)
+
+
+def packed_views(buf: torch.Tensor, dim: int) -> QuantizedTensor:
+    """The ``QuantizedTensor`` of width ``dim`` over a uint8 ``[n,
+    stride]`` buffer of packed rows: its codes, scale and zero as
+    strided views into ``buf``."""
+    side = sidecar_offset(dim)
+    return QuantizedTensor(buf[:, :dim].view(torch.int8),
                            buf[:, side:side + 4].view(torch.float32),
                            buf[:, side + 4:side + 8].view(torch.float32))
 

@@ -25,8 +25,14 @@ match the JAX package's bit for bit.
 route's gather for :func:`dedup_feature_gather`. ``collect_metrics``
 adds the step's device counter vector (``metrics.Collector``: the
 final frontier's fill, and the dedup gather's statistics) to its
-outputs. The data-parallel ``build_e2e_train_step`` is a later item of
-ROADMAP Queue 1 (item 7).
+outputs.
+
+``build_e2e_train_step`` is the data-parallel step over a
+``torch.distributed`` process group: every rank holds the whole table
+and samples its own seeds, and the gradients (with the loss) are
+averaged by one ``all_reduce`` before each rank's identical update, the
+JAX step's ``pmean``. ``parallel/dist.py`` holds the step whose table is
+partitioned over the ranks.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import metrics
@@ -43,6 +50,7 @@ from ..ops.kernels.fused import fused_multihop
 from ..ops.kernels.gather import gather_rows
 from ..ops.sample_multihop import _METHODS, sample_multihop
 from ..pyg.sage_sampler import Adj, layer_shapes
+from .mesh import axis_size
 
 class TrainState(NamedTuple):
     """The model (its parameters), its optimizer (its moments) and the
@@ -308,6 +316,31 @@ def _update(state: TrainState, model, optimizer, loss) -> TrainState:
     return TrainState(model, optimizer, state.step + 1)
 
 
+def _mean_update(state: TrainState, model, optimizer, loss, group):
+    """The JAX step's ``pmean`` of the gradients and the loss over
+    ``group``, then the update: every gradient and the loss go into one
+    flat buffer, one ``all_reduce(SUM)``, a division by the rank count,
+    and each rank applies the same mean gradients. Returns the new state
+    and the mean loss."""
+    if state.model is not model or state.optimizer is not optimizer:
+        raise ValueError("the state's model and optimizer must be the "
+                         "ones the step was built with")
+    loss.backward()
+    params = [p for p in model.parameters() if p.requires_grad]
+    flat = torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1)
+                      for p in params] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= axis_size(group)
+    at = 0
+    for p in params:
+        p.grad = flat[at:at + p.numel()].view_as(p).clone()
+        at += p.numel()
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return TrainState(model, optimizer, state.step + 1), flat[-1].clone()
+
+
 def build_train_step(model, optimizer, sizes: Sequence[int],
                      batch_size: int, method: str = "exact",
                      indices_stride: Optional[int] = None,
@@ -363,6 +396,25 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
     synchronisation, and the loss and the update are the ones of the
     step without it, bit for bit. Feed it to ``metrics.StepStats``."""
     sizes = [int(k) for k in sizes]
+
+    def finish(state, loss, col):
+        new_state = _update(state, model, optimizer, loss)
+        if col is None:
+            return new_state, loss.detach()
+        return new_state, loss.detach(), col.counters()
+
+    return _build_step(model, sizes, batch_size, method, indices_stride,
+                       hub_frac, dedup_gather, collect_metrics,
+                       fused_hot_hop, fused_row_cap, finish, "train")
+
+
+def _build_step(model, sizes, batch_size, method, indices_stride, hub_frac,
+                dedup_gather, collect_metrics, fused_hot_hop, fused_row_cap,
+                finish, kind):
+    """The step of :func:`build_train_step` and
+    :func:`build_e2e_train_step`: the knobs checked, one batch's loss,
+    then ``finish(state, loss, collector)`` (the update, and the
+    outputs)."""
     fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method,
                         dedup_gather, indices_stride=indices_stride,
                         hub_frac=hub_frac)
@@ -376,7 +428,7 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
                 "walk does its own in-kernel CSR reads every hop)")
         sampling = {}
         if fused is None:
-            _check_rows(method, indices_rows, "train")
+            _check_rows(method, indices_rows, kind)
             sampling = dict(method=method, indices_rows=indices_rows,
                             indices_stride=indices_stride,
                             hub_frac=hub_frac)
@@ -386,12 +438,69 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
                            indices, seeds, labels, hop_seeds, dropout_seed,
                            fused=fused, gather=gather, collector=col,
                            **sampling)
-        new_state = _update(state, model, optimizer, loss)
-        if col is None:
-            return new_state, loss.detach()
-        return new_state, loss.detach(), col.counters()
+        return finish(state, loss, col)
 
     return step
+
+
+def _mean_outputs(state, model, optimizer, loss, col, group,
+                  merge_counters: bool):
+    """A data-parallel step's outputs: the mean update
+    (:func:`_mean_update`), the mean loss, and with a collector this
+    rank's ``[1, N]`` counter block, or with ``merge_counters`` the
+    group's ``[N]`` vector (``metrics.pmerge_counters``)."""
+    new_state, loss = _mean_update(state, model, optimizer, loss, group)
+    if col is None:
+        return new_state, loss
+    if merge_counters:
+        return new_state, loss, metrics.pmerge_counters(col.counters(),
+                                                        group)
+    return new_state, loss, col.counters()[None]
+
+
+def build_e2e_train_step(model, optimizer, sizes: Sequence[int],
+                         per_device_batch: int, group=None,
+                         method: str = "exact",
+                         indices_stride: Optional[int] = None,
+                         hub_frac: Optional[float] = None,
+                         dedup_gather=None, collect_metrics: bool = False,
+                         merge_counters: bool = False,
+                         fused_hot_hop: bool = False,
+                         fused_row_cap: int = 2048):
+    """Data-parallel step over the process ``group`` (None = the default
+    group), one rank's part:
+    ``step(state, feat, forder, indptr, indices, seeds, labels,
+    hop_seeds, dropout_seed, indices_rows=None) -> (state, loss)``.
+
+    Every rank holds the whole ``feat`` table, the topology and an
+    identical model and optimizer; ``seeds``/``labels`` are this rank's
+    ``[per_device_batch]`` block (rank ``h``'s slice of the JAX step's
+    sharded ``[H * per_device_batch]``) and ``hop_seeds``/
+    ``dropout_seed`` its own streams (``parallel.dist.rank_step_seeds``
+    derives them from one seed and the rank, where JAX folds the rank
+    into its key). The loss and the sampling are those of
+    :func:`build_train_step` with the same knobs (``fused_hot_hop=True``
+    runs each rank's fused walk through the CUDA kernels); then one
+    ``all_reduce`` averages the gradients and the loss over the group,
+    and every rank takes the same optimizer step. The loss returned is
+    the group's mean. Every rank of the group calls the step together.
+
+    ``collect_metrics=True`` adds this rank's ``[1,
+    metrics.NUM_COUNTERS]`` counter block, or with ``merge_counters``
+    the group's ``[N]`` vector, merged on the device."""
+    sizes = [int(k) for k in sizes]
+    if merge_counters and not collect_metrics:
+        raise ValueError("merge_counters=True requires "
+                         "collect_metrics=True")
+
+    def finish(state, loss, col):
+        return _mean_outputs(state, model, optimizer, loss, col, group,
+                             merge_counters)
+
+    return _build_step(model, sizes, per_device_batch, method,
+                       indices_stride, hub_frac, dedup_gather,
+                       collect_metrics, fused_hot_hop, fused_row_cap,
+                       finish, "e2e")
 
 
 def build_split_train_step(model, optimizer, sizes: Sequence[int],

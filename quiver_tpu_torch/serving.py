@@ -59,8 +59,12 @@ import numpy as np
 import torch
 
 from . import faults, metrics, tracing
+from .comm import default_exchange_cap, dist_lookup_local
 from .ops import quant
+from .ops.kernels.fused import fused_sample_multihop
 from .ops.sample_multihop import sample_multihop
+from .parallel.mesh import axis_index, axis_size
+from .pyg.sage_sampler import layer_shapes
 from .parallel.train import (_dedup_gather_fn, _step_knobs, _walk,
                              draw_int32, layers_to_adjs)
 from .utils.csr import INT32_MAX
@@ -413,6 +417,186 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+
+# -- sharded serving: one partitioned store under the whole group -----------
+
+
+def build_sharded_serve_step(model, sizes: Sequence[int], batch_cap: int,
+                             group, rows_per_host: int,
+                             method: str = "exact", exchange_cap=None,
+                             home: Optional[int] = None,
+                             collect_metrics: bool = False,
+                             fused_hot_hop: bool = False,
+                             fused_row_cap: int = 2048):
+    """The serve step over a ``DistFeature``-partitioned store, one
+    rank's part; every rank of ``group`` runs it together on the same
+    seed block and hop seeds.
+
+    Returns ``step(hop_seeds, feat, g2h, g2l, indptr, indices, seeds)``
+    -> ``logits[batch_cap, out_dim]`` (and the group's
+    ``[metrics.NUM_COUNTERS]`` vector with ``collect_metrics``, merged
+    on the device by ``metrics.pmerge_counters``). ``feat`` is this
+    rank's shard (``DistFeature.shard``), ``g2h``/``g2l`` the placement
+    maps, the topology and the ``[batch_cap]`` seed block the same on
+    every rank. Sampling runs on every rank alike: with
+    ``fused_hot_hop=True`` (exact method) the CUDA sampling kernel on
+    every hop (``ops.kernels.fused.fused_sample_multihop``, hop ``i``
+    seeded with ``hop_seeds[i]``), otherwise ``method``'s sampler from a
+    generator seeded with ``hop_seeds[0]``. So the frontier and the
+    logits are the single-store step's over the unpartitioned table, bit
+    for bit: only where the rows live changes. The rows then come
+    through the exchange (``comm.dist_lookup_local``; ``exchange_cap``
+    ``True | int | None``, True sized from the frontier's capacity) and
+    the model runs in eval mode.
+
+    ``home`` is this replica's partition: with ``collect_metrics`` every
+    valid frontier row is classified once (on rank 0 only, so the merge
+    does not multiply it), owned by ``home`` as ``LOCALITY_HIT_ROWS``,
+    elsewhere as ``LOCALITY_MISS_ROWS``."""
+    sizes = [int(k) for k in sizes]
+    fused = _step_knobs(fused_hot_hop, fused_row_cap, sizes, method, None)
+    h_count = axis_size(group)
+    first = axis_index(group) == 0
+    if exchange_cap is True:
+        frontier = layer_shapes(batch_cap, sizes)[-1].n_id_cap
+        exchange_cap = default_exchange_cap(frontier, h_count)
+    elif exchange_cap is not None:
+        exchange_cap = int(exchange_cap)
+
+    def step(hop_seeds, feat, g2h, g2l, indptr, indices, seeds):
+        col = metrics.Collector(seeds.device) if collect_metrics else None
+        # counters of the sampling every rank repeats: rank 0's only
+        rep_col = metrics.Collector(seeds.device) if collect_metrics \
+            else None
+        with torch.inference_mode():
+            if fused is not None:
+                n_id, layers = fused_sample_multihop(
+                    indptr, indices, seeds, sizes, hop_seeds,
+                    fused["row_cap"])
+                if rep_col is not None:
+                    rep_col.add(metrics.FRONTIER_VALID,
+                                (n_id >= 0).sum(dtype=torch.int32))
+                    rep_col.add(metrics.FRONTIER_CAP, int(n_id.shape[0]))
+            else:
+                n_id, layers = sample_multihop_serving(
+                    indptr, indices, seeds, sizes,
+                    torch.Generator(device=seeds.device).manual_seed(
+                        int(hop_seeds[0])),
+                    method=method, collector=rep_col)
+            x = dist_lookup_local(n_id, g2h, g2l, feat, group, h_count,
+                                  rows_per_host, exchange_cap=exchange_cap,
+                                  collector=col)
+            adjs = layers_to_adjs(layers, batch_cap, sizes)
+            logits = model(x, adjs)[:batch_cap]
+            if col is None:
+                return logits
+            if home is not None:
+                valid = n_id >= 0
+                owner = g2h[n_id.long().clamp(min=0)]
+                rep_col.add(metrics.LOCALITY_HIT_ROWS,
+                            (valid & (owner == home)).sum(dtype=torch.int32))
+                rep_col.add(metrics.LOCALITY_MISS_ROWS,
+                            (valid & (owner != home)).sum(dtype=torch.int32))
+            rep = rep_col.counters()
+            col.absorb(rep if first else torch.zeros_like(rep))
+            return logits, metrics.pmerge_counters(col.counters(), group)
+
+    return step
+
+
+class ShardedServeEngine:
+    """A ``ServeEngine`` whose feature tier is one partitioned store
+    shared by the group's ranks (a ``DistFeature`` built by
+    ``from_partition``): each rank holds about ``1/P`` of the rows, and
+    frontier rows owned elsewhere arrive through the exchange.
+
+    Every rank of the group builds its engine with the same model,
+    parameters, topology, ladder and ``seed``, and calls ``run`` with
+    the same seed blocks in the same order: a run is collective, and
+    each rank's host generator draws the same hop seeds. ``home`` names
+    this replica's partition (default ``dist.info.host``; it scopes the
+    locality counters and rides a ``MicroBatchServer``'s snapshot as
+    its ``partition`` block, with ``partitions``). The exchange's knob
+    is ``dist.exchange_cap``; with ``collect_metrics`` the counters are
+    the group's merged vector. The logits are the single-store
+    ``ServeEngine``'s over the unpartitioned table bit for bit (with
+    ``fused_hot_hop=True`` on both, against the fused engine). A store
+    with a replicated tail is refused, as in JAX. The engine lives on
+    the store's device."""
+
+    def __init__(self, model, params, topo, dist,
+                 sizes_variants: Sequence[Sequence[int]], batch_cap: int,
+                 method: str = "exact", home: Optional[int] = None,
+                 collect_metrics: bool = False, fused_hot_hop: bool = False,
+                 fused_row_cap: int = 2048, seed: int = 0):
+        if not sizes_variants:
+            raise ValueError("need at least one fanout variant")
+        hops = {len(s) for s in sizes_variants}
+        if len(hops) != 1:
+            raise ValueError(
+                f"all fanout variants must share the model's hop count, "
+                f"got lengths {sorted(hops)}")
+        if getattr(dist, "shard", None) is None:
+            raise ValueError(
+                "ShardedServeEngine needs a DistFeature built with "
+                "from_partition (the process-group mode)")
+        if getattr(dist, "_rep_args", None) is not None:
+            raise ValueError(
+                "ShardedServeEngine does not support replicated-tail "
+                "stores yet; partition without replicate=")
+        self.device = dist.device
+        if params is not None:
+            model.load_state_dict(params)
+        self.model = model.to(self.device).eval()
+        self.dist = dist
+        self.variants: List[List[int]] = [list(s) for s in sizes_variants]
+        self.batch_cap = int(batch_cap)
+        self.method = method
+        self.home = int(dist.info.host if home is None else home)
+        self.partitions = int(dist.info.hosts)
+        self.collect_metrics = bool(collect_metrics)
+        self.last_counters = None
+        indptr, indices = (topo.indptr, topo.indices) \
+            if hasattr(topo, "indptr") else topo
+        self._indptr = _index_tensor(indptr, self.device, "indptr")
+        self._indices = _index_tensor(indices, self.device, "indices")
+        self._steps = [
+            build_sharded_serve_step(
+                self.model, sizes, self.batch_cap, dist.comm.group,
+                dist._rows_per_host, method=method,
+                exchange_cap=dist.exchange_cap, home=self.home,
+                collect_metrics=self.collect_metrics,
+                fused_hot_hop=fused_hot_hop, fused_row_cap=fused_row_cap)
+            for sizes in self.variants]
+        self._gen = torch.Generator().manual_seed(int(seed))
+
+    jitted_fns = ServeEngine.jitted_fns
+    pad_seeds = ServeEngine.pad_seeds
+    draw_hop_seeds = ServeEngine.draw_hop_seeds
+
+    def run(self, seeds, variant: int = 0,
+            hop_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Serve one seed block through the given variant (collective:
+        see the class). Returns the ``[batch_cap, out_dim]`` logits on
+        the engine's device; with ``collect_metrics`` the group's counter
+        vector lands on ``last_counters``. ``hop_seeds`` replaces the
+        generator's draw."""
+        sizes = self.variants[variant]
+        if hop_seeds is None:
+            hop_seeds = self.draw_hop_seeds(len(sizes))
+        out = self._steps[variant](
+            list(hop_seeds), self.dist.shard, self.dist._g2h,
+            self.dist._g2l, self._indptr, self._indices,
+            self.pad_seeds(seeds))
+        if not self.collect_metrics:
+            return out
+        logits, self.last_counters = out
+        return logits
+
+    def warmup(self) -> "ShardedServeEngine":
+        """One dispatch per variant (collective, like ``run``)."""
+        return ServeEngine.warmup(self)
 
 
 # -- the request path: admission, coalescing, shedding, scatter --------------
@@ -1418,6 +1602,14 @@ class MicroBatchServer:
             "health": self.health()["score"],
             "knobs": self.knobs(),
         }
+        home = getattr(self.engine, "home", None)
+        if home is not None:
+            # a sharded engine: this replica's partition, the fleet
+            # plane's routing and locality pivot
+            rec["serving"]["partition"] = {
+                "home": int(home),
+                "partitions": int(getattr(self.engine, "partitions", 1)),
+            }
         return rec
 
     def emit(self, sink, kind: str = "serving") -> dict:

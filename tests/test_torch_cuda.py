@@ -77,7 +77,15 @@ packed rows, and fp32 rows) equals its plain version bit for bit;
 ``HeteroFeature.prefetch`` stages on the ids' card (the second card's
 case skips on one card); one R-GCN step on the card is within 1e-4 of
 the CPU's under torch's deterministic algorithms; a store built from a
-table on the card stores the host build's bits."""
+table on the card stores the host build's bits.
+
+The partitioned store: the exchange's two ``gather_rows`` launches (the
+owner's read of raw packed int8 rows, the unbucket with the decode)
+equal their plain versions; a one-rank NCCL group's lookups (dense,
+compact, falling back; fp32 and int8) equal a gloo group's on the CPU,
+counters included, the dense one free of host synchronisation; two
+ranks over NCCL, one card each, look up the rows (skips on one
+card)."""
 
 import numpy as np
 import pytest
@@ -1415,3 +1423,112 @@ def test_rgcn_step_on_card_equals_cpu(hetero):
         assert float((g - gc[n]).abs().max()) <= \
             1e-4 * max(float(gc[n].abs().max()), 1e-30), n
     store.close()
+
+
+# -- the partitioned store across ranks ---------------------------------------
+
+
+def _exchange_blocks(graph, n):
+    """A packed int8 shard as the owner reads it (raw 128-byte rows),
+    owner read ids (clamped, in range) and an unbucket index with -1
+    slots, as the exchange's two ``gather_rows`` launches get them."""
+    from quiver_tpu_torch import comm
+    g = np.random.default_rng(n)
+    q = quant.pack(quant.quantize(graph["feat"], "int8"), device="cuda")
+    raw = comm._wire_table(q)
+    read = torch.from_numpy(g.integers(0, N, n).astype(np.int32)).cuda()
+    idx = torch.from_numpy(np.where(g.random(n) < 0.3, -1,
+                                    g.integers(0, n, n)).astype(np.int32))
+    return q, raw, read, idx.cuda()
+
+
+@pytest.mark.parametrize("n", [1, 33, 270_336])
+def test_exchange_gathers_equal_plain(graph, n):
+    """The owner's read of raw packed rows and the unbucket-with-decode
+    of the received block (``out=`` zeros, -1 slots) equal their plain
+    versions bit for bit; the decoded rows equal the int8 tier's own
+    gather; an fp32 shard's read too."""
+    q, raw, read, idx = _exchange_blocks(graph, n)
+    got = gather.gather_rows(raw, read)
+    assert torch.equal(got, gather.gather_rows_plain(raw, read))
+    block = quant.packed_views(got.view(torch.uint8), WIDE)
+    out = torch.zeros((n, WIDE), device="cuda")
+    dec = gather.gather_rows(block, idx, out=out.clone())
+    want = gather.gather_rows_plain(block, idx, out=out.clone())
+    assert torch.equal(_bits(dec), _bits(want))
+    live = idx >= 0
+    ref = gather.gather_rows(q, read[idx[live].long()])
+    assert torch.equal(_bits(dec[live]), _bits(ref))
+    assert not _bits(dec[~live]).any()
+    feat = graph["feat"]
+    assert torch.equal(gather.gather_rows(feat, read), feat[read.long()])
+
+
+def _lookup_world1(dev, group, feat, ids, cap, policy):
+    from quiver_tpu_torch import DistFeature, PartitionInfo, TorchComm
+    info = PartitionInfo(hosts=1, global2host=np.zeros(N, np.int32))
+    d = DistFeature.from_partition(feat, info, TorchComm(0, 1, group=group),
+                                   exchange_cap=cap, dtype_policy=policy,
+                                   device=dev, collect_metrics=True)
+    return d[ids.to(dev)].cpu(), d.last_counters.cpu()
+
+
+@pytest.mark.parametrize("policy", [None, "int8"])
+def test_world_size_one_nccl_lookup_equals_cpu(graph, tmp_path, policy):
+    """A one-rank NCCL group on the card and a gloo group over the same
+    rank on the CPU: the dense, compact and falling-back lookups give the
+    same bits and counters, and the dense one makes no host
+    synchronisation."""
+    import torch.distributed as dist
+    from quiver_tpu_torch import init_distributed
+    ids = graph["seeds"].cpu()
+    group = init_distributed("nccl", f"file://{tmp_path}/pg", 1, 0,
+                             timeout=60)
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        for cap in (None, 600, 4):
+            got, c = _lookup_world1("cuda", group, graph["feat"], ids, cap,
+                                    policy)
+            want, wc = _lookup_world1("cpu", cpu_group, graph["feat"].cpu(),
+                                      ids, cap, policy)
+            assert torch.equal(_bits(got), _bits(want)) and torch.equal(c, wc)
+        from quiver_tpu_torch import DistFeature, PartitionInfo, TorchComm
+        d = DistFeature.from_partition(
+            graph["feat"], PartitionInfo(hosts=1, global2host=np.zeros(
+                N, np.int32)), TorchComm(0, 1, group=group),
+            dtype_policy=policy)
+        _sync_free(lambda: d[graph["seeds"]])
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_two_cards(ctx, feat, ids, policy):
+    """One rank of the two-card case: its half of the ids through the
+    NCCL exchange, back on the host."""
+    from quiver_tpu_torch import DistFeature, PartitionInfo, TorchComm
+    g2h = (np.arange(N) % 2).astype(np.int32)
+    d = DistFeature.from_partition(
+        feat, PartitionInfo(host=ctx.rank, hosts=2, global2host=g2h),
+        TorchComm(ctx.rank, 2, group=ctx.groups[2]), dtype_policy=policy,
+        exchange_cap=256)
+    half = ids.shape[0] // 2
+    return d[ids[ctx.rank * half:(ctx.rank + 1) * half]].cpu()
+
+
+def test_two_card_exchange_over_nccl(graph):
+    """Two ranks over NCCL, one card each: the ids' rows, bit for bit
+    (int8 against the tier's own gather)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from chip_smoke import RankPool
+    ids = graph["seeds"].cpu()
+    ids = ids[:ids.shape[0] // 2 * 2]
+    feat = graph["feat"].cpu()
+    with RankPool(2, backend="nccl", timeout=60) as pool:
+        for policy in (None, "int8"):
+            got = torch.cat([torch.as_tensor(r) for r in
+                             pool.run(_rank_two_cards, feat, ids, policy)])
+            table = quant.quantize(feat, policy) if policy else feat
+            want = quant.gather_rows(table, ids.clamp(min=0))
+            want[ids < 0] = 0
+            assert torch.equal(_bits(got), _bits(want))

@@ -17,6 +17,7 @@ draws from a ``torch.Generator`` (the split routes, ``GraphSageSampler``)
 of valid ``n_id``. Rows, logits and losses are bit-identical with
 metering on and off."""
 
+import datetime
 import warnings
 
 import jax
@@ -25,6 +26,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 import quiver_tpu as qv
 from quiver_tpu import metrics as jm
@@ -112,7 +114,7 @@ def test_merge_reduce_derive_equal_jax(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_collector_equals_jax(seed):
+def test_collector_equals_jax(seed, tmp_path):
     """Adds and peaks of Python ints, bools and 0-d tensors, and absorbed
     vectors, give JAX's ``Collector.counters()``."""
     g = np.random.default_rng(seed)
@@ -136,8 +138,15 @@ def test_collector_equals_jax(seed):
     assert np.array_equal(_vec(got), np.asarray(theirs.counters()))
     assert np.array_equal(_vec(metrics.Collector().counters()),
                           np.asarray(jm.Collector().counters()))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        metrics.pmerge_counters(got, "x")
+    # the cross-rank merge over a one-rank gloo group is the vector
+    # itself (the multi-rank cases are in test_torch_comm.py)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        assert np.array_equal(_vec(metrics.pmerge_counters(got)), _vec(got))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_step_stats_fold_and_percentiles_equal_jax():
