@@ -336,7 +336,34 @@ Phases:
    batches of a dense and a planned-cap arm equal to (a)'s single-store
    logits bit for bit, and one dist step's loss equal to the
    data-parallel step's on every rank. Results on ``sharded`` lines;
-15. a JSON line of the four kernels (``ms`` the wrapper's time, ``own_ms``
+15. one process over a clique (``Feature(cache_policy=
+   "p2p_clique_replicate")`` over a mesh of 4 entries of this card, so
+   4 blocks, each its own allocation, read by one ``gather_rows_sharded``
+   launch as peers would be) on the graph of phase 1 with phase 5's
+   data: the kernel at a served frontier (1,081,344 ids; fp32, bf16 and
+   packed int8 blocks; the lookup's form and the ``out=`` form with -1
+   slots) bit for bit against its plain version, with own, wrapper and
+   plain times, ``index_select`` over the concatenated table and the
+   bound; (a) ``ServeEngine`` over an fp32 store held whole by the
+   clique and an int8 store half hot (packed blocks) and half cold
+   (pinned, packed), fused and split routes, 16 batches each: p50/p99,
+   device time and idle share, launches a batch, host synchronisations
+   (0), logits equal to the ``device_replicate`` store's engine bit for
+   bit; (b) 32 steps of ``build_train_step(fused_hot_hop=True)`` over
+   the int8 clique store (loss falling) and one step's loss and
+   gradients equal to the replicate store's on both routes; (c) the TP
+   step (``build_gspmd_train_step``) at full width: world size 1 over
+   NCCL (mesh 1 x 1) for 32 steps with a falling loss, then 4 gloo ranks
+   sharing the card (mesh 2 x 2) whose 2 steps equal the world-1 run's:
+   in fp64 their losses, gradients and parameters within 1e-5, in fp32
+   the losses and the first step within 1e-5 and the second step within
+   the limits set from its readings; (d) a spawned worker
+   opening the int8 clique store through ``share_ipc``, its lookups of
+   16 served frontiers equal to the parent's, its allocated device
+   memory below the hot tier's size; (e) ``ShardTensor`` with two device
+   groups and a pinned host group read by one launch; (f) ``Topo`` and
+   ``init_p2p`` over the cards there are. Results on ``clique`` lines;
+16. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -351,12 +378,16 @@ Phases:
    and ``launches_per_hetero_step`` from phase 13 (a) with the D=768
    gather under ``hetero``, and ``launches_per_sharded_batch``,
    ``launches_per_dist_step`` and ``launches_per_e2e_step`` from phase
-   14 (a) with the exchange's gathers under ``exchange``;
+   14 (a) with the exchange's gathers under ``exchange``, and
+   ``launches_per_clique_batch``/``launches_per_clique_step`` from
+   phase 15 (a) and (b), with ``gather_rows_sharded``'s variants and its
+   ``ShardTensor`` reads (phases 9 and 15) under it;
    the arms' records under ``sampler``, phase 8's under ``weighted``,
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
    phase 12's under ``server``, phase 13's under ``hetero``, phase 14's
-   under ``sharded``), then the
+   under ``sharded``, phase 15's under ``clique``), the script's total
+   seconds, the card's line, then the
    last line ``{"ok": true,
    "device": {...}}``.
 
@@ -396,11 +427,15 @@ CSRC = "quiver_tpu_torch/csrc/"
 SOURCES = {"fused_sample_hop": CSRC + "fused_hop.cu",
            "fused_hot_hop": CSRC + "fused_hop.cu",
            "sample_layer": CSRC + "sample_kernel.cu",
-           "gather_rows": CSRC + "gather.cu"}
+           "gather_rows": CSRC + "gather.cu",
+           "gather_rows_sharded": CSRC + "gather.cu"}
+# gather_rows_sharded: JAX's quant.gather_rows over a row-sharded array,
+# which XLA partitions (no pallas_call of its own)
 REPLACES = {"fused_sample_hop": "quiver_tpu/ops/pallas/fused.py:513",
             "fused_hot_hop": "quiver_tpu/ops/pallas/fused.py:411",
             "sample_layer": "quiver_tpu/ops/pallas/sample_kernel.py:174",
-            "gather_rows": "quiver_tpu/ops/pallas/gather.py:92"}
+            "gather_rows": "quiver_tpu/ops/pallas/gather.py:92",
+            "gather_rows_sharded": "quiver_tpu/feature.py:383"}
 SPLIT_HOP_SEEDS = [12345, -67890, 2**31 - 7]
 TRAIN_STEPS = 32
 LR = 3e-3
@@ -456,7 +491,7 @@ def own_ms(fn, kernel: str, iters: int):
     for _ in range(2):
         durs = kernel_events(lambda: [fn() for _ in range(iters)], kernel,
                              warmup=fn)
-        if len(durs) >= iters:
+        if 4 * len(durs) >= 3 * iters:
             durs = sorted(durs)
             return durs[len(durs) // 2]
         print(f"profile: {len(durs)} events of {kernel} in {iters} calls",
@@ -872,7 +907,7 @@ def phase_split(eng, requests, served, feat, iters):
     split_launches = dict(kernels.LAUNCHES)
     check(split_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
                              "sample_layer": len(SIZES), "gather_rows": 0,
-                             "gather_elems": 0},
+                             "gather_elems": 0, "gather_rows_sharded": 0},
           f"split walk launches {split_launches}")
 
     n_id, layers, x = fused.fused_multihop(*walk)
@@ -925,7 +960,7 @@ def phase_split(eng, requests, served, feat, iters):
     gather_launches = dict(kernels.LAUNCHES)
     check(gather_launches == {"fused_sample_hop": 0, "fused_hot_hop": 0,
                               "sample_layer": 0, "gather_rows": 1,
-                              "gather_elems": 0},
+                              "gather_elems": 0, "gather_rows_sharded": 0},
           f"gather path launches {gather_launches}")
     check(same_bits(out, xf[valid]), "gather_rows differs from the fused "
           "walk's rows")
@@ -1092,7 +1127,8 @@ def phase_train(dev, gen, nodes, indptr, indices, card):
     check(state.step == 1 + TRAIN_STEPS, "step count")
     check(launches == {"fused_sample_hop": (len(SIZES) - 1) * TRAIN_STEPS,
                        "fused_hot_hop": TRAIN_STEPS, "sample_layer": 0,
-                       "gather_rows": 0, "gather_elems": 0},
+                       "gather_rows": 0, "gather_elems": 0,
+                       "gather_rows_sharded": 0},
           f"train step launches {launches}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
@@ -2128,7 +2164,7 @@ def gat_fused(dev, gen, nodes, indptr, indices, feat, labels, model, card):
     train_l = dict(kernels.LAUNCHES)
     check(train_l == {"fused_sample_hop": 1, "fused_hot_hop": 1,
                       "sample_layer": 0, "gather_rows": 0,
-                      "gather_elems": 0},
+                      "gather_elems": 0, "gather_rows_sharded": 0},
           f"GAT fused train step launches {train_l}")
     check(math.isfinite(loss), f"GAT fused step loss {loss}")
     print(f"gat fused: one build_train_step(fused_hot_hop=True) step "
@@ -2826,8 +2862,9 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
     """(e) ``ShardTensor`` over 100-dim product-scale features, 25% in
     the device group and the rest pinned, fp32 and int8: a lookup at a
     served frontier equal to the plain version (device rows indexed on
-    the card, host rows indexed on the host and copied), one host-read
-    launch, its own time against the copy-rate bound."""
+    the card, host rows indexed on the host and copied), one
+    ``gather_rows_sharded`` launch over both groups, its own time against
+    the copy-rate bound of the host rows."""
     import torch
     from quiver_tpu_torch import ShardTensor
     from quiver_tpu_torch.ops import kernels, quant
@@ -2844,8 +2881,8 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
     in_dev, in_host = valid & (idl < n_dev), valid & (idl >= n_dev)
     hids = torch.where(in_host, idl - n_dev, -1).to(torch.int32)
     out = {}
-    for policy, kname in ((None, "gather_rows_kernel"),
-                          ("int8", "gather_rows_packed_kernel")):
+    for policy, kname in ((None, "gather_rows_sharded_kernel"),
+                          ("int8", "gather_rows_sharded_packed_kernel")):
         name = policy or "fp32"
         t0 = time.perf_counter()
         st = ShardTensor(dtype_policy=policy, device=dev)
@@ -2853,14 +2890,16 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
         st.append(feat[n_dev:], -1)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        check(all(t.is_pinned() for t in quant.tier_parts(st._host_data)
+        host_tier = st._blocks[1]
+        check(all(t.is_pinned() for t in quant.tier_parts(host_tier)
                   if t is not None), f"ShardTensor {name}: host group not "
               "pinned")
         kernels.reset_launches()
         got = sync_free(lambda: st[ids], f"ShardTensor {name} lookup")
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        check(launches["gather_rows"] == 1 and sum(launches.values()) == 1,
+        check(launches["gather_rows_sharded"] == 1
+              and sum(launches.values()) == 1,
               f"ShardTensor {name} launches {launches}")
         dev_rows = st.device_tensor_list[0]
         host_rows = st.cpu_tensor
@@ -2876,7 +2915,7 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
         own = own_ms(lambda: st[ids], kname, iters)
         plain_ms = cuda_ms(plain, 3)
         b_ms, b_by, host_bytes, dev_bytes, distinct = host_gather_bound(
-            st._host_data, hids, h2d)
+            host_tier, hids, h2d)
         share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
         pinned = (nodes - n_dev) * (quant.packed_stride(DIM) if policy
                                     else 4 * DIM)
@@ -2886,9 +2925,9 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
               f"served frontier ({ids.shape[0]} ids, {int(in_dev.sum())} "
               f"device rows, {int(in_host.sum())} host rows, {distinct} "
               f"distinct) equal to the plain version bit for bit, 1 "
-              f"gather_rows launch, no host synchronisation; lookup "
-              f"{ms:.4f} ms, host read own {fmt_ms(own)}{share}, plain "
-              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {host_bytes}"
+              f"gather_rows_sharded launch, no host synchronisation; lookup "
+              f"{ms:.4f} ms, kernel own (both groups) {fmt_ms(own)}{share}, "
+              f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {host_bytes}"
               f" B from the host at {h2d / 1e9:.2f} GB/s); on {card}",
               flush=True)
         out[name] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
@@ -2896,7 +2935,7 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
                      "host_bytes": host_bytes, "launches_per_lookup": 1,
                      "ids": int(ids.shape[0]),
                      "host_rows": int(in_host.sum()), "build_s": build_s}
-        del st, dev_rows, host_rows, got
+        del st, dev_rows, host_rows, got, host_tier
     return out
 
 
@@ -5895,7 +5934,8 @@ def sharded_world1(dev, card, g, group):
     launches = dict(kernels.LAUNCHES)
     check(launches == {"fused_sample_hop": len(SIZES) * SHARD_BATCHES,
                        "fused_hot_hop": 0, "sample_layer": 0,
-                       "gather_rows": 2 * SHARD_BATCHES, "gather_elems": 0},
+                       "gather_rows": 2 * SHARD_BATCHES, "gather_elems": 0,
+                       "gather_rows_sharded": 0},
           f"sharded serve launches {launches}")
     for o in outs:
         check(tuple(o.shape) == (BATCH, CLASSES)
@@ -6281,6 +6321,739 @@ def phase_sharded(dev, card):
         train_launches
 
 
+CLIQUE = 4                     # entries of phase 15's clique (one card)
+CLIQUE_BATCHES = 16            # (a): timed batches of each arm and route
+CLIQUE_STEPS = 32              # (b), (c): timed steps
+TP_RANKS = 4                   # (c): gloo ranks sharing the card, 2 x 2
+TP_CHECK_STEPS = 2             # (c): steps of the 4 ranks held to world 1
+TP_TOL = 1e-5                  # (c): relative, fp64 and fp32 step 1
+# (c): fp32's second step, relative: its gradients by each tensor's largest
+# entry, its parameters by norm. Set from the first runs' readings (1.05e-3
+# and 2.83e-5, NVIDIA H100 80GB HBM3, 700 W) once the fp64 run showed the
+# same two steps within 1e-5: Adam turns gradient roundings near 0 into
+# whole steps of lr, and step 2 is taken from parameters that differ so.
+TP_STEP2_GRAD_TOL = 1e-2
+TP_STEP2_PARAM_TOL = 1e-4
+CLIQUE_TIMEOUT = 300.0         # (c), (d): collectives and calls, s
+
+
+def sharded_kernel_check(dev, tiers, ids, card, iters):
+    """``gather_rows_sharded`` at a served frontier over each clique tier
+    (fp32, bf16, packed int8): the lookup's form (every slot read, ids
+    clamped) and the ``out=`` form with the frontier's -1 slots, each
+    held bit for bit to the plain version; the own time (profiler), the
+    wrapper's, the plain version's, ``index_select`` of the same rows
+    from one concatenated device table (the replicate store's read) and
+    the bound: the ids read once, each distinct row they read (the
+    clamped -1 slots all read row 0) read once, and each output row the
+    form writes (every slot, or the live ones) written once, at 3.35
+    TB/s."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    out = {}
+    live = int((ids >= 0).sum())
+    safe = ids.clamp(min=0)
+    for name, tier in tiers.items():
+        whole = tier.unsharded() if not quant.is_quantized(tier.shards[0]) \
+            else None
+        for form in ("lookup", "out="):
+            if form == "lookup":
+                run = lambda: gather.gather_rows_sharded(tier, safe)  # noqa
+                plain = lambda: gather.gather_rows_sharded_plain(  # noqa
+                    tier, safe)
+                got, want = run(), plain()
+                n_read, distinct = ids.shape[0], int(safe.unique().numel())
+            else:
+                base = torch.zeros((ids.shape[0], tier.dim),
+                                   dtype=quant.tier_dtype(tier), device=dev)
+                got = gather.gather_rows_sharded(tier, ids, out=base.clone())
+                want = gather.gather_rows_sharded_plain(tier, ids,
+                                                        out=base.clone())
+                run = lambda: gather.gather_rows_sharded(  # noqa: E731
+                    tier, ids, out=base)
+                plain = lambda: gather.gather_rows_sharded_plain(  # noqa
+                    tier, ids, out=base)
+                n_read = live
+                distinct = int(ids[ids >= 0].unique().numel())
+            check(same_bits(got, want), f"gather_rows_sharded {name} {form}:"
+                  " kernel differs from its plain version")
+            row_in = quant.row_read_bytes(tier)
+            row_out = tier.dim * got.element_size()
+            nbytes = 4 * ids.shape[0] + row_in * distinct + row_out * n_read
+            lib = None
+            if whole is not None and form == "lookup":
+                table = whole.to(dev)
+                idx = safe.long()
+                check(same_bits(table.index_select(0, idx), got),
+                      f"gather_rows_sharded {name}: differs from "
+                      "index_select over the concatenated table")
+                lib = cuda_ms(lambda: table.index_select(0, idx), iters)
+                del table
+            kname = ("gather_rows_sharded_packed_kernel"
+                     if quant.is_quantized(tier.shards[0])
+                     else "gather_rows_sharded_kernel")
+            rec = {"ids": int(ids.shape[0]), "rows_written": n_read,
+                   "distinct_rows_read": distinct,
+                   "shards": len(tier.shards), "max_abs_err": 0.0,
+                   "ms": cuda_ms(run, iters),
+                   "own_ms": own_ms(run, kname, iters),
+                   "burst_ms": burst_ms(run, iters),
+                   "plain_ms": cuda_ms(plain, 3),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": lib, "kernel": kname}
+            out[f"{name} {form}"] = rec
+            share = "" if rec["own_ms"] is None else \
+                f" (bound / own {rec['bound_ms'] / rec['own_ms']:.0%})"
+            print(f"clique gather_rows_sharded {name} {form}: {rec['ids']} "
+                  f"ids ({n_read} rows written, {distinct} distinct rows "
+                  f"read) over {len(tier.shards)} "
+                  f"blocks, equal to its plain version; own "
+                  f"{fmt_ms(rec['own_ms'])}{share}, back to back "
+                  f"{rec['burst_ms']:.4f} ms, wrapper {rec['ms']:.4f} ms, "
+                  f"plain {rec['plain_ms']:.4f} ms, index_select "
+                  f"{fmt_ms(lib)}, bound {rec['bound_ms']:.4f} ms "
+                  f"({nbytes} B at 3.35 TB/s); on {card}", flush=True)
+    return out
+
+
+def clique_stores(dev, g, card):
+    """(a)'s stores: the fp32 table whole on a clique of CLIQUE entries
+    of this card and the int8 store half hot on it (packed blocks) and
+    half cold (pinned, packed), each beside its ``device_replicate``
+    counterpart over the same rows, order and knobs."""
+    import torch
+    from quiver_tpu_torch import Feature
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("cache",), devices=[dev] * CLIQUE)
+    stores, build = {}, {}
+    for arm, policy, hot in (("fp32 whole", None, NODES),
+                             ("int8 half", "int8", NODES // 2)):
+        row = quant.row_bytes(DIM, policy)
+        kw = dict(csr_topo=g["topo"], dtype_policy=policy,
+                  host_placement="offload", dedup_cold=True, device=dev)
+        for kind in ("clique", "replicate"):
+            t0 = time.perf_counter()
+            if kind == "clique":
+                s = Feature(device_cache_size=-(-hot // CLIQUE) * row,
+                            cache_policy="p2p_clique_replicate", mesh=mesh,
+                            **kw)
+            else:
+                s = Feature(device_cache_size=hot * row, **kw)
+            stores[(arm, kind)] = s.from_cpu_tensor(g["feat"])
+            torch.cuda.synchronize()
+            build[(arm, kind)] = time.perf_counter() - t0
+        c, r = stores[(arm, "clique")], stores[(arm, "replicate")]
+        check(c.sharded and c.cache_rows == r.cache_rows == hot
+              and torch.equal(c.feature_order, r.feature_order),
+              f"{arm}: the clique store's hot rows {c.cache_rows}")
+        blocks = c.device_part.shards
+        lead = quant.tier_parts(blocks[0])[0]
+        print(f"clique (a) {arm}: {c.cache_rows} hot rows in "
+              f"{len(blocks)} blocks of {quant.tier_rows(blocks[0])} rows "
+              f"({lead.stride(0) * lead.element_size()} B a row), "
+              f"{NODES - c.cache_rows} cold rows pinned; built in "
+              f"{build[(arm, 'clique')]:.2f} s (replicate "
+              f"{build[(arm, 'replicate')]:.2f} s); on {card}", flush=True)
+    return stores, build
+
+
+def clique_serving(dev, g, stores, card):
+    """(a): ``ServeEngine`` over each clique store, fused and split
+    routes, 16 batches each: p50/p99, device ms and idle share, launches
+    a batch and host synchronisations; then every batch's logits equal
+    to the replicate store's engine bit for bit (deterministic
+    algorithms on)."""
+    import torch
+    from quiver_tpu_torch import ServeEngine
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel.train import draw_int32
+    host = torch.Generator().manual_seed(SEED + 15)
+    requests = [torch.randperm(NODES, generator=g["gen"], device=dev)[:BATCH]
+                for _ in range(CLIQUE_BATCHES)]
+    hop_seeds = [draw_int32(host, len(SIZES)) for _ in requests]
+    rec, launches = {}, {}
+    for arm in ("fp32 whole", "int8 half"):
+        for fused in (True, False):
+            route = "fused" if fused else "split"
+            engs = {kind: ServeEngine(
+                sage(dev)[0], None, g["topo"], stores[(arm, kind)], [SIZES],
+                BATCH, fused_hot_hop=fused, fused_row_cap=ROW_CAP,
+                seed=SEED, device=dev).warmup()
+                for kind in ("clique", "replicate")}
+            eng = engs["clique"]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            lat = []
+            for ids, hs in zip(requests, hop_seeds):
+                t0 = time.perf_counter()
+                o = eng.run(ids, hop_seeds=hs)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                check(tuple(o.shape) == (BATCH, CLASSES)
+                      and bool(torch.isfinite(o).all()), "clique logits")
+            got = dict(kernels.LAUNCHES)
+            launches[(arm, route)] = got
+            # the split route's exact sampler is torch ops, no kernel
+            check(got["fused_sample_hop"]
+                  == (len(SIZES) * CLIQUE_BATCHES if fused else 0)
+                  and got["gather_rows_sharded"] >= CLIQUE_BATCHES
+                  and got["fused_hot_hop"] == 0
+                  and (got["gather_rows"] >= CLIQUE_BATCHES)
+                  == (arm == "int8 half"),
+                  f"clique {arm} {route} launches {got}")
+            stats = {}
+            busy = device_profile(lambda: [eng.run(r) for r in requests[:4]],
+                                  4, f"clique {route} batch", stats=stats)
+            syncs = count_syncs(lambda: eng.run(requests[0],
+                                                hop_seeds=hop_seeds[0]))
+            with deterministic():
+                for ids, hs in zip(requests, hop_seeds):
+                    a = eng.run(ids, hop_seeds=hs)
+                    b = engs["replicate"].run(ids, hop_seeds=hs)
+                    check(same_bits(a, b), f"clique {arm} {route}: logits "
+                          "differ from the replicate store's engine")
+            p50, p99 = pcts(lat)
+            per = {k: v / CLIQUE_BATCHES for k, v in nonzero(got).items()}
+            rec[f"{arm} {route}"] = {
+                "batch_p50_ms": p50, "batch_p99_ms": p99,
+                "device_ms": busy, "idle_share": stats.get("idle_share"),
+                "launches_per_batch": per, "host_syncs_per_batch": syncs}
+            print(f"clique (a) {arm} {route}: {CLIQUE_BATCHES} batches of "
+                  f"{BATCH}, fanout {SIZES}, p50 {p50:.3f} ms p99 "
+                  f"{p99:.3f} ms (host clock + synchronize), device "
+                  f"{fmt_ms(busy)} a batch, idle share "
+                  f"{stats.get('idle_share', float('nan')):.3f}, launches "
+                  f"a batch {per}, host synchronisations a batch {syncs}; "
+                  f"logits equal to the replicate store's engine bit for "
+                  f"bit on all {CLIQUE_BATCHES} batches (deterministic "
+                  f"algorithms on); on {card}", flush=True)
+            check(syncs == 0, f"clique {arm} {route}: {syncs} host "
+                  "synchronisations a batch")
+            del engs, eng
+    return rec, launches, requests, hop_seeds
+
+
+def clique_training(dev, g, stores, card):
+    """(b): 32 steps of ``build_train_step(fused_hot_hop=True)`` over the
+    int8 clique store (the sample-only walk, then the store's lookup),
+    the loss falling; one step's loss and gradients over the clique and
+    the replicate store equal bit for bit on both routes (deterministic
+    algorithms on)."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.parallel import rank_step_seeds, train
+    store = stores[("int8 half", "clique")]
+    order = torch.randperm(NODES, generator=g["gen"], device=dev) \
+        .to(torch.int32)
+    batches = [order[i * BATCH:(i + 1) * BATCH].contiguous()
+               for i in range(CLIQUE_STEPS + 1)]
+    ys = [g["labels"][b.long()] for b in batches]
+    seeds = [rank_step_seeds(SEED + 150 + i, 0, len(SIZES))
+             for i in range(len(batches))]
+    state, step = new_trainer(sage(dev, DROPOUT)[0])
+    state, _ = step(state, store, None, g["indptr"], g["indices"],
+                    batches[0], ys[0], *seeds[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    lat, losses = [], []
+    for i in range(1, len(batches)):
+        t0 = time.perf_counter()
+        state, loss = step(state, store, None, g["indptr"], g["indices"],
+                           batches[i], ys[i], *seeds[i])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = dict(kernels.LAUNCHES)
+    losses = torch.stack(losses).tolist()
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(all(math.isfinite(v) for v in losses) and last < 0.7 * first,
+          f"clique train: loss did not fall ({first} -> {last})")
+    check(launches["fused_sample_hop"] == len(SIZES) * CLIQUE_STEPS
+          and launches["gather_rows_sharded"] >= CLIQUE_STEPS
+          and launches["fused_hot_hop"] == 0
+          and launches["gather_rows"] >= CLIQUE_STEPS,
+          f"clique train launches {launches}")
+    p50, p99 = pcts(lat)
+    stats = {}
+    busy = device_profile(lambda: [step(state, store, None, g["indptr"],
+                                        g["indices"], batches[i], ys[i],
+                                        *seeds[i]) for i in range(1, 5)],
+                          4, "clique step", stats=stats)
+    rec = {"step_p50_ms": p50, "step_p99_ms": p99, "device_ms": busy,
+           "idle_share": stats.get("idle_share"), "first8_loss": first,
+           "last8_loss": last,
+           "launches_per_step": {k: v / CLIQUE_STEPS for k, v in
+                                 nonzero(launches).items()}}
+    print(f"clique (b) train: {CLIQUE_STEPS} steps of {BATCH} over the int8 "
+          f"clique store, step p50 {p50:.3f} ms p99 {p99:.3f} ms, device "
+          f"{fmt_ms(busy)} a step, idle share "
+          f"{stats.get('idle_share', float('nan')):.3f}, loss mean of the "
+          f"first 8 {first:.4f}, of the last 8 {last:.4f}; launches a step "
+          f"{rec['launches_per_step']}; on {card}", flush=True)
+    params = sage(dev, DROPOUT)[1]
+    hs, drop = seeds[1]
+    for fused in (True, False):
+        got = []
+        with deterministic():
+            for kind in ("clique", "replicate"):
+                model = sage(dev, DROPOUT)[0]
+                model.load_state_dict(params)
+                knobs = train._step_knobs(fused, ROW_CAP, SIZES, "exact",
+                                          None)
+                got.append(grads_of(model, lambda m: train._fused_loss(
+                    m, SIZES, BATCH, stores[("int8 half", kind)], None,
+                    g["indptr"], g["indices"], batches[1], ys[1], hs, drop,
+                    fused=knobs, gather=train.store_gather)))
+        (la, ga), (lb, gb) = got
+        check(la == lb and all(same_bits(ga[k], gb[k]) for k in ga),
+              f"clique train ({'fused' if fused else 'split'}): loss or "
+              "gradients differ from the replicate store's")
+        rec["one_step_loss_" + ("fused" if fused else "split")] = la
+    print(f"clique (b) check: one step's loss "
+          f"({rec['one_step_loss_fused']:.6f} fused, "
+          f"{rec['one_step_loss_split']:.6f} split) and every "
+          "gradient over the clique store equal to those over the "
+          "replicate store bit for bit (deterministic algorithms on)",
+          flush=True)
+    return rec, launches
+
+
+def _tp_steps(model, mesh, g, batches, steps, keep):
+    """The TP step over ``mesh`` for ``steps`` steps of ``batches``:
+    losses, step times, and for each of the first ``keep`` steps the
+    full gradients the optimizer applied and the full parameters after
+    it."""
+    import torch
+    from quiver_tpu_torch.parallel import (build_gspmd_train_step,
+                                           full_parameters, init_state,
+                                           shard_state)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    st = shard_state(init_state(model, opt), mesh)
+    step = build_gspmd_train_step(model, opt, SIZES, mesh)
+    losses, lat, params, grads = [], [], [], []
+    apply = st.optimizer.step
+
+    def recorded(*a, **k):
+        # the averaged gradients, read (collectively) before the update
+        if len(grads) < keep:
+            grads.append(full_parameters(model, grad=True))
+        return apply(*a, **k)
+    st.optimizer.step = recorded
+    for i in range(steps):
+        seeds, ys, hs, drop = batches[i]
+        t0 = time.perf_counter()
+        st, loss = step(st, g["feat"], None, g["indptr"], g["indices"],
+                        seeds, ys, hs, drop)
+        losses.append(float(loss))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if i < keep:
+            params.append(full_parameters(model))
+    return losses, lat, params, grads
+
+
+def tp_model(dev, params, wide):
+    """Phase 3's GraphSAGE from ``params`` for the TP step; with ``wide``
+    its weights and arithmetic in float64, the fp32 rows the walk gathers
+    widened at its input."""
+    import torch
+    model = sage(dev, DROPOUT)[0]
+    model.load_state_dict(params)
+    if not wide:
+        return model
+
+    class Wide(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x, adjs, generator=None):
+            return self.inner(x.double(), adjs, generator=generator)
+    return Wide(model.double())
+
+
+TP_WIDTHS = (("fp32", False), ("fp64", True))
+
+
+def _tp_rank(ctx, dev, g, params, batches):
+    """(c), on each of the TP_RANKS gloo ranks: a 2 x 2 mesh over this
+    card, TP_CHECK_STEPS steps from ``params`` in fp32 and in fp64, the
+    losses, gradients and full parameters (host copies) of each, and
+    each fp32 weight's local shape."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh(dev.type, (2, 2),
+                            mesh_dim_names=("data", "model"))
+    host = lambda steps: [{k: v.cpu() for k, v in p.items()}  # noqa: E731
+                          for p in steps]
+    out = {}
+    for name, wide in TP_WIDTHS:
+        model = tp_model(dev, params, wide)
+        with deterministic():
+            losses, lat, full, grads = _tp_steps(
+                model, mesh, g, batches, TP_CHECK_STEPS, TP_CHECK_STEPS)
+        out[name] = {"losses": losses, "ms": lat, "params": host(full),
+                     "grads": host(grads)}
+        if not wide:
+            out["local"] = {n: tuple(p.shape)
+                            for n, p in model.named_parameters()}
+    return out
+
+
+def clique_tp(dev, g, card):
+    """(c): the TP step at full width, world size 1 over NCCL (mesh 1 x
+    1) for CLIQUE_STEPS steps with a falling loss, then TP_RANKS gloo
+    ranks on this card (2 x 2) for TP_CHECK_STEPS steps in fp32 and in
+    fp64, held to world size 1's same steps, both under torch's
+    deterministic algorithms: fp64's losses, gradients and parameters of
+    every step within TP_TOL; fp32's losses of every step and its first
+    step's gradients and parameters within TP_TOL, its second step's
+    within TP_STEP2_GRAD_TOL and TP_STEP2_PARAM_TOL."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from quiver_tpu_torch import init_distributed
+    from quiver_tpu_torch.parallel.train import draw_int32
+    order = torch.randperm(NODES, generator=g["gen"], device=dev) \
+        .to(torch.int32)
+    host = torch.Generator().manual_seed(SEED + 1515)
+    batches = []
+    for i in range(CLIQUE_STEPS):
+        s = order[i * BATCH:(i + 1) * BATCH].contiguous()
+        batches.append((s, g["labels"][s.long()],
+                        draw_int32(host, len(SIZES)), draw_int32(host, 1)[0]))
+    params = sage(dev, DROPOUT)[1]
+    tmp = tempfile.mkdtemp(prefix="qt_nccl_")
+    init_distributed("nccl" if dev.type == "cuda" else "gloo",
+                     f"file://{tmp}/rendezvous", 1, 0,
+                     timeout=CLIQUE_TIMEOUT)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        # the reference for the ranks: the first steps under torch's
+        # deterministic algorithms (the model's index_add_ sums in one
+        # order), as the ranks run them, in both widths
+        ref = {}
+        for name, wide in TP_WIDTHS:
+            with deterministic():
+                ref[name] = _tp_steps(tp_model(dev, params, wide), mesh, g,
+                                      batches, TP_CHECK_STEPS,
+                                      TP_CHECK_STEPS)
+        losses, lat, _, _ = _tp_steps(tp_model(dev, params, False), mesh,
+                                      g, batches, CLIQUE_STEPS, 0)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(all(math.isfinite(v) for v in losses) and last < 0.7 * first,
+          f"TP step: loss did not fall ({first} -> {last})")
+    p50, p99 = pcts(lat[1:])
+    rec = {"world1": {"backend": "nccl", "mesh": [1, 1],
+                      "step_p50_ms": p50, "step_p99_ms": p99,
+                      "first8_loss": first, "last8_loss": last}}
+    print(f"clique (c) TP world size 1 over NCCL (mesh 1 x 1): "
+          f"{CLIQUE_STEPS} steps of {BATCH}, step p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms (after the first), loss mean of the first 8 "
+          f"{first:.4f}, of the last 8 {last:.4f}; on {card}", flush=True)
+    t0 = time.perf_counter()
+    with RankPool(TP_RANKS, backend="gloo", timeout=CLIQUE_TIMEOUT,
+                  call_timeout=2 * CLIQUE_TIMEOUT) as pool:
+        spawn_s = time.perf_counter() - t0
+        ranks = pool.run(_tp_rank, dev, {k: g[k] for k in (
+            "indptr", "indices", "feat")}, params, batches[:TP_CHECK_STEPS])
+
+    def rel_errs(width, kind, norm):
+        """Each tensor's error over the ranks, by step, relative to the
+        world-1 run's: its largest entry's error over its largest entry,
+        or with ``norm`` the norm of the difference over its norm."""
+        ref_steps = ref[width][2 if kind == "params" else 3]
+        out = {}
+        for r in ranks:
+            for i, (got_i, want_i) in enumerate(zip(r[width][kind],
+                                                    ref_steps)):
+                for name, want in want_i.items():
+                    diff = torch.as_tensor(got_i[name]).to(dev) - want
+                    err = float(diff.norm() / want.norm().clamp(min=1e-30)
+                                if norm else diff.abs().max()
+                                / want.abs().max().clamp(min=1e-30))
+                    key = f"step {i + 1} {name}"
+                    out[key] = max(out.get(key, 0.0), err)
+        return out
+
+    def worst(errs, step=None):
+        return max(v for k, v in errs.items()
+                   if step is None or k.startswith(f"step {step} "))
+    rec["ranks"] = {"ranks": TP_RANKS, "backend": "gloo", "mesh": [2, 2],
+                    "spawn_s": spawn_s,
+                    "local_shapes": {k: list(v) for k, v in
+                                     ranks[0]["local"].items()}}
+    for width, _ in TP_WIDTHS:
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r[width]["losses"], ref[width][0]))
+        errs = {"grad": rel_errs(width, "grads", False),
+                "param": rel_errs(width, "params", True),
+                "param_max": rel_errs(width, "params", False)}
+        for what, key in (("gradient's largest entry error, relative to "
+                           "its largest entry", "grad"),
+                          ("parameter's difference norm, relative to its "
+                           "norm", "param"),
+                          ("parameter's largest entry error, relative to "
+                           "its largest entry", "param_max")):
+            print(f"clique (c) TP 2 x 2 {width} against world size 1, each "
+                  f"{what}: " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in errs[key].items()),
+                  flush=True)
+        if width == "fp64":
+            held = {"loss": (loss_err, TP_TOL),
+                    "gradients": (worst(errs["grad"]), TP_TOL),
+                    "parameters": (worst(errs["param_max"]), TP_TOL)}
+        else:
+            held = {"loss": (loss_err, TP_TOL),
+                    "step 1 gradients": (worst(errs["grad"], 1), TP_TOL),
+                    "step 1 parameters": (worst(errs["param"], 1), TP_TOL),
+                    "step 2 gradients": (worst(errs["grad"], 2),
+                                         TP_STEP2_GRAD_TOL),
+                    "step 2 parameters": (worst(errs["param"], 2),
+                                          TP_STEP2_PARAM_TOL)}
+        check(all(v <= lim for v, lim in held.values()),
+              f"TP 2 x 2 {width} against world size 1: {held}")
+        rec["ranks"][width] = {
+            "losses": ranks[0][width]["losses"],
+            "step_ms": ranks[0][width]["ms"], "loss_rel_err": loss_err,
+            "held": {k: list(v) for k, v in held.items()},
+            "grad_rel_errs": errs["grad"], "param_rel_errs": errs["param"],
+            "param_max_rel_errs": errs["param_max"]}
+        print(f"clique (c) TP {TP_RANKS} gloo ranks on this card (mesh 2 x "
+              f"2), {width}, {TP_CHECK_STEPS} steps: losses "
+              f"{ranks[0][width]['losses']}; held against world size 1 "
+              f"(measured, limit): "
+              + ", ".join(f"{k} {v:.2e} <= {lim:g}"
+                          for k, (v, lim) in held.items())
+              + f"; parameters after {TP_CHECK_STEPS} steps within "
+              f"{worst(errs['param']):.2e} by norm, "
+              f"{worst(errs['param_max']):.2e} of the largest entry; steps "
+              f"{['%.1f' % v for v in ranks[0][width]['ms']]} ms "
+              f"(deterministic algorithms on both); on {card}", flush=True)
+    print(f"clique (c) TP ranks spawned in {spawn_s:.2f} s; rank 0's conv2 "
+          f"lin_root weight {ranks[0]['local']['convs.2.lin_root.weight']} "
+          f"of (47, 256); on {card}", flush=True)
+    return rec
+
+
+def _ipc_worker(handle, frontiers, want, out, done):
+    """(d), in the spawned worker: the store from its ``share_ipc``
+    handle, each frontier's lookup held to the parent's rows, and the
+    device memory this process allocated."""
+    import torch
+    try:
+        from quiver_tpu_torch import Feature
+        card = frontiers[0].is_cuda
+
+        def allocated():
+            if not card:
+                return 0
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+        start = allocated()
+        store = Feature.new_from_ipc_handle(0, handle)
+        opened = allocated() - start
+        equal = True
+        for ids, rows in zip(frontiers, want):
+            equal = equal and same_bits(store.getitem_masked(ids), rows)
+        after = allocated() - start
+        out.put(("ok", equal, opened, after,
+                 torch.cuda.max_memory_allocated() if card else 0))
+    except Exception:
+        out.put(("error", traceback.format_exc(), None, None, None))
+    done.get(timeout=CLIQUE_TIMEOUT)
+
+
+def clique_ipc(dev, g, stores, requests, hop_seeds, card):
+    """(d): a spawned worker opens the int8 clique store through
+    ``share_ipc`` and looks up 16 served frontiers: equal to the
+    parent's rows bit for bit, and the worker's allocated device memory
+    grows by less than the hot tier's size."""
+    import torch
+    import torch.multiprocessing as mp
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import fused
+    store = stores[("int8 half", "clique")]
+    frontiers = []
+    for ids, hs in zip(requests, hop_seeds):
+        seeds = torch.full((BATCH,), -1, dtype=torch.int32, device=dev)
+        seeds[:ids.shape[0]] = ids
+        frontiers.append(fused.fused_sample_multihop(
+            g["indptr"], g["indices"], seeds, SIZES, hs, ROW_CAP)[0])
+    t0 = time.perf_counter()
+    handle = store.share_ipc()
+    share_s = time.perf_counter() - t0
+    want = [store.getitem_masked(f) for f in frontiers]
+    hot_bytes = sum(quant.tier_parts(b)[0].untyped_storage().nbytes()
+                    for b in store.device_part.shards)
+    ctx = mp.get_context("spawn")
+    out, done = ctx.Queue(), ctx.Queue()
+    t0 = time.perf_counter()
+    proc = ctx.Process(target=_ipc_worker,
+                       args=(handle, frontiers, want, out, done))
+    proc.start()
+    try:
+        status, equal, opened, after, peak = out.get(timeout=CLIQUE_TIMEOUT)
+    finally:
+        done.put(None)
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+    worker_s = time.perf_counter() - t0
+    check(status == "ok", f"IPC worker failed:\n{equal}")
+    check(equal, "the IPC worker's lookups differ from the parent's")
+    check(after < hot_bytes, f"the IPC worker allocated {after} B after "
+          f"its lookups, the hot tier is {hot_bytes} B")
+    rec = {"frontiers": len(frontiers), "share_s": share_s,
+           "worker_s": worker_s, "opened_alloc_bytes": opened,
+           "after_alloc_bytes": after, "peak_alloc_bytes": peak,
+           "hot_tier_bytes": hot_bytes}
+    print(f"clique (d) IPC: share_ipc {share_s:.2f} s (the cold tier moved "
+          f"to shared pages and registered); a spawned worker opened the "
+          f"int8 clique store and looked up {len(frontiers)} served "
+          f"frontiers of {frontiers[0].shape[0]} ids, equal to the "
+          f"parent's bit for bit; its allocated device memory grew by "
+          f"{opened} B on opening and {after} B after the lookups (peak "
+          f"{peak} B during them), the hot tier is {hot_bytes} B; "
+          f"{worker_s:.2f} s with the spawn; on {card}", flush=True)
+    return rec
+
+
+def clique_shard_tensor(dev, g, ids, h2d, card, iters):
+    """(e): ``ShardTensor`` with two device groups (both on this card)
+    and a pinned host group over the fp32 features, read at a served
+    frontier by one launch, equal to the plain version."""
+    import torch
+    from quiver_tpu_torch import ShardTensor
+    from quiver_tpu_torch.ops import kernels, quant
+    from quiver_tpu_torch.ops.kernels import gather
+    q = NODES // 4
+    st = ShardTensor(0, device=dev)
+    st.append(g["feat"][:q], 0)
+    st.append(g["feat"][q:2 * q], 1)
+    st.append(g["feat"][2 * q:].cpu(), -1)
+    kernels.reset_launches()
+    got = sync_free(lambda: st[ids], "ShardTensor lookup")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(nonzero(launches) == {"gather_rows_sharded": 1},
+          f"ShardTensor launches {launches}")
+    idl = ids.long()
+    valid = (idl >= 0) & (idl < NODES)
+    want = gather.gather_rows_sharded_plain(
+        st._tier, torch.where(valid, idl, -1).to(torch.int32),
+        out=torch.zeros_like(got))
+    check(same_bits(got, want), "ShardTensor lookup differs from its plain "
+          "version")
+    check(same_bits(got[valid], g["feat"][idl[valid]]),
+          "ShardTensor rows differ from the table's")
+    run = lambda: st[ids]                                  # noqa: E731
+    own = own_ms(run, "gather_rows_sharded_kernel", iters)
+    hids = torch.where(valid & (idl >= 2 * q), idl - 2 * q, -1)
+    b_ms, b_by, host_bytes, _, distinct = host_gather_bound(
+        st._blocks[2], hids, h2d)
+    dev_live = int((valid & (idl < 2 * q)).sum())
+    dev_ms = (4 * ids.shape[0] + 8 * DIM * dev_live) / HBM_BYTES_PER_S * 1e3
+    rec = {"ids": int(ids.shape[0]), "launches_per_lookup": 1,
+           "groups": [0, 1, -1], "ms": cuda_ms(run, iters), "own_ms": own,
+           "plain_ms": cuda_ms(lambda: gather.gather_rows_sharded_plain(
+               st._tier, torch.where(valid, idl, -1).to(torch.int32),
+               out=torch.zeros_like(got)), 3),
+           "bound_ms": max(b_ms, dev_ms),
+           "bound_by": b_by if b_ms >= dev_ms else "bytes (device)",
+           "host_bytes": host_bytes, "host_distinct_rows": distinct}
+    print(f"clique (e) ShardTensor: device groups 0 and 1 on {dev} and a "
+          f"pinned host group ({NODES - 2 * q} rows), lookup at a served "
+          f"frontier of {ids.shape[0]} ids in 1 gather_rows_sharded launch, "
+          f"equal to the plain version and the table bit for bit, no host "
+          f"synchronisation; wrapper {rec['ms']:.4f} ms, own "
+          f"{fmt_ms(own)}, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {host_bytes} B of "
+          f"{distinct} distinct host rows at {h2d / 1e9:.2f} GB/s); on "
+          f"{card}", flush=True)
+    return rec
+
+
+def phase_clique(dev, card):
+    """Phase 15: one process over a clique of CLIQUE entries of this card
+    on phase 1's graph with phase 5's data: (a) clique serving against
+    the replicate store, (b) training over the int8 clique store, (c)
+    the TP step, (d) IPC, (e) ``ShardTensor`` across groups, (f) the
+    topology; and the clique kernel held to its plain version at a
+    served frontier. Returns the record, the kernel's record and the
+    launches of (a)'s fused int8 run and of (b)."""
+    import torch
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import fused
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, _ = make_graph(dev, gen, NODES)     # phase 1's graph
+    feat, labels = make_train_data(dev, gen, NODES)
+    g = {"gen": gen, "indptr": indptr, "indices": indices, "feat": feat,
+         "labels": labels,
+         "topo": CSRTopo(indptr=indptr, indices=indices, device=dev)}
+    stores, build = clique_stores(dev, g, card)
+    serve_rec, serve_launches, requests, hop_seeds = clique_serving(
+        dev, g, stores, card)
+
+    # the kernel at a served frontier: the fp32 store's storage ids
+    seeds = torch.full((BATCH,), -1, dtype=torch.int32, device=dev)
+    seeds[:BATCH] = requests[0]
+    n_id = fused.fused_sample_multihop(indptr, indices, seeds, SIZES,
+                                       hop_seeds[0], ROW_CAP)[0]
+    whole = stores[("fp32 whole", "clique")]
+    order = whole.feature_order
+    ids = torch.where(n_id >= 0, order[n_id.long().clamp(min=0)],
+                      -1).to(torch.int32)
+    tiers = {"fp32": whole.device_part,
+             "bf16": qt.Feature(
+                 device_cache_size=-(-NODES // CLIQUE) * 2 * DIM,
+                 cache_policy="p2p_clique_replicate",
+                 mesh=whole.mesh, dtype_policy="bf16",
+                 device=dev).from_cpu_tensor(feat).device_part,
+             "int8": qt.Feature(
+                 device_cache_size=-(-NODES // CLIQUE)
+                 * quant.row_bytes(DIM, "int8"),
+                 cache_policy="p2p_clique_replicate", mesh=whole.mesh,
+                 dtype_policy="int8", device=dev)
+             .from_cpu_tensor(feat).device_part}
+    kernel = sharded_kernel_check(dev, tiers, ids, card, iters=20)
+    del tiers
+    for k in [k for k in stores if k[0] == "fp32 whole"]:
+        del stores[k]
+    del whole
+    torch.cuda.empty_cache()
+
+    train_rec, train_launches = clique_training(dev, g, stores, card)
+    tp_rec = clique_tp(dev, g, card)
+    ipc_rec = clique_ipc(dev, g, stores, requests, hop_seeds, card)
+    h2d, _ = h2d_rate(dev)
+    st_rec = clique_shard_tensor(dev, g, n_id, h2d, card, iters=20)
+    n = torch.cuda.device_count()
+    info = qt.Topo(list(range(n))).info()
+    qt.init_p2p(list(range(n)))
+    print(f"clique (f) Topo over {n} card(s): {info!r}; init_p2p over "
+          f"them done; on {card}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 15: {secs:.1f} s: (a) clique serving, (b) clique "
+          f"training, (c) TP step, (d) IPC, (e) ShardTensor, (f) Topo",
+          flush=True)
+    rec = {"clique": CLIQUE, "build_s": {f"{a} {k}": v for (a, k), v in
+                                         build.items()},
+           "serving": serve_rec, "training": train_rec, "tp": tp_rec,
+           "ipc": ipc_rec, "shard_tensor": st_rec,
+           "topo": {"cards": n, "info": info}, "seconds": secs}
+    return rec, kernel, serve_launches, train_launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -6361,6 +7134,7 @@ def main() -> int:
     from quiver_tpu_torch.ops import kernels, quant
     from quiver_tpu_torch.ops.kernels import _build
 
+    t_main = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda")
@@ -6429,6 +7203,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded, sharded_launches, shard_train_launches = phase_sharded(dev,
                                                                     card)
+    torch.cuda.empty_cache()
+    clique, clique_kernel, clique_launches, clique_train_l = phase_clique(
+        dev, card)
+    # the clique kernel's main path is phase 15 (a): the int8 store's
+    # fused route; its numbers are the fp32 store's lookup at a served
+    # frontier
+    clique_served = clique_launches[("int8 half", "fused")]
+    launches["gather_rows_sharded"] = clique_served["gather_rows_sharded"]
+    k = clique_kernel["fp32 lookup"]
+    kern["gather_rows_sharded"] = {
+        "err": 0.0, **{x: k[x] for x in ("ms", "own_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}}
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -6441,7 +7228,7 @@ def main() -> int:
          "library_ms": kern[name].get("library_ms"),
          "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
          "launches_per_tiered_batch": tiered_launches[name] / BATCHES,
-         "launches_per_buffered_step": buffered[name],
+         "launches_per_buffered_step": buffered.get(name, 0),
          "launches_per_server_batch": server_launches[name] / server_batches,
          "launches_per_hetero_step": hetero_launches[name] / MAG_STEPS,
          "launches_per_sharded_batch":
@@ -6449,8 +7236,16 @@ def main() -> int:
          "launches_per_dist_step":
              shard_train_launches["dist"][name] / SHARD_STEPS,
          "launches_per_e2e_step":
-             shard_train_launches["e2e fused"][name] / SHARD_STEPS}
+             shard_train_launches["e2e fused"][name] / SHARD_STEPS,
+         "launches_per_clique_batch":
+             clique_served[name] / CLIQUE_BATCHES,
+         "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS}
         for name in SOURCES]}
+    line["kernels"][list(SOURCES).index("gather_rows_sharded")].update(
+        variants=clique_kernel, shard_tensor=clique["shard_tensor"],
+        shard_tensor_phase9={
+            k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
+                                  "bound_by")} for k, v in shard.items()})
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
     gather_entry["host_tier"] = {
         "launches": tiered_launches["gather_rows"],
@@ -6499,11 +7294,6 @@ def main() -> int:
         "device_batches": host_side["mixed"]["HOST"]["tasks"]["device"],
         **{k: v for k, v in host_side["mixed"]["HOST"]["launches"].items()
            if v}}
-    gather_entry["shard_tensor"] = {
-        "name": "gather_rows over the ShardTensor's pinned host group",
-        "launches_per_lookup": 1,
-        **{k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
-                                  "bound_by")} for k, v in shard.items()}}
     line["disk_tier"] = disk
     line["server"] = server
     ring = {}
@@ -6559,6 +7349,9 @@ def main() -> int:
             "bound_by", "library_ms")},
         "variants": exch}
     line["sharded"] = sharded
+    line["clique"] = clique
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all",
+          flush=True)
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ process on one NVIDIA card.
     git archive <commit> quiver_tpu_torch/csrc | tar -x -C DIR
     python3 kernel_ab.py --old DIR          # the sampling kernels
     python3 kernel_ab.py --old-gather DIR   # the row gather
+    python3 kernel_ab.py --old-packed DIR   # the packed host gather
 
 Each option runs its part; give either or both.
 
@@ -38,6 +39,14 @@ then each case is timed old, new, new, old (with two new layouts: old,
 112, 128, 128, 112, old), each turn the median of the kernel's own
 ``torch.profiler`` events over 20 launches.
 
+``--old-packed``: an older ``gather.cu`` with this tree's packed-row C
+interface (``qt_gather_rows_packed``: any commit since the packed tier),
+built with this tree's flags, against this tree's ``gather_rows`` over
+the packed int8 host tier of phase 6 (1,837,500 cold rows x 100, 128-byte rows,
+pinned) at the same three id sets as ``--old-gather``: both sides launch
+``gather_rows_packed_kernel``, held equal bit for bit, then timed old,
+new, new, old as above.
+
 Prints the card, one line per case and a JSON line; exits non-zero on
 any failure.
 """
@@ -61,6 +70,8 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 OLD_ARGS = {
     "qt_gather_rows": [_p, _i, _p, _ll, _ll, _ll, _p, _i, _p],
     "qt_gather_rows_q8": [_p, _p, _p, _i, _p, _ll, _ll, _ll, _p, _i, _p],
+    "qt_gather_rows_packed": [_p, _i, _p, _ll, _ll, _ll, _ll, _ll, _p, _i,
+                              _p],
     "qt_fused_sample_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
     "qt_fused_hot_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _i,
                          _i, _i, _p, _i, _i, _p, _p, _p, _p, _p],
@@ -292,6 +303,79 @@ def old_gather(lib, table, ids, out):
     return out
 
 
+def cold_ids(dev, gen, cold_rows):
+    """Phase 6's cold-tier id sets: 491,677 distinct dense ids; a served
+    full read (1,081,344 ids, 499,107 live and distinct); an empty read
+    (270,336 ids, all -1)."""
+    import torch
+    dense = torch.randperm(cold_rows, generator=gen, device=dev)[
+        :491_677].to(torch.int32)
+    served = torch.full((1_081_344,), -1, dtype=torch.int32, device=dev)
+    slots = torch.randperm(served.shape[0], generator=gen, device=dev)[
+        :499_107]
+    served[slots] = torch.randperm(cold_rows, generator=gen, device=dev)[
+        :slots.shape[0]].to(torch.int32)
+    empty = torch.full((270_336,), -1, dtype=torch.int32, device=dev)
+    return dense, served, empty
+
+
+def packed_ab(csrc: Path, dev, rows):
+    """The packed int8 host-tier gather, an older ``gather.cu`` with the
+    same C interface against this tree's, at phase 6's shapes."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    lib = build_old(csrc, ("gather",))["gather"]
+    h2d, copy_ms = cs.h2d_rate(dev)
+    print(f"pinned-to-device copy rate {h2d / 1e9:.2f} GB/s "
+          f"({cs.COPY_BYTES} B in {copy_ms:.4f} ms)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    cold_rows = cs.NODES - cs.NODES // 4
+    q = quant.quantize(torch.randn(cold_rows, cs.DIM, generator=gen,
+                                   device=dev), "int8")
+    tier = quant.pack(quant.QuantizedTensor(*(t.cpu() for t in q)),
+                      stride=128, pin=True)
+    del q
+    data = tier.data
+    side = quant.sidecar_offset(cs.DIM)
+
+    def old(ids, out):
+        err = lib.qt_gather_rows_packed(
+            data.data_ptr(), 1, ids.data_ptr(), ids.shape[0], data.shape[0],
+            128, cs.DIM, side, out.data_ptr(), 1, _stream())
+        cs.check(err == 0, f"old packed gather launch failed: {err}")
+        return out
+
+    dense, served, empty = cold_ids(dev, gen, cold_rows)
+    for label, ids in (("dense cold ids", dense),
+                       ("served full read", served),
+                       ("served empty read", empty)):
+        outs = {side_: torch.full((ids.shape[0], cs.DIM), 7.5, device=dev)
+                for side_ in ("old", "new")}
+        calls = {"old": lambda: old(ids, outs["old"]),
+                 "new": lambda: gather.gather_rows(tier, ids,
+                                                   out=outs["new"])}
+        for fn in calls.values():
+            fn()
+        cs.check(cs.same_bits(outs["old"], outs["new"]), f"packed gather "
+                 f"{label}: new and old disagree")
+        b_ms = cs.host_gather_bound(tier, ids, h2d)[0]
+        t = abba(calls["old"], calls["new"], lambda fn: cs.own_ms(
+            fn, "gather_rows_packed_kernel", ITERS))
+        live = int((ids >= 0).sum())
+        rows.append({"kernel": "gather_rows_packed_kernel", "shape":
+                     f"int8 host tier, {label}: {ids.shape[0]} ids, {live} "
+                     "live", "bound_ms": b_ms,
+                     **{f"{k}_ms": v for k, v in t.items()}})
+        print(f"gather_rows packed int8 host tier, {label}: {ids.shape[0]} "
+              f"ids, {live} live: own device time old "
+              f"{' / '.join(cs.fmt_ms(x) for x in t['old'])}, new "
+              f"{' / '.join(cs.fmt_ms(x) for x in t['new'])} "
+              f"(torch.profiler, median of {ITERS} launches per turn, order "
+              f"old new new old), bound {b_ms:.5f} ms, outputs equal",
+              flush=True)
+
+
 def gather_ab(csrc: Path, dev, rows):
     """The row gather, old against new, at chip_smoke.py's shapes."""
     import torch
@@ -311,14 +395,7 @@ def gather_ab(csrc: Path, dev, rows):
     f32 = quant.dequantize(quant.QuantizedTensor(
         *(t[:cs.FP32_HOST_ROWS] for t in q))).pin_memory()
     del q
-    dense = torch.randperm(cold_rows, generator=gen, device=dev)[
-        :491_677].to(torch.int32)
-    served = torch.full((1_081_344,), -1, dtype=torch.int32, device=dev)
-    slots = torch.randperm(served.shape[0], generator=gen, device=dev)[
-        :499_107]
-    served[slots] = torch.randperm(cold_rows, generator=gen, device=dev)[
-        :slots.shape[0]].to(torch.int32)
-    empty = torch.full((270_336,), -1, dtype=torch.int32, device=dev)
+    dense, served, empty = cold_ids(dev, gen, cold_rows)
     table = torch.randn(cs.NODES, cs.DIM, generator=gen, device=dev)
     frontier = torch.randperm(cs.NODES, generator=gen, device=dev)[
         :662_640].to(torch.int32)
@@ -382,9 +459,12 @@ def main() -> int:
     ap.add_argument("--old-gather", help="directory holding "
                     "quiver_tpu_torch/csrc of commit 9c17a96 (the row "
                     "gather's A/B)")
+    ap.add_argument("--old-packed", help="directory holding "
+                    "quiver_tpu_torch/csrc of a commit with the packed "
+                    "gather's C interface (the packed host-tier A/B)")
     args = ap.parse_args()
-    if not (args.old or args.old_gather):
-        ap.error("give --old, --old-gather or both")
+    if not (args.old or args.old_gather or args.old_packed):
+        ap.error("give --old, --old-gather, --old-packed or several")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
@@ -403,6 +483,9 @@ def main() -> int:
                     indptr, indices, deg, rows)
     if args.old_gather:
         gather_ab(Path(args.old_gather) / "quiver_tpu_torch" / "csrc", dev,
+                  rows)
+    if args.old_packed:
+        packed_ab(Path(args.old_packed) / "quiver_tpu_torch" / "csrc", dev,
                   rows)
     print(card, flush=True)
     print(json.dumps({"card": card, "cases": rows}), flush=True)

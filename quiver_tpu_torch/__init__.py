@@ -32,7 +32,15 @@ front end (``RpcServer``) and client (``RpcClient``). Across ranks of a
 ``all_to_all`` exchange of ``comm.py`` (``TorchComm``);
 ``ShardedServeEngine`` serves over it, and ``parallel`` holds the
 multi-host (``build_dist_train_step``) and data-parallel
-(``build_e2e_train_step``) train steps.
+(``build_e2e_train_step``) train steps. In one process over several
+cards, ``Feature(cache_policy="p2p_clique_replicate", mesh=...)``
+row-shards its hot tier over a clique (``parallel.make_mesh``;
+``Topo``/``init_p2p`` find the cliques and enable peer access) and reads
+it with one gather kernel; ``ShardTensor`` spans cards and pinned host
+memory the same way; ``multiprocessing`` sends stores to
+``torch.multiprocessing`` workers by CUDA IPC and shared memory; and
+``parallel.build_gspmd_train_step`` is the data x model (DTensor)
+step.
 """
 
 __version__ = "0.1.0"
@@ -62,6 +70,7 @@ from .serving import (MicroBatchServer, OverloadError, ServeConfig,
                       default_tenant_classes)
 from .shard_tensor import ShardTensor, ShardTensorConfig
 from .utils import CSRTopo, parse_size
+from .utils.topo import Topo, init_p2p, p2pCliqueTopo
 
 from . import comm, rpc, serving
 
@@ -73,12 +82,13 @@ __all__ = ["CSRTopo", "Collector", "DeadlineExceeded", "DeviceConfig",
            "PartitionInfo", "RpcClient", "RpcError", "RpcServer",
            "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",
            "ShardTensor", "ShardTensorConfig", "ShardedServeEngine",
-           "SloBudget", "StepStats", "TenantClass", "TorchComm",
+           "SloBudget", "StepStats", "TenantClass", "Topo", "TorchComm",
            "build_dist_train_step", "build_e2e_train_step",
            "build_serve_step", "build_sharded_serve_step", "comm",
            "default_tenant_classes", "get_comm_id", "init_distributed",
+           "init_p2p",
            "load_partition_info", "load_quantized_feature_partition",
-           "load_quiver_feature_partition", "parse_size",
+           "load_quiver_feature_partition", "p2pCliqueTopo", "parse_size",
            "partition_feature_without_replication", "pmerge_counters",
            "quantize", "quiver_partition_feature", "rpc",
            "save_partition_info", "save_quantized_feature_partition",

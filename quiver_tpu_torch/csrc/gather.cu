@@ -18,6 +18,15 @@
 //                             topology in pinned host memory (indptr,
 //                             indices, an edge-id map); its int32 rows
 //                             views go through qt_gather_rows
+//   qt_gather_rows_sharded <- the same gather over a table cut into row
+//                             blocks that lie on several cards or in
+//                             pinned host memory (the clique store's hot
+//                             tier, a ShardTensor's groups): JAX's
+//                             quant.gather_rows over a row-sharded array,
+//                             which XLA partitions (quiver_tpu/feature.py:
+//                             383-387), and the reference's
+//                             quiver_tensor_gather (quiver_feature.cu,
+//                             shard_tensor.cu.hpp)
 //
 // What bounds it. From device memory, bytes: 4 + 2 * row bytes per id at
 // 3.35 TB/s. From pinned host memory, the rows cross PCIe, at best at the
@@ -60,6 +69,18 @@
 // and reads nothing (a read the sampler does not take), an id past the
 // table is clamped into it. From pinned host memory each live id is one
 // read request over PCIe, so the request rate, not bytes, bounds it.
+//
+// Sharded tables: each id finds its block by a binary search of the int64
+// row offsets (kept in shared memory with the blocks' pointers up to 64
+// blocks, read from global memory past that), then reads the row from that
+// block's pointer: a local block, one on a peer card (peer access enabled
+// by qt_enable_peer_access) or one in pinned host memory. The bytes bound
+// it as they bound the gather of one device table; the search costs a few
+// shared-memory reads a row. Raw rows are copied by one group of 8 lanes a
+// row, in 16-byte words where every block base, the row stride, the width
+// and the output allow it; packed int8 rows go through the packed kernel's
+// design above (id scan, 8 rows in flight a group, the sidecars
+// broadcast), each row's address taken from its block.
 //
 // Host tables: with table_on_host = 1 the table pointers are pinned host
 // memory (cudaHostAlloc, as torch's pin_memory allocates it), mapped into
@@ -163,13 +184,26 @@ __device__ __forceinline__ void put_codes(const uint4& v, int64_t first,
   }
 }
 
-template <bool kVec4>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_packed_kernel(const uint4* __restrict__ rows,
-                          const int* __restrict__ ids, int64_t n_ids,
-                          int64_t n_rows, int64_t row_words, int64_t dim,
-                          int side, int skip_negative,
-                          float* __restrict__ out) {
+// Where the rows of a packed gather lie: one table, row `id` at
+// base + id * stride.
+struct FlatRows {
+  const char* base;
+  int64_t stride;
+  __device__ __forceinline__ const char* operator()(int64_t id) const {
+    return base + id * stride;
+  }
+};
+
+// The packed gather's body over `rows` (FlatRows, or ShardedRows below):
+// the warp's id scan, then each group's 8 rows in flight, the sidecars'
+// word first and broadcast, then the codes decoded.
+template <bool kVec4, typename Rows>
+__device__ __forceinline__ void packed_rows(const Rows& rows,
+                                            const int* __restrict__ ids,
+                                            int64_t n_ids, int64_t n_rows,
+                                            int64_t dim, int side,
+                                            int skip_negative,
+                                            float* __restrict__ out) {
   __shared__ int s_row[kWarps][32], s_at[kWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane / kGroup, j = lane % kGroup;
@@ -189,6 +223,13 @@ gather_rows_packed_kernel(const uint4* __restrict__ rows,
     const int n = scan_ids(ids, c * 32, n_ids, n_rows, skip_negative, row,
                            at);
     if (n == 0) continue;
+    const uint4* src[kRowsPerGroup];
+#pragma unroll
+    for (int u = 0; u < kRowsPerGroup; ++u) {
+      const int k = g + kGroups * u;
+      src[u] = k < n ? reinterpret_cast<const uint4*>(rows(row[k]))
+                     : nullptr;
+    }
     float sc[kRowsPerGroup], z[kRowsPerGroup];
     for (int s = 0; s < steps; ++s) {
       // the sidecars' step first, then the others in order
@@ -197,10 +238,8 @@ gather_rows_packed_kernel(const uint4* __restrict__ rows,
       uint4 v[kRowsPerGroup];
 #pragma unroll
       for (int u = 0; u < kRowsPerGroup; ++u) {
-        const int k = g + kGroups * u;
         v[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (k < n && q < words)
-          v[u] = rows[static_cast<int64_t>(row[k]) * row_words + q];
+        if (src[u] != nullptr && q < words) v[u] = src[u][q];
       }
       if (s == 0) {
 #pragma unroll
@@ -221,6 +260,18 @@ gather_rows_packed_kernel(const uint4* __restrict__ rows,
     }
     __syncwarp();  // the next chunk's scan overwrites row and at
   }
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_packed_kernel(const uint4* __restrict__ rows,
+                          const int* __restrict__ ids, int64_t n_ids,
+                          int64_t n_rows, int64_t row_words, int64_t dim,
+                          int side, int skip_negative,
+                          float* __restrict__ out) {
+  packed_rows<kVec4>(
+      FlatRows{reinterpret_cast<const char*>(rows), row_words * 16}, ids,
+      n_ids, n_rows, dim, side, skip_negative, out);
 }
 
 // Int8 codes with separate sidecar arrays (a device table): one row a
@@ -271,6 +322,112 @@ gather_elems_kernel(const T* __restrict__ table, const I* __restrict__ ids,
     const int64_t id = ids[i];
     out[i] = id < 0 ? static_cast<T>(-1) : table[clamp_id(id, n_rows)];
   }
+}
+
+constexpr int kMaxShards = 64;        // blocks whose table fits in shared
+constexpr int kGroupsPerBlock = kThreads / kGroup;
+
+// The block that holds row `id` of a sharded table: the last s with
+// off[s] <= id (an empty block is never the answer for an id below
+// off[n]).
+__device__ __forceinline__ int find_shard(const int64_t* off, int n,
+                                          int64_t id) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= id)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Where the rows of a sharded table lie: its blocks' addresses and row
+// offsets (in shared memory, or in global memory past kMaxShards blocks).
+struct ShardedRows {
+  const int64_t* ptr;
+  const int64_t* off;
+  int n;
+  int64_t stride;
+  // The address of row `id`, which lies in [0, off[n]).
+  __device__ __forceinline__ const char* operator()(int64_t id) const {
+    const int s = find_shard(off, n, id);
+    return reinterpret_cast<const char*>(ptr[s]) + (id - off[s]) * stride;
+  }
+  __device__ __forceinline__ int64_t rows() const { return off[n]; }
+};
+
+// The table of a sharded gather: copied into the block's shared memory
+// when it has at most kMaxShards blocks (the same count in every thread,
+// so the barrier is uniform), else read where it lies.
+__device__ __forceinline__ ShardedRows
+shard_table(const int64_t* __restrict__ ptrs,
+            const int64_t* __restrict__ offs, int n_shards, int64_t stride,
+            int64_t* s_ptr, int64_t* s_off) {
+  if (n_shards > kMaxShards) return ShardedRows{ptrs, offs, n_shards, stride};
+  for (int i = threadIdx.x; i <= n_shards; i += blockDim.x) {
+    s_off[i] = offs[i];
+    if (i < n_shards) s_ptr[i] = ptrs[i];
+  }
+  __syncthreads();
+  return ShardedRows{s_ptr, s_off, n_shards, stride};
+}
+
+// Raw rows of a sharded table, one group of 8 lanes a row, in words V;
+// each lane loads up to kUnroll words of its row before it stores any, so
+// a 400-byte row is in flight at once (a load, store, load loop keeps one
+// word a lane in flight: slow from pinned host memory).
+constexpr int kUnroll = 4;
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_sharded_kernel(const int64_t* __restrict__ ptrs,
+                           const int64_t* __restrict__ offs, int n_shards,
+                           const int* __restrict__ ids, int64_t n_ids,
+                           int64_t stride, int64_t row_vecs,
+                           int skip_negative, V* __restrict__ out) {
+  __shared__ int64_t s_ptr[kMaxShards], s_off[kMaxShards + 1];
+  const ShardedRows rows =
+      shard_table(ptrs, offs, n_shards, stride, s_ptr, s_off);
+  const int j = threadIdx.x % kGroup;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroupsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kGroupsPerBlock +
+                   threadIdx.x / kGroup;
+       r < n_ids; r += step) {
+    const int64_t id = ids[r];
+    if (skip_negative && id < 0) continue;  // uniform in the group
+    const V* src =
+        reinterpret_cast<const V*>(rows(clamp_id(id, rows.rows())));
+    V* dst = out + r * row_vecs;
+    for (int64_t c0 = j; c0 < row_vecs; c0 += kGroup * kUnroll) {
+      V v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (c0 + u * kGroup < row_vecs) v[u] = src[c0 + u * kGroup];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (c0 + u * kGroup < row_vecs) dst[c0 + u * kGroup] = v[u];
+    }
+  }
+}
+
+// Packed int8 rows of a sharded table (quant.pack's layout in every
+// block), decoded to fp32: the packed gather's design, each group's rows
+// found through the table.
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_sharded_packed_kernel(const int64_t* __restrict__ ptrs,
+                                  const int64_t* __restrict__ offs,
+                                  int n_shards, const int* __restrict__ ids,
+                                  int64_t n_ids, int64_t stride, int64_t dim,
+                                  int side, int skip_negative,
+                                  float* __restrict__ out) {
+  __shared__ int64_t s_ptr[kMaxShards], s_off[kMaxShards + 1];
+  const ShardedRows rows =
+      shard_table(ptrs, offs, n_shards, stride, s_ptr, s_off);
+  packed_rows<kVec4>(rows, ids, n_ids, rows.rows(), dim, side,
+                     skip_negative, out);
 }
 
 // Blocks for `warps` warps of work, at most as many as the card holds at
@@ -356,6 +513,39 @@ int launch_elems(const void* table, const void* ids, int64_t n_ids,
   gather_elems_kernel<T, I><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(table), static_cast<const I*>(ids), n_ids, n_rows,
       static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_sharded(const void* ptrs, const void* offs, int n_shards,
+                   const void* ids, int64_t n_ids, int64_t stride,
+                   int64_t row_bytes, void* out, int skip_negative,
+                   cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(gather_rows_sharded_kernel<V>,
+                           (n_ids + kGroups - 1) / kGroups, &grid);
+  if (err != 0) return err;
+  gather_rows_sharded_kernel<V><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(offs),
+      n_shards, static_cast<const int*>(ids), n_ids, stride,
+      row_bytes / static_cast<int64_t>(sizeof(V)), skip_negative,
+      static_cast<V*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int launch_sharded_packed(const void* ptrs, const void* offs, int n_shards,
+                          const void* ids, int64_t n_ids, int64_t stride,
+                          int64_t dim, int side, void* out,
+                          int skip_negative, cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(gather_rows_sharded_packed_kernel<kVec4>,
+                           (n_ids + 31) / 32, &grid);
+  if (err != 0) return err;
+  gather_rows_sharded_packed_kernel<kVec4><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(offs),
+      n_shards, static_cast<const int*>(ids), n_ids, stride, dim, side,
+      skip_negative, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -475,6 +665,84 @@ int qt_gather_elems(const void* table, int table_on_host, int elem_bytes,
   return id_bytes == 4
              ? launch_elems<int64_t, int32_t>(t, ids, n_ids, n_rows, out, s)
              : launch_elems<int64_t, int64_t>(t, ids, n_ids, n_rows, out, s);
+}
+
+// ptrs, offs: device int64 arrays of the n_shards (at least 1) block
+// addresses, as the device sees them (qt_device_address), and of the
+// n_shards + 1 row offsets; ptr_bits: the OR of the block addresses and
+// the stride, whose alignment picks the words; stride: the rows' stride
+// in bytes in every block; side: -1 for raw rows of row_bytes bytes,
+// else the scale's byte offset in a packed int8 row of dim codes (stride
+// and every block base a multiple of 16, as qt_gather_rows_packed takes).
+int qt_gather_rows_sharded(const void* ptrs, const void* offs, int n_shards,
+                           long long ptr_bits, const void* ids,
+                           long long n_ids, long long stride,
+                           long long row_bytes, long long dim,
+                           long long side, void* out, int skip_negative,
+                           void* stream) {
+  if (n_shards < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (side >= 0) {
+    if (ptr_bits % 16 != 0 || side % 4 != 0 || side % 16 > 8 || side < dim ||
+        side + 8 > stride)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int sd = static_cast<int>(side);
+    if (out_vec4(out, dim))
+      return launch_sharded_packed<true>(ptrs, offs, n_shards, ids, n_ids,
+                                         stride, dim, sd, out, skip_negative,
+                                         s);
+    return launch_sharded_packed<false>(ptrs, offs, n_shards, ids, n_ids,
+                                        stride, dim, sd, out, skip_negative,
+                                        s);
+  }
+  const void* bits = reinterpret_cast<const void*>(
+      static_cast<uintptr_t>(ptr_bits));
+  switch (word_bytes(bits, out, row_bytes)) {
+    case 16:
+      return launch_sharded<uint4>(ptrs, offs, n_shards, ids, n_ids, stride,
+                                   row_bytes, out, skip_negative, s);
+    case 4:
+      return launch_sharded<uint32_t>(ptrs, offs, n_shards, ids, n_ids,
+                                      stride, row_bytes, out, skip_negative,
+                                      s);
+    case 2:
+      return launch_sharded<uint16_t>(ptrs, offs, n_shards, ids, n_ids,
+                                      stride, row_bytes, out, skip_negative,
+                                      s);
+    default:
+      return launch_sharded<uint8_t>(ptrs, offs, n_shards, ids, n_ids,
+                                     stride, row_bytes, out, skip_negative,
+                                     s);
+  }
+}
+
+// The address the device reads `p` at: `p` itself for device memory, its
+// mapping for pinned host memory (on_host = 1).
+int qt_device_address(const void* p, int on_host, void** out) {
+  const void* addr = nullptr;
+  const cudaError_t err = device_address(p, on_host, &addr);
+  *out = const_cast<void*>(addr);
+  return static_cast<int>(err);
+}
+
+// Lets `device` read and write the memory of `peer` (both CUDA ordinals,
+// different cards). Access already enabled counts as success. The current
+// device is restored.
+int qt_enable_peer_access(int device, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // take the error back off the thread
+      err = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return static_cast<int>(err != cudaSuccess ? err : back);
 }
 
 }  // extern "C"

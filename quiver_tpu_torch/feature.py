@@ -1,10 +1,16 @@
-"""Tiered feature store, single device (counterpart of
-``quiver_tpu/feature.py``).
+"""Tiered feature store (counterpart of ``quiver_tpu/feature.py``).
 
 Three tiers, by bandwidth:
   1. the hot tier on the card: the hottest rows (degree-ordered through
      ``feature_order``, the reference's hot-order permutation), as many
-     as ``device_cache_size`` bytes hold under the hot dtype policy;
+     as ``device_cache_size`` bytes hold under the hot dtype policy.
+     With ``cache_policy="p2p_clique_replicate"`` (or ``"shard"``) over
+     a clique of cards (``mesh``, or ``device_list``), the cards pool
+     their budgets and the hot rows are cut into one block a card
+     (``quant.ShardedTier``, an int8 tier in packed rows); a lookup from
+     the store's card reads local and peer blocks in one launch of
+     ``ops/kernels/gather.py: gather_rows_sharded``, the reference's
+     NVLink clique;
   2. the cold tier, the remaining rows, in host memory. With
      ``host_placement="offload"`` it is pinned and the card reads it
      itself: the CUDA row gather (``ops/kernels/gather.py``) takes device
@@ -50,7 +56,10 @@ and the dedup table's statistics, recorded where the JAX lookup records
 them (outside its branches), so a predicated branch that is not taken
 records nothing. ``rotate_hot_set`` swaps rows between the tiers online;
 a store pickles with its pinned tier as a CPU copy (and a disk store
-without its prefetcher, as in JAX).
+without its prefetcher, as in JAX). ``share_ipc`` hands a store to a
+``torch.multiprocessing`` worker without copying its tiers: device
+tiers by CUDA IPC, the cold tier as shared host memory that the worker
+pins again (``multiprocessing/reductions.py``).
 
 ``prefetch(ids)`` runs a lookup on a depth-2 staging ``Pipeline``
 (``pipeline.py``) and returns a future of ``feature[ids]``: a training
@@ -75,13 +84,13 @@ from .comm import (build_dist_lookup_fn, cap_for_expected_load,
 from .pipeline import Pipeline
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
-from .ops.kernels.gather import gather_rows
+from .ops.kernels.gather import gather_rows, prepare_sharded
+from .parallel.mesh import Mesh, make_mesh, row_sharded
 from .utils.device import resolve_device
-from .utils.placement import pinned_put
+from .utils.placement import pinned_put, register_host, share_host
 from .utils.reorder import reindex_feature
 from .utils.sizes import parse_size
-
-_MULTI = "ROADMAP Queue 1 item 7, part 2 (multi-GPU: one process over cards)"
+from .utils.topo import init_p2p
 
 
 class DeviceConfig:
@@ -146,6 +155,46 @@ class _StagedRows(Future):
         return rows
 
 
+def _default_mesh(device_list, device) -> Mesh:
+    """The clique a sharded store spans without a ``mesh``: the cards of
+    ``device_list`` (at least two entries); on the CPU, as many entries
+    of ``cpu``."""
+    if device.type == "cpu":
+        return make_mesh(("cache",), devices=[device] * len(device_list))
+    return make_mesh(("cache",), devices=[torch.device("cuda", i)
+                                           for i in device_list])
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+
+
+def _shard_tier(tier, placement, home) -> quant.ShardedTier:
+    """A hot tier row-sharded over ``placement``'s mesh axis (JAX
+    ``feature.py:357-372``): ``ceil(rows / n)`` rows a block, the last
+    padded with zero rows, block ``s`` on ``mesh.devices.flat[s]``; an
+    int8 tier's blocks packed (``quant.pack``), as the gather reads
+    them. Peer access is enabled between the blocks' cards."""
+    devices = list(placement.mesh.devices.flat)
+    n, rows = len(devices), quant.tier_rows(tier)
+    block = -(-rows // n)
+    shards = []
+    for s, d in enumerate(devices):
+        lo, hi = min(s * block, rows), min((s + 1) * block, rows)
+        part = quant.tree_map_tier(lambda t: _pad_rows(t[lo:hi], block),
+                                   tier)
+        if quant.is_quantized(part):
+            shards.append(quant.pack(part, device=d))
+        else:
+            shards.append(part.to(d).contiguous())
+    if home.type == "cuda":
+        init_p2p(devices)
+    return prepare_sharded(quant.ShardedTier(
+        shards, [s * block for s in range(n + 1)], home))
+
+
 def _cpu_tensor(a) -> torch.Tensor:
     """A host table (numpy array or tensor) as a CPU tensor."""
     t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
@@ -171,8 +220,20 @@ class Feature:
     tiers merge at the wider dtype). ``cold_budget`` caps the host rows
     an offload lookup reads per batch (default ``max(n // 4, 256)``);
     ``dedup_cold`` (True, or an int unique budget) reads each distinct
-    cold row once. Only ``cache_policy="device_replicate"`` on one
-    device is ported."""
+    cold row once.
+
+    ``cache_policy="device_replicate"`` keeps the hot tier whole on the
+    store's card. ``"p2p_clique_replicate"`` and ``"shard"`` row-shard
+    it over a clique, as JAX shards it over its mesh: ``mesh`` (a
+    ``parallel.make_mesh`` mesh; its first axis splits the rows), else
+    the cards of ``device_list``; the byte budget is each card's, so the
+    clique holds ``mesh size`` times as many hot rows. The store's card
+    (where its lookups run) is ``device``, else the mesh's first entry,
+    else ``device_list[rank]``. A clique of one card is replicated, as in
+    JAX: without ``mesh`` and with at most one ``device_list`` entry, a
+    clique policy keeps the hot tier whole on the store's card. A mesh
+    may name one card several times: each block is then its own
+    allocation on it, read as a peer's would be."""
 
     def __init__(self, rank: int = 0,
                  device_list: Optional[Sequence[int]] = None,
@@ -189,13 +250,17 @@ class Feature:
         if cache_policy not in ("device_replicate", "p2p_clique_replicate",
                                 "shard"):
             raise ValueError(f"unknown cache_policy {cache_policy!r}")
-        if cache_policy != "device_replicate" or mesh is not None:
-            raise NotImplementedError(
-                f"cache_policy={cache_policy!r} / mesh: {_MULTI}")
         if host_placement not in ("numpy", "offload"):
             raise ValueError(f"unknown host_placement {host_placement!r}")
+        if device is None and cache_policy != "device_replicate":
+            if mesh is not None:
+                device = mesh.devices.flat[0]
+            elif device_list:
+                device = torch.device("cuda", device_list[
+                    rank if rank < len(device_list) else 0])
         self.device = resolve_device(device)
         self.rank = rank
+        self.mesh = mesh
         self.device_list = list(device_list) if device_list else None
         self.device_cache_size = device_cache_size
         self.cache_policy = cache_policy
@@ -251,6 +316,9 @@ class Feature:
         if self.dtype is not None:
             tensor = tensor.to(quant.torch_dtype(self.dtype))
         budget = parse_size(self.device_cache_size)
+        if self.cache_policy != "device_replicate":
+            # the clique's cards pool their budgets
+            budget *= self._mesh_size()
         if self.csr_topo is not None:
             if self.csr_topo.feature_order is None:
                 _, new_order = reindex_feature(self.csr_topo, None, 0)
@@ -296,12 +364,30 @@ class Feature:
         self._maybe_offload_host()
         return self
 
+    def _mesh_size(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.size
+        return len(self.device_list) if self.device_list else 1
+
     def _place(self, cache_part):
         if quant.tier_rows(cache_part) == 0:
             self.device_part = None
             return
-        self.device_part = quant.tree_map_tier(
-            lambda t: t.to(self.device).contiguous(), cache_part)
+        if self.cache_policy == "device_replicate" or self._mesh_size() == 1:
+            self.device_part = quant.tree_map_tier(
+                lambda t: t.to(self.device).contiguous(), cache_part)
+            return
+        # p2p_clique_replicate / shard: row-shard over the mesh's axis
+        if self.mesh is None:
+            self.mesh = _default_mesh(self.device_list, self.device)
+        self.device_part = _shard_tier(
+            cache_part, row_sharded(self.mesh, self.mesh.axis_names[0]),
+            self.device)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the hot tier is row-sharded over a clique."""
+        return quant.is_sharded(self.device_part)
 
     def _maybe_offload_host(self):
         """``host_placement="offload"``: pin the cold tier for the card's
@@ -866,8 +952,66 @@ class Feature:
                               self.feature_order.cpu().numpy())
         return self._order_np[1]
 
+    # -- process sharing (reference feature.py:335-398) ----------------------
     def share_ipc(self):
-        raise NotImplementedError(_MULTI)
+        """JAX's tuple ``(rank, device_list, device_cache_size,
+        cache_policy, csr_topo, state)`` (``feature.py:1177-1190``), whose
+        last item is the store as a ``torch.multiprocessing`` worker
+        receives it: its device tiers (a clique's blocks included) are
+        sent by torch's CUDA IPC reductions, and its cold tier as shared
+        host memory. A pinned cold tier is moved into shared pages once,
+        here, and registered with CUDA in its place
+        (``utils.placement.share_host``: torch cannot share a pinned
+        allocation), so host residency stays 1x; each worker registers
+        its own mapping again (:meth:`new_from_ipc_handle`), and its
+        gathers read pinned pages, never a pageable copy. Send the tuple
+        to the worker through a ``torch.multiprocessing`` queue or as a
+        spawn argument; after ``import quiver_tpu_torch.multiprocessing``
+        the store itself pickles this way. A store with a disk tier is
+        refused (attach its file in the worker)."""
+        if self.mmap_array is not None:
+            raise ValueError("share_ipc cannot send a disk-tier store: "
+                             "call set_mmap_file in the worker")
+        if self._host_offload is not None:
+            self._host_offload = share_host(self._host_offload, self.device)
+        elif self.host_part is not None:
+            self.host_part = share_host(self.host_part, torch.device("cpu"))
+        state = dict(self.__dict__)
+        state["_pool"] = state["_stage_stream"] = None
+        state["_cold_prefetch"] = state["_order_np"] = None
+        return (self.rank, self.device_list, self.device_cache_size,
+                self.cache_policy, self.csr_topo, state)
+
+    @classmethod
+    def lazy_from_ipc_handle(cls, ipc_handle) -> "Feature":
+        """The store of a :meth:`share_ipc` handle, its tiers not yet
+        opened for this process: call :meth:`lazy_init_from_ipc_handle`
+        before the first lookup."""
+        store = cls.__new__(cls)
+        store.__dict__.update(ipc_handle[-1])
+        return store
+
+    def lazy_init_from_ipc_handle(self) -> "Feature":
+        """Open a store made by :meth:`lazy_from_ipc_handle` in this
+        process: pin its shared cold tier for the card and build a
+        clique's gather table (peer access enabled). Returns it."""
+        host = self._host_offload
+        if host is not None:
+            register_host(host, self.device)
+        if quant.is_sharded(self.device_part):
+            if self.device.type == "cuda":
+                init_p2p(self.device_part.block_devices())
+            prepare_sharded(self.device_part)
+        return self
+
+    @classmethod
+    def new_from_ipc_handle(cls, rank, ipc_handle) -> "Feature":
+        """A working store in a ``torch.multiprocessing`` worker from a
+        :meth:`share_ipc` handle: the parent's tiers, opened here (no row
+        is copied). ``rank`` is kept as the store's rank."""
+        store = cls.lazy_from_ipc_handle(ipc_handle)
+        store.rank = rank
+        return store.lazy_init_from_ipc_handle()
 
     # -- online hot-set rotation ----------------------------------------------
     def rotate_hot_set(self, promote, demote):
@@ -887,7 +1031,9 @@ class Feature:
         ``feature_order``, without a hot tier, without a
         ``host_placement="numpy"`` host tier (an offload tier is pinned
         as it was built; a disk store adapts through ``stage_frontier``
-        instead), with different hot and cold dtype policies (a
+        instead), over a sharded hot tier (JAX's message: it would need
+        a cross-device scatter), with different hot and cold dtype
+        policies (a
         row would be re-encoded), with ``promote``/``demote`` not
         pairing 1:1 as unique ids, out of range, or not currently cold
         and hot. Returns ``{"rotated": k}``."""
@@ -902,6 +1048,10 @@ class Feature:
                 "rotate_hot_set needs a numpy host tier (disk/mmap "
                 "stores promote through stage_frontier; offloaded cold "
                 "tiers are pinned immutably)")
+        if self.cache_policy != "device_replicate" and self._mesh_size() > 1:
+            raise ValueError(
+                "rotate_hot_set supports replicated hot tiers only "
+                "(a row-sharded tier would need a cross-device scatter)")
         if self.dtype_policy["hot"] != self.dtype_policy["cold"]:
             raise ValueError(
                 f"rotate_hot_set needs identical hot/cold dtype "
@@ -951,7 +1101,8 @@ class Feature:
     def __getstate__(self):
         """The store's state with every tensor on the CPU: a pinned
         offload tier goes out as a plain CPU copy (unpacked) in
-        ``host_part`` and is pinned again on load. A disk tier goes out
+        ``host_part`` and is pinned again on load; a clique's hot tier
+        goes out as its rows and is sharded again on load. A disk tier goes out
         as its rows (the mmap pickles as an array, as in JAX) without its
         prefetcher: threads do not pickle, and a loaded store reads the
         file rows synchronously until ``enable_cold_prefetch``."""
@@ -963,6 +1114,11 @@ class Feature:
             state["host_part"] = quant.tree_map_tier(
                 lambda t: torch.empty(t.shape, dtype=t.dtype).copy_(t),
                 self._host_offload)
+        if self.sharded:
+            # a clique's blocks go out as the hot rows, re-sharded on load
+            state["device_part"] = quant.tree_map_tier(
+                lambda t: t[:self.cache_rows],
+                self.device_part.unsharded())
         for k in ("device_part", "feature_order"):
             if state[k] is not None:
                 state[k] = quant.tree_map_tier(torch.Tensor.cpu, state[k])
@@ -980,12 +1136,12 @@ class Feature:
         for k in ("_pool", "_stage_stream", "mmap_array", "disk_map",
                   "disk_scale", "disk_zero", "_cold_prefetch", "_order_np"):
             self.__dict__.setdefault(k, None)
+        self.__dict__.setdefault("mesh", None)
         self.device = resolve_device(self.device)
-        for k in ("device_part", "feature_order"):
-            if getattr(self, k) is not None:
-                setattr(self, k, quant.tree_map_tier(
-                    lambda t: t.to(self.device).contiguous(),
-                    getattr(self, k)))
+        if self.feature_order is not None:
+            self.feature_order = self.feature_order.to(self.device)
+        if self.device_part is not None:
+            self._place(self.device_part)
         self._host_offload = None
         self._maybe_offload_host()
 

@@ -7,6 +7,11 @@ large paper matrix int8 with a degree-ordered hot tier on the card and
 its cold tier pinned in host memory (read by the card's ``gather_rows``),
 while the small author and institution matrices sit on the card.
 
+A type's store may also be a clique (``cache_policy=
+"p2p_clique_replicate"`` with a ``mesh``): its hot tier row-sharded over
+the mesh and read by one ``gather_rows_sharded`` launch, beside types
+whose tiers are replicated (JAX ``test_mesh_sharded_type``).
+
 ``lookup(frontier)`` takes the hetero sampler's per-type frontier dicts
 as they are: ``None`` entries are skipped and -1 ids give zero rows.
 """
@@ -49,7 +54,8 @@ class HeteroFeature:
     Build it with :meth:`from_cpu_tensors`: ``configs[node_type]``
     overlaid on ``default``, both keyword dicts for :class:`Feature`
     (``device_cache_size``, ``csr_topo``, ``dtype``, ``host_placement``,
-    ``cold_budget``, ``dedup_cold``, ``dtype_policy``, ``device``...).
+    ``cold_budget``, ``dedup_cold``, ``dtype_policy``, ``cache_policy``,
+    ``mesh``, ``device``...).
     Hetero frontiers repeat hub nodes across relations, so
     ``default={"dedup_cold": True}`` bounds each type's host reads by
     its distinct cold rows; ``configs={"paper": {"dtype_policy":

@@ -7,7 +7,8 @@ from .fused import (fused_hot_hop, fused_hot_hop_reference, fused_multihop,
                     fused_multihop_reference, fused_sample_hop,
                     fused_sample_multihop, multihop_plain)
 from .gather import (gather_elems, gather_elems_plain, gather_rows,
-                     gather_rows_plain)
+                     gather_rows_plain, gather_rows_sharded,
+                     gather_rows_sharded_plain)
 from .sample_kernel import sample_layer_kernel, sample_layer_plain
 
 
@@ -23,6 +24,7 @@ __all__ = ["LAUNCHES", "build_kernels", "fused_hot_hop",
            "fused_hot_hop_reference", "fused_multihop",
            "fused_multihop_reference", "fused_sample_hop",
            "fused_sample_multihop", "gather_elems", "gather_elems_plain",
-           "gather_rows", "gather_rows_plain",
+           "gather_rows", "gather_rows_plain", "gather_rows_sharded",
+           "gather_rows_sharded_plain",
            "multihop_plain", "reset_launches", "sample_layer_kernel",
            "sample_layer_plain"]

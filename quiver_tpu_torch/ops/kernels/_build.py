@@ -38,7 +38,7 @@ build_seconds: dict = {}
 # threads (a staging pipeline's worker beside the training loop), so the
 # read-modify-write is made under a lock.
 LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0, "sample_layer": 0,
-            "gather_rows": 0, "gather_elems": 0}
+            "gather_rows": 0, "gather_elems": 0, "gather_rows_sharded": 0}
 _launch_lock = threading.Lock()
 
 

@@ -25,6 +25,15 @@ table (``indptr``, ``indices``, an edge-id map, edge weights): the
 sampler's HOST mode reads its pinned topology and weights through it,
 one id a thread, a negative id giving the bits of int -1 and reading
 nothing. :func:`gather_elems_plain` is its plain version.
+
+:func:`gather_rows_sharded` is the same row gather over a
+``quant.ShardedTier``: one table cut into row blocks on several cards
+(peers of the lookups' card) or in pinned host memory. One launch finds
+each id's block from the offsets and copies (or decodes) its row from
+that block's address: the clique store's hot tier and a
+``ShardTensor``'s groups. :func:`gather_rows_sharded_plain` is its plain
+version. :func:`enable_peer_access` lets one card read another's memory
+(``cudaDeviceEnablePeerAccess``, which PyTorch does not expose).
 """
 
 from __future__ import annotations
@@ -60,6 +69,13 @@ def _lib():
         lib.qt_gather_q8_vec.restype = i
         lib.qt_gather_elems.argtypes = [p, i, i, p, i, ll, ll, p, p]
         lib.qt_gather_elems.restype = i
+        lib.qt_gather_rows_sharded.argtypes = [p, p, i, ll, p, ll, ll, ll,
+                                               ll, ll, p, i, p]
+        lib.qt_gather_rows_sharded.restype = i
+        lib.qt_device_address.argtypes = [p, i, ctypes.POINTER(p)]
+        lib.qt_device_address.restype = i
+        lib.qt_enable_peer_access.argtypes = [i, i]
+        lib.qt_enable_peer_access.restype = i
         lib._qt_bound = True
     return lib
 
@@ -161,7 +177,10 @@ def gather_rows(feat, ids, out=None):
     lie in ``[0, N)`` (the kernel clamps one outside it into the table
     and reads nothing outside); with ``out`` (contiguous ``[n, D]`` of
     the rows' dtype on the ids' device) a negative id leaves its row of
-    ``out`` untouched and reads nothing, and ``out`` is returned."""
+    ``out`` untouched and reads nothing, and ``out`` is returned. A
+    ``quant.ShardedTier`` goes to :func:`gather_rows_sharded`."""
+    if quant.is_sharded(feat):
+        return gather_rows_sharded(feat, ids, out)
     data, scale, zero, stride = _leaves(feat)
     if torch.is_tensor(ids) and ids.dtype == torch.int64:
         ids = ids.to(torch.int32)
@@ -264,3 +283,170 @@ def gather_elems(table, ids):
             out.data_ptr(), stream)
     _build.launched(err, "gather_elems")
     return out
+
+
+# -- the sharded table --------------------------------------------------------
+
+def _block_layout(blk):
+    """``(base, row stride in bytes, on_host)`` of one block of a
+    sharded tier, checked."""
+    data, scale, _, stride = _leaves(blk)
+    if scale is not None and stride is None:
+        raise ValueError("an int8 block of a sharded tier is packed "
+                         "(quant.pack)")
+    if stride is None:
+        stride = data.shape[1] * data.element_size()
+    on_host = data.device.type == "cpu"
+    return data.data_ptr(), stride, on_host
+
+
+def _sharded_layout(tier):
+    """The blocks' ``(bases, stride, on_host flags)``; every block has the
+    first one's kind, dtype, width and stride."""
+    first = tier.shards[0]
+    kind = (quant.is_quantized(first), quant.tier_dtype(first),
+            quant.tier_dim(first))
+    bases, strides, hosts = [], set(), []
+    for blk in tier.shards:
+        if (quant.is_quantized(blk), quant.tier_dtype(blk),
+                quant.tier_dim(blk)) != kind:
+            raise ValueError("the blocks of a sharded tier share one kind, "
+                             "dtype and width")
+        if quant.tier_rows(blk) == 0:       # never read
+            bases.append(0)
+            hosts.append(False)
+            continue
+        base, stride, on_host = _block_layout(blk)
+        bases.append(base)
+        strides.add(stride)
+        hosts.append(on_host)
+    if len(strides) > 1:
+        raise ValueError(f"the blocks of a sharded tier share one row "
+                         f"stride, got {sorted(strides)}")
+    return bases, strides.pop() if strides else 16, hosts
+
+
+def _sharded_table(tier):
+    """The device table of a sharded tier on its card, built once:
+    ``(addresses, offsets, address bits, stride)``, the first two int64
+    tensors on ``tier.device``. A block in host memory must be pinned; its
+    address is the device's mapping of it."""
+    if tier.table is not None:
+        return tier.table
+    bases, stride, hosts = _sharded_layout(tier)
+    addrs = []
+    for blk, base, on_host in zip(tier.shards, bases, hosts):
+        if quant.tier_rows(blk) == 0:
+            addrs.append(0)                 # an empty block is never read
+            continue
+        if on_host and not quant.tier_parts(blk)[0].is_pinned():
+            raise ValueError("gather_rows_sharded reads a host block from "
+                             "the card only when it lies in pinned memory")
+        mapped = ctypes.c_void_p()
+        with torch.cuda.device(tier.device):
+            err = _lib().qt_device_address(base, int(on_host),
+                                           ctypes.byref(mapped))
+        if err != 0:
+            raise RuntimeError(f"gather_rows_sharded: no device address "
+                               f"for block {len(addrs)} (CUDA error {err})")
+        addrs.append(mapped.value or 0)
+    bits = stride
+    for a in addrs:
+        bits |= a
+    tier.table = (
+        torch.tensor(addrs, dtype=torch.int64).to(tier.device),
+        torch.tensor(tier.offsets, dtype=torch.int64).to(tier.device),
+        bits, stride)
+    return tier.table
+
+
+def prepare_sharded(tier):
+    """Check a sharded tier and, on a card, build its device table now
+    (one small copy), so that no lookup makes one."""
+    if tier.device.type == "cuda":
+        _sharded_table(tier)
+    else:
+        _sharded_layout(tier)
+    return tier
+
+
+def gather_rows_sharded_plain(tier, ids, out=None):
+    """Plain version of :func:`gather_rows_sharded`: route each id
+    (clamped into the table) to its block by the offsets, ``index_select``
+    the block's rows on the block's device, decode, and write them at
+    the id's positions; with ``out``, only where the id is not
+    negative."""
+    n, dim = ids.shape[0], tier.dim
+    total = tier.rows
+    idx = ids.long().clamp(0, max(total - 1, 0))
+    off = torch.tensor(tier.offsets, dtype=torch.int64, device=ids.device)
+    block = torch.searchsorted(off[1:-1], idx, right=True)
+    rows = torch.zeros((n, dim), dtype=quant.tier_dtype(tier),
+                       device=ids.device)
+    for s, blk in enumerate(tier.shards):
+        at = torch.nonzero(block == s).reshape(-1)
+        if at.numel():
+            home = quant.tier_parts(blk)[0].device
+            local = (idx[at] - tier.offsets[s]).to(home)
+            rows.index_copy_(0, at, quant.gather_rows(blk, local)
+                             .to(ids.device))
+    if out is None:
+        return rows
+    return out.copy_(torch.where((ids >= 0)[:, None], rows, out))
+
+
+def gather_rows_sharded(tier, ids, out=None):
+    """``out[i] = tier[ids[i]]`` over a ``quant.ShardedTier`` in one
+    launch. Its blocks lie on ``tier.device`` (the lookups' card), on
+    cards it can reach (:func:`enable_peer_access`) or in pinned host
+    memory; they are contiguous fp32, bf16, fp16 or int8 rows, or packed
+    int8 rows (decoded to fp32 as the other gathers decode them). ``ids``
+    is a 1-D int32 tensor on ``tier.device`` (int64 is cast). Without
+    ``out`` every id must lie in the table (the kernel clamps one outside
+    it); with ``out`` (contiguous ``[n, d]`` of the rows' dtype on that
+    device) a negative id leaves its row untouched and reads nothing.
+    CPU ids run the plain version."""
+    if not quant.is_sharded(tier):
+        raise ValueError("gather_rows_sharded takes a quant.ShardedTier")
+    if torch.is_tensor(ids) and ids.dtype == torch.int64:
+        ids = ids.to(torch.int32)
+    dev = tier.device
+    _check_1d_int32(ids, "ids", dev)
+    n, dim = ids.shape[0], tier.dim
+    dtype = quant.tier_dtype(tier)
+    if out is not None:
+        _check_out(out, n, dim, dtype, dev)
+    if dev.type == "cpu":
+        return gather_rows_sharded_plain(tier, ids, out)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows_sharded runs on cuda or cpu, not "
+                         f"{dev}")
+    if tier.rows < 1:
+        raise ValueError("gather_rows_sharded: ids index an empty table")
+    addrs, offs, bits, stride = _sharded_table(tier)
+    skip = int(out is not None)
+    if out is None:
+        out = torch.empty((n, dim), dtype=dtype, device=dev)
+    if n == 0:
+        return out
+    first = tier.shards[0]
+    packed = quant.is_quantized(first)
+    side = quant.sidecar_offset(dim) if packed else -1
+    row_bytes = dim * quant.tier_parts(first)[0].element_size()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().qt_gather_rows_sharded(
+            addrs.data_ptr(), offs.data_ptr(), len(tier.shards), bits,
+            ids.data_ptr(), n, stride, row_bytes, dim, side,
+            out.data_ptr(), skip, stream)
+    _build.launched(err, "gather_rows_sharded")
+    return out
+
+
+def enable_peer_access(device: int, peer: int) -> None:
+    """Let card ``device`` read and write the memory of card ``peer``
+    (two different CUDA ordinals); enabling it again is no error."""
+    err = _lib().qt_enable_peer_access(int(device), int(peer))
+    if err != 0:
+        raise RuntimeError(f"enabling peer access from cuda:{device} to "
+                           f"cuda:{peer} failed with CUDA error {err}")

@@ -58,6 +58,70 @@ def is_quantized(t) -> bool:
     return isinstance(t, QuantizedTensor)
 
 
+class ShardedTier:
+    """One table cut into row blocks that lie on several devices: block
+    ``s`` holds rows ``[offsets[s], offsets[s + 1])``. A block is a
+    contiguous ``[rows, d]`` tensor, or an int8 ``QuantizedTensor``
+    packed by :func:`pack`; every block has the same kind, width and row
+    stride. It lies on a card (the lookups' card or a peer) or, for a
+    ``ShardTensor``'s host group, in pinned host memory. ``device`` is
+    the card (or the CPU) whose lookups read it: one launch of
+    ``ops.kernels.gather.gather_rows_sharded`` there, with the blocks'
+    addresses and offsets in a small table on that device (built once,
+    ``table``). The counterpart of a JAX array row-sharded over a mesh
+    axis."""
+
+    def __init__(self, shards, offsets, device):
+        self.shards = list(shards)
+        self.offsets = [int(o) for o in offsets]
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if len(self.offsets) != len(self.shards) + 1 or not self.shards:
+            raise ValueError("a sharded tier needs one offset more than "
+                             "its blocks, and at least one block")
+        for s, blk in enumerate(self.shards):
+            if tier_rows(blk) != self.offsets[s + 1] - self.offsets[s]:
+                raise ValueError(f"block {s} holds {tier_rows(blk)} rows, "
+                                 "its offsets say otherwise")
+        self.table = None          # set by gather_rows_sharded's setup
+
+    @property
+    def rows(self) -> int:
+        return self.offsets[-1]
+
+    @property
+    def dim(self) -> int:
+        return tier_dim(self.shards[0])
+
+    @property
+    def shape(self):
+        return (self.rows, self.dim)
+
+    def block_devices(self):
+        """The device of each block."""
+        return [tier_parts(b)[0].device for b in self.shards]
+
+    def __getstate__(self):
+        # the device table is rebuilt where the tier lands
+        state = dict(self.__dict__)
+        state["table"] = None
+        return state
+
+    def unsharded(self):
+        """The blocks' rows concatenated into one CPU tier (an int8 tier
+        with contiguous leaves)."""
+        if is_quantized(self.shards[0]):
+            return QuantizedTensor(*(
+                torch.cat([getattr(b, k).cpu() for b in self.shards])
+                for k in ("data", "scale", "zero")))
+        return torch.cat([b.cpu() for b in self.shards])
+
+
+def is_sharded(t) -> bool:
+    return isinstance(t, ShardedTier)
+
+
 def storage_itemsize(policy) -> float:
     """Stored bytes per element under ``policy`` (sidecars excluded)."""
     return {None: 4, "bf16": 2, "fp16": 2, "int8": 1}[resolve_policy(policy)]
@@ -119,6 +183,8 @@ def tier_dim(t) -> int:
 
 def tier_dtype(t) -> torch.dtype:
     """The dtype lookups of this tier produce (dequantized width)."""
+    if is_sharded(t):
+        return tier_dtype(t.shards[0])
     return t.scale.dtype if is_quantized(t) else t.dtype
 
 
@@ -132,6 +198,8 @@ def tier_parts(t):
 
 def row_read_bytes(t) -> int:
     """Bytes one row lookup of this tier moves from storage."""
+    if is_sharded(t):
+        return row_read_bytes(t.shards[0])
     if is_quantized(t):
         return int(tier_dim(t) + t.scale.element_size()
                    + t.zero.element_size())
@@ -140,7 +208,11 @@ def row_read_bytes(t) -> int:
 
 def gather_rows(t, ids: torch.Tensor) -> torch.Tensor:
     """``t[ids]`` with dequantization fused; ``ids`` must already be in
-    range (callers own masking)."""
+    range (callers own masking). A :class:`ShardedTier` is read by one
+    ``ops.kernels.gather.gather_rows_sharded`` launch."""
+    if is_sharded(t):
+        from .kernels.gather import gather_rows_sharded
+        return gather_rows_sharded(t, ids)
     ids = ids.long()
     if not is_quantized(t):
         return t.index_select(0, ids)

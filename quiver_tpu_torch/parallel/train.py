@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from .. import metrics
 from ..ops import quant
 from ..ops.dedup import unique_within_budget
-from ..ops.kernels.fused import fused_multihop
+from ..ops.kernels.fused import fused_multihop, fused_sample_multihop
 from ..ops.kernels.gather import gather_rows
 from ..ops.sample_multihop import _METHODS, sample_multihop
 from ..pyg.sage_sampler import Adj, layer_shapes
@@ -108,7 +108,8 @@ def masked_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
                           collector=None) -> torch.Tensor:
     """Feature rows for a -1-padded frontier, through the optional
     hot-order indirection; padded rows come back zeroed. ``feat`` is a
-    tensor or a ``QuantizedTensor`` (dequant fused into the gather).
+    tensor, a ``QuantizedTensor`` (dequant fused into the gather) or a
+    clique's ``quant.ShardedTier`` (read by ``gather_rows_sharded``).
     ``collector`` is taken for the gathers' common signature and records
     nothing (one tier: nothing tiered to count), as in JAX."""
     ids = n_id.long()
@@ -152,6 +153,29 @@ def dedup_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
     return x * valid.to(x.dtype)[:, None]
 
 
+def store_gather(store, n_id: torch.Tensor, feature_order=None,
+                 collector=None) -> torch.Tensor:
+    """A ``Feature`` store's masked lookup (-1 ids give zero rows) as a
+    step's gather: the steps take a store as their ``feat`` and read
+    each frontier through it, whatever its tiers and placement (a
+    clique's blocks, a pinned cold tier). The store applies its own
+    order, so ``feature_order`` must be None. ``collector`` absorbs the
+    lookup's counters."""
+    if feature_order is not None:
+        raise ValueError("a Feature store applies its own feature_order; "
+                         "pass forder=None with it")
+    if collector is None:
+        return store.lookup_tiered(n_id, masked=True)
+    rows, counters = store.lookup_tiered(n_id, masked=True,
+                                         collect_metrics=True)
+    collector.absorb(counters.to(n_id.device))
+    return rows
+
+
+def _is_store(feat) -> bool:
+    return hasattr(feat, "lookup_tiered")
+
+
 def _dedup_gather_fn(dedup_gather):
     """The ``dedup_gather`` knob (None, True or an int unique budget) as
     the gather the split route takes (None keeps the masked gather)."""
@@ -174,11 +198,17 @@ def _fused_multihop_x(feat, forder, indptr, indices, seeds,
     n_id, layers, x = fused_multihop(
         indptr, indices, seeds, feat, list(sizes), hop_seeds,
         row_cap=row_cap, feature_order=forder, hot_rows=hot_rows)
+    _frontier_counters(collector, n_id)
+    return x, layers
+
+
+def _frontier_counters(collector, n_id):
+    """The fused walk's counters: the final frontier's valid slots and
+    capacity."""
     if collector is not None:
         collector.add(metrics.FRONTIER_VALID,
                       (n_id >= 0).sum(dtype=torch.int32))
         collector.add(metrics.FRONTIER_CAP, int(n_id.shape[0]))
-    return x, layers
 
 
 def _fused_knobs(enabled, row_cap, sizes, method, dedup_gather=None,
@@ -252,7 +282,10 @@ def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
           hot_rows: Optional[int] = None, gather=None, collector=None,
           **sampling):
     """One batch's ``(x, layers)``. ``fused`` (the packed knobs) takes
-    the fused walk, hop ``i`` seeded with ``hop_seeds[i]``; ``None``
+    the fused walk, hop ``i`` seeded with ``hop_seeds[i]``: the leaf
+    kernel gathers from ``feat``, or, over a clique's sharded tier or
+    with a ``gather``, the walk only samples and ``gather`` (default the
+    masked gather) reads the final frontier; ``None``
     takes the split route: :func:`_split_sample` with the ``sampling``
     knobs (``method``, ``indices_rows``, ``indices_stride``,
     ``hub_frac``), all hops drawing from one generator seeded with
@@ -263,13 +296,20 @@ def _walk(fused, feat, forder, indptr, indices, seeds, sizes, hop_seeds,
     if len(hop_seeds) != len(sizes):
         raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
                          f"{len(hop_seeds)} seeds")
-    if fused is not None:
+    if fused is not None and gather is None and not quant.is_sharded(feat):
         return _fused_multihop_x(feat, forder, indptr, indices, seeds,
                                  sizes, hop_seeds, hot_rows=hot_rows,
                                  collector=collector, **fused)
-    n_id, layers = _split_sample(indptr, indices, seeds, sizes,
-                                 _generator(seeds.device, hop_seeds[0]),
-                                 collector=collector, **sampling)
+    if fused is not None:
+        # the sample-only walk (every hop a sampling launch), then the
+        # gather: a clique's blocks, or a store's tiers, are read after it
+        n_id, layers = fused_sample_multihop(indptr, indices, seeds, sizes,
+                                             hop_seeds, fused["row_cap"])
+        _frontier_counters(collector, n_id)
+    else:
+        n_id, layers = _split_sample(indptr, indices, seeds, sizes,
+                                     _generator(seeds.device, hop_seeds[0]),
+                                     collector=collector, **sampling)
     gather = gather or masked_feature_gather
     if collector is None:
         return gather(feat, n_id, forder), layers
@@ -357,8 +397,14 @@ def build_train_step(model, optimizer, sizes: Sequence[int],
 
     ``state`` is ``init_state(model, optimizer)`` or a state the step
     returned. ``feat`` is an fp32 table or an int8 ``QuantizedTensor``
-    (dequant fused into the gather), ``forder`` an optional hot-order
-    permutation; every tensor lies on one device. ``seeds`` is
+    (dequant fused into the gather), a clique's ``quant.ShardedTier``,
+    or a ``Feature`` store (read through its masked lookup,
+    :func:`store_gather`; ``forder`` None), ``forder`` an optional
+    hot-order permutation; every tensor lies on one device. Over a
+    sharded tier or a store, ``fused_hot_hop=True`` samples every hop
+    with the sampling kernel and then reads the frontier through the
+    store (or ``gather_rows_sharded``), instead of gathering in the leaf
+    kernel. ``seeds`` is
     ``[batch_size]`` int32, distinct valid ids first and -1 fill at the
     tail, ``labels`` ``[batch_size]``. ``hop_seeds`` holds one int32 per
     hop, ``dropout_seed`` one int (see :func:`draw_step_seeds`). The
@@ -436,8 +482,9 @@ def _build_step(model, sizes, batch_size, method, indices_stride, hub_frac,
         col = metrics.Collector(seeds.device) if collect_metrics else None
         loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
                            indices, seeds, labels, hop_seeds, dropout_seed,
-                           fused=fused, gather=gather, collector=col,
-                           **sampling)
+                           fused=fused,
+                           gather=store_gather if _is_store(feat) else gather,
+                           collector=col, **sampling)
         return finish(state, loss, col)
 
     return step

@@ -4,8 +4,13 @@
 Two routes. ``fused_hot_hop=True`` serves through the fused frontier
 walk: interior hops run the CUDA sampling kernel, the leaf hop samples
 and gathers the hot-tier rows (int8 dequant included) in one kernel.
-``fused_hot_hop=False`` is the split path: the sampler of ``method``
-(``ops.sample_multihop``: exact, or rotation and window, which permute
+Over a clique store (``Feature(cache_policy="p2p_clique_replicate")``,
+whose hot tier is row-sharded over several cards or allocations) the
+fused route samples every hop with the sampling kernel and then reads
+the frontier through the store's lookup, whose hot rows come from one
+``gather_rows_sharded`` launch, as ``ShardedServeEngine`` reads its
+frontier after sampling. ``fused_hot_hop=False`` is the split path:
+the sampler of ``method`` (``ops.sample_multihop``: exact, or rotation and window, which permute
 the topology on every call as the JAX serve step's do) on every hop,
 then the masked row gather. The model, any module with ``forward(x,
 adjs, generator=None)`` (``GraphSAGE``, ``GAT``), runs on the assembled
@@ -135,12 +140,21 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
                                   collector=col, method=method)
             else:
                 hot = feat[0] if gather is not None else feat
-                x, layers = _walk(fused, hot, forder, indptr, indices,
-                                  seeds, sizes, hop_seeds,
-                                  hot_rows=fused_hot_rows, collector=col)
-                if gather is not None:
-                    x = _cold_fixup(gather, feat, forder, layers[-1].n_id,
-                                    x, fused_hot_rows, col)
+                if quant.is_sharded(hot):
+                    # a clique's hot tier: the sample-only walk, then the
+                    # store's lookup (or the sharded gather) of the
+                    # frontier
+                    x, layers = _walk(fused, feat, forder, indptr, indices,
+                                      seeds, sizes, hop_seeds, gather=gather,
+                                      collector=col)
+                else:
+                    x, layers = _walk(fused, hot, forder, indptr, indices,
+                                      seeds, sizes, hop_seeds,
+                                      hot_rows=fused_hot_rows, collector=col)
+                    if gather is not None:
+                        x = _cold_fixup(gather, feat, forder,
+                                        layers[-1].n_id, x, fused_hot_rows,
+                                        col)
             adjs = layers_to_adjs(layers, batch_cap, sizes)
             logits = model(x, adjs)[:batch_cap]
             if col is None:
@@ -232,12 +246,16 @@ def _unshared(tier, src):
 def _tier_signature(feat):
     """The shapes and dtypes of the storage leaves of the engine's
     feature argument: a tier, or a ``(device_part, host_tier)`` pair."""
+    if quant.is_sharded(feat):
+        return [_tier_signature(t) for t in feat.shards]
     if feat is None or torch.is_tensor(feat):
         return None if feat is None else (tuple(feat.shape), feat.dtype)
     return [_tier_signature(t) for t in feat]
 
 
 def _to_device_tier(feat, device):
+    if quant.is_sharded(feat):
+        return feat
     if quant.is_quantized(feat):
         return quant.QuantizedTensor(
             *(t.to(device).contiguous() for t in feat))

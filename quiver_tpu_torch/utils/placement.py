@@ -58,3 +58,84 @@ def pinned_put(tier, device: torch.device, what: str):
     except RuntimeError as e:
         raise RuntimeError(f"pinning {what} in host memory failed: {e}") \
             from e
+
+
+# -- host tiers shared between processes --------------------------------------
+# torch cannot move a pinned (cudaHostAlloc) tensor into shared memory, so a
+# host tier meant for other processes is copied once into shared pages,
+# which are then registered with CUDA (cudaHostRegister): pinned and
+# mapped for the card, and sent to a torch.multiprocessing worker by file
+# descriptor. The worker registers its own mapping of the same pages. The
+# registration lasts as long as the process.
+
+_HOST_REGISTER_MAPPED = 3          # cudaHostRegisterPortable | Mapped
+
+
+def _register(storage) -> None:
+    """Page-lock one shared CPU storage for the cards (once)."""
+    if storage.nbytes() == 0:
+        return
+    probe = torch.empty(0, dtype=torch.uint8).set_(storage)
+    if probe.is_pinned():
+        return
+    err = torch.cuda.cudart().cudaHostRegister(
+        storage.data_ptr(), storage.nbytes(), _HOST_REGISTER_MAPPED)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister of a shared host tier "
+                           f"failed with CUDA error {int(err)}")
+
+
+def _storages(tier):
+    """The distinct storages of a tier's leaves (a packed tier's three
+    views share one)."""
+    seen = {}
+    for t in quant.tier_parts(tier):
+        if t is not None:
+            st = t.untyped_storage()
+            seen.setdefault(st.data_ptr(), st)
+    return list(seen.values())
+
+
+def _to_shared(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the CPU tensor ``t`` in shared memory, same layout: its
+    whole storage is copied, so views keep their offsets and strides."""
+    src = t.untyped_storage()
+    buf = torch.empty(src.nbytes(), dtype=torch.uint8).share_memory_()
+    buf.copy_(torch.empty(0, dtype=torch.uint8).set_(src))
+    return torch.empty(0, dtype=t.dtype).set_(
+        buf.untyped_storage(), t.storage_offset(), t.shape, t.stride())
+
+
+def share_host(tier, device: torch.device):
+    """A host tier (pinned or not, packed or not) in shared memory that
+    ``device`` reads: registered (pinned) for a card, plain on the CPU.
+    A tier already shared is returned as it is. The leaves of a packed
+    tier stay views into one shared buffer."""
+    parts = quant.tier_parts(tier)
+    if all(t is None or t.is_shared() for t in parts):
+        shared = tier
+    elif quant.is_quantized(tier):
+        buf = {}
+
+        def move(t):
+            key = t.untyped_storage().data_ptr()
+            if key not in buf:
+                buf[key] = _to_shared(t)
+            return torch.empty(0, dtype=t.dtype).set_(
+                buf[key].untyped_storage(), t.storage_offset(), t.shape,
+                t.stride())
+        shared = quant.QuantizedTensor(*(move(t) for t in parts))
+    else:
+        shared = _to_shared(tier)
+    if device.type == "cuda":
+        register_host(shared, device)
+    return shared
+
+
+def register_host(tier, device: torch.device):
+    """Pin a host tier that lies in shared memory for ``device``'s reads
+    (a no-op on the CPU and for pages already pinned); returns it."""
+    if device.type == "cuda":
+        for st in _storages(tier):
+            _register(st)
+    return tier

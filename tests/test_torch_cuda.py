@@ -85,7 +85,17 @@ equal their plain versions; a one-rank NCCL group's lookups (dense,
 compact, falling back; fp32 and int8) equal a gloo group's on the CPU,
 counters included, the dense one free of host synchronisation; two
 ranks over NCCL, one card each, look up the rows (skips on one
-card)."""
+card).
+
+The clique: ``gather_rows_sharded`` over blocks on the card, several
+allocations of it and pinned host memory (fp32, bf16, fp16, raw and
+packed int8; with and without ``out=``, -1 ids, empty blocks) equals its
+plain version bit for bit; a clique store over a mesh naming the card
+four times looks up the replicate store's bits in one kernel launch per
+hot read, free of host synchronisation, and its engine serves the same
+logits; with two cards, a clique over both reads the peer's block (skips
+on one card); a spawned worker opens a clique store from ``share_ipc``
+and looks up the parent's bits."""
 
 import numpy as np
 import pytest
@@ -269,7 +279,7 @@ def test_split_walk_equals_fused_walk(graph):
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {"fused_sample_hop": 0, "fused_hot_hop": 0,
                               "sample_layer": 3, "gather_rows": 0,
-                              "gather_elems": 0}
+                              "gather_elems": 0, "gather_rows_sharded": 0}
     n_id, layers, x = fused.fused_multihop(*args)
     assert torch.equal(n_id, rn)
     for a, b in zip(layers, rl):
@@ -291,7 +301,7 @@ def test_engine_serves_through_the_kernels(graph):
     assert out.shape == (64, 5) and torch.isfinite(out).all()
     assert fused.LAUNCHES == {"fused_sample_hop": 1, "fused_hot_hop": 1,
                               "sample_layer": 0, "gather_rows": 0,
-                              "gather_elems": 0}
+                              "gather_elems": 0, "gather_rows_sharded": 0}
 
 
 def _train_batch(graph):
@@ -322,7 +332,7 @@ def test_train_step_launches_each_kernel_per_hop(graph):
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {"fused_sample_hop": 3, "fused_hot_hop": 3,
                               "sample_layer": 0, "gather_rows": 0,
-                              "gather_elems": 0}
+                              "gather_elems": 0, "gather_rows_sharded": 0}
     assert state.step == 3 and torch.isfinite(torch.stack(losses)).all()
 
 
@@ -890,9 +900,9 @@ def test_rotation_on_the_card(graph):
 
 @pytest.mark.parametrize("policy", [None, "bf16", "int8"])
 def test_shard_tensor_host_group_equals_plain(graph, policy):
-    """The pinned host group read by the card (``gather_rows`` with -1
-    ids off the group) equals the same store on the CPU bit for bit,
-    with no host synchronisation."""
+    """The device groups and the pinned host group, read by the card in
+    one ``gather_rows_sharded`` launch, equal the same store on the CPU
+    bit for bit, with no host synchronisation."""
     from quiver_tpu_torch import ShardTensor
     feat = graph["feat"][:, :WIDE].cpu()
     stores = {}
@@ -904,12 +914,14 @@ def test_shard_tensor_host_group_equals_plain(graph, policy):
         st.append(feat[2500:], -1)
         stores[dev] = st
     assert all(t.is_pinned() for t in quant.tier_parts(
-        stores["cuda"]._host_data) if t is not None)
+        stores["cuda"]._blocks[1]) if t is not None)
     ids = torch.cat([graph["seeds"].long(),
                      torch.tensor([N, N + 5, -3], device="cuda")])
     fused.reset_launches()
     got = _sync_free(lambda: stores["cuda"][ids])
-    assert fused.LAUNCHES["gather_rows"] == 1
+    # every group, the card's and the pinned host's, in one launch
+    assert fused.LAUNCHES["gather_rows_sharded"] == 1
+    assert sum(fused.LAUNCHES.values()) == 1
     assert torch.equal(_bits(got.cpu()), _bits(stores["cpu"][ids.cpu()]))
 
 
@@ -1532,3 +1544,168 @@ def test_two_card_exchange_over_nccl(graph):
             want = quant.gather_rows(table, ids.clamp(min=0))
             want[ids < 0] = 0
             assert torch.equal(_bits(got), _bits(want))
+
+
+# -- the clique: one process over several allocations or cards ---------------
+
+
+def _sharded(graph, kind, cuts, host_last=False):
+    from quiver_tpu_torch.ops.kernels import gather as g
+    full = graph["feat"]
+    if kind in ("bf16", "fp16"):
+        full = full.to(torch.bfloat16 if kind == "bf16" else torch.float16)
+    elif kind == "int8":
+        full = quant.quantize(full, "int8")
+    elif kind == "int8raw":
+        full = (full * 20).to(torch.int8)
+    blocks = []
+    for s, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        b = quant.tree_map_tier(lambda t: t[lo:hi].contiguous(), full)
+        host = host_last and s == len(cuts) - 2
+        if quant.is_quantized(b):
+            b = quant.pack(b, device="cpu" if host else "cuda", pin=host)
+        elif host:
+            b = b.cpu().pin_memory()
+        blocks.append(b)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return g.prepare_sharded(quant.ShardedTier(blocks, cuts, dev)), full
+
+
+@pytest.mark.parametrize("host_last", [False, True], ids=["card", "host"])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "fp16", "int8raw",
+                                  "int8"])
+def test_gather_rows_sharded_equals_plain(graph, kind, host_last):
+    tier, full = _sharded(graph, kind, [0, 700, 700, 1900, N], host_last)
+    ids = torch.cat([graph["seeds"], torch.tensor(
+        [0, 699, 700, 1899, 1900, N - 1, N + 7], dtype=torch.int32,
+        device="cuda")])
+    before = fused.LAUNCHES["gather_rows_sharded"]
+    got = gather.gather_rows_sharded(tier, ids.clamp(min=0))
+    assert fused.LAUNCHES["gather_rows_sharded"] == before + 1
+    want = gather.gather_rows_sharded_plain(tier, ids.clamp(min=0))
+    assert torch.equal(_bits(got), _bits(want))
+    plain_full = quant.gather_rows(full, ids.clamp(0, N - 1))
+    assert torch.equal(_bits(got), _bits(plain_full))
+    base = torch.full(got.shape, 5, dtype=got.dtype, device="cuda")
+    got = _sync_free(lambda: gather.gather_rows_sharded(tier, ids,
+                                                        out=base.clone()))
+    want = gather.gather_rows_sharded_plain(tier, ids, out=base.clone())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_gather_rows_sharded_past_64_blocks(graph, kind):
+    """100 blocks: the kernel reads the table from global memory instead
+    of shared memory, and still equals its plain version and the whole
+    table."""
+    cuts = np.linspace(0, N, 101).astype(int).tolist()
+    tier, full = _sharded(graph, kind, cuts, host_last=True)
+    ids = torch.cat([graph["seeds"], torch.tensor(
+        cuts[1:-1] + [c - 1 for c in cuts[1:]], dtype=torch.int32,
+        device="cuda")]).clamp(min=0)
+    got = gather.gather_rows_sharded(tier, ids)
+    assert torch.equal(_bits(got),
+                       _bits(gather.gather_rows_sharded_plain(tier, ids)))
+    assert torch.equal(_bits(got), _bits(quant.gather_rows(full, ids)))
+
+
+def _clique_stores(graph, policy, mesh_devices):
+    from quiver_tpu_torch.parallel import make_mesh
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"])
+    row = quant.row_bytes(WIDE, policy)
+    kw = dict(csr_topo=topo, dtype_policy=policy, host_placement="offload",
+              dedup_cold=True)
+    n = len(mesh_devices)
+    clique = Feature(device_cache_size=(N // 2 // n) * row,
+                     cache_policy="p2p_clique_replicate",
+                     mesh=make_mesh(("cache",), devices=mesh_devices),
+                     **kw).from_cpu_tensor(graph["feat"].cpu())
+    repl = Feature(device_cache_size=(N // 2 // n) * n * row,
+                   **kw).from_cpu_tensor(graph["feat"].cpu())
+    assert clique.sharded and clique.cache_rows == repl.cache_rows
+    return topo, clique, repl
+
+
+@pytest.mark.parametrize("policy", [None, "int8"])
+def test_clique_store_on_the_card(graph, policy):
+    """A clique of four allocations of this card: lookups equal the
+    replicate store's bits, one ``gather_rows_sharded`` launch per hot
+    read and no host synchronisation; the engine over it serves the
+    replicate engine's logits (deterministic algorithms on)."""
+    topo, clique, repl = _clique_stores(graph, policy, ["cuda"] * 4)
+    ids = torch.cat([graph["seeds"], graph["seeds"][:300]]).contiguous()
+    fused.reset_launches()
+    got = _sync_free(lambda: clique.getitem_masked(ids))
+    assert fused.LAUNCHES["gather_rows_sharded"] >= 1
+    assert torch.equal(_bits(got), _bits(repl.getitem_masked(ids)))
+    seeds = graph["seeds"][graph["seeds"] >= 0][:64]   # distinct, valid
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fused_hot_hop in (True, False):
+            a, b = (ServeEngine(GraphSAGE(WIDE, 16, 5, 2, dropout=0.0),
+                                _sage_state(), topo, store, [[4, 3]], 64,
+                                fused_hot_hop=fused_hot_hop,
+                                fused_row_cap=ROW_CAP).run(
+                                    seeds, hop_seeds=[3, 4])
+                    for store in (clique, repl))
+            assert torch.equal(_bits(a), _bits(b)), fused_hot_hop
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def _sage_state():
+    torch.manual_seed(0)
+    return GraphSAGE(WIDE, 16, 5, 2, dropout=0.0).state_dict()
+
+
+def test_two_card_clique_reads_the_peer(graph):
+    """A clique over two cards: peer access enabled by ``init_p2p``, the
+    lookup on card 0 reads card 1's block in the same launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import quiver_tpu_torch as qt
+    topo = qt.init_p2p([0, 1])
+    assert topo.get_clique_id(0) == topo.get_clique_id(1)
+    _, clique, repl = _clique_stores(graph, "int8", ["cuda:0", "cuda:1"])
+    assert clique.device_part.block_devices()[1] == torch.device("cuda", 1)
+    ids = graph["seeds"]
+    assert torch.equal(_bits(clique.getitem_masked(ids)),
+                       _bits(repl.getitem_masked(ids)))
+
+
+def _ipc_card_worker(handle, ids, want, out, done):
+    try:
+        from quiver_tpu_torch import Feature
+        store = Feature.new_from_ipc_handle(0, handle)
+        out.put(("ok", bool(torch.equal(_bits(store.getitem_masked(ids)),
+                                        _bits(want)))))
+    except Exception as e:
+        out.put(("error", repr(e)))
+    done.get(timeout=120)
+
+
+def test_ipc_worker_on_the_card(graph):
+    """A spawned worker opens an int8 clique store from ``share_ipc``
+    (hot blocks by CUDA IPC, the cold tier in shared pages it pins
+    again) and looks up the parent's bits."""
+    import torch.multiprocessing as mp
+    _, clique, _ = _clique_stores(graph, "int8", ["cuda"] * 4)
+    ids = torch.cat([graph["seeds"], graph["seeds"][:300]]).contiguous()
+    handle = clique.share_ipc()
+    assert clique._host_offload.data.is_shared()
+    assert clique._host_offload.data.is_pinned()
+    want = clique.getitem_masked(ids)
+    ctx = mp.get_context("spawn")
+    out, done = ctx.Queue(), ctx.Queue()
+    proc = ctx.Process(target=_ipc_card_worker,
+                       args=(handle, ids, want, out, done))
+    proc.start()
+    try:
+        status, equal = out.get(timeout=120)
+    finally:
+        done.put(None)
+        proc.join(timeout=60)
+    assert status == "ok" and equal is True, equal

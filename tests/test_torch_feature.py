@@ -478,10 +478,15 @@ def test_host_reads_stay_within_the_budget(monkeypatch, dedup):
 def test_deferred_pieces_raise():
     t = Feature(device_cache_size=50 * DIM * 4, device="cpu") \
         .from_cpu_tensor(_table())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Feature(cache_policy="shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t.share_ipc()
+    # the clique policies and share_ipc are ported (test_torch_clique.py,
+    # test_torch_ipc.py): a clique of one device is replicated, and the
+    # handle is JAX's tuple
+    one = Feature(cache_policy="shard", device_cache_size=50 * DIM * 4,
+                  device="cpu").from_cpu_tensor(_table())
+    assert not one.sharded and torch.equal(one[[0, 5]], t[[0, 5]])
+    handle = t.share_ipc()
+    assert len(handle) == 6 and handle[:5] == (
+        0, None, 50 * DIM * 4, "device_replicate", None)
     with pytest.raises(ValueError, match="cache_policy"):
         Feature(cache_policy="nope", device="cpu")
     with pytest.raises(ValueError, match="host_placement"):

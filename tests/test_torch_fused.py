@@ -338,4 +338,4 @@ def test_cpu_tensors_take_the_plain_version(graph):
                                   3, row_cap=ROW_CAP)
     assert fused.LAUNCHES == {"fused_sample_hop": 0, "fused_hot_hop": 0,
                               "sample_layer": 0, "gather_rows": 0,
-                              "gather_elems": 0}
+                              "gather_elems": 0, "gather_rows_sharded": 0}

@@ -1,0 +1,216 @@
+"""The port's 2-D (data x model) train step
+(``quiver_tpu_torch/parallel/gspmd.py``: column-parallel Linears over a
+2 x 2 ``DeviceMesh``) on 4 gloo ranks (one ``RankPool`` for the
+module), the counterpart of ``tests/test_gspmd.py``:
+
+- the Linears' weights and biases are split over ``model``: each rank
+  holds half of every output dimension, the layout JAX's ``_leaf_spec``
+  gives its flax kernels (``P(None, model)``) and biases (``P(model)``);
+- two steps (Adam, dropout 0.5) equal the port's single-rank
+  ``build_train_step`` (split route) on the same global batch, hop seeds
+  and dropout seed: loss and parameters within 1e-5 (the sums run in
+  another order), for the exact and the rotation sampler; rotation
+  without ``indices_rows`` raises as JAX's step does;
+- a width the model axis does not divide (5 classes over 2) is split
+  3 + 2, where JAX's ``device_put`` refuses it;
+- the loss falls over 12 steps.
+
+Both sides start from the same flax-layout parameters
+(``random_flax_params``, converted). Every pool call has the pool's
+time limit and every collective the group's 60 s timeout."""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import RankPool
+from quiver_tpu_torch import GraphSAGE
+from quiver_tpu_torch.models.convert import (flax_to_state_dict,
+                                             random_flax_params)
+from quiver_tpu_torch.ops import as_index_rows, edge_row_ids, permute_csr
+from quiver_tpu_torch.parallel import (build_gspmd_train_step,
+                                       build_train_step, full_parameters,
+                                       init_state, shard_state,
+                                       state_sharding)
+
+N, DIM, HIDDEN = 300, 16, 16
+SIZES = [4, 3]
+B = 32
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def pool():
+    with RankPool(4, timeout=60, call_timeout=120) as p:
+        yield p
+
+
+@pytest.fixture(scope="module")
+def world():
+    """``tests/test_gspmd.py``'s graph: n 300, D 16, degrees 1-9; labels
+    a fixed projection's argmax (learnable)."""
+    rng = np.random.default_rng(0)
+    deg = rng.integers(1, 10, N)
+    indptr = np.zeros(N + 1, np.int32)
+    np.cumsum(deg, out=indptr[1:])
+    indices = rng.integers(0, N, int(indptr[-1])).astype(np.int32)
+    feat = rng.standard_normal((N, DIM)).astype(np.float32)
+    proj = rng.standard_normal((DIM, 5))
+    return dict(indptr=indptr, indices=indices, feat=feat, proj=proj)
+
+
+def _labels(w, classes):
+    return np.argmax(w["feat"] @ w["proj"][:, :classes], axis=1) \
+        .astype(np.int64)
+
+
+def _model(classes, dropout=0.5):
+    m = GraphSAGE(DIM, HIDDEN, classes, len(SIZES), dropout=dropout)
+    m.load_state_dict(flax_to_state_dict(
+        random_flax_params(DIM, HIDDEN, classes, len(SIZES), seed=4)))
+    return m
+
+
+def _batches(steps, seed=3):
+    g = np.random.default_rng(seed)
+    return [(g.permutation(N)[:B].astype(np.int32),
+             [int(v) for v in g.integers(-2**31, 2**31 - 1, len(SIZES))],
+             int(g.integers(0, 2**31 - 1))) for _ in range(steps)]
+
+
+def _rows(w, method):
+    if method != "rotation":
+        return None
+    indptr = torch.from_numpy(w["indptr"])
+    indices = torch.from_numpy(w["indices"])
+    return as_index_rows(permute_csr(
+        indices, edge_row_ids(indptr, indices.shape[0]),
+        torch.Generator().manual_seed(2)))
+
+
+def _args(w, classes, seeds):
+    labels = torch.from_numpy(_labels(w, classes))
+    s = torch.from_numpy(seeds)
+    return (torch.from_numpy(w["feat"]), None, torch.from_numpy(w["indptr"]),
+            torch.from_numpy(w["indices"]), s, labels[s.long()])
+
+
+def _tp_rank(ctx, w, classes, method, batches):
+    """On each rank: the TP state on a 2 x 2 mesh, the steps, and what
+    the test holds: losses, each weight's local and full shape, and the
+    full parameters after the steps."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    model = _model(classes)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    st = shard_state(init_state(model, opt), mesh)
+    placements = {k: [str(p) for p in v]
+                  for k, v in state_sharding(st, mesh).items()}
+    step = build_gspmd_train_step(model, opt, SIZES, mesh, method=method)
+    rows = _rows(w, method)
+    losses = []
+    for seeds, hs, drop in batches:
+        st, loss = step(st, *_args(w, classes, seeds), hs, drop,
+                        indices_rows=rows)
+        losses.append(float(loss))
+    out = {"losses": losses, "placements": placements,
+           "local": {n: tuple(p.shape) for n, p in model.named_parameters()},
+           "full": {n: t.numpy()
+                    for n, t in full_parameters(model).items()}}
+    if method == "rotation":
+        try:
+            step(st, *_args(w, classes, batches[0][0]), batches[0][1],
+                 batches[0][2])
+        except TypeError as e:
+            out["no_rows"] = str(e)
+    return out
+
+
+def _single(w, classes, method, batches):
+    model = _model(classes)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    step = build_train_step(model, opt, SIZES, B, method=method)
+    state, losses = init_state(model, opt), []
+    rows = _rows(w, method)
+    for seeds, hs, drop in batches:
+        state, loss = step(state, *_args(w, classes, seeds), hs, drop,
+                           indices_rows=rows)
+        losses.append(float(loss))
+    return losses, {n: p.detach().numpy()
+                    for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("method", ["exact", "rotation"])
+def test_tp_step_matches_the_single_rank_step(pool, world, method):
+    batches = _batches(2)
+    got = pool.run(_tp_rank, world, 4, method, batches)
+    want_loss, want_params = _single(world, 4, method, batches)
+    for r in got:
+        np.testing.assert_allclose(r["losses"], want_loss, **TOL)
+        for name, p in want_params.items():
+            np.testing.assert_allclose(r["full"][name], p, **TOL)
+    r0 = got[0]
+    # every Linear's weight and bias split over model: half each rank
+    for name, p in want_params.items():
+        assert r0["placements"][name] == ["S(0)"]
+        assert r0["local"][name][0] * 2 == p.shape[0]
+        assert r0["local"][name][1:] == p.shape[1:]
+    if method == "rotation":
+        assert "requires indices_rows" in r0["no_rows"]
+
+
+def test_layout_is_jaxs_leaf_spec():
+    """JAX's ``_leaf_spec`` on the flax tree against the port's placement
+    of the converted parameters: a kernel ``P(None, model)`` (its output
+    columns) is a torch weight split on dim 0, a bias ``P(model)`` is
+    split on dim 0."""
+    from jax.sharding import PartitionSpec as P
+    from quiver_tpu.parallel.gspmd import _leaf_spec
+    from quiver_tpu_torch.parallel.gspmd import _leaf_placement, _linears
+    flax = random_flax_params(DIM, HIDDEN, 4, len(SIZES), seed=4)["params"]
+    model = _model(4)
+    linears = set(_linears(model))
+    for conv, mods in flax.items():
+        for lin, leaves in mods.items():
+            for leaf, arr in leaves.items():
+                spec = _leaf_spec(arr, "model")
+                assert spec == (P(None, "model") if arr.ndim == 2
+                                else P("model"))
+                name = (f"convs.{conv[4:]}.{lin}."
+                        + ("weight" if leaf == "kernel" else "bias"))
+                t = dict(model.named_parameters())[name]
+                assert [str(p) for p in _leaf_placement(
+                    name, linears, t.dim())] == ["S(0)"]
+
+
+def test_uneven_width_is_split_where_jax_refuses(pool, world):
+    """5 classes over a model axis of 2: the port splits 3 + 2 and still
+    equals the single-rank step; JAX's ``shard_state`` raises."""
+    import jax
+    import numpy as onp
+    from jax.sharding import Mesh
+    from quiver_tpu.parallel.gspmd import shard_state as jshard
+    batches = _batches(2, seed=8)
+    got = pool.run(_tp_rank, world, 5, "exact", batches)
+    want_loss, want_params = _single(world, 5, "exact", batches)
+    name = "convs.1.lin_root.weight"
+    assert want_params[name].shape[0] == 5
+    assert sorted(r["local"][name][0] for r in got) == [2, 2, 3, 3]
+    for r in got:
+        np.testing.assert_allclose(r["losses"], want_loss, **TOL)
+        np.testing.assert_allclose(r["full"][name], want_params[name],
+                                   **TOL)
+    mesh = Mesh(onp.array(jax.devices()[:4]).reshape(2, 2),
+                ("data", "model"))
+    flax = jax.tree_util.tree_map(
+        jax.numpy.asarray, random_flax_params(DIM, HIDDEN, 5, len(SIZES)))
+    with pytest.raises(ValueError, match="divisible"):
+        jshard(flax, mesh)
+
+
+def test_tp_loss_falls(pool, world):
+    batches = _batches(12, seed=5)
+    got = pool.run(_tp_rank, world, 4, "exact", batches)
+    losses = got[0]["losses"]
+    assert all(r["losses"] == losses for r in got)
+    assert np.mean(losses[-4:]) < np.mean(losses[:4])

@@ -698,13 +698,22 @@ class TestHeteroFeature:
 
     def test_mesh_sharded_type_is_item_7(self):
         """``tests/test_hetero.py::test_mesh_sharded_type``'s store (one
-        type's cache sharded over a mesh) needs multi-card support."""
-        with pytest.raises(NotImplementedError, match="item 7"):
-            HeteroFeature.from_cpu_tensors(
-                _feats(), configs={"paper": dict(
-                    device_cache_size=N["paper"] * DIM * 4 // 8,
-                    cache_policy="p2p_clique_replicate", mesh=object())},
-                default=dict(device_cache_size="1M", device="cpu"))
+        type's cache sharded over a mesh), ROADMAP item 7's clique: the
+        paper type's hot tier in 8 blocks, the others replicated (held
+        to JAX's store in ``tests/test_torch_clique.py``)."""
+        from quiver_tpu_torch.parallel import make_mesh
+        feats = _feats()
+        t = HeteroFeature.from_cpu_tensors(
+            feats, configs={"paper": dict(
+                device_cache_size=N["paper"] * DIM * 4 // 8,
+                cache_policy="p2p_clique_replicate",
+                mesh=make_mesh(("cache",), devices=["cpu"] * 8))},
+            default=dict(device_cache_size="1M", device="cpu"))
+        assert t["paper"].sharded and not t["author"].sharded
+        ids = torch.tensor([0, 7, N["paper"] - 1, -1])
+        out = t.lookup({"paper": ids})["paper"].numpy()
+        np.testing.assert_array_equal(out[:3], feats["paper"][[0, 7, -1]])
+        assert not out[3].any()
 
     def test_prefetch_pickle_and_accessors(self):
         feats = _feats()

@@ -15,8 +15,8 @@ follow JAX's.
 The JAX store keeps one group per device, and on the tests' eight
 virtual CPU devices a lookup across two device groups fails there; so
 its device shards all go to device 0, while the port's go to devices 0
-and 1, which on one card share one group, as JAX's ``device %
-len(devices)`` makes them on one device."""
+and 1: each append is one block of the port's one gather, wherever it
+lies (three device groups: ``tests/test_torch_clique.py``)."""
 
 import numpy as np
 import pytest
@@ -95,10 +95,11 @@ def test_lookup_equals_jax(policy):
 
 def test_int8_lookup_against_jax():
     j, t = _pair("int8")
-    # the stored codes and sidecars of both groups are JAX's
-    for ours, theirs in zip(t._dev_data, j._dev_data[0]):
+    # the stored codes and sidecars of the device and host shards are
+    # JAX's device group and host group
+    for ours, theirs in zip(t.stored(host=False), j._dev_data[0]):
         assert np.array_equal(_bits(ours), _bits(theirs))
-    for ours, theirs in zip(t._host_data, j._host_data):
+    for ours, theirs in zip(t.stored(host=True), j._host_data):
         assert np.array_equal(_bits(ours), _bits(theirs))
     ids = _ids()
     got, want = t[ids].numpy(), np.asarray(j[ids])
