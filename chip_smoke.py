@@ -381,7 +381,14 @@ Phases:
    14 (a) with the exchange's gathers under ``exchange``, and
    ``launches_per_clique_batch``/``launches_per_clique_step`` from
    phase 15 (a) and (b), with ``gather_rows_sharded``'s variants and its
-   ``ShardTensor`` reads (phases 9 and 15) under it;
+   ``ShardTensor`` reads (phases 9 and 15) under it; the HBM design of
+   the packed int8 gather under ``packed_hbm`` of each of the two
+   (``gather_rows_packed_hbm_kernel``: the exchange's unbucket, its
+   launches in phase 14 (a) and the dist step;
+   ``gather_rows_sharded_packed_hbm_kernel``: the clique's int8 hot
+   tier, its launches in phase 15 (a) and (b)), every phase having
+   checked which packed kernel ran (the HBM design on the card, the
+   host design on pinned rows: phases 6, 9, 11, 14 and 15);
    the arms' records under ``sampler``, phase 8's under ``weighted``,
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
@@ -559,6 +566,30 @@ def launch_own_ms(run, kernel: str, units: int):
         return None
     per = len(durs) // units
     return [sorted(durs[i::per])[units // 2] for i in range(per)]
+
+
+def packed_made(**want) -> dict:
+    """The packed int8 gathers' launches by kernel since the last
+    ``reset_launches()``, checked to equal ``want`` (kernel name: count;
+    every kernel not named: 0): the HBM design's kernels read rows in
+    device memory, the host design's rows in pinned host memory."""
+    from quiver_tpu_torch.ops import kernels
+    got = dict(kernels.PACKED_LAUNCHES)
+    check(got == {k: want.get(k, 0) for k in got},
+          f"packed int8 gather launches {got}, expected {want}")
+    return got
+
+
+def packed_only(run, kernel: str, what: str) -> None:
+    """``run()``, checked to launch the packed int8 gather ``kernel`` at
+    least once and no other packed kernel."""
+    from quiver_tpu_torch.ops import kernels
+    before = dict(kernels.PACKED_LAUNCHES)
+    run()
+    made = {k: v - before[k] for k, v in kernels.PACKED_LAUNCHES.items()}
+    check(made[kernel] >= 1 and not any(
+        v for k, v in made.items() if k != kernel),
+        f"{what}: packed int8 gather launches {made}, expected {kernel}")
 
 
 def fmt_ms(ms) -> str:
@@ -1300,6 +1331,8 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
           and launches["sample_layer"] == launches["gather_elems"] == 0
           and launches["gather_rows"] >= batches,
           f"tiered serving launches {launches}")
+    # the pinned cold tier: the host design's kernel, every launch
+    packed_made(gather_rows_packed_kernel=launches["gather_rows"])
     srt = sorted(lat)
     p50 = srt[len(srt) // 2]
     p99 = srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)]
@@ -1308,7 +1341,8 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
     print(f"tiered: launches per batch: fused_sample_hop "
           f"{launches['fused_sample_hop'] / batches:g}, fused_hot_hop "
           f"{launches['fused_hot_hop'] / batches:g}, gather_rows (host "
-          f"tier) {launches['gather_rows'] / batches:g}, sample_layer 0",
+          f"tier, gather_rows_packed_kernel) "
+          f"{launches['gather_rows'] / batches:g}, sample_layer 0",
           flush=True)
     device_profile(lambda: [eng.run(ids, hop_seeds=hs) for ids, hs in
                             zip(requests[:4], hop_seeds[:4])], 4,
@@ -2901,6 +2935,8 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
         check(launches["gather_rows_sharded"] == 1
               and sum(launches.values()) == 1,
               f"ShardTensor {name} launches {launches}")
+        # a pinned group: packed rows through the host design's kernel
+        packed_made(**({kname: 1} if policy else {}))
         dev_rows = st.device_tensor_list[0]
         host_rows = st.cpu_tensor
 
@@ -3639,12 +3675,16 @@ def ring_gather_timing(store, n_id, h2d, name):
     n = slots.shape[0]
     got = torch.zeros((n, DIM), device=slots.device)
     want = torch.zeros((n, DIM), device=slots.device)
-    gather.gather_rows(ring.table, slots, out=got)
+    kernel = "gather_rows_packed_kernel" if quant.is_quantized(ring.table) \
+        else "gather_rows_kernel"
+    if kernel == "gather_rows_packed_kernel":   # the pinned ring
+        packed_only(lambda: gather.gather_rows(ring.table, slots, out=got),
+                    kernel, f"ring gather ({name})")
+    else:
+        gather.gather_rows(ring.table, slots, out=got)
     gather.gather_rows_plain(ring.table, slots, out=want)
     check(same_bits(got, want), f"ring gather ({name}) differs from its "
           "plain version")
-    kernel = "gather_rows_packed_kernel" if quant.is_quantized(ring.table) \
-        else "gather_rows_kernel"
     ms = cuda_ms(lambda: gather.gather_rows(ring.table, slots, out=got), 20)
     # the profiler drops a kernel event now and then: a window that
     # keeps at least half of them gives their median
@@ -5815,8 +5855,10 @@ def exchange_gather_timing(calls, card, iters):
             live = int((ids >= 0).sum())
         check(same_bits(got, want), f"exchange {name}: kernel differs from "
               "its plain version")
-        kernel = ("gather_rows_packed_kernel" if quant.is_quantized(table)
-                  else "gather_rows_kernel")
+        # the received block lies on the card: the HBM design's kernel
+        kernel = (gather.packed_kernel(quant.tier_parts(table)[0].device
+                                       .type == "cpu")
+                  if quant.is_quantized(table) else "gather_rows_kernel")
         # the out= form skips -1 ids: it reads and writes live rows only
         row_in = quant.row_read_bytes(table)
         row_out = got.shape[1] * got.element_size()
@@ -5937,6 +5979,8 @@ def sharded_world1(dev, card, g, group):
                        "gather_rows": 2 * SHARD_BATCHES, "gather_elems": 0,
                        "gather_rows_sharded": 0},
           f"sharded serve launches {launches}")
+    # the unbucket decodes the received block on the card: the HBM design
+    hbm = packed_made(gather_rows_packed_hbm_kernel=SHARD_BATCHES)
     for o in outs:
         check(tuple(o.shape) == (BATCH, CLASSES)
               and bool(torch.isfinite(o).all()), "sharded logits")
@@ -5957,7 +6001,9 @@ def sharded_world1(dev, card, g, group):
           f"+ synchronize), device {fmt_ms(busy)} per batch, idle share "
           f"{stats.get('idle_share', float('nan')):.3f}; launches per batch "
           f"fused_sample_hop {launches['fused_sample_hop'] / SHARD_BATCHES:g}"
-          f", gather_rows {launches['gather_rows'] / SHARD_BATCHES:g}; host "
+          f", gather_rows {launches['gather_rows'] / SHARD_BATCHES:g} (of "
+          f"them gather_rows_packed_hbm_kernel "
+          f"{hbm['gather_rows_packed_hbm_kernel'] / SHARD_BATCHES:g}); host "
           f"synchronisations per batch {syncs} (the dense lookup alone: "
           f"none); on {card}", flush=True)
 
@@ -6031,7 +6077,8 @@ def sharded_world1(dev, card, g, group):
            "launches_per_batch": {k: v / SHARD_BATCHES
                                   for k, v in launches.items() if v},
            "host_syncs_per_batch": syncs, "gathers": gathers,
-           "arms": arms, "frontier_cap": frontier}
+           "arms": arms, "frontier_cap": frontier,
+           "packed_launches": hbm}
     return rec, launches, dist, requests, hop_seeds, want
 
 
@@ -6088,6 +6135,9 @@ def shard_train_steps(dev, card, g, group, dist):
                  "fused_hot_hop": SHARD_STEPS})
         check(nonzero(launches[name]) == want,
               f"{name} step launches {launches[name]}")
+        # the dist step's unbucket: the HBM design, once a step
+        packed = packed_made(**({"gather_rows_packed_hbm_kernel": SHARD_STEPS}
+                                if name == "dist" else {}))
         edges = 0
         for i in range(1, len(batches)):
             if name == "dist":
@@ -6104,7 +6154,8 @@ def shard_train_steps(dev, card, g, group, dist):
                      "edges_per_s": edges / (sum(lat) / 1e3),
                      "first8_loss": first, "last8_loss": last,
                      "launches_per_step": {k: v / SHARD_STEPS for k, v in
-                                           nonzero(launches[name]).items()}}
+                                           nonzero(launches[name]).items()},
+                     "packed_launches": packed}
         print(f"sharded (a) train {name}: {SHARD_STEPS} steps of {BATCH} "
               f"seeds, world size 1, step p50 {p50:.3f} ms p99 {p99:.3f} ms, "
               f"{edges} sampled edges = {out[name]['edges_per_s']:.6g} "
@@ -6390,7 +6441,10 @@ def sharded_kernel_check(dev, tiers, ids, card, iters):
                       "index_select over the concatenated table")
                 lib = cuda_ms(lambda: table.index_select(0, idx), iters)
                 del table
-            kname = ("gather_rows_sharded_packed_kernel"
+            # every block on the card: packed rows take the HBM design
+            kname = (gather.packed_kernel(
+                any(quant.tier_parts(b)[0].device.type == "cpu"
+                    for b in tier.shards), sharded=True)
                      if quant.is_quantized(tier.shards[0])
                      else "gather_rows_sharded_kernel")
             rec = {"ids": int(ids.shape[0]), "rows_written": n_read,
@@ -6503,6 +6557,13 @@ def clique_serving(dev, g, stores, card):
                   and (got["gather_rows"] >= CLIQUE_BATCHES)
                   == (arm == "int8 half"),
                   f"clique {arm} {route} launches {got}")
+            # int8: the hot blocks on the card through the HBM design, the
+            # pinned cold tier through the host design
+            packed = packed_made(**({
+                "gather_rows_sharded_packed_hbm_kernel":
+                    got["gather_rows_sharded"],
+                "gather_rows_packed_kernel": got["gather_rows"]}
+                if arm == "int8 half" else {}))
             stats = {}
             busy = device_profile(lambda: [eng.run(r) for r in requests[:4]],
                                   4, f"clique {route} batch", stats=stats)
@@ -6519,6 +6580,7 @@ def clique_serving(dev, g, stores, card):
             rec[f"{arm} {route}"] = {
                 "batch_p50_ms": p50, "batch_p99_ms": p99,
                 "device_ms": busy, "idle_share": stats.get("idle_share"),
+                "packed_launches": packed,
                 "launches_per_batch": per, "host_syncs_per_batch": syncs}
             print(f"clique (a) {arm} {route}: {CLIQUE_BATCHES} batches of "
                   f"{BATCH}, fanout {SIZES}, p50 {p50:.3f} ms p99 "
@@ -6575,6 +6637,9 @@ def clique_training(dev, g, stores, card):
           and launches["fused_hot_hop"] == 0
           and launches["gather_rows"] >= CLIQUE_STEPS,
           f"clique train launches {launches}")
+    packed = packed_made(
+        gather_rows_sharded_packed_hbm_kernel=launches["gather_rows_sharded"],
+        gather_rows_packed_kernel=launches["gather_rows"])
     p50, p99 = pcts(lat)
     stats = {}
     busy = device_profile(lambda: [step(state, store, None, g["indptr"],
@@ -6585,7 +6650,8 @@ def clique_training(dev, g, stores, card):
            "idle_share": stats.get("idle_share"), "first8_loss": first,
            "last8_loss": last,
            "launches_per_step": {k: v / CLIQUE_STEPS for k, v in
-                                 nonzero(launches).items()}}
+                                 nonzero(launches).items()},
+           "packed_launches": packed}
     print(f"clique (b) train: {CLIQUE_STEPS} steps of {BATCH} over the int8 "
           f"clique store, step p50 {p50:.3f} ms p99 {p99:.3f} ms, device "
           f"{fmt_ms(busy)} a step, idle share "
@@ -7335,7 +7401,8 @@ def main() -> int:
         "name": "gather_rows in the all_to_all exchange: the owner's read "
                 "of its packed int8 shard (raw 128-byte rows, "
                 "gather_rows_kernel) and the unbucket of the received "
-                "block with the int8 decode (gather_rows_packed_kernel), "
+                "block with the int8 decode (gather_rows_packed_hbm_kernel"
+                "), "
                 "phase 14 (a) at world size 1",
         "route": "cuda", "source": SOURCES["gather_rows"],
         "replaces": REPLACES["gather_rows"],
@@ -7348,6 +7415,44 @@ def main() -> int:
             "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         "variants": exch}
+    # the HBM design of the packed int8 gather, where the main paths run it:
+    # the exchange's unbucket (phase 14 (a)) and the clique's int8 hot tier
+    # (phase 15 (a), (b))
+    unb = exch["unbucket+decode"]
+    dist_packed = sharded["a"]["train"]["dist"]["packed_launches"]
+    gather_entry["packed_hbm"] = {
+        "name": "gather_rows_packed_hbm_kernel: packed int8 rows in device "
+                "memory, the exchange's unbucket + decode",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"],
+        "launches": sharded["a"]["packed_launches"][
+            "gather_rows_packed_hbm_kernel"],
+        "launches_per_sharded_batch": sharded["a"]["packed_launches"][
+            "gather_rows_packed_hbm_kernel"] / SHARD_BATCHES,
+        "launches_per_dist_step":
+            dist_packed["gather_rows_packed_hbm_kernel"] / SHARD_STEPS,
+        **{k: unb[k] for k in ("max_abs_err", "ms", "own_ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}}
+    k8 = clique_kernel["int8 lookup"]
+    hbm_served = clique["serving"]["int8 half fused"]["packed_launches"]
+    hbm_steps = clique["training"]["packed_launches"]
+    line["kernels"][list(SOURCES).index("gather_rows_sharded")][
+        "packed_hbm"] = {
+        "name": "gather_rows_sharded_packed_hbm_kernel: the clique's int8 "
+                "hot tier, every block on the card (lookup form; the out= "
+                "form under out_form)",
+        "route": "cuda", "source": SOURCES["gather_rows_sharded"],
+        "replaces": REPLACES["gather_rows_sharded"],
+        "launches": hbm_served["gather_rows_sharded_packed_hbm_kernel"],
+        "launches_per_clique_batch":
+            hbm_served["gather_rows_sharded_packed_hbm_kernel"]
+            / CLIQUE_BATCHES,
+        "launches_per_clique_step":
+            hbm_steps["gather_rows_sharded_packed_hbm_kernel"] / CLIQUE_STEPS,
+        **{k: k8[k] for k in ("max_abs_err", "ms", "own_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")},
+        "out_form": {k: clique_kernel["int8 out="][k] for k in (
+            "own_ms", "ms", "plain_ms", "bound_ms")}}
     line["sharded"] = sharded
     line["clique"] = clique
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all",

@@ -6,6 +6,7 @@ process on one NVIDIA card.
     python3 kernel_ab.py --old DIR          # the sampling kernels
     python3 kernel_ab.py --old-gather DIR   # the row gather
     python3 kernel_ab.py --old-packed DIR   # the packed host gather
+    python3 kernel_ab.py --old-packed-device DIR  # packed rows on the card
 
 Each option runs its part; give either or both.
 
@@ -47,8 +48,27 @@ pinned) at the same three id sets as ``--old-gather``: both sides launch
 ``gather_rows_packed_kernel``, held equal bit for bit, then timed old,
 new, new, old as above.
 
-Prints the card, one line per case and a JSON line; exits non-zero on
-any failure.
+``--old-packed-device``: an older ``gather.cu`` with the packed C
+interfaces of PR 15 (``qt_gather_rows_packed``, and
+``qt_gather_rows_sharded`` without the host flag), whose packed gathers
+ran the host design on device tables too, against this tree's HBM
+design (``gather_rows_packed_hbm_kernel``,
+``gather_rows_sharded_packed_hbm_kernel``), at ``chip_smoke.py``'s
+shapes with ids drawn from the seed: phase 15's clique int8 hot tier (all
+2,450,000 rows x 100 packed at 128 bytes in 4 device blocks; 1,081,344
+ids of which 669,862 are live and distinct, the rest -1) read in the
+lookup form (the -1 ids clamped to row 0) and in the ``out=`` form; and
+phase 14's unbucket of the received block (1,081,344 packed rows on the
+card; 1,081,344 ids of which 671,169 are live, each the rank of its slot
+among the live ones, as the exchange at world size 1 numbers them, the
+rest -1, ``out=`` zeros). Held equal bit for bit, then timed old, new,
+new, old as above; the bound is the ids read once, each distinct row's
+108 data bytes read once and each written row's 400 bytes written once,
+at 3.35 TB/s.
+
+Prints the card (and this tree's ``nvcc -Xptxas -v`` lines of
+``gather.cu``), one line per case and a JSON line; exits non-zero on any
+failure.
 """
 
 from __future__ import annotations
@@ -72,6 +92,8 @@ OLD_ARGS = {
     "qt_gather_rows_q8": [_p, _p, _p, _i, _p, _ll, _ll, _ll, _p, _i, _p],
     "qt_gather_rows_packed": [_p, _i, _p, _ll, _ll, _ll, _ll, _ll, _p, _i,
                               _p],
+    "qt_gather_rows_sharded": [_p, _p, _i, _ll, _p, _ll, _ll, _ll, _ll, _ll,
+                               _p, _i, _p],
     "qt_fused_sample_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
     "qt_fused_hot_hop": [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _i,
                          _i, _i, _p, _i, _i, _p, _p, _p, _p, _p],
@@ -79,14 +101,22 @@ OLD_ARGS = {
 }
 
 
+_OLD_LIBS: dict = {}
+
+
 def build_old(csrc: Path, names):
     """Build the named older sources, all at once, and bind their C
-    functions; prints their ptxas lines."""
+    functions; prints their ptxas lines. A source built before in this
+    process is loaded once."""
     from quiver_tpu_torch.ops.kernels import _build
     BUILD.mkdir(parents=True, exist_ok=True)
+    done = {n: _OLD_LIBS[(str(csrc), n)] for n in names
+            if (str(csrc), n) in _OLD_LIBS}
     jobs = {}
     for name in names:
-        out = BUILD / f"libold_{name}.so"
+        if name in done:
+            continue
+        out = BUILD / f"libold_{len(_OLD_LIBS)}_{name}.so"
         jobs[name] = (out, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
              str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
@@ -104,8 +134,8 @@ def build_old(csrc: Path, names):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = _i
-        libs[name] = lib
-    return libs
+        libs[name] = _OLD_LIBS[(str(csrc), name)] = lib
+    return {**done, **libs}
 
 
 def _stream():
@@ -376,6 +406,123 @@ def packed_ab(csrc: Path, dev, rows):
               flush=True)
 
 
+CLIQUE = 4                    # phase 15's blocks
+
+
+def device_ids(dev, gen, n_rows, n_ids, live):
+    """``n_ids`` slots, ``live`` of them at random holding distinct random
+    rows of ``n_rows``, the rest -1."""
+    import torch
+    ids = torch.full((n_ids,), -1, dtype=torch.int32, device=dev)
+    slots = torch.randperm(n_ids, generator=gen, device=dev)[:live]
+    ids[slots] = torch.randperm(n_rows, generator=gen, device=dev)[
+        :live].to(torch.int32)
+    return ids
+
+
+def packed_device_ab(csrc: Path, dev, rows):
+    """Packed int8 rows on the card, an older ``gather.cu`` (the host
+    design on device tables) against this tree's HBM design, at phase
+    15's clique reads and phase 14's unbucket."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    lib = build_old(csrc, ("gather",))["gather"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    q = quant.quantize(torch.randn(cs.NODES, cs.DIM, generator=gen,
+                                   device=dev), "int8")
+    cuts = [cs.NODES * s // CLIQUE for s in range(CLIQUE + 1)]
+    blocks = [quant.pack(quant.QuantizedTensor(*(t[lo:hi] for t in q)),
+                         stride=128, device=dev)
+              for lo, hi in zip(cuts[:-1], cuts[1:])]
+    tier = gather.prepare_sharded(quant.ShardedTier(blocks, cuts, dev))
+    addrs, offs, bits, stride, on_host = gather._sharded_table(tier)
+    cs.check(not on_host, "the clique tier lies on the card")
+    n_ids = 1_081_344
+    block = quant.pack(quant.QuantizedTensor(*(t[:n_ids] for t in q)),
+                       stride=128, device=dev)
+    del q
+    side = quant.sidecar_offset(cs.DIM)
+    row_in, row_out = quant.row_read_bytes(block), 4 * cs.DIM
+
+    def old_sharded(ids, out, skip):
+        err = lib.qt_gather_rows_sharded(
+            addrs.data_ptr(), offs.data_ptr(), CLIQUE, bits, ids.data_ptr(),
+            ids.shape[0], stride, cs.DIM, cs.DIM, side, out.data_ptr(),
+            skip, _stream())
+        cs.check(err == 0, f"old sharded gather launch failed: {err}")
+        return out
+
+    def old_flat(ids, out):
+        err = lib.qt_gather_rows_packed(
+            block.data.data_ptr(), 0, ids.data_ptr(), ids.shape[0],
+            block.data.shape[0], 128, cs.DIM, side, out.data_ptr(), 1,
+            _stream())
+        cs.check(err == 0, f"old packed gather launch failed: {err}")
+        return out
+
+    frontier = device_ids(dev, gen, cs.NODES, n_ids, 669_862)
+    safe = frontier.clamp(min=0)
+    live = torch.zeros(n_ids, dtype=torch.bool, device=dev)
+    live[torch.randperm(n_ids, generator=gen, device=dev)[:671_169]] = True
+    unbucket = torch.where(live, torch.cumsum(live, 0) - 1, -1).to(
+        torch.int32)
+    # (label, old call, new call, old kernel, new kernel, rows written,
+    #  distinct rows read)
+    outs = {k: torch.zeros((n_ids, cs.DIM), device=dev)
+            for k in ("old", "new")}
+    cases = [
+        ("clique int8 hot tier, lookup form (-1 ids clamped)",
+         lambda: old_sharded(safe, outs["old"], 0),
+         lambda: gather.gather_rows_sharded(tier, safe),
+         "gather_rows_sharded_packed_kernel",
+         "gather_rows_sharded_packed_hbm_kernel", n_ids,
+         int(safe.unique().numel())),
+        ("clique int8 hot tier, out= form",
+         lambda: old_sharded(frontier, outs["old"], 1),
+         lambda: gather.gather_rows_sharded(tier, frontier, out=outs["new"]),
+         "gather_rows_sharded_packed_kernel",
+         "gather_rows_sharded_packed_hbm_kernel",
+         int((frontier >= 0).sum()), int((frontier >= 0).sum())),
+        ("exchange unbucket + decode, out= zeros",
+         lambda: old_flat(unbucket, outs["old"]),
+         lambda: gather.gather_rows(block, unbucket, out=outs["new"]),
+         "gather_rows_packed_kernel", "gather_rows_packed_hbm_kernel",
+         int(live.sum()), int(live.sum())),
+    ]
+    for label, old, new, old_k, new_k, written, distinct in cases:
+        for o in outs.values():
+            o.zero_()
+        got_old, got_new = old(), new()
+        cs.check(cs.same_bits(got_old, got_new), f"packed device gather "
+                 f"{label}: new and old disagree")
+        nbytes = 4 * n_ids + row_in * distinct + row_out * written
+        b_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        t = {"old": [], "new": []}
+        for side_ in ("old", "new", "new", "old"):
+            t[side_].append(cs.own_ms(old if side_ == "old" else new,
+                                      old_k if side_ == "old" else new_k,
+                                      ITERS))
+        share = {k: [None if x is None else b_ms / x for x in v]
+                 for k, v in t.items()}
+        rows.append({"kernel": new_k, "old_kernel": old_k, "shape":
+                     f"{label}: {n_ids} ids, {written} rows written, "
+                     f"{distinct} distinct rows read", "bound_ms": b_ms,
+                     "bound_share": share,
+                     **{f"{k}_ms": v for k, v in t.items()}})
+        print(f"packed gather on the card, {label}: {n_ids} ids, {written} "
+              f"rows written, {distinct} distinct rows read: own device time "
+              f"old ({old_k}) {' / '.join(cs.fmt_ms(x) for x in t['old'])}, "
+              f"new ({new_k}) {' / '.join(cs.fmt_ms(x) for x in t['new'])} "
+              f"(torch.profiler, median of {ITERS} launches per turn, order "
+              f"old new new old), bound {b_ms:.5f} ms ({nbytes} B at 3.35 "
+              "TB/s): new at " + " / ".join(
+                  "not measured" if x is None else f"{x:.0%}"
+                  for x in share["new"]) + " of it, old at " + " / ".join(
+                  "not measured" if x is None else f"{x:.0%}"
+                  for x in share["old"]) + "; outputs equal", flush=True)
+
+
 def gather_ab(csrc: Path, dev, rows):
     """The row gather, old against new, at chip_smoke.py's shapes."""
     import torch
@@ -462,18 +609,28 @@ def main() -> int:
     ap.add_argument("--old-packed", help="directory holding "
                     "quiver_tpu_torch/csrc of a commit with the packed "
                     "gather's C interface (the packed host-tier A/B)")
+    ap.add_argument("--old-packed-device", help="directory holding "
+                    "quiver_tpu_torch/csrc of a commit with PR 15's packed "
+                    "and sharded C interfaces (packed rows on the card)")
     args = ap.parse_args()
-    if not (args.old or args.old_gather or args.old_packed):
-        ap.error("give --old, --old-gather, --old-packed or several")
+    if not (args.old or args.old_gather or args.old_packed
+            or args.old_packed_device):
+        ap.error("give --old, --old-gather, --old-packed, "
+                 "--old-packed-device or several")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
-    from quiver_tpu_torch.ops.kernels import build_kernels
+    from quiver_tpu_torch.ops.kernels import _build, build_kernels
 
     card = cs.card_line()
     print(card, flush=True)
     build_kernels()
+    for kname, regs, stack, st, ld in cs.ptxas_kernels(
+            _build.build_logs.get("gather", "")):
+        print(f"nvcc gather: {kname[:72]}: {regs} registers, {stack} bytes "
+              f"stack frame, {st} bytes spill stores, {ld} bytes spill "
+              "loads", flush=True)
     dev = torch.device("cuda")
     rows = []
     if args.old:
@@ -487,6 +644,9 @@ def main() -> int:
     if args.old_packed:
         packed_ab(Path(args.old_packed) / "quiver_tpu_torch" / "csrc", dev,
                   rows)
+    if args.old_packed_device:
+        packed_device_ab(Path(args.old_packed_device) / "quiver_tpu_torch"
+                         / "csrc", dev, rows)
     print(card, flush=True)
     print(json.dumps({"card": card, "cases": rows}), flush=True)
     return 0

@@ -36,7 +36,8 @@
 // lie in two other arrays costs three or more small requests for 108 bytes
 // (that layout reached 18% of the bound).
 //
-// What the design of the packed kernel does about it:
+// What the host design of the packed kernel (gather_rows_packed_kernel,
+// a table in pinned host memory) does about it:
 // - Id scan. A warp loads 32 ids in one coalesced read, takes
 //   __ballot_sync of those it must read and ranks them into shared memory,
 //   then serves only those rows. An all -1 launch (a branch of the tiered
@@ -51,6 +52,29 @@
 //   a rounded multiply then a rounded add and never one FMA, as
 //   fused_hop.cu's leaf gather and the plain version round it, and writes
 //   float4s where the width and the output allow, else single floats.
+//
+// Packed int8 rows in device memory (the HBM design: a packed table on
+// the card, the exchange's received block, a sharded table whose every
+// block lies on a card; gather_rows_packed_hbm_kernel and
+// gather_rows_sharded_packed_hbm_kernel). Bytes bound it at 3.35 TB/s:
+// the ids, then a live row's data read (108 bytes of a 112- or 128-byte
+// row for width 100) and its 400 fp32 bytes written; the stores carry
+// about 80% of the bytes. On HBM the host design reached 34-41% of that
+// bound (NVIDIA H100 80GB HBM3, 700 W): its lane j of a group wrote the 16
+// codes of word j as 4 float4s at a 64-byte stride (one store instruction
+// touched 4 rows in 16-byte pieces), a warp held one chunk of 32 ids at a
+// time, and 8 rows in flight a lane took 104-118 registers (nvcc -Xptxas
+// -v), so 2 blocks an SM. The HBM design gives a thread one unit of the
+// output instead (4 codes into one float4, or 1 code into a float):
+// neighbouring lanes write neighbouring 16 bytes, a block's tile of
+// consecutive output rows goes out as one contiguous run, each thread
+// keeps kHbmUnroll units' loads in flight before it stores, no barrier or
+// shared scan stands between tiles, and 32 registers leave room for 64
+// warps an SM. A row's lanes share its id, scale and zero loads (one
+// request each). It reached 59-75% of the bound at the clique's and the
+// exchange's shapes (NVIDIA H100 80GB HBM3, 700 W; kernel_ab.py
+// --old-packed-device).
+//
 // Rows of other tables are copied as bytes, one row a warp, in 16-, 4-,
 // 2- or 1-byte words by width and alignment: a 400-byte fp32 row is
 // already a few large requests.
@@ -78,9 +102,10 @@
 // it as they bound the gather of one device table; the search costs a few
 // shared-memory reads a row. Raw rows are copied by one group of 8 lanes a
 // row, in 16-byte words where every block base, the row stride, the width
-// and the output allow it; packed int8 rows go through the packed kernel's
-// design above (id scan, 8 rows in flight a group, the sidecars
-// broadcast), each row's address taken from its block.
+// and the output allow it; packed int8 rows go through the HBM design
+// above when every block lies on a card, else (a block in pinned host
+// memory) through the host design (id scan, 8 rows in flight a group, the
+// sidecars broadcast), each row's address taken from its block.
 //
 // Host tables: with table_on_host = 1 the table pointers are pinned host
 // memory (cudaHostAlloc, as torch's pin_memory allocates it), mapped into
@@ -274,6 +299,113 @@ gather_rows_packed_kernel(const uint4* __restrict__ rows,
       n_ids, n_rows, dim, side, skip_negative, out);
 }
 
+// Units of output a thread loads before it stores any, with no barrier
+// between one tile and the next. 2 keeps a thread at 32 registers (4 took
+// 40), so an SM holds its full 64 warps; more units a thread and an id
+// prefetch across tiles were no faster (NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kHbmUnroll = 2;
+
+// The packed gather's body over rows in device memory (the HBM design):
+// one thread a unit of the output, a unit being one 4-code word decoded
+// into one float4 (kVec4) or one code into one float. A block walks tiles
+// of tile_rows consecutive output rows (at most kThreads * kHbmUnroll
+// units, so one pass of its threads); in a tile, thread t owns units t,
+// t + kThreads, ..., so neighbouring lanes write neighbouring 16 bytes and
+// a tile's rows go out as one contiguous run (the lookup form) or as runs
+// broken only by skipped rows (skip_negative). Each unit loads its row's
+// id (the lanes of one row share it, one request), then its code word and
+// the row's scale and zero (one 128-byte line with the codes), then
+// decodes and stores. Few registers a thread, so the card holds many warps
+// and their loads at once.
+template <bool kVec4, typename Rows>
+__device__ __forceinline__ void packed_rows_hbm(const Rows& rows,
+                                                const int* __restrict__ ids,
+                                                int64_t n_ids, int64_t n_rows,
+                                                int dim, int side,
+                                                int tile_rows,
+                                                int skip_negative,
+                                                float* __restrict__ out) {
+  const int units = kVec4 ? dim / 4 : dim;  // output units a row
+  // a thread's first unit in every tile, and the step to its next one
+  const int row0 = threadIdx.x / units, col0 = threadIdx.x % units;
+  const int drow = kThreads / units, dcol = kThreads % units;
+  const int64_t tiles = (n_ids + tile_rows - 1) / tile_rows;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t first = t * tile_rows;
+    const int here = static_cast<int>(
+        n_ids - first < tile_rows ? n_ids - first : tile_rows);
+    int r = row0, c = col0;
+    while (r < here) {
+      const char* src[kHbmUnroll];
+      int64_t at[kHbmUnroll];
+      int col[kHbmUnroll];
+#pragma unroll
+      for (int u = 0; u < kHbmUnroll; ++u) {
+        src[u] = nullptr;
+        at[u] = 0;
+        col[u] = c;
+        if (r < here) {
+          const int64_t i = first + r;
+          const int64_t id = ids[i];
+          if (!(skip_negative && id < 0)) src[u] = rows(clamp_id(id, n_rows));
+          at[u] = i * units + c;
+        }
+        r += drow;
+        c += dcol;
+        if (c >= units) {
+          c -= units;
+          ++r;
+        }
+      }
+      uint32_t code[kHbmUnroll];
+      float sc[kHbmUnroll], z[kHbmUnroll];
+#pragma unroll
+      for (int u = 0; u < kHbmUnroll; ++u) {
+        code[u] = 0u;
+        sc[u] = z[u] = 0.0f;
+        if (src[u] != nullptr) {
+          code[u] = kVec4 ? __ldg(reinterpret_cast<const unsigned int*>(
+                                      src[u]) + col[u])
+                          : static_cast<uint8_t>(__ldg(src[u] + col[u]));
+          sc[u] = __ldg(reinterpret_cast<const float*>(src[u] + side));
+          z[u] = __ldg(reinterpret_cast<const float*>(src[u] + side + 4));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kHbmUnroll; ++u) {
+        if (src[u] == nullptr) continue;
+        if (kVec4)
+          reinterpret_cast<float4*>(out)[at[u]] = make_float4(
+              deq_byte(code[u], 0, sc[u], z[u]),
+              deq_byte(code[u], 1, sc[u], z[u]),
+              deq_byte(code[u], 2, sc[u], z[u]),
+              deq_byte(code[u], 3, sc[u], z[u]));
+        else
+          out[at[u]] = deq_byte(code[u], 0, sc[u], z[u]);
+      }
+    }
+  }
+}
+
+// The rows a tile of the HBM design holds: as many as one pass of the
+// block's threads covers, at least one.
+int hbm_tile_rows(int64_t dim, bool vec4) {
+  const int64_t units = vec4 ? dim / 4 : dim;
+  const int64_t rows = static_cast<int64_t>(kThreads) * kHbmUnroll / units;
+  return rows > 0 ? static_cast<int>(rows) : 1;
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_packed_hbm_kernel(const char* __restrict__ rows,
+                              const int* __restrict__ ids, int64_t n_ids,
+                              int64_t n_rows, int64_t stride, int dim,
+                              int side, int tile_rows, int skip_negative,
+                              float* __restrict__ out) {
+  packed_rows_hbm<kVec4>(FlatRows{rows, stride}, ids, n_ids, n_rows, dim,
+                         side, tile_rows, skip_negative, out);
+}
+
 // Int8 codes with separate sidecar arrays (a device table): one row a
 // warp, its scale and zero loaded apart from its codes.
 template <bool kVec4>
@@ -430,6 +562,26 @@ gather_rows_sharded_packed_kernel(const int64_t* __restrict__ ptrs,
                      skip_negative, out);
 }
 
+// The same over a sharded table whose every block lies in device memory
+// (this card's or a peer's): the HBM design, each unit's row found
+// through the table.
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_sharded_packed_hbm_kernel(const int64_t* __restrict__ ptrs,
+                                      const int64_t* __restrict__ offs,
+                                      int n_shards,
+                                      const int* __restrict__ ids,
+                                      int64_t n_ids, int64_t stride, int dim,
+                                      int side, int tile_rows,
+                                      int skip_negative,
+                                      float* __restrict__ out) {
+  __shared__ int64_t s_ptr[kMaxShards], s_off[kMaxShards + 1];
+  const ShardedRows rows =
+      shard_table(ptrs, offs, n_shards, stride, s_ptr, s_off);
+  packed_rows_hbm<kVec4>(rows, ids, n_ids, rows.rows(), dim, side,
+                         tile_rows, skip_negative, out);
+}
+
 // Blocks for `warps` warps of work, at most as many as the card holds at
 // once for `kernel` (a grid-stride loop takes the rest).
 template <typename K>
@@ -485,6 +637,23 @@ int launch_packed(const void* rows, const void* ids, int64_t n_ids,
   gather_rows_packed_kernel<kVec4><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint4*>(rows), static_cast<const int*>(ids), n_ids,
       n_rows, stride / 16, dim, side, skip_negative,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int launch_packed_hbm(const void* rows, const void* ids, int64_t n_ids,
+                      int64_t n_rows, int64_t stride, int64_t dim, int side,
+                      void* out, int skip_negative, cudaStream_t stream) {
+  const int tile_rows = hbm_tile_rows(dim, kVec4);
+  int grid = 0;
+  const int err = grid_for(gather_rows_packed_hbm_kernel<kVec4>,
+                           (n_ids + tile_rows - 1) / tile_rows * kWarps,
+                           &grid);
+  if (err != 0) return err;
+  gather_rows_packed_hbm_kernel<kVec4><<<grid, kThreads, 0, stream>>>(
+      static_cast<const char*>(rows), static_cast<const int*>(ids), n_ids,
+      n_rows, stride, static_cast<int>(dim), side, tile_rows, skip_negative,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -546,6 +715,28 @@ int launch_sharded_packed(const void* ptrs, const void* offs, int n_shards,
       static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(offs),
       n_shards, static_cast<const int*>(ids), n_ids, stride, dim, side,
       skip_negative, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int launch_sharded_packed_hbm(const void* ptrs, const void* offs,
+                              int n_shards, const void* ids, int64_t n_ids,
+                              int64_t stride, int64_t dim, int side,
+                              void* out, int skip_negative,
+                              cudaStream_t stream) {
+  const int tile_rows = hbm_tile_rows(dim, kVec4);
+  int grid = 0;
+  const int err = grid_for(gather_rows_sharded_packed_hbm_kernel<kVec4>,
+                           (n_ids + tile_rows - 1) / tile_rows * kWarps,
+                           &grid);
+  if (err != 0) return err;
+  gather_rows_sharded_packed_hbm_kernel<kVec4>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const int64_t*>(ptrs),
+          static_cast<const int64_t*>(offs), n_shards,
+          static_cast<const int*>(ids), n_ids, stride,
+          static_cast<int>(dim), side, tile_rows, skip_negative,
+          static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -622,7 +813,13 @@ int qt_gather_rows_packed(const void* rows, int table_on_host,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int sd = static_cast<int>(side);
-  if (out_vec4(out, dim))
+  const bool vec4 = out_vec4(out, dim);
+  if (!table_on_host)
+    return vec4 ? launch_packed_hbm<true>(table, ids, n_ids, n_rows, stride,
+                                          dim, sd, out, skip_negative, s)
+                : launch_packed_hbm<false>(table, ids, n_ids, n_rows, stride,
+                                           dim, sd, out, skip_negative, s);
+  if (vec4)
     return launch_packed<true>(table, ids, n_ids, n_rows, stride, dim, sd,
                                out, skip_negative, s);
   return launch_packed<false>(table, ids, n_ids, n_rows, stride, dim, sd,
@@ -670,13 +867,15 @@ int qt_gather_elems(const void* table, int table_on_host, int elem_bytes,
 // ptrs, offs: device int64 arrays of the n_shards (at least 1) block
 // addresses, as the device sees them (qt_device_address), and of the
 // n_shards + 1 row offsets; ptr_bits: the OR of the block addresses and
-// the stride, whose alignment picks the words; stride: the rows' stride
-// in bytes in every block; side: -1 for raw rows of row_bytes bytes,
-// else the scale's byte offset in a packed int8 row of dim codes (stride
-// and every block base a multiple of 16, as qt_gather_rows_packed takes).
+// the stride, whose alignment picks the words; any_on_host: 1 when a block
+// lies in pinned host memory (packed rows then take the host design, else
+// the HBM design); stride: the rows' stride in bytes in every block; side:
+// -1 for raw rows of row_bytes bytes, else the scale's byte offset in a
+// packed int8 row of dim codes (stride and every block base a multiple of
+// 16, as qt_gather_rows_packed takes).
 int qt_gather_rows_sharded(const void* ptrs, const void* offs, int n_shards,
-                           long long ptr_bits, const void* ids,
-                           long long n_ids, long long stride,
+                           long long ptr_bits, int any_on_host,
+                           const void* ids, long long n_ids, long long stride,
                            long long row_bytes, long long dim,
                            long long side, void* out, int skip_negative,
                            void* stream) {
@@ -688,6 +887,15 @@ int qt_gather_rows_sharded(const void* ptrs, const void* offs, int n_shards,
         side + 8 > stride)
       return static_cast<int>(cudaErrorInvalidValue);
     const int sd = static_cast<int>(side);
+    if (!any_on_host)
+      return out_vec4(out, dim)
+                 ? launch_sharded_packed_hbm<true>(ptrs, offs, n_shards, ids,
+                                                   n_ids, stride, dim, sd,
+                                                   out, skip_negative, s)
+                 : launch_sharded_packed_hbm<false>(ptrs, offs, n_shards,
+                                                    ids, n_ids, stride, dim,
+                                                    sd, out, skip_negative,
+                                                    s);
     if (out_vec4(out, dim))
       return launch_sharded_packed<true>(ptrs, offs, n_shards, ids, n_ids,
                                          stride, dim, sd, out, skip_negative,

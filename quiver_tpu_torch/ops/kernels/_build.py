@@ -39,22 +39,33 @@ build_seconds: dict = {}
 # read-modify-write is made under a lock.
 LAUNCHES = {"fused_sample_hop": 0, "fused_hot_hop": 0, "sample_layer": 0,
             "gather_rows": 0, "gather_elems": 0, "gather_rows_sharded": 0}
+# the same for the packed int8 gathers, by the kernel a wrapper launched:
+# the host design (a table or a block in pinned host memory) or the HBM
+# design (every row in device memory), each counted also in LAUNCHES
+PACKED_LAUNCHES = {"gather_rows_packed_kernel": 0,
+                   "gather_rows_packed_hbm_kernel": 0,
+                   "gather_rows_sharded_packed_kernel": 0,
+                   "gather_rows_sharded_packed_hbm_kernel": 0}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, PACKED_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
-def launched(err: int, name: str) -> None:
+def launched(err: int, name: str, kernel: str | None = None) -> None:
     """Called by a wrapper right after its launch with the C function's
-    ``cudaGetLastError()``: raises if the launch failed, else counts it."""
+    ``cudaGetLastError()``: raises if the launch failed, else counts it
+    (and ``kernel``, a packed gather's kernel, in ``PACKED_LAUNCHES``)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     with _launch_lock:
         LAUNCHES[name] += 1
+        if kernel is not None:
+            PACKED_LAUNCHES[kernel] += 1
 
 
 def find_nvcc() -> str:

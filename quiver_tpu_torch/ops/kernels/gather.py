@@ -12,7 +12,11 @@ the ids' card or in pinned host memory, which the kernel reads over
 PCIe, as the reference's UVA gather does: the cold tier of the feature
 store. On CPU ids it runs the plain version :func:`gather_rows_plain`.
 Unlike the JAX function, neither the width nor the id count is
-padded.
+padded. Packed int8 rows are read by one of two kernels, picked by where
+the rows lie (:func:`packed_kernel`): pinned host rows by the host
+design, which keeps many read requests in flight over PCIe, rows in
+device memory by the HBM design, which writes the decoded rows in
+coalesced runs.
 
 With ``out=``, the rows are written into ``out`` and a negative id
 leaves its row of ``out`` as it is, reading nothing: the tiered lookup
@@ -69,8 +73,8 @@ def _lib():
         lib.qt_gather_q8_vec.restype = i
         lib.qt_gather_elems.argtypes = [p, i, i, p, i, ll, ll, p, p]
         lib.qt_gather_elems.restype = i
-        lib.qt_gather_rows_sharded.argtypes = [p, p, i, ll, p, ll, ll, ll,
-                                               ll, ll, p, i, p]
+        lib.qt_gather_rows_sharded.argtypes = [p, p, i, ll, i, p, ll, ll,
+                                               ll, ll, ll, p, i, p]
         lib.qt_gather_rows_sharded.restype = i
         lib.qt_device_address.argtypes = [p, i, ctypes.POINTER(p)]
         lib.qt_device_address.restype = i
@@ -166,6 +170,14 @@ def word_bytes(feat, out) -> int:
     return _lib().qt_gather_word_bytes(data.data_ptr(), out.data_ptr(), row)
 
 
+def packed_kernel(on_host: bool, sharded: bool = False) -> str:
+    """The kernel a packed int8 gather launches: the host design where a
+    row may lie in pinned host memory, else the HBM design (its profiler
+    name and its key in ``PACKED_LAUNCHES``)."""
+    name = "gather_rows_sharded_packed" if sharded else "gather_rows_packed"
+    return f"{name}_kernel" if on_host else f"{name}_hbm_kernel"
+
+
 def gather_rows(feat, ids, out=None):
     """``out[i] = feat[ids[i]]``. ``feat`` is a contiguous ``[N, D]``
     fp32, bf16, fp16 or int8 tensor, or an int8 ``QuantizedTensor``
@@ -209,9 +221,11 @@ def gather_rows(feat, ids, out=None):
         return out
     if data.shape[0] < 1:
         raise ValueError("gather_rows: ids index an empty table")
+    kernel = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if stride is not None:
+            kernel = packed_kernel(on_host)
             err = _lib().qt_gather_rows_packed(
                 data.data_ptr(), int(on_host), ids.data_ptr(), n,
                 data.shape[0], stride, dim, quant.sidecar_offset(dim),
@@ -226,7 +240,7 @@ def gather_rows(feat, ids, out=None):
                 data.data_ptr(), scale.data_ptr(), zero.data_ptr(),
                 int(on_host), ids.data_ptr(), n, data.shape[0], dim,
                 out.data_ptr(), skip, stream)
-    _build.launched(err, "gather_rows")
+    _build.launched(err, "gather_rows", kernel)
     return out
 
 
@@ -328,9 +342,10 @@ def _sharded_layout(tier):
 
 def _sharded_table(tier):
     """The device table of a sharded tier on its card, built once:
-    ``(addresses, offsets, address bits, stride)``, the first two int64
-    tensors on ``tier.device``. A block in host memory must be pinned; its
-    address is the device's mapping of it."""
+    ``(addresses, offsets, address bits, stride, any block on the
+    host)``, the first two int64 tensors on ``tier.device``. A block in
+    host memory must be pinned; its address is the device's mapping of
+    it."""
     if tier.table is not None:
         return tier.table
     bases, stride, hosts = _sharded_layout(tier)
@@ -356,7 +371,7 @@ def _sharded_table(tier):
     tier.table = (
         torch.tensor(addrs, dtype=torch.int64).to(tier.device),
         torch.tensor(tier.offsets, dtype=torch.int64).to(tier.device),
-        bits, stride)
+        bits, stride, any(hosts))
     return tier.table
 
 
@@ -423,7 +438,7 @@ def gather_rows_sharded(tier, ids, out=None):
                          f"{dev}")
     if tier.rows < 1:
         raise ValueError("gather_rows_sharded: ids index an empty table")
-    addrs, offs, bits, stride = _sharded_table(tier)
+    addrs, offs, bits, stride, on_host = _sharded_table(tier)
     skip = int(out is not None)
     if out is None:
         out = torch.empty((n, dim), dtype=dtype, device=dev)
@@ -437,9 +452,10 @@ def gather_rows_sharded(tier, ids, out=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().qt_gather_rows_sharded(
             addrs.data_ptr(), offs.data_ptr(), len(tier.shards), bits,
-            ids.data_ptr(), n, stride, row_bytes, dim, side,
+            int(on_host), ids.data_ptr(), n, stride, row_bytes, dim, side,
             out.data_ptr(), skip, stream)
-    _build.launched(err, "gather_rows_sharded")
+    _build.launched(err, "gather_rows_sharded",
+                    packed_kernel(on_host, sharded=True) if packed else None)
     return out
 
 

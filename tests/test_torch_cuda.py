@@ -106,7 +106,7 @@ import copy
 from quiver_tpu_torch import (CSRTopo, Feature, GraphSAGE, GraphSageSampler,
                               ServeEngine)
 from quiver_tpu_torch.ops import quant
-from quiver_tpu_torch.ops.kernels import fused, gather, sample_kernel
+from quiver_tpu_torch.ops.kernels import _build, fused, gather, sample_kernel
 from quiver_tpu_torch.parallel import (build_train_step, init_state,
                                        layers_to_adjs, train)
 from quiver_tpu_torch.utils.placement import pinned_put
@@ -1440,13 +1440,23 @@ def test_rgcn_step_on_card_equals_cpu(hetero):
 # -- the partitioned store across ranks ---------------------------------------
 
 
-def _exchange_blocks(graph, n):
-    """A packed int8 shard as the owner reads it (raw 128-byte rows),
-    owner read ids (clamped, in range) and an unbucket index with -1
-    slots, as the exchange's two ``gather_rows`` launches get them."""
+def _feat(graph, width):
+    """The features at ``width``: the graph's (100 wide), or a table
+    of that width drawn from the seed."""
+    if width == WIDE:
+        return graph["feat"]
+    f = np.random.default_rng(width).standard_normal((N, width))
+    return torch.from_numpy(f.astype(np.float32)).cuda()
+
+
+def _exchange_blocks(graph, n, width=WIDE):
+    """A packed int8 shard as the owner reads it (raw packed rows), owner
+    read ids (clamped, in range) and an unbucket index with -1 slots, as
+    the exchange's two ``gather_rows`` launches get them."""
     from quiver_tpu_torch import comm
     g = np.random.default_rng(n)
-    q = quant.pack(quant.quantize(graph["feat"], "int8"), device="cuda")
+    q = quant.pack(quant.quantize(_feat(graph, width), "int8"),
+                   device="cuda")
     raw = comm._wire_table(q)
     read = torch.from_numpy(g.integers(0, N, n).astype(np.int32)).cuda()
     idx = torch.from_numpy(np.where(g.random(n) < 0.3, -1,
@@ -1454,26 +1464,62 @@ def _exchange_blocks(graph, n):
     return q, raw, read, idx.cuda()
 
 
+def _hbm_launches(fn, kernel):
+    """``fn()``, and the launches of the packed ``kernel`` it made, which
+    must be all the packed launches it made (the other design's none)."""
+    before = dict(_build.PACKED_LAUNCHES)
+    got = fn()
+    made = {k: v - before[k] for k, v in _build.PACKED_LAUNCHES.items()}
+    assert all(v == 0 for k, v in made.items() if k != kernel), made
+    return got, made[kernel]
+
+
+# widths: 100 (the served width), 768 (MAG240M's papers, 896-byte packed
+# rows) and 7 (one code a thread: no float4 store)
+@pytest.mark.parametrize("width", [WIDE, 768, 7])
 @pytest.mark.parametrize("n", [1, 33, 270_336])
-def test_exchange_gathers_equal_plain(graph, n):
+def test_exchange_gathers_equal_plain(graph, n, width):
     """The owner's read of raw packed rows and the unbucket-with-decode
     of the received block (``out=`` zeros, -1 slots) equal their plain
-    versions bit for bit; the decoded rows equal the int8 tier's own
-    gather; an fp32 shard's read too."""
-    q, raw, read, idx = _exchange_blocks(graph, n)
+    versions bit for bit, the unbucket through the HBM design's kernel;
+    the decoded rows equal the int8 tier's own gather; an fp32 shard's
+    read too. The same block read with ids all -1 (out= untouched), in
+    the lookup form with ids clamped into it (below 0 and past its end),
+    and into a misaligned ``out`` (one code a thread)."""
+    q, raw, read, idx = _exchange_blocks(graph, n, width)
     got = gather.gather_rows(raw, read)
     assert torch.equal(got, gather.gather_rows_plain(raw, read))
-    block = quant.packed_views(got.view(torch.uint8), WIDE)
-    out = torch.zeros((n, WIDE), device="cuda")
-    dec = gather.gather_rows(block, idx, out=out.clone())
+    block = quant.packed_views(got.view(torch.uint8), width)
+    # a one-row block's views are contiguous: the separate-sidecar kernel
+    # reads it, not a packed one
+    packed = int(gather.packed_row_stride(block) is not None)
+    assert packed == int(n > 1)
+    out = torch.zeros((n, width), device="cuda")
+    dec, made = _hbm_launches(lambda: gather.gather_rows(
+        block, idx, out=out.clone()), "gather_rows_packed_hbm_kernel")
+    assert made == packed
     want = gather.gather_rows_plain(block, idx, out=out.clone())
     assert torch.equal(_bits(dec), _bits(want))
     live = idx >= 0
     ref = gather.gather_rows(q, read[idx[live].long()])
     assert torch.equal(_bits(dec[live]), _bits(ref))
     assert not _bits(dec[~live]).any()
-    feat = graph["feat"]
+    feat = _feat(graph, width)
     assert torch.equal(gather.gather_rows(feat, read), feat[read.long()])
+
+    none = torch.full_like(idx, -1)
+    base = torch.full((n, width), 7.5, device="cuda")
+    kept = gather.gather_rows(block, none, out=base.clone())
+    assert torch.equal(_bits(kept), _bits(base))
+    wild = torch.where(idx >= 0, idx, torch.where(read % 2 == 0, -5, n + 9))
+    got, made = _hbm_launches(lambda: gather.gather_rows(block, wild),
+                              "gather_rows_packed_hbm_kernel")
+    assert made == packed
+    assert torch.equal(_bits(got),
+                       _bits(gather.gather_rows_plain(block, wild)))
+    odd = _offset(torch.zeros((n, width), device="cuda"), 1)
+    gather.gather_rows(block, idx, out=odd)
+    assert torch.equal(_bits(odd), _bits(want))
 
 
 def _lookup_world1(dev, group, feat, ids, cap, policy):
@@ -1550,8 +1596,14 @@ def test_two_card_exchange_over_nccl(graph):
 
 
 def _sharded(graph, kind, cuts, host_last=False):
+    """A sharded tier over ``cuts`` of the features as ``kind`` (int8 at
+    width w as ``int8_w``), its last block pinned on the host when
+    ``host_last``, and the whole table."""
     from quiver_tpu_torch.ops.kernels import gather as g
     full = graph["feat"]
+    if kind.startswith("int8_"):
+        full = _feat(graph, int(kind.split("_")[1]))
+        kind = "int8"
     if kind in ("bf16", "fp16"):
         full = full.to(torch.bfloat16 if kind == "bf16" else torch.float16)
     elif kind == "int8":
@@ -1571,19 +1623,44 @@ def _sharded(graph, kind, cuts, host_last=False):
     return g.prepare_sharded(quant.ShardedTier(blocks, cuts, dev)), full
 
 
+def _sharded_kernel(tier):
+    """The packed kernel a sharded int8 tier's reads launch (None for raw
+    rows): the host design where a block is pinned, else the HBM
+    design's."""
+    if not quant.is_quantized(tier.shards[0]):
+        return None
+    on_host = any(quant.tier_parts(b)[0].device.type == "cpu"
+                  for b in tier.shards)
+    return gather.packed_kernel(on_host, sharded=True)
+
+
 @pytest.mark.parametrize("host_last", [False, True], ids=["card", "host"])
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "fp16", "int8raw",
-                                  "int8"])
+                                  "int8", "int8_768", "int8_7"])
 def test_gather_rows_sharded_equals_plain(graph, kind, host_last):
+    """Both forms equal the plain version bit for bit (packed int8 at
+    widths 100, 768 and 7 too: the HBM design's kernel over blocks on the
+    card, the host design's with a pinned block), with ids at every block
+    boundary, -1 and past the table (clamped in the lookup form, skipped
+    with ``out=``), and with ids all -1."""
     tier, full = _sharded(graph, kind, [0, 700, 700, 1900, N], host_last)
     ids = torch.cat([graph["seeds"], torch.tensor(
         [0, 699, 700, 1899, 1900, N - 1, N + 7], dtype=torch.int32,
         device="cuda")])
+    kernel = _sharded_kernel(tier)
     before = fused.LAUNCHES["gather_rows_sharded"]
-    got = gather.gather_rows_sharded(tier, ids.clamp(min=0))
+    run = lambda: gather.gather_rows_sharded(tier, ids.clamp(min=0))
+    if kernel is None:
+        got = run()
+    else:
+        got, made = _hbm_launches(run, kernel)
+        assert made == 1
     assert fused.LAUNCHES["gather_rows_sharded"] == before + 1
     want = gather.gather_rows_sharded_plain(tier, ids.clamp(min=0))
     assert torch.equal(_bits(got), _bits(want))
+    wild = torch.where(ids >= 0, ids, -3)
+    assert torch.equal(_bits(gather.gather_rows_sharded(tier, wild)),
+                       _bits(gather.gather_rows_sharded_plain(tier, wild)))
     plain_full = quant.gather_rows(full, ids.clamp(0, N - 1))
     assert torch.equal(_bits(got), _bits(plain_full))
     base = torch.full(got.shape, 5, dtype=got.dtype, device="cuda")
@@ -1591,22 +1668,71 @@ def test_gather_rows_sharded_equals_plain(graph, kind, host_last):
                                                         out=base.clone()))
     want = gather.gather_rows_sharded_plain(tier, ids, out=base.clone())
     assert torch.equal(_bits(got), _bits(want))
+    got = gather.gather_rows_sharded(tier, torch.full_like(ids, -1),
+                                     out=base.clone())
+    assert torch.equal(_bits(got), _bits(base))
 
 
+@pytest.mark.parametrize("host_last", [False, True], ids=["card", "host"])
+@pytest.mark.parametrize("blocks", [65, 100])
 @pytest.mark.parametrize("kind", ["fp32", "int8"])
-def test_gather_rows_sharded_past_64_blocks(graph, kind):
-    """100 blocks: the kernel reads the table from global memory instead
-    of shared memory, and still equals its plain version and the whole
-    table."""
-    cuts = np.linspace(0, N, 101).astype(int).tolist()
-    tier, full = _sharded(graph, kind, cuts, host_last=True)
+def test_gather_rows_sharded_past_64_blocks(graph, kind, blocks, host_last):
+    """65 and 100 blocks: the kernel reads the table from global memory
+    instead of shared memory, and still equals its plain version and the
+    whole table (packed int8 through the HBM design's kernel with every
+    block on the card)."""
+    cuts = np.linspace(0, N, blocks + 1).astype(int).tolist()
+    tier, full = _sharded(graph, kind, cuts, host_last=host_last)
     ids = torch.cat([graph["seeds"], torch.tensor(
         cuts[1:-1] + [c - 1 for c in cuts[1:]], dtype=torch.int32,
         device="cuda")]).clamp(min=0)
-    got = gather.gather_rows_sharded(tier, ids)
+    kernel = _sharded_kernel(tier)
+    run = lambda: gather.gather_rows_sharded(tier, ids)
+    if kernel is None:
+        got = run()
+    else:
+        got, made = _hbm_launches(run, kernel)
+        assert made == 1
     assert torch.equal(_bits(got),
                        _bits(gather.gather_rows_sharded_plain(tier, ids)))
     assert torch.equal(_bits(got), _bits(quant.gather_rows(full, ids)))
+
+
+def _profiled_kernels(fn):
+    """The names of the CUDA kernels ``fn()`` ran, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("where", ["card", "host"])
+def test_packed_gathers_pick_their_design(graph, where):
+    """Packed int8 rows on the card go through the HBM design's kernels,
+    rows in pinned host memory (a flat tier, a sharded tier with one
+    pinned block) through the host design's, by the profiler's kernel
+    names and the packed launch counts."""
+    host = where == "host"
+    tier, _ = _sharded(graph, "int8", [0, 1000, 2000, N], host_last=host)
+    flat = quant.pack(quant.quantize(graph["feat"], "int8"),
+                      device="cpu" if host else "cuda", pin=host)
+    ids = graph["seeds"].clamp(min=0)
+    for name, fn in (
+            (gather.packed_kernel(host, sharded=True),
+             lambda: gather.gather_rows_sharded(tier, ids)),
+            (gather.packed_kernel(host),
+             lambda: gather.gather_rows(flat, ids))):
+        fn()
+        fused.reset_launches()
+        seen = _profiled_kernels(fn)
+        assert _build.PACKED_LAUNCHES[name] == 1
+        assert sum(_build.PACKED_LAUNCHES.values()) == 1
+        hits = [s for s in seen if "packed" in s]
+        assert len(hits) == 1 and name in hits[0], seen
 
 
 def _clique_stores(graph, policy, mesh_devices):
