@@ -388,7 +388,15 @@ Phases:
    ``gather_rows_sharded_packed_hbm_kernel``: the clique's int8 hot
    tier, its launches in phase 15 (a) and (b)), every phase having
    checked which packed kernel ran (the HBM design on the card, the
-   host design on pinned rows: phases 6, 9, 11, 14 and 15);
+   host design on pinned rows: phases 6, 9, 11, 14 and 15); the raw-row
+   designs where the main paths launch them under ``raw_designs`` of
+   ``gather_rows`` (``gather_rows_kernel``, the loop design: the HOST
+   sampler's pinned rows views; ``gather_rows_tile_kernel``, the tile
+   design: the exchange's owner read) and ``kernel`` on each of the two,
+   every phase that reads raw rows having checked and printed which
+   raw-row kernel ran (``gather.raw_design``: the tile design on the
+   card, the loop design on pinned rows: phases 4, 6, 7, 8, 9, 11, 13,
+   14 and 15);
    the arms' records under ``sampler``, phase 8's under ``weighted``,
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
@@ -568,28 +576,26 @@ def launch_own_ms(run, kernel: str, units: int):
     return [sorted(durs[i::per])[units // 2] for i in range(per)]
 
 
-def packed_made(**want) -> dict:
-    """The packed int8 gathers' launches by kernel since the last
+def made(counts: dict, **want) -> dict:
+    """The launches by kernel in ``counts`` (``kernels.PACKED_LAUNCHES``:
+    the packed int8 gathers' HBM and host designs; ``RAW_LAUNCHES``: the
+    raw-row gathers' tile and loop designs) since the last
     ``reset_launches()``, checked to equal ``want`` (kernel name: count;
-    every kernel not named: 0): the HBM design's kernels read rows in
-    device memory, the host design's rows in pinned host memory."""
-    from quiver_tpu_torch.ops import kernels
-    got = dict(kernels.PACKED_LAUNCHES)
+    every kernel not named: 0)."""
+    got = dict(counts)
     check(got == {k: want.get(k, 0) for k in got},
-          f"packed int8 gather launches {got}, expected {want}")
+          f"gather launches by kernel {nonzero(got)}, expected {want}")
     return got
 
 
-def packed_only(run, kernel: str, what: str) -> None:
-    """``run()``, checked to launch the packed int8 gather ``kernel`` at
-    least once and no other packed kernel."""
-    from quiver_tpu_torch.ops import kernels
-    before = dict(kernels.PACKED_LAUNCHES)
+def made_once(counts: dict, run, kernel: str, what: str) -> None:
+    """``run()``, checked to launch ``kernel`` of ``counts`` at least once
+    and no other kernel counted there."""
+    before = dict(counts)
     run()
-    made = {k: v - before[k] for k, v in kernels.PACKED_LAUNCHES.items()}
-    check(made[kernel] >= 1 and not any(
-        v for k, v in made.items() if k != kernel),
-        f"{what}: packed int8 gather launches {made}, expected {kernel}")
+    got = nonzero({k: v - before[k] for k, v in counts.items()})
+    check(set(got) == {kernel},
+          f"{what}: gather launches by kernel {got}, expected {kernel}")
 
 
 def fmt_ms(ms) -> str:
@@ -1004,16 +1010,19 @@ def phase_split(eng, requests, served, feat, iters):
               "feat[ids]")
         check(same_bits(got, lib), f"gather_rows {name}: differs from "
               "index_select")
+        design, words, kname = gather.raw_launch(table, got)
+        made_once(kernels.RAW_LAUNCHES,
+                  lambda: gather.gather_rows(table, ids), kname,
+                  f"gather_rows {name}")
         ms = cuda_ms(lambda: gather.gather_rows(table, ids), iters)
-        own = own_ms(lambda: gather.gather_rows(table, ids),
-                     "gather_rows_kernel", iters)
+        own = own_ms(lambda: gather.gather_rows(table, ids), kname, iters)
         plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, ids), 3)
         lib_ms = cuda_ms(lambda: torch.index_select(table, 0, ids), iters)
         nbytes = ids.shape[0] * (4 + 2 * table.shape[1]
                                  * table.element_size())
         b_ms, _ = bound(nbytes, 0)
         print(f"gather_rows {name} ids={ids.shape[0]} D={table.shape[1]} "
-              f"({gather.word_bytes(table, got)}-byte words): wrapper "
+              f"({design} design, {kname}, {words}-byte words): wrapper "
               f"{ms:.4f} ms, kernel own {fmt_ms(own)}, plain "
               f"{plain_ms:.4f} ms, index_select "
               f"{lib_ms:.4f} ms, moves {nbytes} B, bound {b_ms:.4f} ms, "
@@ -1021,7 +1030,7 @@ def phase_split(eng, requests, served, feat, iters):
         if rec is None:
             rec = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "library_ms": lib_ms,
-                   "err": max_abs(got, want)}
+                   "err": max_abs(got, want), "kernel": kname}
     launches = {"sample_layer": split_launches["sample_layer"],
                 "gather_rows": gather_launches["gather_rows"]}
     return rec, launches
@@ -1332,7 +1341,8 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
           and launches["gather_rows"] >= batches,
           f"tiered serving launches {launches}")
     # the pinned cold tier: the host design's kernel, every launch
-    packed_made(gather_rows_packed_kernel=launches["gather_rows"])
+    made(kernels.PACKED_LAUNCHES,
+         gather_rows_packed_kernel=launches["gather_rows"])
     srt = sorted(lat)
     p50 = srt[len(srt) // 2]
     p99 = srt[min(len(srt) - 1, math.ceil(0.99 * len(srt)) - 1)]
@@ -1415,9 +1425,14 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
               "from its plain version")
     h2d, copy_ms = h2d_rate(dev)
     recs = {}
+    f32_ids = cold_ids % f32_rows
+    f32_kernel = gather.raw_launch(f32, gather.gather_rows(f32, f32_ids))[2]
+    made_once(kernels.RAW_LAUNCHES,
+              lambda: gather.gather_rows(f32, f32_ids), f32_kernel,
+              "host-tier gather fp32")
     for name, tab, ids_m, kname in (
             ("int8", cold, cold_ids, "gather_rows_packed_kernel"),
-            ("fp32", f32, cold_ids % f32_rows, "gather_rows_kernel")):
+            ("fp32", f32, f32_ids, f32_kernel)):
         words = gather.word_bytes(tab, gather.gather_rows(tab, ids_m))
         ms = cuda_ms(lambda: gather.gather_rows(tab, ids_m), iters)
         own = own_ms(lambda: gather.gather_rows(tab, ids_m), kname, iters)
@@ -1428,7 +1443,7 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
         rate = "" if own is None else \
             f", {ids_m.shape[0] / own / 1e3:.1f}M host rows/s"
         print(f"host-tier gather_rows {name} ids={ids_m.shape[0]} distinct="
-              f"{distinct} D={DIM} ({words}-byte words): wrapper "
+              f"{distinct} D={DIM} ({kname}, {words}-byte words): wrapper "
               f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}{rate}, plain "
               f"{plain_ms:.4f} ms, reads {host_bytes} B from the host at the"
               f" measured {h2d / 1e9:.2f} GB/s pinned-to-device copy rate "
@@ -1437,7 +1452,7 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
               "exact", flush=True)
         recs[name] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": "bytes",
-                      "library_ms": None, "err": 0.0}
+                      "library_ms": None, "err": 0.0, "kernel": kname}
     del f32
     rec = dict(recs["int8"], h2d_bytes_per_s=h2d, fp32=recs["fp32"],
                batch_p50_ms=p50, batch_p99_ms=p99)
@@ -1641,6 +1656,7 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    raw = nonzero(kernels.RAW_LAUNCHES)
     kept = sum(sample_bytes(o) for o in outs)
     loop_grow = torch.cuda.max_memory_allocated() - before - kept
     resident = torch.cuda.memory_allocated() - before - kept
@@ -1649,12 +1665,15 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
     rec = {"arm": label, "name": aname, "mode": mode,
            "seps": edges / wall, "ms_per_batch": wall * 1e3 / n,
            "edges_per_batch": edges / n, "reshuffle_ms": reshuffle_ms,
-           "setup_s": setup_s, "launches": launches,
+           "setup_s": setup_s, "launches": launches, "raw_launches": raw,
            "setup_growth_bytes": setup_grow,
            "warmup_growth_bytes": warm_grow, "loop_growth_bytes": loop_grow,
            "resident_growth_bytes": resident,
            "sync_free": label in sync_free}
     per = ", ".join(f"{k} {v / n:g}" for k, v in launches.items() if v)
+    if raw:
+        per += " (" + ", ".join(f"{k} {v / n:g}" for k, v in raw.items()) \
+            + ")"
     sync = ""
     if label in sync_free:       # four more batches, none may synchronise
         torch.cuda.set_sync_debug_mode("error")
@@ -1679,16 +1698,12 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
     return rec, (outs if label in keep else None), s
 
 
-def topology_gathers(dev, samplers, indptr, indices, card, iters):
-    """The topology variants of the gather against their plain versions,
-    bit for bit, at the arms' shapes (a last-hop frontier of 180,224
-    seeds: its rows of the pair and overlap views, 901,120 slots of
-    ``indices``), over pinned and device tables, with -1 ids; own times
-    against their bounds, host read requests per second, and for device
-    tables the indexing yardstick."""
+def last_hop_reads(dev, indptr):
+    """A last-hop frontier's topology reads (180,224 seeds, a fifth of
+    them -1, drawn from seed SEED + 7): each seed's first row in the
+    128-wide rows views (-1 for a -1 seed or one with no neighbours), and
+    its picks' slots of ``indices`` (5 a seed, -1 past its degree)."""
     import torch
-    from quiver_tpu_torch.ops import kernels
-    from quiver_tpu_torch.ops.kernels import gather
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     hop = [BATCH]
     for k in SIZES[:-1]:
@@ -1708,6 +1723,20 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
     picked = torch.arange(k, device=dev) < deg.clamp(max=k)[:, None]
     slots = torch.where(picked, start[:, None] + pos, -1).reshape(-1) \
         .contiguous()
+    return r0, slots
+
+
+def topology_gathers(dev, samplers, indptr, indices, card, iters):
+    """The topology variants of the gather against their plain versions,
+    bit for bit, at the arms' shapes (a last-hop frontier of 180,224
+    seeds: its rows of the pair and overlap views, 901,120 slots of
+    ``indices``), over pinned and device tables, with -1 ids; own times
+    against their bounds, host read requests per second, and for device
+    tables the indexing yardstick."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
+    r0, slots = last_hop_reads(dev, indptr)
     h2d, _ = h2d_rate(dev)
     pair_host = samplers["g"]._exact_rows
     over_host = samplers["h"]._rot
@@ -1741,7 +1770,7 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
                     tab, ids, out=out)
                 plain = lambda tab=tab, ids=ids, ref=ref: \
                     gather.gather_rows_plain(tab, ids, out=ref)
-                kname = "gather_rows_kernel"
+                kname = gather.raw_launch(tab, out)[2]
                 lib = (lambda tab=tab, live=live: torch.index_select(
                     tab, 0, live)) if where == "device" else None
                 got, want = run(), plain()
@@ -1758,6 +1787,7 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
             check(kernels.LAUNCHES["gather_elems" if width == 1
                                    else "gather_rows"] == 1,
                   f"{vname} {where}: launches {kernels.LAUNCHES}")
+            made(kernels.RAW_LAUNCHES, **({} if width == 1 else {kname: 1}))
             ms = cuda_ms(run, iters)
             own = own_ms(run, kname, iters)
             plain_ms = cuda_ms(plain, 3)
@@ -1778,7 +1808,7 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
                 lines / (own / 1e3)
             share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
             print(f"topology gather {vname} {where} table "
-                  f"{tuple(tab.shape)} {str(tab.dtype)[6:]}: ids "
+                  f"{tuple(tab.shape)} {str(tab.dtype)[6:]} ({kname}): ids "
                   f"{ids.shape[0]} ({n_live} live, the rest -1): wrapper "
                   f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
                   f"{plain_ms:.4f} ms"
@@ -1795,7 +1825,7 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
                           "bound_ms": b_ms, "bound_by": "bytes",
                           "library_ms": lib_ms, "max_abs_err": 0.0,
                           "ids": int(ids.shape[0]), "live_ids": n_live,
-                          "host_requests_per_s": rate}
+                          "host_requests_per_s": rate, "kernel": kname}
         recs[vname] = rec
     return recs, h2d
 
@@ -1851,6 +1881,12 @@ def phase_sampler(dev, gen, nodes, indptr, indices, card):
                   and rec["launches"]["gather_rows"] > 0,
                   f"({label}) HOST did not read through the topology "
                   f"gathers: {rec['launches']}")
+            # the pinned int32 rows views: each read by the design the
+            # dispatcher picks for its rows
+            check(sum(rec["raw_launches"].values())
+                  == rec["launches"]["gather_rows"],
+                  f"({label}) raw launches {rec['raw_launches']} against "
+                  f"{rec['launches']}")
             for key in ("setup_growth_bytes", "warmup_growth_bytes",
                         "loop_growth_bytes"):
                 check(rec[key] < indices.nbytes,
@@ -2020,7 +2056,7 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
                 tab, ids, out=out)
             plain = lambda tab=tab, ids=ids, ref=ref: \
                 gather.gather_rows_plain(tab, ids, out=ref)
-            kname = "gather_rows_kernel"
+            kname = gather.raw_launch(tab, out)[2]
         t0 = time.perf_counter()
         want = plain()
         torch.cuda.synchronize()
@@ -2036,6 +2072,7 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
         check(kernels.LAUNCHES["gather_elems" if width == 1
                                else "gather_rows"] == 1,
               f"weights {vname}: launches {kernels.LAUNCHES}")
+        made(kernels.RAW_LAUNCHES, **({} if width == 1 else {kname: 1}))
         ms = cuda_ms(run, iters)
         own = own_ms(run, kname, iters)
         n_live = int(live.numel())
@@ -2049,7 +2086,8 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
         rate = None if own is None else lines / (own / 1e3)
         share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
         print(f"weight gather {vname} pinned fp32 table "
-              f"{tuple(tab.shape)}: ids {ids.shape[0]} ({n_live} live, the "
+              f"{tuple(tab.shape)} ({kname}): ids {ids.shape[0]} ({n_live} "
+              f"live, the "
               f"rest -1): wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}"
               f"{share}, plain {plain_ms:.4f} ms (host clock, one call), "
               f"bound {b_ms:.4f} ms ({b_by} at the measured "
@@ -2062,7 +2100,7 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
                        "bound_ms": b_ms, "bound_by": "bytes",
                        "library_ms": None, "max_abs_err": 0.0,
                        "ids": int(ids.shape[0]), "live_ids": n_live,
-                       "host_requests_per_s": rate}
+                       "host_requests_per_s": rate, "kernel": kname}
         del got, want
     return recs
 
@@ -2379,6 +2417,10 @@ def phase_weighted(dev, gen, nodes, indptr, indices, deg, topo, batches,
                 kw["sampling"] == "exact" or launches["gather_rows"] > 0),
                 f"({label}) HOST did not read through the gathers: "
                 f"{launches}")
+            check(sum(rec["raw_launches"].values())
+                  == launches["gather_rows"],
+                  f"({label}) raw launches {rec['raw_launches']} against "
+                  f"{launches}")
             check(rec["setup_growth_bytes"] < w.nbytes
                   and rec["resident_growth_bytes"] < w.nbytes,
                   f"({label}) the card's memory grew by "
@@ -2902,7 +2944,7 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
     import torch
     from quiver_tpu_torch import ShardTensor
     from quiver_tpu_torch.ops import kernels, quant
-    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.ops.kernels import fused, gather
     eng, store = ctx["eng"], ctx["store"]
     ids, _, _ = fused.fused_multihop(
         eng._indptr, eng._indices, eng.pad_seeds(ctx["requests"][0]),
@@ -2915,8 +2957,7 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
     in_dev, in_host = valid & (idl < n_dev), valid & (idl >= n_dev)
     hids = torch.where(in_host, idl - n_dev, -1).to(torch.int32)
     out = {}
-    for policy, kname in ((None, "gather_rows_sharded_kernel"),
-                          ("int8", "gather_rows_sharded_packed_kernel")):
+    for policy in (None, "int8"):
         name = policy or "fp32"
         t0 = time.perf_counter()
         st = ShardTensor(dtype_policy=policy, device=dev)
@@ -2935,8 +2976,12 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
         check(launches["gather_rows_sharded"] == 1
               and sum(launches.values()) == 1,
               f"ShardTensor {name} launches {launches}")
-        # a pinned group: packed rows through the host design's kernel
-        packed_made(**({kname: 1} if policy else {}))
+        # a pinned group: packed rows through the host design's kernel,
+        # raw rows through the design the dispatcher picks
+        kname = gather.packed_kernel(True, sharded=True) if policy \
+            else gather.raw_launch(st._tier, got)[2]
+        made(kernels.PACKED_LAUNCHES, **({kname: 1} if policy else {}))
+        made(kernels.RAW_LAUNCHES, **({} if policy else {kname: 1}))
         dev_rows = st.device_tensor_list[0]
         host_rows = st.cpu_tensor
 
@@ -2961,13 +3006,14 @@ def shard_tensor_check(dev, gen, nodes, ctx, h2d, card, iters):
               f"served frontier ({ids.shape[0]} ids, {int(in_dev.sum())} "
               f"device rows, {int(in_host.sum())} host rows, {distinct} "
               f"distinct) equal to the plain version bit for bit, 1 "
-              f"gather_rows_sharded launch, no host synchronisation; lookup "
+              f"gather_rows_sharded launch ({kname}), no host "
+              f"synchronisation; lookup "
               f"{ms:.4f} ms, kernel own (both groups) {fmt_ms(own)}{share}, "
               f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {host_bytes}"
               f" B from the host at {h2d / 1e9:.2f} GB/s); on {card}",
               flush=True)
         out[name] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_ms": b_ms, "bound_by": b_by, "kernel": kname,
                      "host_bytes": host_bytes, "launches_per_lookup": 1,
                      "ids": int(ids.shape[0]),
                      "host_rows": int(in_host.sum()), "build_s": build_s}
@@ -3668,20 +3714,23 @@ def ring_gather_timing(store, n_id, h2d, name):
     (the distinct ring rows' bytes read at the measured pinned copy rate,
     or the device bytes at 3.35 TB/s)."""
     import torch
-    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops import kernels, quant
     from quiver_tpu_torch.ops.kernels import gather
     ring = store._cold_prefetch._ring
     slots = ring_slots(store, n_id)
     n = slots.shape[0]
     got = torch.zeros((n, DIM), device=slots.device)
     want = torch.zeros((n, DIM), device=slots.device)
-    kernel = "gather_rows_packed_kernel" if quant.is_quantized(ring.table) \
-        else "gather_rows_kernel"
-    if kernel == "gather_rows_packed_kernel":   # the pinned ring
-        packed_only(lambda: gather.gather_rows(ring.table, slots, out=got),
-                    kernel, f"ring gather ({name})")
+    if quant.is_quantized(ring.table):          # the pinned ring
+        kernel = "gather_rows_packed_kernel"
+        made_once(kernels.PACKED_LAUNCHES,
+                  lambda: gather.gather_rows(ring.table, slots, out=got),
+                  kernel, f"ring gather ({name})")
     else:
-        gather.gather_rows(ring.table, slots, out=got)
+        kernel = gather.raw_launch(ring.table, got)[2]
+        made_once(kernels.RAW_LAUNCHES,
+                  lambda: gather.gather_rows(ring.table, slots, out=got),
+                  kernel, f"ring gather ({name})")
     gather.gather_rows_plain(ring.table, slots, out=want)
     check(same_bits(got, want), f"ring gather ({name}) differs from its "
           "plain version")
@@ -3697,7 +3746,7 @@ def ring_gather_timing(store, n_id, h2d, name):
                                                             slots, h2d)
     share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
     print(f"disk ring gather_rows {name}: ids={n} staged hits={distinct} "
-          f"({quant.row_read_bytes(ring.table)} B a row): wrapper "
+          f"({quant.row_read_bytes(ring.table)} B a row, {kernel}): wrapper "
           f"{ms:.4f} ms, kernel own {fmt_ms(own)}{share}, plain "
           f"{plain_ms:.4f} ms, reads {host_b} B of ring rows at the "
           f"measured {h2d / 1e9:.2f} GB/s pinned-to-device copy rate and "
@@ -5126,7 +5175,7 @@ def hetero_gathers(store, frontier, h2d, iters):
     timed (wrapper, own, plain) against its bound. Returns the records
     and the step's ids."""
     import torch
-    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops import kernels, quant
     from quiver_tpu_torch.ops.kernels import gather
     f = store["paper"]
     tab = f._host_offload
@@ -5138,11 +5187,16 @@ def hetero_gathers(store, frontier, h2d, iters):
         *(c[:MAG_FP32_ROWS] for c in tab))).pin_memory()
     n = holes.shape[0]
     base = torch.full((n, MAG_DIM), 7.5, device=frontier.device)
+    f32_ids = dense % MAG_FP32_ROWS
+    f32_kernel = gather.raw_launch(f32, base)[2]
+    made_once(kernels.RAW_LAUNCHES,
+              lambda: gather.gather_rows(f32, f32_ids), f32_kernel,
+              "hetero gather fp32")
     recs = {}
     for name, table, ids, out, kname in (
             ("int8 step", tab, holes, base, "gather_rows_packed_kernel"),
             ("int8 dense", tab, dense, None, "gather_rows_packed_kernel"),
-            ("fp32", f32, dense % MAG_FP32_ROWS, None, "gather_rows_kernel")):
+            ("fp32", f32, f32_ids, None, f32_kernel)):
         def run(plain=False):
             fn = gather.gather_rows_plain if plain else gather.gather_rows
             return fn(table, ids) if out is None else fn(table, ids,
@@ -5166,7 +5220,8 @@ def hetero_gathers(store, frontier, h2d, iters):
         stride = table.data.stride(0) if quant.is_quantized(table) \
             else MAG_DIM * 4
         print(f"hetero gather_rows {name}: {ids.shape[0]} ids, {distinct} "
-              f"distinct rows, D={MAG_DIM}, {stride}-byte host rows: "
+              f"distinct rows, D={MAG_DIM}, {stride}-byte host rows "
+              f"({kname}): "
               f"wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}{share}, "
               f"{iters} back to back {burst:.4f} ms a call (bound / burst "
               f"{b_ms / burst:.0%}), plain {plain_ms:.4f} ms; reads {host_bytes} B from the host at "
@@ -5178,7 +5233,7 @@ def hetero_gathers(store, frontier, h2d, iters):
                       "own_ms": own, "burst_ms": burst,
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": "bytes", "library_ms": None,
-                      "max_abs_err": 0.0}
+                      "max_abs_err": 0.0, "kernel": kname}
     del f32
     return recs
 
@@ -5855,10 +5910,12 @@ def exchange_gather_timing(calls, card, iters):
             live = int((ids >= 0).sum())
         check(same_bits(got, want), f"exchange {name}: kernel differs from "
               "its plain version")
-        # the received block lies on the card: the HBM design's kernel
+        # the received block lies on the card: the HBM design's kernel;
+        # the owner's shard read as raw rows by the dispatched design
         kernel = (gather.packed_kernel(quant.tier_parts(table)[0].device
                                        .type == "cpu")
-                  if quant.is_quantized(table) else "gather_rows_kernel")
+                  if quant.is_quantized(table)
+                  else gather.raw_launch(table, got)[2])
         # the out= form skips -1 ids: it reads and writes live rows only
         row_in = quant.row_read_bytes(table)
         row_out = got.shape[1] * got.element_size()
@@ -5940,7 +5997,7 @@ def sharded_world1(dev, card, g, group):
     from quiver_tpu_torch import (DistFeature, PartitionInfo, ServeEngine,
                                   ShardedServeEngine, TorchComm, metrics)
     from quiver_tpu_torch.ops import kernels
-    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.ops.kernels import fused, gather
     from quiver_tpu_torch.parallel.train import draw_int32
     from quiver_tpu_torch.pyg.sage_sampler import layer_shapes
 
@@ -5979,8 +6036,12 @@ def sharded_world1(dev, card, g, group):
                        "gather_rows": 2 * SHARD_BATCHES, "gather_elems": 0,
                        "gather_rows_sharded": 0},
           f"sharded serve launches {launches}")
-    # the unbucket decodes the received block on the card: the HBM design
-    hbm = packed_made(gather_rows_packed_hbm_kernel=SHARD_BATCHES)
+    # the unbucket decodes the received block on the card: the HBM design;
+    # the owner reads its shard's packed rows as raw 128-byte rows
+    hbm = made(kernels.PACKED_LAUNCHES,
+               gather_rows_packed_hbm_kernel=SHARD_BATCHES)
+    owner = gather.raw_kernel(gather.raw_design(on_host=False))
+    raw = made(kernels.RAW_LAUNCHES, **{owner: SHARD_BATCHES})
     for o in outs:
         check(tuple(o.shape) == (BATCH, CLASSES)
               and bool(torch.isfinite(o).all()), "sharded logits")
@@ -6003,7 +6064,8 @@ def sharded_world1(dev, card, g, group):
           f"fused_sample_hop {launches['fused_sample_hop'] / SHARD_BATCHES:g}"
           f", gather_rows {launches['gather_rows'] / SHARD_BATCHES:g} (of "
           f"them gather_rows_packed_hbm_kernel "
-          f"{hbm['gather_rows_packed_hbm_kernel'] / SHARD_BATCHES:g}); host "
+          f"{hbm['gather_rows_packed_hbm_kernel'] / SHARD_BATCHES:g}, "
+          f"{owner} {raw[owner] / SHARD_BATCHES:g}); host "
           f"synchronisations per batch {syncs} (the dense lookup alone: "
           f"none); on {card}", flush=True)
 
@@ -6078,7 +6140,7 @@ def sharded_world1(dev, card, g, group):
                                   for k, v in launches.items() if v},
            "host_syncs_per_batch": syncs, "gathers": gathers,
            "arms": arms, "frontier_cap": frontier,
-           "packed_launches": hbm}
+           "packed_launches": hbm, "raw_launches": raw}
     return rec, launches, dist, requests, hop_seeds, want
 
 
@@ -6088,6 +6150,7 @@ def shard_train_steps(dev, card, g, group, dist):
     one warm-up and SHARD_STEPS timed steps each."""
     import torch
     from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
     from quiver_tpu_torch.parallel import (build_dist_train_step,
                                            build_e2e_train_step, init_state,
                                            rank_step_seeds, train)
@@ -6098,6 +6161,7 @@ def shard_train_steps(dev, card, g, group, dist):
     ys = [g["labels"][b.long()] for b in batches]
     seeds = [rank_step_seeds(SEED + i, 0, len(SIZES))
              for i in range(len(batches))]
+    owner = gather.raw_kernel(gather.raw_design(on_host=False))
     out, launches = {}, {}
     for name in ("dist", "e2e fused"):
         model = sage(dev, DROPOUT)[0]
@@ -6135,9 +6199,14 @@ def shard_train_steps(dev, card, g, group, dist):
                  "fused_hot_hop": SHARD_STEPS})
         check(nonzero(launches[name]) == want,
               f"{name} step launches {launches[name]}")
-        # the dist step's unbucket: the HBM design, once a step
-        packed = packed_made(**({"gather_rows_packed_hbm_kernel": SHARD_STEPS}
-                                if name == "dist" else {}))
+        # the dist step's unbucket: the HBM design, once a step; its
+        # owner read by the raw design the dispatcher picks
+        is_dist = name == "dist"
+        packed = made(kernels.PACKED_LAUNCHES, **(
+            {"gather_rows_packed_hbm_kernel": SHARD_STEPS} if is_dist
+            else {}))
+        raw = made(kernels.RAW_LAUNCHES,
+                   **({owner: SHARD_STEPS} if is_dist else {}))
         edges = 0
         for i in range(1, len(batches)):
             if name == "dist":
@@ -6155,13 +6224,14 @@ def shard_train_steps(dev, card, g, group, dist):
                      "first8_loss": first, "last8_loss": last,
                      "launches_per_step": {k: v / SHARD_STEPS for k, v in
                                            nonzero(launches[name]).items()},
-                     "packed_launches": packed}
+                     "packed_launches": packed, "raw_launches": raw}
         print(f"sharded (a) train {name}: {SHARD_STEPS} steps of {BATCH} "
               f"seeds, world size 1, step p50 {p50:.3f} ms p99 {p99:.3f} ms, "
               f"{edges} sampled edges = {out[name]['edges_per_s']:.6g} "
               f"edges/s, loss mean of the first 8 {first:.4f}, of the last "
               f"8 {last:.4f}; launches per step "
-              f"{out[name]['launches_per_step']}; on {card}", flush=True)
+              f"{out[name]['launches_per_step']} (raw-row designs "
+              f"{raw or 'none'}); on {card}", flush=True)
     return out, launches
 
 
@@ -6400,7 +6470,7 @@ def sharded_kernel_check(dev, tiers, ids, card, iters):
     form writes (every slot, or the live ones) written once, at 3.35
     TB/s."""
     import torch
-    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops import kernels, quant
     from quiver_tpu_torch.ops.kernels import gather
     out = {}
     live = int((ids >= 0).sum())
@@ -6441,12 +6511,16 @@ def sharded_kernel_check(dev, tiers, ids, card, iters):
                       "index_select over the concatenated table")
                 lib = cuda_ms(lambda: table.index_select(0, idx), iters)
                 del table
-            # every block on the card: packed rows take the HBM design
-            kname = (gather.packed_kernel(
-                any(quant.tier_parts(b)[0].device.type == "cpu"
-                    for b in tier.shards), sharded=True)
-                     if quant.is_quantized(tier.shards[0])
-                     else "gather_rows_sharded_kernel")
+            # every block on the card: packed rows take the HBM design,
+            # raw rows the design the dispatcher picks
+            if quant.is_quantized(tier.shards[0]):
+                kname = gather.packed_kernel(
+                    any(quant.tier_parts(b)[0].device.type == "cpu"
+                        for b in tier.shards), sharded=True)
+            else:
+                kname = gather.raw_launch(tier, got)[2]
+                made_once(kernels.RAW_LAUNCHES, run, kname,
+                          f"gather_rows_sharded {name} {form}")
             rec = {"ids": int(ids.shape[0]), "rows_written": n_read,
                    "distinct_rows_read": distinct,
                    "shards": len(tier.shards), "max_abs_err": 0.0,
@@ -6459,7 +6533,8 @@ def sharded_kernel_check(dev, tiers, ids, card, iters):
             out[f"{name} {form}"] = rec
             share = "" if rec["own_ms"] is None else \
                 f" (bound / own {rec['bound_ms'] / rec['own_ms']:.0%})"
-            print(f"clique gather_rows_sharded {name} {form}: {rec['ids']} "
+            print(f"clique gather_rows_sharded {name} {form} ({kname}): "
+                  f"{rec['ids']} "
                   f"ids ({n_read} rows written, {distinct} distinct rows "
                   f"read) over {len(tier.shards)} "
                   f"blocks, equal to its plain version; own "
@@ -6522,6 +6597,7 @@ def clique_serving(dev, g, stores, card):
     import torch
     from quiver_tpu_torch import ServeEngine
     from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
     from quiver_tpu_torch.parallel.train import draw_int32
     host = torch.Generator().manual_seed(SEED + 15)
     requests = [torch.randperm(NODES, generator=g["gen"], device=dev)[:BATCH]
@@ -6559,11 +6635,17 @@ def clique_serving(dev, g, stores, card):
                   f"clique {arm} {route} launches {got}")
             # int8: the hot blocks on the card through the HBM design, the
             # pinned cold tier through the host design
-            packed = packed_made(**({
+            packed = made(kernels.PACKED_LAUNCHES, **({
                 "gather_rows_sharded_packed_hbm_kernel":
                     got["gather_rows_sharded"],
                 "gather_rows_packed_kernel": got["gather_rows"]}
                 if arm == "int8 half" else {}))
+            # fp32: every block on the card, raw rows by the dispatched
+            # design
+            raw = made(kernels.RAW_LAUNCHES, **({} if arm == "int8 half" else {
+                gather.raw_kernel(gather.raw_design(on_host=False),
+                                  sharded=True):
+                got["gather_rows_sharded"]}))
             stats = {}
             busy = device_profile(lambda: [eng.run(r) for r in requests[:4]],
                                   4, f"clique {route} batch", stats=stats)
@@ -6580,14 +6662,15 @@ def clique_serving(dev, g, stores, card):
             rec[f"{arm} {route}"] = {
                 "batch_p50_ms": p50, "batch_p99_ms": p99,
                 "device_ms": busy, "idle_share": stats.get("idle_share"),
-                "packed_launches": packed,
+                "packed_launches": packed, "raw_launches": raw,
                 "launches_per_batch": per, "host_syncs_per_batch": syncs}
             print(f"clique (a) {arm} {route}: {CLIQUE_BATCHES} batches of "
                   f"{BATCH}, fanout {SIZES}, p50 {p50:.3f} ms p99 "
                   f"{p99:.3f} ms (host clock + synchronize), device "
                   f"{fmt_ms(busy)} a batch, idle share "
                   f"{stats.get('idle_share', float('nan')):.3f}, launches "
-                  f"a batch {per}, host synchronisations a batch {syncs}; "
+                  f"a batch {per} (raw-row designs {raw or 'none'}), host "
+                  f"synchronisations a batch {syncs}; "
                   f"logits equal to the replicate store's engine bit for "
                   f"bit on all {CLIQUE_BATCHES} batches (deterministic "
                   f"algorithms on); on {card}", flush=True)
@@ -6637,7 +6720,8 @@ def clique_training(dev, g, stores, card):
           and launches["fused_hot_hop"] == 0
           and launches["gather_rows"] >= CLIQUE_STEPS,
           f"clique train launches {launches}")
-    packed = packed_made(
+    packed = made(
+        kernels.PACKED_LAUNCHES,
         gather_rows_sharded_packed_hbm_kernel=launches["gather_rows_sharded"],
         gather_rows_packed_kernel=launches["gather_rows"])
     p50, p99 = pcts(lat)
@@ -7010,6 +7094,8 @@ def clique_shard_tensor(dev, g, ids, h2d, card, iters):
     launches = dict(kernels.LAUNCHES)
     check(nonzero(launches) == {"gather_rows_sharded": 1},
           f"ShardTensor launches {launches}")
+    kname = gather.raw_launch(st._tier, got)[2]
+    made(kernels.RAW_LAUNCHES, **{kname: 1})
     idl = ids.long()
     valid = (idl >= 0) & (idl < NODES)
     want = gather.gather_rows_sharded_plain(
@@ -7020,13 +7106,14 @@ def clique_shard_tensor(dev, g, ids, h2d, card, iters):
     check(same_bits(got[valid], g["feat"][idl[valid]]),
           "ShardTensor rows differ from the table's")
     run = lambda: st[ids]                                  # noqa: E731
-    own = own_ms(run, "gather_rows_sharded_kernel", iters)
+    own = own_ms(run, kname, iters)
     hids = torch.where(valid & (idl >= 2 * q), idl - 2 * q, -1)
     b_ms, b_by, host_bytes, _, distinct = host_gather_bound(
         st._blocks[2], hids, h2d)
     dev_live = int((valid & (idl < 2 * q)).sum())
     dev_ms = (4 * ids.shape[0] + 8 * DIM * dev_live) / HBM_BYTES_PER_S * 1e3
     rec = {"ids": int(ids.shape[0]), "launches_per_lookup": 1,
+           "kernel": kname,
            "groups": [0, 1, -1], "ms": cuda_ms(run, iters), "own_ms": own,
            "plain_ms": cuda_ms(lambda: gather.gather_rows_sharded_plain(
                st._tier, torch.where(valid, idl, -1).to(torch.int32),
@@ -7036,7 +7123,8 @@ def clique_shard_tensor(dev, g, ids, h2d, card, iters):
            "host_bytes": host_bytes, "host_distinct_rows": distinct}
     print(f"clique (e) ShardTensor: device groups 0 and 1 on {dev} and a "
           f"pinned host group ({NODES - 2 * q} rows), lookup at a served "
-          f"frontier of {ids.shape[0]} ids in 1 gather_rows_sharded launch, "
+          f"frontier of {ids.shape[0]} ids in 1 gather_rows_sharded launch "
+          f"({kname}), "
           f"equal to the plain version and the table bit for bit, no host "
           f"synchronisation; wrapper {rec['ms']:.4f} ms, own "
           f"{fmt_ms(own)}, plain {rec['plain_ms']:.4f} ms, bound "
@@ -7308,11 +7396,14 @@ def main() -> int:
          "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS}
         for name in SOURCES]}
     line["kernels"][list(SOURCES).index("gather_rows_sharded")].update(
-        variants=clique_kernel, shard_tensor=clique["shard_tensor"],
+        kernel=k["kernel"], variants=clique_kernel,
+        shard_tensor=clique["shard_tensor"],
         shard_tensor_phase9={
             k: {x: v[x] for x in ("own_ms", "ms", "plain_ms", "bound_ms",
-                                  "bound_by")} for k, v in shard.items()})
+                                  "bound_by", "kernel")}
+            for k, v in shard.items()})
     gather_entry = line["kernels"][list(SOURCES).index("gather_rows")]
+    gather_entry["kernel"] = kern["gather_rows"]["kernel"]
     gather_entry["host_tier"] = {
         "launches": tiered_launches["gather_rows"],
         "max_abs_err": host_tier["err"], "ms": host_tier["ms"],
@@ -7335,6 +7426,39 @@ def main() -> int:
         "plain_ms": elems["plain_ms"], "bound_ms": elems["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "h2d_bytes_per_s": h2d,
         "variants": topo_gathers}
+    # the raw-row designs where the main paths launch them: the HOST
+    # sampler's pinned rows views, and the exchange's owner read
+    rows128 = topo_gathers["rows128"]["host"]
+    host_raw: dict = {}
+    for arm in arms.values():
+        for k, v in arm.get("raw_launches", {}).items():
+            host_raw[k] = host_raw.get(k, 0) + v
+    owner = sharded["a"]["gathers"]["owner read"]
+    gather_entry["raw_designs"] = {
+        rows128["kernel"]: {
+            "name": f"{rows128['kernel']}: the HOST sampler's pinned int32 "
+                    "rows views (phase 7, rows128 at a last-hop frontier)",
+            "route": "cuda", "source": SOURCES["gather_rows"],
+            "replaces": REPLACES["gather_rows"],
+            "launches": host_raw.get(rows128["kernel"], 0),
+            "launches_per_host_batch": {
+                arm["arm"]: {k: v / SAMPLER_BATCHES for k, v in
+                             arm.get("raw_launches", {}).items()}
+                for arm in arms.values() if arm["mode"] == "HOST"},
+            **{k: rows128[k] for k in ("max_abs_err", "ms", "own_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}},
+        owner["kernel"]: {
+            "name": f"{owner['kernel']}: the exchange's owner read (raw "
+                    "128-byte rows on the card, phase 14 (a))",
+            "route": "cuda", "source": SOURCES["gather_rows"],
+            "replaces": REPLACES["gather_rows"],
+            "launches": sharded["a"]["raw_launches"].get(owner["kernel"], 0),
+            "launches_per_sharded_batch": sharded["a"]["raw_launches"].get(
+                owner["kernel"], 0) / SHARD_BATCHES,
+            **{k: owner[k] for k in ("max_abs_err", "ms", "own_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}}
     elems_w = weight_gathers_rec["elems"]
     gather_entry["host_weights"] = {
         "name": "gather_elems + gather_rows (pinned fp32 edge weights and "
@@ -7399,8 +7523,9 @@ def main() -> int:
     exch = sharded["a"]["gathers"]
     gather_entry["exchange"] = {
         "name": "gather_rows in the all_to_all exchange: the owner's read "
-                "of its packed int8 shard (raw 128-byte rows, "
-                "gather_rows_kernel) and the unbucket of the received "
+                f"of its packed int8 shard (raw 128-byte rows, "
+                f"{exch['owner read']['kernel']}) and the unbucket of the "
+                "received "
                 "block with the int8 decode (gather_rows_packed_hbm_kernel"
                 "), "
                 "phase 14 (a) at world size 1",

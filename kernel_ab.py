@@ -7,8 +7,9 @@ process on one NVIDIA card.
     python3 kernel_ab.py --old-gather DIR   # the row gather
     python3 kernel_ab.py --old-packed DIR   # the packed host gather
     python3 kernel_ab.py --old-packed-device DIR  # packed rows on the card
+    python3 kernel_ab.py --old-raw DIR      # raw rows (commit e836ba3)
 
-Each option runs its part; give either or both.
+Each option runs its part; give one or several.
 
 ``--old``: the older sources (``DIR/quiver_tpu_torch/csrc``) are built with this
 tree's ``nvcc`` flags and launched through the C interface they had
@@ -65,6 +66,29 @@ rest -1, ``out=`` zeros). Held equal bit for bit, then timed old, new,
 new, old as above; the bound is the ids read once, each distinct row's
 108 data bytes read once and each written row's 400 bytes written once,
 at 3.35 TB/s.
+
+``--old-raw``: the raw-row kernels of commit e836ba3 (``gather.cu``
+with its C interface: one row a warp, and 8 lanes a row in the sharded
+kernel), built with this tree's flags, against this tree's raw-row
+designs (``gather.raw_design``: the tile design for rows on the card,
+the loop design for pinned rows), at the main paths' shapes with ids
+drawn from the seed: the HOST sampler's pinned int32 rows views of
+phase 7's graph (``[779,022, 128]`` and ``[779,022, 256]``, a last-hop
+frontier's 180,224 row ids, 144,048 live, ``out=``) and the same views
+on the card; phase 9's
+``ShardTensor`` fp32 groups (612,500 rows on the card, 1,837,500
+pinned; 1,081,344 ids, 163,823 device and 491,983 host rows, ``out=``);
+phase 11's ring of decoded fp32 rows (2**20 pinned, 481,688 of 1,081,344
+slots hit, ``out=``); phase 13's pinned fp32 3,072-byte rows (166,576
+ids); phase 14's owner read (int8 ``[2,450,000, 128]`` on the card,
+671,169 requests then the block's zeros); phase 4's fp32 and bf16
+device tables (662,640 distinct ids) and phase 15's 4-block clique tiers
+of them (1,081,344 ids, 669,862 live, the lookup form with -1 clamped
+and ``out=``). Each side is held to the wrapper's output bit for bit,
+then timed old, then this tree's designs (the dispatched one and the
+tile design where they differ) and back, with each side's share of the
+bound (phase 4's, 7's, 9's and 15's formulas) and, for pinned rows, the
+128-byte host lines its rows touch a second.
 
 Prints the card (and this tree's ``nvcc -Xptxas -v`` lines of
 ``gather.cu``), one line per case and a JSON line; exits non-zero on any
@@ -598,6 +622,276 @@ def gather_ab(csrc: Path, dev, rows):
               "outputs equal", flush=True)
 
 
+# the raw-row C interface of commit e836ba3 (qt_gather_rows_sharded with
+# the host flag, no design or word)
+RAW_ARGS = {
+    "qt_gather_rows": OLD_ARGS["qt_gather_rows"],
+    "qt_gather_rows_sharded": [_p, _p, _i, _ll, _i, _p, _ll, _ll, _ll, _ll,
+                               _ll, _p, _i, _p],
+}
+SHARD_DEV_ROWS = cs.NODES // 4          # phase 9's ShardTensor device group
+RING_ROWS = 1 << 20                     # phase 11's staging ring
+
+
+def host_lines(base: int, stride: int, row_bytes: int, ids) -> int:
+    """The 128-byte lines of host memory that the rows of the live ids
+    touch, in a table at address ``base`` with this row stride."""
+    live = ids[ids >= 0].long()
+    first = base + live * stride
+    return int(((first + row_bytes - 1) // 128 - first // 128 + 1).sum())
+
+
+def new_raw(table, ids, out, skip, design):
+    """This tree's flat raw-row gather forced to ``design`` (the wrapper
+    picks one by ``gather.raw_design``)."""
+    from quiver_tpu_torch.ops.kernels import gather
+    row = table.shape[1] * table.element_size()
+    align = gather.address_align(table.data_ptr(), out.data_ptr())
+    err = gather._lib().qt_gather_rows(
+        table.data_ptr(), int(table.device.type == "cpu"), ids.data_ptr(),
+        ids.shape[0], table.shape[0], row, out.data_ptr(), skip,
+        gather.RAW_DESIGNS[design], gather.raw_word_bytes(design, row, align),
+        _stream())
+    cs.check(err == 0, f"new {design} gather launch failed: {err}")
+    return out
+
+
+def new_raw_sharded(tier, ids, out, skip, design):
+    """The same over a sharded tier of raw rows."""
+    from quiver_tpu_torch.ops.kernels import gather
+    addrs, offs, bits, stride, on_host = gather._sharded_table(tier)
+    row = stride
+    align = gather.address_align(bits, out.data_ptr())
+    err = gather._lib().qt_gather_rows_sharded(
+        addrs.data_ptr(), offs.data_ptr(), len(tier.shards), bits,
+        int(on_host), ids.data_ptr(), ids.shape[0], stride, row, tier.dim,
+        -1, out.data_ptr(), skip, gather.RAW_DESIGNS[design],
+        gather.raw_word_bytes(design, row, align), _stream())
+    cs.check(err == 0, f"new sharded {design} gather launch failed: {err}")
+    return out
+
+
+def raw_cases(dev, gen, h2d):
+    """The raw-row shapes of the main paths: ``(label, table or tier,
+    ids, out= base or None, bound ms, 128-byte host lines or None)``,
+    each made when its turn comes (a generator: the pinned tables of one
+    case are freed before the next)."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.ops.sample import (as_index_rows,
+                                             as_index_rows_overlapping)
+
+    def dev_bound(n, row_in, distinct, row_out, written):
+        return (4 * n + row_in * distinct + row_out * written) \
+            / cs.HBM_BYTES_PER_S * 1e3
+
+    indptr, indices, _ = cs.make_graph(dev, gen, cs.NODES)
+    r0, _ = cs.last_hop_reads(dev, indptr)
+    del indptr
+    for width, view in ((128, as_index_rows),
+                        (256, as_index_rows_overlapping)):
+        on_card = view(indices, 128)
+        tab = on_card.cpu().pin_memory()
+        out = torch.full((r0.shape[0], width), 7, dtype=torch.int32,
+                         device=dev)
+        # phase 7's bounds: every live id's row at the copy rate, or the
+        # ids and those rows on the card (read and written there)
+        data = int((r0 >= 0).sum()) * 4 * width
+        yield (f"HOST topology rows{width}: pinned int32 "
+               f"{tuple(tab.shape)}, out= form", tab, r0, out,
+               max(data / h2d * 1e3, (4 * r0.shape[0] + data)
+                   / cs.HBM_BYTES_PER_S * 1e3),
+               host_lines(tab.data_ptr(), 4 * width, 4 * width, r0))
+        del tab
+        yield (f"topology rows{width} on the card: int32 "
+               f"{tuple(on_card.shape)}, out= form", on_card, r0, out,
+               (4 * r0.shape[0] + 2 * data) / cs.HBM_BYTES_PER_S * 1e3,
+               None)
+        del on_card
+    del indices
+
+    feat = torch.randn(cs.NODES, cs.DIM, generator=gen, device=dev)
+    # ShardTensor's two groups (phase 9): a quarter on the card, the rest
+    # pinned; a served frontier's 163,823 device and 491,983 host rows
+    host = feat[SHARD_DEV_ROWS:].cpu().pin_memory()
+    tier = gather.prepare_sharded(quant.ShardedTier(
+        [feat[:SHARD_DEV_ROWS], host], [0, SHARD_DEV_ROWS, cs.NODES], dev))
+    n_ids = 1_081_344
+    ids = torch.full((n_ids,), -1, dtype=torch.int32, device=dev)
+    slots = torch.randperm(n_ids, generator=gen, device=dev)
+    ids[slots[:163_823]] = torch.randperm(
+        SHARD_DEV_ROWS, generator=gen, device=dev)[:163_823].to(torch.int32)
+    ids[slots[163_823:655_806]] = (SHARD_DEV_ROWS + torch.randperm(
+        cs.NODES - SHARD_DEV_ROWS, generator=gen, device=dev)[
+        :491_983]).to(torch.int32)
+    hids = torch.where(ids >= SHARD_DEV_ROWS, ids - SHARD_DEV_ROWS, -1)
+    b_host = cs.host_gather_bound(host, hids, h2d)[0]
+    yield ("ShardTensor fp32 groups through gather_rows_sharded: 612,500 "
+           "device rows, 1,837,500 pinned, out= form", tier, ids,
+           torch.zeros((n_ids, cs.DIM), device=dev),
+           max(b_host, dev_bound(n_ids, 4 * cs.DIM, 163_823, 4 * cs.DIM,
+                                 163_823)),
+           host_lines(host.data_ptr(), 4 * cs.DIM, 4 * cs.DIM, hids))
+    del tier, host, hids
+
+    # the disk ring's decoded fp32 rows (phase 11): a step's slots
+    ring = torch.randn(RING_ROWS, cs.DIM, generator=gen, device=dev) \
+        .cpu().pin_memory()
+    slots = torch.full((n_ids,), -1, dtype=torch.int32, device=dev)
+    slots[torch.randperm(n_ids, generator=gen, device=dev)[:481_688]] = \
+        torch.randperm(RING_ROWS, generator=gen, device=dev)[
+            :481_688].to(torch.int32)
+    yield ("disk ring, decoded fp32 rows (pinned [1048576, 100]), out= "
+           "form", ring, slots, torch.zeros((n_ids, cs.DIM), device=dev),
+           cs.host_gather_bound(ring, slots, h2d)[0],
+           host_lines(ring.data_ptr(), 4 * cs.DIM, 4 * cs.DIM, slots))
+    del ring
+
+    # the hetero fp32 check (phase 13): 3,072-byte pinned rows
+    wide = torch.randn(cs.MAG_FP32_ROWS, cs.MAG_DIM, generator=gen,
+                       device=dev).cpu().pin_memory()
+    wids = torch.randint(0, cs.MAG_FP32_ROWS, (166_576,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    yield (f"hetero fp32 rows (pinned {tuple(wide.shape)}, 3,072 B), "
+           "lookup form", wide, wids, None,
+           cs.host_gather_bound(wide, wids, h2d)[0],
+           host_lines(wide.data_ptr(), 4 * cs.MAG_DIM, 4 * cs.MAG_DIM, wids))
+    del wide
+
+    # the exchange's owner read (phase 14): its packed int8 shard read as
+    # raw 128-byte rows, 671,169 requests then the block's zero padding
+    shard = torch.randint(-128, 128, (cs.NODES, 128), generator=gen,
+                          device=dev, dtype=torch.int8)
+    req = torch.zeros(n_ids, dtype=torch.int32, device=dev)
+    req[:671_169] = torch.randperm(cs.NODES, generator=gen, device=dev)[
+        :671_169].to(torch.int32)
+    yield ("exchange owner read: int8 [2450000, 128] on the card, lookup "
+           "form", shard, req, None, dev_bound(n_ids, 128, n_ids, 128, n_ids),
+           None)
+    del shard
+
+    # device tables (phase 4) and the clique's 4 blocks (phase 15)
+    frontier = torch.randperm(cs.NODES, generator=gen, device=dev)[
+        :662_640].to(torch.int32)
+    served = device_ids(dev, gen, cs.NODES, n_ids, 669_862)
+    safe = served.clamp(min=0)
+    cuts = [cs.NODES * s // CLIQUE for s in range(CLIQUE + 1)]
+    for name, table in (("fp32", feat), ("bf16", feat.to(torch.bfloat16))):
+        row = cs.DIM * table.element_size()
+        yield (f"{name} device table {tuple(table.shape)}, lookup form",
+               table, frontier, None,
+               dev_bound(662_640, row, 662_640, row, 662_640), None)
+        blocks = [table[lo:hi] for lo, hi in zip(cuts[:-1], cuts[1:])]
+        tier = gather.prepare_sharded(quant.ShardedTier(blocks, cuts, dev))
+        yield (f"{name} clique tier, 4 device blocks, lookup form (-1 ids "
+               "clamped)", tier, safe, None,
+               dev_bound(n_ids, row, int(safe.unique().numel()), row, n_ids),
+               None)
+        yield (f"{name} clique tier, 4 device blocks, out= form", tier,
+               served, torch.zeros((n_ids, cs.DIM), dtype=table.dtype,
+                                   device=dev),
+               dev_bound(n_ids, row, 669_862, row, 669_862), None)
+        del tier, blocks
+
+
+def raw_ab(csrc: Path, dev, rows):
+    """The raw-row gathers, commit e836ba3's kernels (one row a warp, or
+    8 lanes a row in the sharded kernel) against this tree's designs, at
+    the main paths' shapes."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    lib = build_old(csrc, ("gather",))["gather"]
+    for fn, argtypes in RAW_ARGS.items():
+        getattr(lib, fn).argtypes = argtypes
+    h2d, copy_ms = cs.h2d_rate(dev)
+    print(f"pinned-to-device copy rate {h2d / 1e9:.2f} GB/s "
+          f"({cs.COPY_BYTES} B in {copy_ms:.4f} ms)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def old_call(table, ids, out, skip):
+        if quant.is_sharded(table):
+            addrs, offs, bits, stride, on_host = gather._sharded_table(table)
+            err = lib.qt_gather_rows_sharded(
+                addrs.data_ptr(), offs.data_ptr(), len(table.shards), bits,
+                int(on_host), ids.data_ptr(), ids.shape[0], stride, stride,
+                table.dim, -1, out.data_ptr(), skip, _stream())
+        else:
+            err = lib.qt_gather_rows(
+                table.data_ptr(), int(table.device.type == "cpu"),
+                ids.data_ptr(), ids.shape[0], table.shape[0],
+                table.shape[1] * table.element_size(), out.data_ptr(), skip,
+                _stream())
+        cs.check(err == 0, f"old gather launch failed: {err}")
+        return out
+
+    for label, table, ids, base, b_ms, lines in raw_cases(dev, gen, h2d):
+        sharded = quant.is_sharded(table)
+        if sharded:
+            _, _, _, row, on_host = gather._sharded_table(table)
+            dtype, dim = quant.tier_dtype(table), table.dim
+        else:
+            on_host = table.device.type == "cpu"
+            dtype, dim = table.dtype, table.shape[1]
+            row = dim * table.element_size()
+        skip = int(base is not None)
+        outs = {k: (base.clone() if skip else
+                    torch.empty((ids.shape[0], dim), dtype=dtype,
+                                device=dev))
+                for k in ("old", *gather.RAW_DESIGNS, "wrapper")}
+        picked = gather.raw_design(on_host)
+        # the new tree's loop design is the parent's kernel: timed only
+        # where the dispatcher picks it
+        designs = ["tile"] if picked == "tile" else [picked, "tile"]
+        force = new_raw_sharded if sharded else new_raw
+        calls = {"old": lambda: old_call(table, ids, outs["old"], skip)}
+        for d in designs:
+            calls[d] = (lambda d=d: force(table, ids, outs[d], skip, d))
+        wrap = gather.gather_rows_sharded if sharded else gather.gather_rows
+        got = wrap(table, ids, out=outs["wrapper"]) if skip else \
+            wrap(table, ids)
+        for fn in calls.values():
+            fn()
+        for side in (*designs, "old"):
+            cs.check(cs.same_bits(outs[side], got), f"raw gather {label}: "
+                     f"{side} and the wrapper ({picked}) disagree")
+        del got
+        kname = {d: gather.raw_kernel(d, sharded) for d in designs}
+        kname["old"] = gather.raw_kernel("loop", sharded)
+        order = ["old", *designs, *reversed(designs), "old"]
+        t = {side: [] for side in calls}
+        for side in order:
+            t[side].append(cs.own_ms(calls[side], kname[side], ITERS))
+        share = {k: [None if x is None else b_ms / x for x in v]
+                 for k, v in t.items()}
+        rate = None if lines is None else {
+            k: [None if x is None else lines / (x / 1e3) for x in v]
+            for k, v in t.items()}
+        live = int((ids >= 0).sum())
+        rows.append({"kernel": kname[picked], "old_kernel": kname["old"],
+                     "shape": f"{label}: {ids.shape[0]} ids, {live} live",
+                     "row_bytes": int(row), "dispatched": picked,
+                     "bound_ms": b_ms, "bound_share": share,
+                     "host_lines": lines, "host_lines_per_s": rate,
+                     **{f"{k}_ms": v for k, v in t.items()}})
+        print(f"raw gather {label}: {ids.shape[0]} ids, {live} live, "
+              f"{row}-byte rows, dispatched {kname[picked]}: own device "
+              "time " + ", ".join(
+                  f"{side} {' / '.join(cs.fmt_ms(x) for x in t[side])} ("
+                  + " / ".join("not measured" if x is None else f"{x:.0%}"
+                               for x in share[side]) + ")"
+                  + ("" if rate is None else " " + " / ".join(
+                      "not measured" if x is None else f"{x / 1e6:.1f}M"
+                      for x in rate[side]) + " lines/s")
+                  for side in t)
+              + f" (torch.profiler, median of {ITERS} launches per turn, "
+              f"order {' '.join(order)}; share of the bound {b_ms:.5f} ms"
+              + ("" if lines is None else f"; {lines} 128-byte host lines")
+              + "); outputs equal", flush=True)
+        del outs, calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="directory holding quiver_tpu_torch/csrc "
@@ -612,11 +906,14 @@ def main() -> int:
     ap.add_argument("--old-packed-device", help="directory holding "
                     "quiver_tpu_torch/csrc of a commit with PR 15's packed "
                     "and sharded C interfaces (packed rows on the card)")
+    ap.add_argument("--old-raw", help="directory holding "
+                    "quiver_tpu_torch/csrc of commit e836ba3 (the raw-row "
+                    "designs' A/B)")
     args = ap.parse_args()
     if not (args.old or args.old_gather or args.old_packed
-            or args.old_packed_device):
+            or args.old_packed_device or args.old_raw):
         ap.error("give --old, --old-gather, --old-packed, "
-                 "--old-packed-device or several")
+                 "--old-packed-device, --old-raw or several")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
@@ -647,6 +944,8 @@ def main() -> int:
     if args.old_packed_device:
         packed_device_ab(Path(args.old_packed_device) / "quiver_tpu_torch"
                          / "csrc", dev, rows)
+    if args.old_raw:
+        raw_ab(Path(args.old_raw) / "quiver_tpu_torch" / "csrc", dev, rows)
     print(card, flush=True)
     print(json.dumps({"card": card, "cases": rows}), flush=True)
     return 0

@@ -75,9 +75,33 @@
 // exchange's shapes (NVIDIA H100 80GB HBM3, 700 W; kernel_ab.py
 // --old-packed-device).
 //
-// Rows of other tables are copied as bytes, one row a warp, in 16-, 4-,
-// 2- or 1-byte words by width and alignment: a 400-byte fp32 row is
-// already a few large requests.
+// Raw rows (every other table: fp32, bf16, fp16, int8 or int32 rows
+// copied as bytes) take one of two designs, which the wrapper picks
+// (gather.py: raw_design) and passes in with the word width.
+// - Rows in device memory: bytes bound them, the ids read, each row read
+//   and written once at 3.35 TB/s. The loop design (one row a warp,
+//   lane j the words j, j + 32, ...) left lanes idle wherever a row has
+//   fewer than 32 words: a 128-byte row in 16-byte words kept 8 of 32
+//   lanes busy (the exchange's owner read at 50% of its bound), and a
+//   200-byte bf16 row, not a multiple of 16 bytes, fell to 4-byte words
+//   (49-59%). The tile design (gather_rows_tile_kernel,
+//   gather_rows_sharded_tile_kernel) gives a thread words of the output
+//   instead: a block's tile of consecutive output rows, as many lanes to
+//   a row as it has words, 8-byte words where 16 do not divide the row,
+//   kTileUnroll words loaded before any is stored, and two 8-byte words
+//   stored as one 16-byte word. The owner read went to 93% of its bound
+//   and bf16 to 68-72% (NVIDIA H100 80GB HBM3, 700 W; kernel_ab.py
+//   --old-raw).
+// - Rows in pinned host memory: the host's rate of read requests bounds
+//   them (about 200-240M 128-byte lines a second, half the copy engine's
+//   rate), so the fewest lines a row wins. The loop design reads a whole
+//   row of up to 512 bytes in one instruction, which touches each of its
+//   lines once; the tile design splits a 400-byte row across warps and
+//   was 3-15% slower there. Hopper's bulk copy (cp.async.bulk, a row in
+//   one TMA instruction) reads mapped pinned memory, but at no more
+//   lines a second at 512-, 1,024- and 3,072-byte rows, and at a third of
+//   the rate at 400-byte rows; it was not kept (PERF.md). Pinned
+//   rows, flat or sharded, take the loop design.
 // Offsets are int64; neither the width nor the id count is padded (the
 // Pallas kernel's 128-lane and 256-row padding were Mosaic rules, and its
 // 4 row DMAs in flight per block become a warp's 32 rows in flight).
@@ -100,12 +124,12 @@
 // block's pointer: a local block, one on a peer card (peer access enabled
 // by qt_enable_peer_access) or one in pinned host memory. The bytes bound
 // it as they bound the gather of one device table; the search costs a few
-// shared-memory reads a row. Raw rows are copied by one group of 8 lanes a
-// row, in 16-byte words where every block base, the row stride, the width
-// and the output allow it; packed int8 rows go through the HBM design
-// above when every block lies on a card, else (a block in pinned host
-// memory) through the host design (id scan, 8 rows in flight a group, the
-// sidecars broadcast), each row's address taken from its block.
+// shared-memory reads a row. Raw rows take the tile design when every
+// block lies on a card and the loop design when a block lies in pinned
+// host memory, each row's address taken from its block; packed int8 rows
+// go through the HBM design above when every block lies on a card, else
+// through the host design (id scan, 8 rows in flight a group, the
+// sidecars broadcast).
 //
 // Host tables: with table_on_host = 1 the table pointers are pinned host
 // memory (cudaHostAlloc, as torch's pin_memory allocates it), mapped into
@@ -151,26 +175,163 @@ __device__ __forceinline__ int scan_ids(const int* __restrict__ ids,
   return __popc(mask);
 }
 
-// Rows of any dtype as bytes, one row a warp: on device tables and on
-// 400-byte fp32 host rows this loop measured faster than groups of 8 lanes
-// with the id scan, which cut a row into several steps.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const V* __restrict__ feat, const int* __restrict__ ids,
-                   int64_t n_ids, int64_t n_rows, int64_t row_vecs,
-                   int skip_negative, V* __restrict__ out) {
+// Where the rows of a gather lie: one table, row `id` at base + id * stride.
+struct FlatRows {
+  const char* base;
+  int64_t stride;
+  __device__ __forceinline__ const char* operator()(int64_t id) const {
+    return base + id * stride;
+  }
+};
+
+// Raw rows, the loop design: one row a warp, lane j the words j,
+// j + 32, ... of it, so that one load instruction reads a whole row of up
+// to 512 bytes in 16-byte words and touches the fewest 128-byte lines.
+template <typename V, typename Rows>
+__device__ __forceinline__ void raw_rows_loop(const Rows& rows,
+                                              const int* __restrict__ ids,
+                                              int64_t n_ids, int64_t n_rows,
+                                              int64_t row_vecs,
+                                              int skip_negative,
+                                              V* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps +
                    (threadIdx.x >> 5);
        r < n_ids; r += stride) {
-    int64_t id = ids[r];
+    const int64_t id = ids[r];
     if (skip_negative && id < 0) continue;  // warp-uniform: one row a warp
-    id = clamp_id(id, n_rows);
-    const V* src = feat + id * row_vecs;
+    const V* src = reinterpret_cast<const V*>(rows(clamp_id(id, n_rows)));
     V* dst = out + r * row_vecs;
     for (int64_t c = lane; c < row_vecs; c += 32) dst[c] = src[c];
   }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const char* __restrict__ feat,
+                   const int* __restrict__ ids, int64_t n_ids,
+                   int64_t n_rows, int64_t stride, int64_t row_vecs,
+                   int skip_negative, V* __restrict__ out) {
+  raw_rows_loop<V>(FlatRows{feat, stride}, ids, n_ids, n_rows, row_vecs,
+                   skip_negative, out);
+}
+
+// Words a thread of the tile design loads before it stores any.
+constexpr int kTileUnroll = 4;
+
+// Stores kPer consecutive words V of the output as one wider word: two
+// 8-byte words as one 16-byte store.
+template <typename V, int kPer>
+__device__ __forceinline__ void store_words(V* dst, const V* v) {
+  if constexpr (kPer == 2)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(v[0].x, v[0].y, v[1].x,
+                                                v[1].y);
+  else
+    *dst = v[0];
+}
+
+// Raw rows, the tile design: a block walks tiles of tile_rows consecutive
+// output rows; in a tile, thread t owns the kPer words from kPer * t on,
+// then those kThreads * kPer words further, and so on: the lanes of a row
+// are as many as its words (8 for a 128-byte row in 16-byte words: 4 rows
+// a warp), neighbouring lanes read neighbouring words of a row and write
+// neighbouring words of the output, and a tile's rows go out as one
+// contiguous run (the lookup form) or as runs broken only by skipped
+// rows (skip_negative). Each thread loads its kTileUnroll words of a pass
+// before it stores any. With kPer = 2 (8-byte words, an output aligned to
+// 16 bytes) a thread stores its two words as one 16-byte word, which may
+// hold the end of one row and the start of the next; tile_rows then
+// makes a tile an even number of words. A row's lanes share its id load
+// (one request).
+template <typename V, int kPer, typename Rows>
+__device__ __forceinline__ void raw_rows_tile(const Rows& rows,
+                                              const int* __restrict__ ids,
+                                              int64_t n_ids, int64_t n_rows,
+                                              int words, int tile_rows,
+                                              int skip_negative,
+                                              V* __restrict__ out) {
+  constexpr int kUnits = kTileUnroll / kPer;  // wide stores a pass
+  constexpr int kStep = kThreads * kPer;      // words between them
+  // a thread's first word in every tile, and the step to its next unit
+  const int row0 = threadIdx.x * kPer / words,
+            col0 = threadIdx.x * kPer % words;
+  const int drow = kStep / words, dcol = kStep % words;
+  const int64_t tiles = (n_ids + tile_rows - 1) / tile_rows;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t first = t * tile_rows;
+    const int here = static_cast<int>(
+        n_ids - first < tile_rows ? n_ids - first : tile_rows);
+    V* dst = out + first * words + threadIdx.x * kPer;
+    int r = row0, c = col0;
+    for (int w = 0; r < here; w += kStep * kUnits) {
+      const V* src[kUnits][kPer];
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        int rr = r, cc = c;
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) {
+          src[u][p] = nullptr;
+          if (rr < here) {
+            const int64_t id = ids[first + rr];
+            if (!(skip_negative && id < 0))
+              src[u][p] = reinterpret_cast<const V*>(
+                              rows(clamp_id(id, n_rows))) + cc;
+          }
+          if (++cc == words) {
+            cc = 0;
+            ++rr;
+          }
+        }
+        r += drow;
+        c += dcol;
+        if (c >= words) {
+          c -= words;
+          ++r;
+        }
+      }
+      V v[kUnits][kPer];
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u)
+#pragma unroll
+        for (int p = 0; p < kPer; ++p)
+          if (src[u][p] != nullptr) v[u][p] = *src[u][p];
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        V* d = dst + w + u * kStep;
+        bool all = true;
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) all = all && src[u][p] != nullptr;
+        if (all) {
+          store_words<V, kPer>(d, v[u]);
+        } else if (kPer > 1) {
+#pragma unroll
+          for (int p = 0; p < kPer; ++p)
+            if (src[u][p] != nullptr) d[p] = v[u][p];
+        }
+      }
+    }
+  }
+}
+
+// The rows a tile of the tile design holds: one pass of the block's
+// threads, at least one; an even count of words when kPer = 2.
+int tile_rows_for(int64_t words, int per) {
+  int64_t rows = static_cast<int64_t>(kThreads) * kTileUnroll / words;
+  if (rows < 1) rows = 1;
+  if (per == 2 && rows * words % 2 != 0) rows = rows > 1 ? rows - 1 : 2;
+  return static_cast<int>(rows);
+}
+
+template <typename V, int kPer>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_tile_kernel(const char* __restrict__ feat,
+                        const int* __restrict__ ids, int64_t n_ids,
+                        int64_t n_rows, int64_t stride, int words,
+                        int tile_rows, int skip_negative,
+                        V* __restrict__ out) {
+  raw_rows_tile<V, kPer>(FlatRows{feat, stride}, ids, n_ids, n_rows, words,
+                         tile_rows, skip_negative, out);
 }
 
 __device__ __forceinline__ float deq(int8_t code, float sc, float z) {
@@ -208,16 +369,6 @@ __device__ __forceinline__ void put_codes(const uint4& v, int64_t first,
     }
   }
 }
-
-// Where the rows of a packed gather lie: one table, row `id` at
-// base + id * stride.
-struct FlatRows {
-  const char* base;
-  int64_t stride;
-  __device__ __forceinline__ const char* operator()(int64_t id) const {
-    return base + id * stride;
-  }
-};
 
 // The packed gather's body over `rows` (FlatRows, or ShardedRows below):
 // the warp's id scan, then each group's 8 rows in flight, the sidecars'
@@ -457,7 +608,6 @@ gather_elems_kernel(const T* __restrict__ table, const I* __restrict__ ids,
 }
 
 constexpr int kMaxShards = 64;        // blocks whose table fits in shared
-constexpr int kGroupsPerBlock = kThreads / kGroup;
 
 // The block that holds row `id` of a sharded table: the last s with
 // off[s] <= id (an empty block is never the answer for an id below
@@ -506,12 +656,8 @@ shard_table(const int64_t* __restrict__ ptrs,
   return ShardedRows{s_ptr, s_off, n_shards, stride};
 }
 
-// Raw rows of a sharded table, one group of 8 lanes a row, in words V;
-// each lane loads up to kUnroll words of its row before it stores any, so
-// a 400-byte row is in flight at once (a load, store, load loop keeps one
-// word a lane in flight: slow from pinned host memory).
-constexpr int kUnroll = 4;
-
+// Raw rows of a sharded table, the loop design: each row's address found
+// through the table.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_sharded_kernel(const int64_t* __restrict__ ptrs,
@@ -522,26 +668,25 @@ gather_rows_sharded_kernel(const int64_t* __restrict__ ptrs,
   __shared__ int64_t s_ptr[kMaxShards], s_off[kMaxShards + 1];
   const ShardedRows rows =
       shard_table(ptrs, offs, n_shards, stride, s_ptr, s_off);
-  const int j = threadIdx.x % kGroup;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroupsPerBlock;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kGroupsPerBlock +
-                   threadIdx.x / kGroup;
-       r < n_ids; r += step) {
-    const int64_t id = ids[r];
-    if (skip_negative && id < 0) continue;  // uniform in the group
-    const V* src =
-        reinterpret_cast<const V*>(rows(clamp_id(id, rows.rows())));
-    V* dst = out + r * row_vecs;
-    for (int64_t c0 = j; c0 < row_vecs; c0 += kGroup * kUnroll) {
-      V v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (c0 + u * kGroup < row_vecs) v[u] = src[c0 + u * kGroup];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (c0 + u * kGroup < row_vecs) dst[c0 + u * kGroup] = v[u];
-    }
-  }
+  raw_rows_loop<V>(rows, ids, n_ids, rows.rows(), row_vecs, skip_negative,
+                   out);
+}
+
+// Raw rows of a sharded table, the tile design: each word's row found
+// through the table.
+template <typename V, int kPer>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_sharded_tile_kernel(const int64_t* __restrict__ ptrs,
+                                const int64_t* __restrict__ offs,
+                                int n_shards, const int* __restrict__ ids,
+                                int64_t n_ids, int64_t stride, int words,
+                                int tile_rows, int skip_negative,
+                                V* __restrict__ out) {
+  __shared__ int64_t s_ptr[kMaxShards], s_off[kMaxShards + 1];
+  const ShardedRows rows =
+      shard_table(ptrs, offs, n_shards, stride, s_ptr, s_off);
+  raw_rows_tile<V, kPer>(rows, ids, n_ids, rows.rows(), words, tile_rows,
+                         skip_negative, out);
 }
 
 // Packed int8 rows of a sharded table (quant.pack's layout in every
@@ -612,18 +757,122 @@ cudaError_t device_address(const void* p, int on_host, const void** out) {
   return err;
 }
 
+// The raw-row designs, numbered as the wrapper passes them (gather.py:
+// RAW_DESIGNS).
+enum RawDesign { kLoop = 0, kTile = 1 };
+
+// A raw-row gather: a flat table (n_shards = 0: table, n_rows) or a
+// sharded one (ptrs, offs, n_shards), its ids, row stride and bytes, and
+// the output.
+struct RawArgs {
+  const void* table;
+  int64_t n_rows;
+  const void* ptrs;
+  const void* offs;
+  int n_shards;
+  const void* ids;
+  int64_t n_ids;
+  int64_t stride;
+  int64_t row_bytes;
+  void* out;
+  int skip_negative;
+  cudaStream_t stream;
+};
+
+// The loop design in words V.
 template <typename V>
-int launch(const void* feat, const void* ids, int64_t n_ids, int64_t n_rows,
-           int64_t row_bytes, void* out, int skip_negative,
-           cudaStream_t stream) {
-  int grid = 0;
-  const int err = grid_for(gather_rows_kernel<V>, n_ids, &grid);
-  if (err != 0) return err;
-  gather_rows_kernel<V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const V*>(feat), static_cast<const int*>(ids), n_ids,
-      n_rows, row_bytes / static_cast<int64_t>(sizeof(V)), skip_negative,
-      static_cast<V*>(out));
-  return static_cast<int>(cudaGetLastError());
+int launch_loop(const RawArgs& a) {
+  const int* ids = static_cast<const int*>(a.ids);
+  const int64_t words = a.row_bytes / static_cast<int64_t>(sizeof(V));
+  V* out = static_cast<V*>(a.out);
+  int grid = 0, err = 0;
+  if (a.n_shards == 0) {
+    err = grid_for(gather_rows_kernel<V>, a.n_ids, &grid);
+    if (err == 0)
+      gather_rows_kernel<V><<<grid, kThreads, 0, a.stream>>>(
+          static_cast<const char*>(a.table), ids, a.n_ids, a.n_rows,
+          a.stride, words, a.skip_negative, out);
+  } else {
+    err = grid_for(gather_rows_sharded_kernel<V>, a.n_ids, &grid);
+    if (err == 0)
+      gather_rows_sharded_kernel<V><<<grid, kThreads, 0, a.stream>>>(
+          static_cast<const int64_t*>(a.ptrs),
+          static_cast<const int64_t*>(a.offs), a.n_shards, ids, a.n_ids,
+          a.stride, words, a.skip_negative, out);
+  }
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The tile design in words V, kPer of them a store.
+template <typename V, int kPer>
+int launch_tile(const RawArgs& a) {
+  const int* ids = static_cast<const int*>(a.ids);
+  const int64_t words = a.row_bytes / static_cast<int64_t>(sizeof(V));
+  const int tile_rows = tile_rows_for(words, kPer);
+  const int64_t warps = (a.n_ids + tile_rows - 1) / tile_rows * kWarps;
+  V* out = static_cast<V*>(a.out);
+  int grid = 0, err = 0;
+  if (a.n_shards == 0) {
+    err = grid_for(gather_rows_tile_kernel<V, kPer>, warps, &grid);
+    if (err == 0)
+      gather_rows_tile_kernel<V, kPer><<<grid, kThreads, 0, a.stream>>>(
+          static_cast<const char*>(a.table), ids, a.n_ids, a.n_rows,
+          a.stride, static_cast<int>(words), tile_rows, a.skip_negative,
+          out);
+  } else {
+    err = grid_for(gather_rows_sharded_tile_kernel<V, kPer>, warps, &grid);
+    if (err == 0)
+      gather_rows_sharded_tile_kernel<V, kPer>
+          <<<grid, kThreads, 0, a.stream>>>(
+              static_cast<const int64_t*>(a.ptrs),
+              static_cast<const int64_t*>(a.offs), a.n_shards, ids, a.n_ids,
+              a.stride, static_cast<int>(words), tile_rows, a.skip_negative,
+              out);
+  }
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// Whether `design` copies in words of `word` bytes, and those words
+// divide the row and every address (`bits`: the OR of the table's or
+// blocks' addresses, the row stride and the output's address).
+bool raw_words_ok(int design, int word, uintptr_t bits, int64_t row_bytes) {
+  const bool known =
+      (design == kLoop && (word == 16 || word == 4 || word == 2 ||
+                           word == 1)) ||
+      (design == kTile && (word == 16 || word == 8 || word == 4 ||
+                           word == 2 || word == 1));
+  return known && row_bytes % word == 0 && bits % word == 0;
+}
+
+int launch_raw(const RawArgs& a, int design, int word, uintptr_t bits) {
+  if (!raw_words_ok(design, word, bits, a.row_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kLoop) {
+    switch (word) {
+      case 16:
+        return launch_loop<uint4>(a);
+      case 4:
+        return launch_loop<uint32_t>(a);
+      case 2:
+        return launch_loop<uint16_t>(a);
+      default:
+        return launch_loop<uint8_t>(a);
+    }
+  }
+  switch (word) {
+    case 16:
+      return launch_tile<uint4, 1>(a);
+    case 8:  // two words a 16-byte store where the output allows
+      return reinterpret_cast<uintptr_t>(a.out) % 16 == 0
+                 ? launch_tile<uint2, 2>(a)
+                 : launch_tile<uint2, 1>(a);
+    case 4:
+      return launch_tile<uint32_t, 1>(a);
+    case 2:
+      return launch_tile<uint16_t, 1>(a);
+    default:
+      return launch_tile<uint8_t, 1>(a);
+  }
 }
 
 template <bool kVec4>
@@ -685,23 +934,6 @@ int launch_elems(const void* table, const void* ids, int64_t n_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename V>
-int launch_sharded(const void* ptrs, const void* offs, int n_shards,
-                   const void* ids, int64_t n_ids, int64_t stride,
-                   int64_t row_bytes, void* out, int skip_negative,
-                   cudaStream_t stream) {
-  int grid = 0;
-  const int err = grid_for(gather_rows_sharded_kernel<V>,
-                           (n_ids + kGroups - 1) / kGroups, &grid);
-  if (err != 0) return err;
-  gather_rows_sharded_kernel<V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(offs),
-      n_shards, static_cast<const int*>(ids), n_ids, stride,
-      row_bytes / static_cast<int64_t>(sizeof(V)), skip_negative,
-      static_cast<V*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <bool kVec4>
 int launch_sharded_packed(const void* ptrs, const void* offs, int n_shards,
                           const void* ids, int64_t n_ids, int64_t stride,
@@ -740,15 +972,6 @@ int launch_sharded_packed_hbm(const void* ptrs, const void* offs,
   return static_cast<int>(cudaGetLastError());
 }
 
-int word_bytes(const void* feat, const void* out, long long row_bytes) {
-  const uintptr_t at = reinterpret_cast<uintptr_t>(feat) |
-                       reinterpret_cast<uintptr_t>(out);
-  if (row_bytes % 16 == 0 && at % 16 == 0) return 16;
-  if (row_bytes % 4 == 0 && at % 4 == 0) return 4;
-  if (row_bytes % 2 == 0 && at % 2 == 0) return 2;
-  return 1;
-}
-
 bool q8_vec4(const void* codes, const void* out, long long dim) {
   return dim % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -762,39 +985,30 @@ bool out_vec4(const void* out, long long dim) {
 
 extern "C" {
 
-// The width in bytes of the words a lane copies for this table and output.
-int qt_gather_word_bytes(const void* feat, const void* out,
-                         long long row_bytes) {
-  return word_bytes(feat, out, row_bytes);
-}
-
 // The values a lane of the separate-sidecar int8 gather decodes per word:
 // 4 or 1.
 int qt_gather_q8_vec(const void* codes, const void* out, long long dim) {
   return q8_vec4(codes, out, dim) ? 4 : 1;
 }
 
+// design: the raw-row design (0 the loop, 1 the tile design; gather.py:
+// RAW_DESIGNS); word: the bytes a lane loads at once, which must divide
+// row_bytes and the table's and out's addresses (the loop design 16, 4, 2
+// or 1; the tile design 16, 8, 4, 2 or 1). Anything else is refused with
+// cudaErrorInvalidValue.
 int qt_gather_rows(const void* feat, int feat_on_host, const void* ids,
                    long long n_ids, long long n_rows, long long row_bytes,
-                   void* out, int skip_negative, void* stream) {
+                   void* out, int skip_negative, int design, int word,
+                   void* stream) {
   const void* table = nullptr;
   const cudaError_t err = device_address(feat, feat_on_host, &table);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes(table, out, row_bytes)) {
-    case 16:
-      return launch<uint4>(table, ids, n_ids, n_rows, row_bytes, out,
-                           skip_negative, s);
-    case 4:
-      return launch<uint32_t>(table, ids, n_ids, n_rows, row_bytes, out,
-                              skip_negative, s);
-    case 2:
-      return launch<uint16_t>(table, ids, n_ids, n_rows, row_bytes, out,
-                              skip_negative, s);
-    default:
-      return launch<uint8_t>(table, ids, n_ids, n_rows, row_bytes, out,
-                             skip_negative, s);
-  }
+  const RawArgs a{table, n_rows, nullptr, nullptr, 0, ids, n_ids,
+                  row_bytes, row_bytes, out, skip_negative,
+                  static_cast<cudaStream_t>(stream)};
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(table) |
+                         reinterpret_cast<uintptr_t>(out);
+  return launch_raw(a, design, word, bits);
 }
 
 // rows: the packed tier's base, 16-byte aligned; stride: its row stride
@@ -867,18 +1081,19 @@ int qt_gather_elems(const void* table, int table_on_host, int elem_bytes,
 // ptrs, offs: device int64 arrays of the n_shards (at least 1) block
 // addresses, as the device sees them (qt_device_address), and of the
 // n_shards + 1 row offsets; ptr_bits: the OR of the block addresses and
-// the stride, whose alignment picks the words; any_on_host: 1 when a block
+// the stride; any_on_host: 1 when a block
 // lies in pinned host memory (packed rows then take the host design, else
 // the HBM design); stride: the rows' stride in bytes in every block; side:
 // -1 for raw rows of row_bytes bytes, else the scale's byte offset in a
 // packed int8 row of dim codes (stride and every block base a multiple of
-// 16, as qt_gather_rows_packed takes).
+// 16, as qt_gather_rows_packed takes); design, word: for raw rows, as
+// qt_gather_rows takes them.
 int qt_gather_rows_sharded(const void* ptrs, const void* offs, int n_shards,
                            long long ptr_bits, int any_on_host,
                            const void* ids, long long n_ids, long long stride,
                            long long row_bytes, long long dim,
                            long long side, void* out, int skip_negative,
-                           void* stream) {
+                           int design, int word, void* stream) {
   if (n_shards < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -904,25 +1119,11 @@ int qt_gather_rows_sharded(const void* ptrs, const void* offs, int n_shards,
                                         stride, dim, sd, out, skip_negative,
                                         s);
   }
-  const void* bits = reinterpret_cast<const void*>(
-      static_cast<uintptr_t>(ptr_bits));
-  switch (word_bytes(bits, out, row_bytes)) {
-    case 16:
-      return launch_sharded<uint4>(ptrs, offs, n_shards, ids, n_ids, stride,
-                                   row_bytes, out, skip_negative, s);
-    case 4:
-      return launch_sharded<uint32_t>(ptrs, offs, n_shards, ids, n_ids,
-                                      stride, row_bytes, out, skip_negative,
-                                      s);
-    case 2:
-      return launch_sharded<uint16_t>(ptrs, offs, n_shards, ids, n_ids,
-                                      stride, row_bytes, out, skip_negative,
-                                      s);
-    default:
-      return launch_sharded<uint8_t>(ptrs, offs, n_shards, ids, n_ids,
-                                     stride, row_bytes, out, skip_negative,
-                                     s);
-  }
+  const RawArgs a{nullptr, 0, ptrs, offs, n_shards, ids, n_ids, stride,
+                  row_bytes, out, skip_negative, s};
+  const uintptr_t bits = static_cast<uintptr_t>(ptr_bits) |
+                         reinterpret_cast<uintptr_t>(out);
+  return launch_raw(a, design, word, bits);
 }
 
 // The address the device reads `p` at: `p` itself for device memory, its

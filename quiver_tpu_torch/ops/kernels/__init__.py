@@ -2,7 +2,7 @@
 version (used only for tensors on the CPU)."""
 
 from . import _build, fused, gather, sample_kernel
-from ._build import LAUNCHES, PACKED_LAUNCHES, reset_launches
+from ._build import LAUNCHES, PACKED_LAUNCHES, RAW_LAUNCHES, reset_launches
 from .fused import (fused_hot_hop, fused_hot_hop_reference, fused_multihop,
                     fused_multihop_reference, fused_sample_hop,
                     fused_sample_multihop, multihop_plain)
@@ -20,7 +20,8 @@ def build_kernels() -> None:
         mod._lib()
 
 
-__all__ = ["LAUNCHES", "PACKED_LAUNCHES", "build_kernels", "fused_hot_hop",
+__all__ = ["LAUNCHES", "PACKED_LAUNCHES", "RAW_LAUNCHES", "build_kernels",
+           "fused_hot_hop",
            "fused_hot_hop_reference", "fused_multihop",
            "fused_multihop_reference", "fused_sample_hop",
            "fused_sample_multihop", "gather_elems", "gather_elems_plain",

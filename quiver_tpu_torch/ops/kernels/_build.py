@@ -46,12 +46,17 @@ PACKED_LAUNCHES = {"gather_rows_packed_kernel": 0,
                    "gather_rows_packed_hbm_kernel": 0,
                    "gather_rows_sharded_packed_kernel": 0,
                    "gather_rows_sharded_packed_hbm_kernel": 0}
+# the same for the raw-row gathers, by the design a wrapper launched
+# (gather.raw_design): the loop or the tile design
+RAW_LAUNCHES = {"gather_rows_kernel": 0, "gather_rows_tile_kernel": 0,
+                "gather_rows_sharded_kernel": 0,
+                "gather_rows_sharded_tile_kernel": 0}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for counts in (LAUNCHES, PACKED_LAUNCHES):
+        for counts in (LAUNCHES, PACKED_LAUNCHES, RAW_LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
@@ -59,13 +64,15 @@ def reset_launches() -> None:
 def launched(err: int, name: str, kernel: str | None = None) -> None:
     """Called by a wrapper right after its launch with the C function's
     ``cudaGetLastError()``: raises if the launch failed, else counts it
-    (and ``kernel``, a packed gather's kernel, in ``PACKED_LAUNCHES``)."""
+    (and ``kernel``, a row gather's kernel, in ``PACKED_LAUNCHES`` or
+    ``RAW_LAUNCHES``)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     with _launch_lock:
         LAUNCHES[name] += 1
         if kernel is not None:
-            PACKED_LAUNCHES[kernel] += 1
+            (PACKED_LAUNCHES if kernel in PACKED_LAUNCHES
+             else RAW_LAUNCHES)[kernel] += 1
 
 
 def find_nvcc() -> str:

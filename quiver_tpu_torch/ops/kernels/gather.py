@@ -16,7 +16,14 @@ padded. Packed int8 rows are read by one of two kernels, picked by where
 the rows lie (:func:`packed_kernel`): pinned host rows by the host
 design, which keeps many read requests in flight over PCIe, rows in
 device memory by the HBM design, which writes the decoded rows in
-coalesced runs.
+coalesced runs. Raw rows (any other table) are read by one of the
+designs of :data:`RAW_DESIGNS`, which :func:`raw_launch` picks (the
+design by where the rows lie, :func:`raw_design`; the words by the
+rows' bytes and the addresses' alignment) and tells the C entry: rows
+on the card by the tile design (a block's tile of consecutive output
+rows, the lanes of a row as many as its words), pinned host rows by the
+loop design (one row a warp). Launches are counted by kernel in
+``RAW_LAUNCHES``.
 
 With ``out=``, the rows are written into ``out`` and a negative id
 leaves its row of ``out`` as it is, reading nothing: the tiered lookup
@@ -60,21 +67,19 @@ def _lib():
     lib = _build.load(_LIB)
     if not getattr(lib, "_qt_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.qt_gather_rows.argtypes = [p, i, p, ll, ll, ll, p, i, p]
+        lib.qt_gather_rows.argtypes = [p, i, p, ll, ll, ll, p, i, i, i, p]
         lib.qt_gather_rows.restype = i
         lib.qt_gather_rows_q8.argtypes = [p, p, p, i, p, ll, ll, ll, p, i, p]
         lib.qt_gather_rows_q8.restype = i
         lib.qt_gather_rows_packed.argtypes = [p, i, p, ll, ll, ll, ll, ll,
                                               p, i, p]
         lib.qt_gather_rows_packed.restype = i
-        lib.qt_gather_word_bytes.argtypes = [p, p, ll]
-        lib.qt_gather_word_bytes.restype = i
         lib.qt_gather_q8_vec.argtypes = [p, p, ll]
         lib.qt_gather_q8_vec.restype = i
         lib.qt_gather_elems.argtypes = [p, i, i, p, i, ll, ll, p, p]
         lib.qt_gather_elems.restype = i
         lib.qt_gather_rows_sharded.argtypes = [p, p, i, ll, i, p, ll, ll,
-                                               ll, ll, ll, p, i, p]
+                                               ll, ll, ll, p, i, i, i, p]
         lib.qt_gather_rows_sharded.restype = i
         lib.qt_device_address.argtypes = [p, i, ctypes.POINTER(p)]
         lib.qt_device_address.restype = i
@@ -156,18 +161,83 @@ def gather_rows_plain(feat, ids, out=None):
     return out.copy_(torch.where(keep, rows, out))
 
 
+# -- raw rows: the two designs of csrc/gather.cu -----------------------------
+
+# each design's number in the C entries, and the words (bytes) it copies in
+RAW_DESIGNS = {"loop": 0, "tile": 1}
+_RAW_WORDS = {"loop": (16, 4, 2, 1), "tile": (16, 8, 4, 2, 1)}
+
+
+def address_align(*addrs) -> int:
+    """The largest of 16, 8, 4, 2 and 1 that divides every address (and
+    row stride) given."""
+    bits = 16
+    for a in addrs:
+        bits |= int(a)
+    return bits & -bits
+
+
+def raw_design(on_host: bool) -> str:
+    """The design a gather of raw (not packed) rows takes. Rows that may
+    lie in pinned host memory (``on_host``: the table, or a block of a
+    sharded one) take the loop design, one row a warp: the host's rate
+    of read requests bounds them, and a row read by one instruction
+    touches the fewest 128-byte lines. Rows on the card take the tile
+    design (a block's tile of consecutive output rows, the lanes of a
+    row as many as its words). The rows' bytes and the addresses'
+    alignment then pick the words (:func:`raw_word_bytes`); flat and
+    sharded tables take the same rule."""
+    return "loop" if on_host else "tile"
+
+
+def raw_kernel(design: str, sharded: bool = False) -> str:
+    """The kernel of a raw-row design: its profiler name and its key in
+    ``RAW_LAUNCHES``."""
+    name = "gather_rows_sharded" if sharded else "gather_rows"
+    return f"{name}_kernel" if design == "loop" else f"{name}_{design}_kernel"
+
+
+def raw_word_bytes(design: str, row_bytes: int, align: int) -> int:
+    """The words a design copies a row in: the widest it takes that
+    divides the row and ``align``."""
+    for w in _RAW_WORDS[design]:
+        if row_bytes % w == 0 and align % w == 0:
+            return w
+    raise ValueError(f"the {design} design takes no word for {row_bytes}-"
+                     f"byte rows at {align}-byte alignment")
+
+
+def raw_launch(table, out):
+    """``(design, word bytes, kernel)`` of a gather of raw rows of
+    ``table`` (a 2-D tensor on a card or pinned, or a ``quant.ShardedTier``
+    of raw rows) into ``out`` on a card, as :func:`raw_design` picks
+    them."""
+    if quant.is_sharded(table):
+        _, _, bits, _, on_host = _sharded_table(table)
+        row = table.dim * quant.tier_parts(table.shards[0])[0].element_size()
+        sharded = True
+    else:
+        bits, on_host = table.data_ptr(), table.device.type == "cpu"
+        row = table.shape[1] * table.element_size()
+        sharded = False
+    align = address_align(bits, out.data_ptr())
+    design = raw_design(on_host)
+    return design, raw_word_bytes(design, row, align), raw_kernel(design,
+                                                                  sharded)
+
+
 def word_bytes(feat, out) -> int:
     """The width of the words the kernel copies for ``feat`` into
-    ``out``: 16, 4, 2 or 1 bytes; for a quantized table, 4 or 1 int8
-    codes (a packed tier is read in 16-byte words)."""
+    ``out``: for raw rows, the design's (:func:`raw_launch`) 16, 8, 4, 2
+    or 1 bytes; for a quantized table, 4 or 1 int8 codes (a packed tier is
+    read in 16-byte words)."""
     data, scale, _, stride = _leaves(feat)
     if stride is not None:
         return 16
     if scale is not None:
         return _lib().qt_gather_q8_vec(data.data_ptr(), out.data_ptr(),
                                        data.shape[1])
-    row = data.shape[1] * data.element_size()
-    return _lib().qt_gather_word_bytes(data.data_ptr(), out.data_ptr(), row)
+    return raw_launch(data, out)[1]
 
 
 def packed_kernel(on_host: bool, sharded: bool = False) -> str:
@@ -231,10 +301,11 @@ def gather_rows(feat, ids, out=None):
                 data.shape[0], stride, dim, quant.sidecar_offset(dim),
                 out.data_ptr(), skip, stream)
         elif scale is None:
+            design, word, kernel = raw_launch(data, out)
             err = _lib().qt_gather_rows(
                 data.data_ptr(), int(on_host), ids.data_ptr(), n,
                 data.shape[0], dim * data.element_size(), out.data_ptr(),
-                skip, stream)
+                skip, RAW_DESIGNS[design], word, stream)
         else:
             err = _lib().qt_gather_rows_q8(
                 data.data_ptr(), scale.data_ptr(), zero.data_ptr(),
@@ -448,14 +519,18 @@ def gather_rows_sharded(tier, ids, out=None):
     packed = quant.is_quantized(first)
     side = quant.sidecar_offset(dim) if packed else -1
     row_bytes = dim * quant.tier_parts(first)[0].element_size()
+    if packed:
+        design, word = "loop", 0            # not read for packed rows
+        kernel = packed_kernel(on_host, sharded=True)
+    else:
+        design, word, kernel = raw_launch(tier, out)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().qt_gather_rows_sharded(
             addrs.data_ptr(), offs.data_ptr(), len(tier.shards), bits,
             int(on_host), ids.data_ptr(), n, stride, row_bytes, dim, side,
-            out.data_ptr(), skip, stream)
-    _build.launched(err, "gather_rows_sharded",
-                    packed_kernel(on_host, sharded=True) if packed else None)
+            out.data_ptr(), skip, RAW_DESIGNS[design], word, stream)
+    _build.launched(err, "gather_rows_sharded", kernel)
     return out
 
 

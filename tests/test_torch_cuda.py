@@ -33,6 +33,15 @@ dense, 1, 31, 33 and 270,336 of them; the tiered
 store's lookup runs on the card with no host synchronisation, equal to
 the same store on the CPU, and the engine serves through it.
 
+The raw-row designs (``gather.raw_design``: the tile design for rows on
+the card, the loop design for pinned rows) are each forced on device and
+pinned tables at rows of 400, 200, 512, 3,072, 128, 20, 6 and 7 bytes
+(every word width), lookup and ``out=`` with -1 ids at 0, 1, 33 and 4,099
+ids, and on sharded tables of 4 and 100 blocks with a pinned last
+block, each equal to its plain version and counted by kernel in
+``RAW_LAUNCHES``; a word a design does not take raises; unforced, each
+read runs the dispatched design's kernel (by the profiler's names).
+
 Weighted sampling reads pinned fp32 weights through ``gather_elems`` and
 pinned fp32 weight rows (128 and 256 wide) through ``gather_rows``, each
 equal to its plain version with -1 ids; ``GraphSageSampler(edge_weight=
@@ -251,7 +260,7 @@ def test_sample_layer_kernel_equals_plain_and_fused_hop(graph, k, row_cap):
 
 # (dtype, width): one case for each word the kernel copies in
 @pytest.mark.parametrize("dtype,dim,word", [
-    (torch.float32, DIM, 16), (torch.bfloat16, DIM, 4),
+    (torch.float32, DIM, 16), (torch.bfloat16, DIM, 8),
     (torch.float16, 3, 2), (torch.int8, 7, 1)])
 def test_gather_rows_kernel_equals_plain(graph, dtype, dim, word):
     feat = (graph["feat"][:, :dim] * 20).to(dtype).contiguous()
@@ -1696,6 +1705,141 @@ def test_gather_rows_sharded_past_64_blocks(graph, kind, blocks, host_last):
     assert torch.equal(_bits(got),
                        _bits(gather.gather_rows_sharded_plain(tier, ids)))
     assert torch.equal(_bits(got), _bits(quant.gather_rows(full, ids)))
+
+
+# -- raw rows: the loop and tile designs, each forced ----------------------
+
+# (dtype, width): rows of 400 bytes (16-byte words), 200 (8-byte words in
+# the tile design, 4-byte in the loop design), 512 (the int32 rows views),
+# 3,072, 128 (the exchange's owner read), 20 (4-byte words), 6 (2-byte
+# words) and 7 (1-byte words)
+RAW_WIDTHS = [(torch.float32, 100), (torch.bfloat16, 100), (torch.int32, 128),
+              (torch.float32, 768), (torch.int8, 128), (torch.float32, 5),
+              (torch.float16, 3), (torch.int8, 7)]
+RAW_CASES = [
+    pytest.param(dtype, dim, where, design,
+                 id=f"{str(dtype)[6:]}x{dim}-{where}-{design}")
+    for dtype, dim in RAW_WIDTHS for where in ("device", "host")
+    for design in gather.RAW_DESIGNS]
+
+
+def _raw_table(card, dtype, dim, where, offset=0):
+    """An ``[N, dim]`` table of ``dtype`` on the card or pinned, ``offset``
+    elements past an aligned base when not 0."""
+    g = torch.Generator(device=card).manual_seed(dim)
+    t = (torch.randn(N, dim, generator=g, device=card) * 20).to(dtype)
+    if where == "host":
+        buf = torch.empty(t.numel() + offset, dtype=dtype).pin_memory()
+    else:
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device=card)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _raw_made(before):
+    return {k: v - before[k] for k, v in _build.RAW_LAUNCHES.items()
+            if v != before[k]}
+
+
+@pytest.mark.parametrize("dtype,dim,where,design", RAW_CASES)
+def test_raw_design_equals_plain(card, monkeypatch, dtype, dim, where,
+                                 design):
+    """Each raw-row design, forced, on device and pinned tables at every
+    word width: the lookup form (ids clamped) and ``out=`` with -1 ids
+    (their rows left as they were), at 0, 1, 33 and 4,099 ids, bit for
+    bit against the plain version; each launch counted under the
+    design's kernel, none for no ids."""
+    table = _raw_table(card, dtype, dim, where)
+    monkeypatch.setattr(gather, "raw_design", lambda *a, **k: design)
+    kernel = gather.raw_kernel(design)
+    for n in (0, 1, 33, 4099):
+        ids = _gather_ids(card, "holes", n)
+        before = dict(_build.RAW_LAUNCHES)
+        dense = ids.clamp(min=0)
+        got = gather.gather_rows(table, dense)
+        assert torch.equal(_bits(got),
+                           _bits(gather.gather_rows_plain(table, dense)))
+        out = torch.full((n, dim), 7, dtype=dtype, device=card)
+        want = out.clone()
+        assert gather.gather_rows(table, ids, out=out) is out
+        gather.gather_rows_plain(table, ids, out=want)
+        assert torch.equal(_bits(out), _bits(want))
+        assert _raw_made(before) == ({kernel: 2} if n else {})
+    torch.cuda.synchronize()
+
+
+def test_raw_designs_refuse_what_they_do_not_take(card, monkeypatch):
+    """No fallback: a design forced on words its kernel does not take
+    (16-byte words over a base that is 4-byte aligned; 8-byte words in
+    the loop design) raises instead of running another design."""
+    table = _raw_table(card, torch.float32, 100, "device", offset=1)
+    ids = torch.arange(8, dtype=torch.int32, device=card)
+    monkeypatch.setattr(gather, "raw_word_bytes", lambda *a: 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gather.gather_rows(table, ids)
+    monkeypatch.setattr(gather, "raw_design", lambda *a, **k: "loop")
+    monkeypatch.setattr(gather, "raw_word_bytes", lambda *a: 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gather.gather_rows(_raw_table(card, torch.bfloat16, 100, "device"),
+                           ids)
+
+
+@pytest.mark.parametrize("design", list(gather.RAW_DESIGNS))
+@pytest.mark.parametrize("blocks", [4, 100])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8raw"])
+def test_raw_sharded_designs_equal_plain(graph, monkeypatch, kind, blocks,
+                                         design):
+    """Each raw-row design of ``gather_rows_sharded``, forced, over a
+    table whose last block is pinned and the others on the card (4
+    blocks, and 100: the block table read from global memory): the
+    lookup form, ``out=`` with -1 ids and with no ids, bit for bit
+    against the plain version and the whole table, each launch counted
+    under the design's kernel."""
+    cuts = np.linspace(0, N, blocks + 1).astype(int).tolist()
+    tier, full = _sharded(graph, kind, cuts, host_last=True)
+    monkeypatch.setattr(gather, "raw_design", lambda *a, **k: design)
+    ids = torch.cat([graph["seeds"], torch.tensor(
+        cuts[1:-1] + [c - 1 for c in cuts[1:]], dtype=torch.int32,
+        device="cuda")])
+    kernel = gather.raw_kernel(design, sharded=True)
+    before = dict(_build.RAW_LAUNCHES)
+    got = gather.gather_rows_sharded(tier, ids.clamp(min=0))
+    assert torch.equal(_bits(got), _bits(gather.gather_rows_sharded_plain(
+        tier, ids.clamp(min=0))))
+    assert torch.equal(_bits(got), _bits(quant.gather_rows(
+        full, ids.clamp(min=0))))
+    base = torch.full(got.shape, 5, dtype=got.dtype, device="cuda")
+    got = gather.gather_rows_sharded(tier, ids, out=base.clone())
+    assert torch.equal(_bits(got), _bits(gather.gather_rows_sharded_plain(
+        tier, ids, out=base.clone())))
+    none = ids[:0]
+    assert gather.gather_rows_sharded(tier, none, out=base[:0]).shape \
+        == (0, got.shape[1])
+    assert _raw_made(before) == {kernel: 2}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("where", ["device", "host"])
+def test_raw_gathers_take_the_dispatched_design(graph, where):
+    """Unforced, raw rows take :func:`gather.raw_design`'s choice: by the
+    profiler's kernel names and the raw launch counts, for a flat table
+    and a sharded one whose last block lies ``where``."""
+    host = where == "host"
+    flat = graph["feat"].cpu().pin_memory() if host else graph["feat"]
+    tier, _ = _sharded(graph, "fp32", [0, 1000, 2000, N], host_last=host)
+    ids = graph["seeds"].clamp(min=0)
+    for sharded, fn in ((False, lambda: gather.gather_rows(flat, ids)),
+                        (True, lambda: gather.gather_rows_sharded(tier,
+                                                                  ids))):
+        name = gather.raw_kernel(gather.raw_design(host), sharded)
+        fn()
+        fused.reset_launches()
+        seen = _profiled_kernels(fn)
+        assert _build.RAW_LAUNCHES[name] == 1
+        assert sum(_build.RAW_LAUNCHES.values()) == 1
+        hits = [s for s in seen if "gather_rows" in s]
+        assert len(hits) == 1 and name in hits[0], seen
 
 
 def _profiled_kernels(fn):

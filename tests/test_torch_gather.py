@@ -197,3 +197,107 @@ def test_wrapper_refuses_a_bad_packed_tier(fault):
         bad = _views(buf[:N * 120], dim, side, 120)
     with pytest.raises(ValueError, match="packed rows"):
         gather.gather_rows(bad, ids)
+
+
+# -- raw rows: the design each gather takes, and the plain versions at the
+# row widths of the main paths ------------------------------------------------
+
+# row bytes: the exchange's owner read (128), bf16 features (200), fp32
+# features and the disk ring (400), the sampler's int32 rows views and the
+# weight rows (512, 1,024), the hetero fp32 rows (3,072), and an odd width
+RAW_ROW_BYTES = [128, 200, 400, 512, 1024, 3072, 7]
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["flat", "sharded"])
+@pytest.mark.parametrize("on_host", [False, True], ids=["device", "host"])
+@pytest.mark.parametrize("align", [16, 8, 4, 2, 1])
+@pytest.mark.parametrize("row_bytes", RAW_ROW_BYTES)
+def test_raw_design_by_placement_width_and_alignment(row_bytes, align,
+                                                     on_host, sharded):
+    """Rows that may lie in pinned host memory take the loop design, in
+    the widest of 16-, 4-, 2- and 1-byte words that divides the row and
+    the alignment; rows on the card take the tile design, which also
+    copies 8-byte words. The kernel names are the launch counters'."""
+    design = gather.raw_design(on_host)
+    assert design == ("loop" if on_host else "tile")
+    word = gather.raw_word_bytes(design, row_bytes, align)
+    words = (16, 4, 2, 1) if on_host else (16, 8, 4, 2, 1)
+    assert word == max(w for w in words
+                       if row_bytes % w == 0 and align % w == 0)
+    kernel = gather.raw_kernel(design, sharded)
+    assert kernel in _build.RAW_LAUNCHES
+    assert ("sharded" in kernel) == sharded
+    assert ("tile" in kernel) == (design == "tile")
+
+
+def test_raw_words_and_alignment():
+    assert gather.address_align(0x1000, 0x2010) == 16
+    assert gather.address_align(0x1008, 0x2000) == 8
+    assert gather.address_align(0x1000, 0x2006) == 2
+    assert gather.address_align(0x1001) == 1
+    assert gather.address_align() == 16
+    # the loop design has no 8-byte words
+    assert gather.raw_word_bytes("loop", 200, 16) == 4
+    assert gather.raw_word_bytes("tile", 200, 16) == 8
+    assert gather.raw_word_bytes("tile", 200, 4) == 4
+    assert [gather.raw_kernel(d) for d in gather.RAW_DESIGNS] == [
+        "gather_rows_kernel", "gather_rows_tile_kernel"]
+    assert [gather.raw_kernel(d, True) for d in gather.RAW_DESIGNS] == [
+        "gather_rows_sharded_kernel", "gather_rows_sharded_tile_kernel"]
+
+
+# (dtype, width) giving each row width of RAW_ROW_BYTES
+RAW_TABLES = [(np.float32, 32), ("bfloat16", 100), (np.float32, 100),
+              (np.int32, 128), (np.float32, 256), (np.float32, 768),
+              (np.int8, 7)]
+
+
+def _raw_table(dtype, dim):
+    """The same table for JAX and the port: its numpy values, JAX's
+    array and the port's tensor."""
+    g = np.random.default_rng(dim)
+    vals = g.standard_normal((N, dim)).astype(np.float32) * 20
+    if dtype == "bfloat16":
+        j = jnp.asarray(vals, jnp.bfloat16)
+        t = torch.from_numpy(vals).to(torch.bfloat16)
+        assert np.asarray(j).view(np.int16).tobytes() \
+            == t.view(torch.int16).numpy().tobytes()
+        return j, t
+    vals = vals.astype(dtype)
+    return jnp.asarray(vals), torch.from_numpy(vals)
+
+
+def _raw_bits(x):
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.itemsize == 2 else x
+
+
+@pytest.mark.parametrize("dtype,dim", RAW_TABLES,
+                         ids=[f"{b}B" for b in RAW_ROW_BYTES])
+def test_raw_plain_versions_equal_jax_gather(dtype, dim):
+    """``gather_rows_plain`` and ``gather_rows_sharded_plain`` (three
+    blocks, one of them empty) against JAX's Pallas ``gather_rows`` in
+    interpret mode, bit for bit, at each row width: the lookup form, then
+    ``out=`` with -1 ids, which leave their rows as they were."""
+    jt, tt = _raw_table(dtype, dim)
+    ids = _ids(300)
+    want = _raw_bits(_jax_gather(jt, ids))
+    tids = torch.from_numpy(ids)
+    tier = quant.ShardedTier([tt[:100], tt[100:100], tt[100:]],
+                             [0, 100, 100, N], torch.device("cpu"))
+    holes = ids.copy()
+    holes[::4] = -1
+    keep = (holes >= 0)[:, None]
+    for plain, table in ((gather.gather_rows_plain, tt),
+                         (gather.gather_rows_sharded_plain, tier)):
+        got = plain(table, tids)
+        assert got.dtype == tt.dtype and tuple(got.shape) == want.shape
+        assert _raw_bits(got.view(torch.int16) if got.element_size() == 2
+                         else got).tobytes() == want.tobytes()
+        base = torch.full((ids.size, dim), 7).to(tt.dtype)
+        out = plain(table, torch.from_numpy(holes), out=base.clone())
+        out = _raw_bits(out.view(torch.int16) if out.element_size() == 2
+                        else out)
+        fill = _raw_bits(base.view(torch.int16) if base.element_size() == 2
+                         else base)
+        assert np.where(keep, want, fill).tobytes() == out.tobytes()
