@@ -96,6 +96,14 @@ Phases:
    elements of ``indices``; pinned and device tables; -1 ids) equal to
    their plain versions, with own times against their bounds, host read
    requests per second and, for device tables, indexing as a yardstick;
+   the HOST arms read each hop's indptr heads through the span gather
+   (``gather_segments_kernel``, counted in ``ELEMS_LAUNCHES`` and under
+   ``gather_elems``: one launch a hop) and their scattered picks
+   through the flat form (``gather_elems_kernel``); the span gather
+   at the 180,224-seed heads over the pinned int32 indptr and an int64
+   copy (-1 seeds, a start at the table's end, a span past it) equal to
+   its plain version and to the parent's flat form over ``[2, bs]``
+   ids, both timed, with the 32-byte sectors it asks for;
 8. weighted sampling and GAT (``examples/gat_weighted.py``'s
    configuration on the graph of phase 1): edge weights ``0.5 +
    deg[indices] / max(deg)`` made on the card; four weighted sampler
@@ -111,7 +119,9 @@ Phases:
    the edges zeroed held to the contract (CSR slots of their targets,
    no pick of weight 0, ``min(deg, k)`` draws per target of positive
    mass); the HOST arms' weight reads (pinned fp32 elements at the hop-2
-   pool, pinned fp32 rows 128 and 256 wide) against their plain
+   pool through the flat form over the materialised ids and through the
+   span gather, which (k) runs: 2 span launches a hop, the heads and the
+   pool; pinned fp32 rows 128 and 256 wide) against their plain
    versions with own times, bounds and read requests per second; GAT
    (100 -> 4 x 64 -> 47, 2 layers, dropout 0, Adam 3e-3) trained 1 + 32
    steps at [10, 5] through ``GraphSageSampler(edge_weight=...,
@@ -1518,12 +1528,17 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
     dedup = ServeEngine(model, None, topo, table, [SIZES], BATCH,
                         forder=forder, dedup_gather=True, seed=SEED,
                         device=dev)
+    from quiver_tpu_torch.ops.kernels import _build
+    q8 = "gather_rows_q8_kernel"
+    q8_before = _build.KERNEL_TOTALS.get(q8, 0)
     for name, e in (("split route over the store", split),
                     ("dedup_gather over one table", dedup)):
         o = e.run(requests[1])
         check(bool(torch.isfinite(o).all()), f"{name}: non-finite logits")
         print(f"tiered check 5: {name}: finite logits {tuple(o.shape)}",
               flush=True)
+    # the int8 gather over separate sidecars: the one-table dedup read
+    rec["q8_launches_check5"] = _build.KERNEL_TOTALS.get(q8, 0) - q8_before
     ctx = dict(store=store, eng=eng, topo=topo, requests=requests,
                hop_seeds=hop_seeds, stats=stats)
     return rec, launches, ctx
@@ -1657,6 +1672,7 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     raw = nonzero(kernels.RAW_LAUNCHES)
+    elems = nonzero(kernels.ELEMS_LAUNCHES)
     kept = sum(sample_bytes(o) for o in outs)
     loop_grow = torch.cuda.max_memory_allocated() - before - kept
     resident = torch.cuda.memory_allocated() - before - kept
@@ -1666,14 +1682,15 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
            "seps": edges / wall, "ms_per_batch": wall * 1e3 / n,
            "edges_per_batch": edges / n, "reshuffle_ms": reshuffle_ms,
            "setup_s": setup_s, "launches": launches, "raw_launches": raw,
+           "elems_launches": elems,
            "setup_growth_bytes": setup_grow,
            "warmup_growth_bytes": warm_grow, "loop_growth_bytes": loop_grow,
            "resident_growth_bytes": resident,
            "sync_free": label in sync_free}
     per = ", ".join(f"{k} {v / n:g}" for k, v in launches.items() if v)
-    if raw:
-        per += " (" + ", ".join(f"{k} {v / n:g}" for k, v in raw.items()) \
-            + ")"
+    if raw or elems:
+        per += " (" + ", ".join(f"{k} {v / n:g}" for k, v in
+                                {**raw, **elems}.items()) + ")"
     sync = ""
     if label in sync_free:       # four more batches, none may synchronise
         torch.cuda.set_sync_debug_mode("error")
@@ -1701,8 +1718,9 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
 def last_hop_reads(dev, indptr):
     """A last-hop frontier's topology reads (180,224 seeds, a fifth of
     them -1, drawn from seed SEED + 7): each seed's first row in the
-    128-wide rows views (-1 for a -1 seed or one with no neighbours), and
-    its picks' slots of ``indices`` (5 a seed, -1 past its degree)."""
+    128-wide rows views (-1 for a -1 seed or one with no neighbours), its
+    picks' slots of ``indices`` (5 a seed, -1 past its degree), and the
+    seeds."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     hop = [BATCH]
@@ -1723,7 +1741,98 @@ def last_hop_reads(dev, indptr):
     picked = torch.arange(k, device=dev) < deg.clamp(max=k)[:, None]
     slots = torch.where(picked, start[:, None] + pos, -1).reshape(-1) \
         .contiguous()
-    return r0, slots
+    return r0, slots, seeds
+
+
+def span_units(tab, start, count, width, unit: int) -> int:
+    """The ``unit``-byte blocks of ``tab`` (32: sectors, 128: lines; at
+    its address as the card reads it: a pinned table's host address maps
+    one to one) that the spans ``[start, start + min(count, width))``
+    touch, each span cut at the table's end (the kernel clamps reads
+    past it into its last element)."""
+    eb = tab.element_size()
+    n = count.long().clamp(0, width)
+    lo = start.long().clamp(0, tab.shape[0] - 1)
+    hi = (start.long() + n).clamp(max=tab.shape[0])
+    live = (n > 0) & (hi > lo)
+    first = tab.data_ptr() + lo[live] * eb
+    last = tab.data_ptr() + hi[live] * eb - 1
+    return int((last // unit - first // unit + 1).sum())
+
+
+def span_gather(name, tab, start, count, width, h2d, card, iters,
+                flat=None):
+    """The span gather (``gather_segments``) over ``tab`` at these spans
+    against its plain version bit for bit and, given ``flat`` (the
+    output of the flat form over the implied ids), against the flat
+    form; one launch of ``gather_segments_kernel``; its own time against
+    its bound (12 bytes a seed read and the output written at 3.35 TB/s,
+    or the live host bytes at the pinned copy rate ``h2d``), the 32-byte
+    sectors it asks for and, for a pinned table, host read requests a
+    second."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
+    run = lambda: gather.gather_segments(tab, start, count, width)
+    plain = lambda: gather.gather_segments_plain(tab, start, count, width)
+    got, want = run(), plain()
+    check(same_bits(got, want), f"span gather {name}: the kernel differs "
+          "from its plain version")
+    if flat is not None:
+        check(same_bits(got.reshape(-1), flat.reshape(-1)),
+              f"span gather {name}: the span and the flat form differ")
+    kernels.reset_launches()
+    run()
+    check(kernels.LAUNCHES["gather_elems"] == 1,
+          f"span gather {name}: launches {kernels.LAUNCHES}")
+    made(kernels.ELEMS_LAUNCHES, gather_segments_kernel=1)
+    ms = cuda_ms(run, iters)
+    own = own_ms(run, "gather_segments_kernel", iters)
+    plain_ms = cuda_ms(plain, 3)
+    on_host = tab.device.type == "cpu"
+    bs, eb = start.shape[0], tab.element_size()
+    n_live = int(count.long().clamp(0, width).sum())
+    dev_b = 12 * bs + width * eb * bs
+    b_dev = dev_b / HBM_BYTES_PER_S * 1e3
+    b_host = n_live * eb / h2d * 1e3 if on_host else 0.0
+    b_ms, b_by = (b_host, "bytes (host)") if b_host > b_dev \
+        else (b_dev, "bytes (device)")
+    sectors = span_units(tab, start, count, width, 32)
+    rate = None if own is None or not on_host else sectors / (own / 1e3)
+    share = "" if own is None else f" (bound / own {b_ms / own:.0%})"
+    print(f"span gather {name}: {'pinned' if on_host else 'device'} "
+          f"{str(tab.dtype)[6:]} {tuple(tab.shape)}, {bs} spans of width "
+          f"{width} ({int((count > 0).sum())} non-empty, {n_live} elements "
+          f"live): wrapper {ms:.4f} ms, kernel own {fmt_ms(own)}{share}, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; device "
+          f"{b_dev:.4f} ms, host {b_host:.4f} ms at the measured "
+          f"{h2d / 1e9:.2f} GB/s pinned copy rate); {sectors} 32-byte "
+          "sectors asked for"
+          + ("" if rate is None else
+             f", {rate / 1e6:.1f}M host read requests/s")
+          + "; equal to the plain version bit for bit"
+          + ("" if flat is None else " and to the flat form")
+          + f"; on {card}", flush=True)
+    return {"ms": ms, "own_ms": own, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+            "spans": bs, "width": width, "live_elements": n_live,
+            "sectors": sectors, "host_requests_per_s": rate,
+            "kernel": "gather_segments_kernel"}
+
+
+def heads_spans(dev, seeds, n_table):
+    """``_segment_heads``'s spans of these seeds (``start`` the clamped
+    seed, ``count`` 2, 0 for a -1 seed), with the edge cases the kernel
+    must get right written over the first slots: a start at the table's
+    end with count 0, a span running past the end, the last node's
+    heads."""
+    import torch
+    valid = seeds >= 0
+    start = seeds.long().clamp(0, n_table - 2)
+    count = torch.where(valid, 2, 0).to(torch.int32)
+    start[:3] = torch.tensor([n_table, n_table - 1, n_table - 2])
+    count[:3] = torch.tensor([0, 2, 2], dtype=torch.int32)
+    return start.contiguous(), count.contiguous()
 
 
 def topology_gathers(dev, samplers, indptr, indices, card, iters):
@@ -1736,7 +1845,7 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
     import torch
     from quiver_tpu_torch.ops import kernels
     from quiver_tpu_torch.ops.kernels import gather
-    r0, slots = last_hop_reads(dev, indptr)
+    r0, slots, seeds = last_hop_reads(dev, indptr)
     h2d, _ = h2d_rate(dev)
     pair_host = samplers["g"]._exact_rows
     over_host = samplers["h"]._rot
@@ -1788,6 +1897,8 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
                                    else "gather_rows"] == 1,
                   f"{vname} {where}: launches {kernels.LAUNCHES}")
             made(kernels.RAW_LAUNCHES, **({} if width == 1 else {kname: 1}))
+            made(kernels.ELEMS_LAUNCHES, **({kname: 1} if width == 1
+                                            else {}))
             ms = cuda_ms(run, iters)
             own = own_ms(run, kname, iters)
             plain_ms = cuda_ms(plain, 3)
@@ -1827,7 +1938,52 @@ def topology_gathers(dev, samplers, indptr, indices, card, iters):
                           "ids": int(ids.shape[0]), "live_ids": n_live,
                           "host_requests_per_s": rate, "kernel": kname}
         recs[vname] = rec
+    recs["heads"] = topology_heads(dev, samplers["g"]._placed[0], seeds,
+                                   h2d, card, iters)
     return recs, h2d
+
+
+def topology_heads(dev, ip_host, seeds, h2d, card, iters):
+    """The indptr heads of a last-hop frontier (180,224 seeds, a fifth
+    of them -1) through the span gather over the pinned int32 indptr and
+    an int64 copy, each against its plain version and the flat form over
+    the parent's ``[2, bs]`` ids (timed too: own time and host read
+    requests a second, one request an id)."""
+    import torch
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.utils.placement import pinned_put
+    start, count = heads_spans(dev, seeds, ip_host.shape[0])
+    flat_ids = torch.where(count > 0, torch.stack([start, start + 1]),
+                           -1).reshape(-1)
+    recs = {}
+    for dtype in (torch.int32, torch.int64):
+        name = str(dtype)[6:]
+        tab = ip_host if ip_host.dtype == dtype else pinned_put(
+            ip_host.to(dtype), dev, f"the {name} indptr")
+        check(tab.is_pinned(), f"heads {name}: indptr is not pinned")
+        flat_run = lambda tab=tab: gather.gather_elems(tab, flat_ids)
+        flat = flat_run()
+        rec = span_gather(f"heads {name} indptr", tab, start, count, 2, h2d,
+                          card, iters, flat=flat.reshape(2, -1).t())
+        kernels.reset_launches()
+        flat_run()
+        made(kernels.ELEMS_LAUNCHES, gather_elems_kernel=1)
+        f_ms = cuda_ms(flat_run, iters)
+        f_own = own_ms(flat_run, "gather_elems_kernel", iters)
+        live = int((flat_ids >= 0).sum())
+        f_rate = None if f_own is None else live / (f_own / 1e3)
+        print(f"span gather heads {name} indptr, the flat form over the "
+              f"[2, {seeds.shape[0]}] ids (gather_elems_kernel): wrapper "
+              f"{f_ms:.4f} ms, kernel own {fmt_ms(f_own)}, {live} live ids"
+              + ("" if f_rate is None else
+                 f", {f_rate / 1e6:.1f}M host read requests/s (one an id)")
+              + f"; on {card}", flush=True)
+        rec["flat"] = {"ms": f_ms, "own_ms": f_own, "live_ids": live,
+                       "host_requests_per_s": f_rate}
+        recs[name] = rec
+        del flat
+    return recs
 
 
 def phase_sampler(dev, gen, nodes, indptr, indices, card):
@@ -1886,6 +2042,14 @@ def phase_sampler(dev, gen, nodes, indptr, indices, card):
             check(sum(rec["raw_launches"].values())
                   == rec["launches"]["gather_rows"],
                   f"({label}) raw launches {rec['raw_launches']} against "
+                  f"{rec['launches']}")
+            # the 1-D reads: each hop's indptr heads through the span
+            # gather, the scattered picks through the flat form
+            check(sum(rec["elems_launches"].values())
+                  == rec["launches"]["gather_elems"]
+                  and rec["elems_launches"].get("gather_segments_kernel")
+                  == len(SIZES) * SAMPLER_BATCHES,
+                  f"({label}) 1-D launches {rec['elems_launches']} against "
                   f"{rec['launches']}")
             for key in ("setup_growth_bytes", "warmup_growth_bytes",
                         "loop_growth_bytes"):
@@ -2010,10 +2174,11 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
     """The HOST weighted arms' reads against their plain versions at
     their shapes: the pool draw's pinned fp32 weights at hop 2 (a
     180,224-seed frontier, 80% live, each live seed's first min(deg,
-    2048) slots and -1 for the rest of its 2048 columns), and the pinned
-    fp32 weight rows, 128 (the pair layout) and 256 wide, at the
-    frontier's row ids; own times against the copy-rate bound, host
-    read requests per second."""
+    2048) slots and -1 for the rest of its 2048 columns), through the
+    flat form over the materialised ids (the parent's read) and through
+    the span gather (HOST mode's read), and the pinned fp32 weight rows,
+    128 (the pair layout) and 256 wide, at the frontier's row ids; own
+    times against the copy-rate bound, host read requests per second."""
     import torch
     from quiver_tpu_torch.ops import kernels
     from quiver_tpu_torch.ops.kernels import gather
@@ -2073,6 +2238,7 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
                                else "gather_rows"] == 1,
               f"weights {vname}: launches {kernels.LAUNCHES}")
         made(kernels.RAW_LAUNCHES, **({} if width == 1 else {kname: 1}))
+        made(kernels.ELEMS_LAUNCHES, **({kname: 1} if width == 1 else {}))
         ms = cuda_ms(run, iters)
         own = own_ms(run, kname, iters)
         n_live = int(live.numel())
@@ -2101,7 +2267,16 @@ def weight_gathers(dev, samplers, indptr, card, h2d, iters):
                        "library_ms": None, "max_abs_err": 0.0,
                        "ids": int(ids.shape[0]), "live_ids": n_live,
                        "host_requests_per_s": rate, "kernel": kname}
+        if width == 1:
+            flat = got.reshape(bs, ROW_CAP)
         del got, want
+    # the pool draw's read as HOST mode makes it now: each seed's span of
+    # live weights from its start and pool size (0 for a -1 seed), no id
+    # array; held to the flat form's output above too
+    recs["span"] = span_gather(
+        "weights pool (the hop-2 pool draw)", w_host, start.contiguous(),
+        deg.clamp(max=ROW_CAP).to(torch.int32).contiguous(), ROW_CAP, h2d,
+        card, iters, flat=flat)
     return recs
 
 
@@ -2421,6 +2596,16 @@ def phase_weighted(dev, gen, nodes, indptr, indices, deg, topo, batches,
                   == launches["gather_rows"],
                   f"({label}) raw launches {rec['raw_launches']} against "
                   f"{launches}")
+            # the heads of each hop, and the pool draw's weights, through
+            # the span gather
+            spans = len(SIZES) * WEIGHTED_BATCHES \
+                * (2 if kw["sampling"] == "exact" else 1)
+            check(sum(rec["elems_launches"].values())
+                  == launches["gather_elems"]
+                  and rec["elems_launches"].get("gather_segments_kernel")
+                  == spans,
+                  f"({label}) 1-D launches {rec['elems_launches']} against "
+                  f"{launches}, {spans} span launches expected")
             check(rec["setup_growth_bytes"] < w.nbytes
                   and rec["resident_growth_bytes"] < w.nbytes,
                   f"({label}) the card's memory grew by "
@@ -3402,6 +3587,7 @@ def mixed_sampler(dev, card, topo, order, arms):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        elems = nonzero(kernels.ELEMS_LAUNCHES)
         m.close()
         seen = set()
         edges = checked = 0
@@ -3417,14 +3603,16 @@ def mixed_sampler(dev, card, topo, order, arms):
         check(len(seen) == MIXED_BATCHES, f"mixed {mode}: {len(seen)} "
               f"batches of {MIXED_BATCHES}")
         host_reads = launches["gather_elems"] + launches["gather_rows"]
-        check((host_reads > 0) == (mode == "HOST"),
-              f"mixed {mode}: launches {launches}")
+        check((host_reads > 0) == (mode == "HOST")
+              and ("gather_segments_kernel" in elems) == (mode == "HOST"),
+              f"mixed {mode}: launches {launches} {elems}")
         rec[mode] = dict(seps=edges / wall, ms=wall * 1e3,
                          tasks=dict(m.tasks),
                          device_ema_ms=1e3 * m._device_time,
                          cpu_ema_ms=None if m._cpu_time is None
                          else 1e3 * m._cpu_time,
-                         launches=launches, num_workers=m.num_workers)
+                         launches=launches, elems_launches=elems,
+                         num_workers=m.num_workers)
         share = m.tasks["cpu"] / MIXED_BATCHES
         arm = {"HBM": "b", "HOST": "g"}[mode]
         print(f"mixed: device_mode {mode}: {MIXED_BATCHES} batches of "
@@ -3435,7 +3623,8 @@ def mixed_sampler(dev, card, topo, order, arms):
               f"{m.num_workers} worker threads; EMA per task device "
               f"{rec[mode]['device_ema_ms']:.3f} ms, host "
               f"{fmt_ms(rec[mode]['cpu_ema_ms'])}; launches "
-              f"{ {k: v for k, v in launches.items() if v} }; phase 7 "
+              f"{ {k: v for k, v in launches.items() if v} } {elems}; "
+              f"phase 7 "
               f"device-only arms: (a) {arms['a']['seps']:.6g}, ({arm}) "
               f"{arms[arm]['seps']:.6g} sampled edges/s; on {card}",
               flush=True)
@@ -7472,6 +7661,29 @@ def main() -> int:
         "plain_ms": elems_w["plain_ms"], "bound_ms": elems_w["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "h2d_bytes_per_s": h2d,
         "variants": weight_gathers_rec}
+    # the span gather: the HOST arms' indptr heads (phase 7, 8) and the
+    # weighted pool's weights (phase 8 (k)); its numbers are the heads'
+    # over the pinned int32 indptr at a last-hop frontier
+    span_l = {arm["arm"]: arm["elems_launches"].get(
+        "gather_segments_kernel", 0) for arm in
+        [*arms.values(), *weighted["arms"]] if arm["mode"] == "HOST"}
+    heads = topo_gathers["heads"]
+    line["kernels"].append({
+        "name": "gather_segments", "route": "cuda",
+        "source": SOURCES["gather_rows"], "replaces": REPLACES["gather_rows"],
+        "launches": sum(span_l.values()),
+        "launches_per_host_batch": {
+            a: v / (SAMPLER_BATCHES if a in "gh" else WEIGHTED_BATCHES)
+            for a, v in span_l.items()},
+        "mixed_host_launches": host_side["mixed"]["HOST"][
+            "elems_launches"].get("gather_segments_kernel", 0),
+        **{k: heads["int32"][k] for k in (
+            "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "kernel": "gather_segments_kernel", "h2d_bytes_per_s": h2d,
+        "variants": {"heads int32": heads["int32"],
+                     "heads int64": heads["int64"],
+                     "weights pool": weight_gathers_rec["span"]}})
     line["sampler"] = [{k: v for k, v in arm.items()} for arm in
                        arms.values()]
     line["weighted"] = weighted
@@ -7580,6 +7792,17 @@ def main() -> int:
             "own_ms", "ms", "plain_ms", "bound_ms")}}
     line["sharded"] = sharded
     line["clique"] = clique
+    # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
+    # its launches over the whole run, against those of phase 6's check
+    q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0)
+    gather_entry["q8"] = {"kernel": "gather_rows_q8_kernel",
+                          "launches_whole_run": q8_all,
+                          "launches_phase6_check5":
+                              host_tier["q8_launches_check5"]}
+    print(f"gather_rows_q8_kernel: {q8_all} launches in the whole run, "
+          f"{host_tier['q8_launches_check5']} of them in phase 6's check 5 "
+          "(the split route over the store and dedup_gather over the int8 "
+          f"one-table); on {card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all",
           flush=True)
     print(card, flush=True)

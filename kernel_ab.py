@@ -8,6 +8,8 @@ process on one NVIDIA card.
     python3 kernel_ab.py --old-packed DIR   # the packed host gather
     python3 kernel_ab.py --old-packed-device DIR  # packed rows on the card
     python3 kernel_ab.py --old-raw DIR      # raw rows (commit e836ba3)
+    python3 kernel_ab.py --old-elems DIR    # 1-D topology (commit 0d840bb)
+    python3 kernel_ab.py --old-arms DIR     # HOST sampler arms, whole tree
 
 Each option runs its part; give one or several.
 
@@ -89,6 +91,28 @@ then timed old, then this tree's designs (the dispatched one and the
 tile design where they differ) and back, with each side's share of the
 bound (phase 4's, 7's, 9's and 15's formulas) and, for pinned rows, the
 128-byte host lines its rows touch a second.
+
+``--old-elems``: the 1-D topology gather of commit 0d840bb
+(``gather.cu``'s ``gather_elems_kernel``, one id a thread, through its
+C interface), built with this tree's flags, against this tree's span
+gather (``gather_segments_kernel``) and flat form, at the main paths'
+shapes on ``chip_smoke.py``'s graph (:func:`elems_cases`): phase 7's
+indptr heads of a last-hop frontier (the parent's ``[2, bs]`` ids
+against the span form; int32 and int64 indptr), its 901,120 scattered
+``indices`` picks (the flat form both sides), and phase 8's
+hop-2 weight pool (the flat form over the materialised ids against the
+span form). Each side is held to the parent's output bit for bit, then
+timed old, new, new, old, with each side's share of the bound, host
+read requests a second (the flat form's live ids, the span form's
+32-byte sectors) and the 128-byte lines each side's warp loads ask for.
+
+``--old-arms``: a whole older tree (``git archive <commit> | tar -x -C
+DIR``) against this one end to end: the HOST sampler arms of
+``chip_smoke.py`` (phase 7's (g) and (h), phase 8's (k) and (l), on
+phase 7's graph and batches, the timed batches and the profile of four),
+each tree in a process of its own running its own ``chip_smoke.py`` and
+package, in the order old, new, new, old: ms and device ms a batch, idle
+share, sampled edges a second and the peak allocated over one batch.
 
 Prints the card (and this tree's ``nvcc -Xptxas -v`` lines of
 ``gather.cu``), one line per case and a JSON line; exits non-zero on any
@@ -687,7 +711,7 @@ def raw_cases(dev, gen, h2d):
             / cs.HBM_BYTES_PER_S * 1e3
 
     indptr, indices, _ = cs.make_graph(dev, gen, cs.NODES)
-    r0, _ = cs.last_hop_reads(dev, indptr)
+    r0, _, _ = cs.last_hop_reads(dev, indptr)
     del indptr
     for width, view in ((128, as_index_rows),
                         (256, as_index_rows_overlapping)):
@@ -892,6 +916,250 @@ def raw_ab(csrc: Path, dev, rows):
         del outs, calls
 
 
+ELEMS_ARGS = {"qt_gather_elems": [_p, _i, _i, _p, _i, _ll, _ll, _p, _p]}
+
+
+def id_lines(tab, ids) -> int:
+    """The 128-byte lines of ``tab`` that a flat gather's warp load
+    instructions ask for: per 32 consecutive ids, the distinct lines of
+    their live elements."""
+    import torch
+    pad = (-ids.shape[0]) % 32
+    ids = torch.cat([ids.long(), ids.new_full((pad,), -1).long()])
+    line = torch.where(ids >= 0, (tab.data_ptr() + ids.clamp(
+        0, tab.shape[0] - 1) * tab.element_size()) // 128, -1)
+    line = torch.sort(line.reshape(-1, 32), dim=1).values
+    new = torch.ones_like(line, dtype=torch.bool)
+    new[:, 1:] = line[:, 1:] != line[:, :-1]
+    return int((new & (line >= 0)).sum())
+
+
+def elems_cases(dev, gen, h2d):
+    """The 1-D topology reads of the main paths, each ``(label, table,
+    {side: (call, kernel)}, check, bound ms, bound by, requests a side,
+    128-byte lines a side)``, the older side's entry its ids (its call is
+    bound by the caller): phase 7's indptr heads of a last-hop frontier
+    (180,224 seeds, a fifth -1) over the pinned int32 indptr and an int64
+    copy, the parent's flat form over ``[2, bs]`` ids against the span
+    gather; phase 7's 901,120 scattered ``indices`` picks, the flat form
+    both sides; phase 8's hop-2 weight pool (180,224 seeds x 2,048
+    columns over the pinned fp32 weights), the flat form over the
+    materialised int64 ids against the span gather. A generator: each
+    case's tables are freed before the next is made."""
+    import torch
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.utils.placement import pinned_put
+
+    def bound(dev_bytes, host_bytes):
+        b_dev = dev_bytes / cs.HBM_BYTES_PER_S * 1e3
+        b_host = host_bytes / h2d * 1e3
+        return (b_host, "bytes (host)") if b_host > b_dev \
+            else (b_dev, "bytes (device)")
+
+    indptr, indices, deg = cs.make_graph(dev, gen, cs.NODES)
+    _, slots, seeds = cs.last_hop_reads(dev, indptr)
+    bs = seeds.shape[0]
+    for dtype in (torch.int32, torch.int64):
+        tab = pinned_put(indptr.to(dtype), dev, "indptr")
+        start, count = cs.heads_spans(dev, seeds, tab.shape[0])
+        ids = torch.where(count > 0, torch.stack([start, start + 1]),
+                          -1).reshape(-1)
+        live = int((ids >= 0).sum())
+        eb = tab.element_size()
+        b_ms, b_by = bound(12 * bs + 2 * eb * bs, live * eb)
+        yield (f"heads over the pinned {str(dtype)[6:]} indptr "
+               f"{tuple(tab.shape)}, {bs} seeds", tab,
+               {"old": (ids, "gather_elems_kernel"),
+                "span": (lambda tab=tab, start=start, count=count:
+                         gather.gather_segments(tab, start, count, 2),
+                         "gather_segments_kernel")},
+               lambda old, new: cs.same_bits(old.reshape(2, -1).t(), new),
+               b_ms, b_by, {"old": live, "span": cs.span_units(
+                   tab, start, count, 2, 32)},
+               {"old": id_lines(tab, ids),
+                "span": cs.span_units(tab, start, count, 2, 128)})
+        del tab
+
+    tab = pinned_put(indices, dev, "indices")
+    live = int((slots >= 0).sum())
+    b_ms, b_by = bound(12 * slots.shape[0], 4 * live)
+
+    yield (f"scattered indices picks over the pinned int32 indices "
+           f"{tuple(tab.shape)}", tab,
+           {"old": (slots, "gather_elems_kernel"),
+            "flat": (lambda tab=tab: gather.gather_elems(tab, slots),
+                     "gather_elems_kernel")},
+           cs.same_bits, b_ms, b_by, {"old": live, "flat": live},
+           dict.fromkeys(("old", "flat"), id_lines(tab, slots)))
+    del tab
+
+    w = pinned_put(cs.example_weights(indices, deg), dev, "weights")
+    del indices
+    g8 = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    pseeds = torch.randperm(cs.NODES, generator=g8, device=dev)[:bs]
+    pseeds[torch.rand(bs, generator=g8, device=dev) < 0.2] = -1
+    ip = indptr.long()
+    valid = pseeds >= 0
+    sl = pseeds.long().clamp(min=0)
+    start = torch.where(valid, ip[sl], 0).contiguous()
+    count = torch.where(valid, ip[sl + 1] - ip[sl], 0) \
+        .clamp(max=cs.ROW_CAP).to(torch.int32).contiguous()
+    pool = gather._implied_ids(start, count, cs.ROW_CAP).reshape(-1)
+    live = int(count.long().sum())
+    b_ms, b_by = bound(12 * bs + 4 * cs.ROW_CAP * bs, 4 * live)
+    yield (f"hop-2 weight pool over the pinned fp32 weights "
+           f"{tuple(w.shape)}, {bs} seeds x {cs.ROW_CAP} (flat form's "
+           f"bound {12 * pool.shape[0] / cs.HBM_BYTES_PER_S * 1e3:.4f} ms: "
+           "its ids' bytes)", w,
+           {"old": (pool, "gather_elems_kernel"),
+            "span": (lambda: gather.gather_segments(w, start, count,
+                                                    cs.ROW_CAP),
+                     "gather_segments_kernel")},
+           lambda old, new: cs.same_bits(old.view(torch.float32)
+                                         .reshape(bs, cs.ROW_CAP), new),
+           b_ms, b_by, {"old": live, "span": cs.span_units(
+               w, start, count, cs.ROW_CAP, 32)},
+           {"old": id_lines(w, pool),
+            "span": cs.span_units(w, start, count, cs.ROW_CAP, 128)})
+
+
+def elems_ab(csrc: Path, dev, rows):
+    """The 1-D topology gathers, the parent's flat kernel (one id a
+    thread) against this tree's span gather and flat forms, at the main
+    paths' shapes (:func:`elems_cases`)."""
+    import torch
+    lib = build_old(csrc, ("gather",))["gather"]
+    for fn, argtypes in ELEMS_ARGS.items():
+        getattr(lib, fn).argtypes = argtypes
+    h2d, copy_ms = cs.h2d_rate(dev)
+    print(f"pinned-to-device copy rate {h2d / 1e9:.2f} GB/s "
+          f"({cs.COPY_BYTES} B in {copy_ms:.4f} ms)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def old_call(tab, ids):
+        words = tab.view(torch.int32) if tab.dtype == torch.float32 else tab
+        out = torch.empty(ids.shape[0], dtype=words.dtype, device=dev)
+        err = lib.qt_gather_elems(
+            words.data_ptr(), 1, words.element_size(), ids.data_ptr(),
+            ids.element_size(), ids.shape[0], words.shape[0],
+            out.data_ptr(), _stream())
+        cs.check(err == 0, f"old gather_elems launch failed: {err}")
+        return out
+
+    for label, tab, sides, same, b_ms, b_by, reqs, lines in elems_cases(
+            dev, gen, h2d):
+        ids, _ = sides["old"]
+        calls = {"old": lambda tab=tab, ids=ids: old_call(tab, ids)}
+        calls.update({k: v[0] for k, v in sides.items() if k != "old"})
+        kname = {k: v[1] for k, v in sides.items()}
+        old = calls["old"]()
+        for side, fn in calls.items():
+            if side != "old":
+                cs.check(same(old, fn()), f"elems {label}: {side} and the "
+                         "parent's kernel disagree")
+        del old
+        new = [k for k in calls if k != "old"]
+        order = ["old", *new, *reversed(new), "old"]
+        t = {side: [] for side in calls}
+        for side in order:
+            t[side].append(cs.own_ms(calls[side], kname[side], ITERS))
+        share = {k: [None if x is None else b_ms / x for x in v]
+                 for k, v in t.items()}
+        rate = {k: [None if x is None else reqs[k] / (x / 1e3) for x in v]
+                for k, v in t.items()}
+        line_rate = {k: [None if x is None else lines[k] / (x / 1e3)
+                         for x in v] for k, v in t.items()}
+        rows.append({"shape": label, "kernels": kname, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_share": share,
+                     "requests": reqs, "host_requests_per_s": rate,
+                     "lines": lines, "lines_per_s": line_rate,
+                     **{f"{k}_ms": v for k, v in t.items()}})
+        print(f"elems {label}: own device time " + ", ".join(
+            f"{side} ({kname[side]}) "
+            f"{' / '.join(cs.fmt_ms(x) for x in t[side])} ("
+            + " / ".join("not measured" if x is None else f"{x:.0%}"
+                         for x in share[side]) + "; " + " / ".join(
+                "not measured" if x is None else f"{x / 1e6:.1f}M"
+                for x in rate[side])
+            + f" host read requests/s of {reqs[side]}; " + " / ".join(
+                "not measured" if x is None else f"{x / 1e6:.1f}M"
+                for x in line_rate[side])
+            + f" lines/s of {lines[side]} 128-byte lines asked for)"
+            for side in t)
+            + f" (torch.profiler, median of {ITERS} launches per turn, "
+            f"order {' '.join(order)}; share of the bound {b_ms:.5f} ms, "
+            f"{b_by}; requests: the flat form's live ids, the span form's "
+            "32-byte sectors); outputs equal", flush=True)
+        del calls, sides
+
+
+# one process's HOST sampler arms, run in the root of a tree (this one,
+# or an older one unpacked whole by git archive) with that tree's
+# chip_smoke.py and package: phase 7's (g) and (h) and phase 8's (k) and
+# (l) on phase 7's graph, one line of their records
+ARMS_RUN = r"""
+import json, torch
+import chip_smoke as cs
+from quiver_tpu_torch import CSRTopo
+from quiver_tpu_torch.ops import kernels
+kernels.build_kernels()
+dev = torch.device("cuda")
+card = cs.card_line()
+gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+indptr, indices, deg = cs.make_graph(dev, gen, cs.NODES)
+topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+perm = torch.randperm(cs.NODES, generator=gen, device=dev).to(torch.int32)
+batches = [perm[i * cs.BATCH:(i + 1) * cs.BATCH].contiguous()
+           for i in range(cs.SAMPLER_BATCHES + 1)]
+w = cs.example_weights(indices, deg)
+recs = {}
+for arms, kw_arm in ((cs.SAMPLER_ARMS, {}),
+                     (cs.WEIGHTED_ARMS, {"edge_weight": w})):
+    run = batches if not kw_arm else batches[:cs.WEIGHTED_BATCHES + 1]
+    for label, mode, kw in arms:
+        if mode == "HOST":
+            rec, _, s = cs.run_arm(label, mode, kw, topo, run, card,
+                                   keep=set(), sync_free="", **kw_arm)
+            recs[label] = rec
+            del s
+print("ARMS " + json.dumps(recs))
+"""
+ARM_KEYS = ("ms_per_batch", "device_ms_per_batch", "idle_share",
+            "warmup_growth_bytes", "loop_growth_bytes", "seps")
+
+
+def arms_ab(old_root: Path, rows):
+    """The HOST sampler arms end to end, an older tree (``old_root``, a
+    whole ``git archive`` of it) against this one, each in a process of
+    its own, in the order old, new, new, old: ms and device ms a batch,
+    idle share and the peak allocated over one batch."""
+    import torch
+    torch.cuda.empty_cache()
+    here = Path(__file__).resolve().parent
+    got = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        root = old_root if side == "old" else here
+        proc = subprocess.run([sys.executable, "-c", ARMS_RUN], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("ARMS ")]
+        cs.check(proc.returncode == 0 and line, f"arms ({side}) failed "
+                 f"with {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        got[side].append(json.loads(line[0][5:]))
+    for arm in got["new"][0]:
+        row = {"arm": arm, "name": got["new"][0][arm]["name"],
+               **{f"{side}_{k}": [r[arm].get(k) for r in got[side]]
+                  for side in got for k in ARM_KEYS}}
+        rows.append(row)
+        print(f"arms ({arm}) {row['name']}: " + "; ".join(
+            f"{side} " + ", ".join(
+                f"{k} " + " / ".join("not measured" if x is None else
+                                     f"{x:.6g}" for x in row[f'{side}_{k}'])
+                for k in ARM_KEYS) for side in got)
+            + " (order old new new old, a process each)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="directory holding quiver_tpu_torch/csrc "
@@ -909,11 +1177,19 @@ def main() -> int:
     ap.add_argument("--old-raw", help="directory holding "
                     "quiver_tpu_torch/csrc of commit e836ba3 (the raw-row "
                     "designs' A/B)")
+    ap.add_argument("--old-elems", help="directory holding "
+                    "quiver_tpu_torch/csrc of commit 0d840bb (the 1-D "
+                    "topology gathers' A/B)")
+    ap.add_argument("--old-arms", help="directory holding a whole older "
+                    "tree (git archive), whose HOST sampler arms run "
+                    "against this tree's, a process each")
     args = ap.parse_args()
     if not (args.old or args.old_gather or args.old_packed
-            or args.old_packed_device or args.old_raw):
+            or args.old_packed_device or args.old_raw or args.old_elems
+            or args.old_arms):
         ap.error("give --old, --old-gather, --old-packed, "
-                 "--old-packed-device, --old-raw or several")
+                 "--old-packed-device, --old-raw, --old-elems, --old-arms "
+                 "or several")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
@@ -946,6 +1222,11 @@ def main() -> int:
                          / "csrc", dev, rows)
     if args.old_raw:
         raw_ab(Path(args.old_raw) / "quiver_tpu_torch" / "csrc", dev, rows)
+    if args.old_elems:
+        elems_ab(Path(args.old_elems) / "quiver_tpu_torch" / "csrc", dev,
+                 rows)
+    if args.old_arms:
+        arms_ab(Path(args.old_arms).resolve(), rows)
     print(card, flush=True)
     print(json.dumps({"card": card, "cases": rows}), flush=True)
     return 0

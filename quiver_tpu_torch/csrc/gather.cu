@@ -18,6 +18,11 @@
 //                             topology in pinned host memory (indptr,
 //                             indices, an edge-id map); its int32 rows
 //                             views go through qt_gather_rows
+//   qt_gather_segments     <- the same 1-D gather over each seed's span of
+//                             consecutive elements (the sampler's indptr
+//                             heads, the weighted pool's weights), read
+//                             from the span's start and length with no id
+//                             array (the span design, below)
 //   qt_gather_rows_sharded <- the same gather over a table cut into row
 //                             blocks that lie on several cards or in
 //                             pinned host memory (the clique store's hot
@@ -117,6 +122,28 @@
 // and reads nothing (a read the sampler does not take), an id past the
 // table is clamped into it. From pinned host memory each live id is one
 // read request over PCIe, so the request rate, not bytes, bounds it.
+//
+// Spans (gather_segments_kernel; it replaces the same Pallas kernel,
+// quiver_tpu/ops/pallas/gather.py:92, as the flat form does). Two callers
+// read consecutive elements of one seed: the sampler's indptr heads
+// (indptr[s] and indptr[s + 1]) and the weighted pool (a seed's first
+// min(deg, row_cap) weights). Through the flat form each built an id
+// array: the heads as [2, bs], the two words of one seed bs lanes apart
+// and so two host read requests where one sector holds both; the pool as
+// an int64 [bs, 2048] array (2.95 GB at a 180,224-seed hop), 98% of it
+// -1, whose 12 bytes a slot (the id read, the word written) were the
+// flat kernel's whole bound. The span design reads a seed's start and
+// length instead (12 bytes a seed) and gives each seed a power-of-two
+// group of lanes (see the kernel). What bounds it: the device bytes, 12 a
+// seed read and width * elem bytes a seed written, at 3.35 TB/s, or the
+// live host bytes at the pinned copy rate, whichever is longer; and, from
+// pinned memory, the host's rate of 128-byte line requests, which moves
+// with the machine (about 215M or 500-700M lines a second on the same
+// card model, PERF.md) whatever a request's size: the design asks for
+// each line a seed's span covers once (one for a head pair that does not
+// straddle a line; the heads asked for 149k lines where the flat form
+// asked for 288k). chip_smoke.py states the bytes bound and the 32-byte
+// sectors asked for, kernel_ab.py --old-elems the 128-byte lines.
 //
 // Sharded tables: each id finds its block by a binary search of the int64
 // row offsets (kept in shared memory with the blocks' pointers up to 64
@@ -607,6 +634,83 @@ gather_elems_kernel(const T* __restrict__ table, const I* __restrict__ ids,
   }
 }
 
+// Words a lane of the span gather loads before it stores any.
+constexpr int kSpanUnroll = 4;
+
+// The span gather (gather_segments_kernel): out[i, j] = table[start[i] + j]
+// for j < count[i], -1 for count[i] <= j < width and where start[i] + j
+// is negative; an index past the table is clamped into it. That is the
+// flat gather over the ids where(j < count, start + j, -1), with no id
+// array: each seed's words are one consecutive span of the table.
+// 2^lanes_log2 lanes a seed (the least power of two >= width, at most
+// 32). At width 2 (the indptr heads) a lane pair a seed, 16 seeds a
+// warp, so one load instruction asks for both words of a seed in the
+// same sector. At width >= 17 (the weighted pool: 2048) a warp a seed,
+// whose lanes read the span in 32-word runs aligned to 32 words of the
+// table, so each load instruction asks for one aligned 128-byte line (of
+// 4-byte words) and no line twice: reading from the span's own start, a
+// run straddles two lines, and the pool asked for 35% more lines (0.72
+// against 0.64-0.71 ms own, NVIDIA H100 80GB HBM3, 700 W; kernel_ab.py
+// --old-elems). Past count a lane loads nothing and stores -1; stores go
+// out in consecutive words of the row-major output. The lanes of a seed
+// share its start and count loads (one request each).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_segments_kernel(const T* __restrict__ table,
+                       const int64_t* __restrict__ start,
+                       const int* __restrict__ count, int64_t n_seeds,
+                       int64_t n_rows, int width, int lanes_log2,
+                       T* __restrict__ out) {
+  const int lanes = 1 << lanes_log2;
+  const int g = threadIdx.x & (lanes - 1);
+  const int64_t step =
+      (static_cast<int64_t>(gridDim.x) * kThreads) >> lanes_log2;
+  for (int64_t i =
+           (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
+           lanes_log2;
+       i < n_seeds; i += step) {
+    const int64_t s0 = start[i];
+    const int c = count[i];
+    const int n = c < 0 ? 0 : (c < width ? c : width);
+    T* dst = out + i * width;
+    // a warp a seed: the words of the span's first aligned run before it
+    const int lead = lanes < 32 ? 0 : static_cast<int>(
+        (reinterpret_cast<uintptr_t>(table) / sizeof(T) +
+         static_cast<uint64_t>(s0)) & 31);
+    for (int j0 = g - lead; j0 < n; j0 += lanes * kSpanUnroll) {
+      T v[kSpanUnroll];
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u) {
+        const int j = j0 + u * lanes;
+        const int64_t id = s0 + j;
+        v[u] = static_cast<T>(-1);
+        if (j >= 0 && j < n && id >= 0)
+          v[u] = table[id < n_rows ? id : n_rows - 1];
+      }
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u) {
+        const int j = j0 + u * lanes;
+        if (j >= 0 && j < n) dst[j] = v[u];
+      }
+    }
+    for (int j0 = n + g; j0 < width; j0 += lanes * kSpanUnroll) {
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u) {
+        const int j = j0 + u * lanes;
+        if (j < width) dst[j] = static_cast<T>(-1);
+      }
+    }
+  }
+}
+
+// The lanes a seed of the span gather takes, as a power of two: the
+// least 2^l >= width, at most 32.
+int span_lanes_log2(int width) {
+  int l = 0;
+  while (l < 5 && (1 << l) < width) ++l;
+  return l;
+}
+
 constexpr int kMaxShards = 64;        // blocks whose table fits in shared
 
 // The block that holds row `id` of a sharded table: the last s with
@@ -934,6 +1038,22 @@ int launch_elems(const void* table, const void* ids, int64_t n_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_segments(const void* table, const void* start, const void* count,
+                    int64_t n_seeds, int64_t n_rows, int width, void* out,
+                    cudaStream_t stream) {
+  const int l = span_lanes_log2(width);
+  int grid = 0;
+  const int err = grid_for(gather_segments_kernel<T>,
+                           ((n_seeds << l) + 31) / 32, &grid);
+  if (err != 0) return err;
+  gather_segments_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const int64_t*>(start),
+      static_cast<const int*>(count), n_seeds, n_rows, width, l,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kVec4>
 int launch_sharded_packed(const void* ptrs, const void* offs, int n_shards,
                           const void* ids, int64_t n_ids, int64_t stride,
@@ -1076,6 +1196,28 @@ int qt_gather_elems(const void* table, int table_on_host, int elem_bytes,
   return id_bytes == 4
              ? launch_elems<int64_t, int32_t>(t, ids, n_ids, n_rows, out, s)
              : launch_elems<int64_t, int64_t>(t, ids, n_ids, n_rows, out, s);
+}
+
+// table: n_rows elements of elem_bytes (4 or 8) bytes, on the device or
+// in pinned host memory; start: n_seeds int64 and count: n_seeds int32 on
+// the device; out: [n_seeds, width] elements on the device (width >= 1),
+// out[i, j] = table[start[i] + j] for j < count[i], else -1.
+int qt_gather_segments(const void* table, int table_on_host, int elem_bytes,
+                       const void* start, const void* count,
+                       long long n_seeds, long long n_rows, long long width,
+                       void* out, void* stream) {
+  if ((elem_bytes != 4 && elem_bytes != 8) || width < 1 || width > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* t = nullptr;
+  const cudaError_t err = device_address(table, table_on_host, &t);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = static_cast<int>(width);
+  return elem_bytes == 4
+             ? launch_segments<int32_t>(t, start, count, n_seeds, n_rows, w,
+                                        out, s)
+             : launch_segments<int64_t>(t, start, count, n_seeds, n_rows, w,
+                                        out, s);
 }
 
 // ptrs, offs: device int64 arrays of the n_shards (at least 1) block

@@ -51,12 +51,20 @@ PACKED_LAUNCHES = {"gather_rows_packed_kernel": 0,
 RAW_LAUNCHES = {"gather_rows_kernel": 0, "gather_rows_tile_kernel": 0,
                 "gather_rows_sharded_kernel": 0,
                 "gather_rows_sharded_tile_kernel": 0}
+# the same for the 1-D topology gathers, each counted also under
+# LAUNCHES["gather_elems"]: the flat form (an id array) and the span form
+# (each seed's consecutive elements from its start and count)
+ELEMS_LAUNCHES = {"gather_elems_kernel": 0, "gather_segments_kernel": 0}
+_BY_KERNEL = (PACKED_LAUNCHES, RAW_LAUNCHES, ELEMS_LAUNCHES)
+# launches of each gather kernel named to launched() since the process
+# started, never reset: the whole of a run, across its count windows
+KERNEL_TOTALS: dict = {}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for counts in (LAUNCHES, PACKED_LAUNCHES, RAW_LAUNCHES):
+        for counts in (LAUNCHES, *_BY_KERNEL):
             for name in counts:
                 counts[name] = 0
 
@@ -64,15 +72,18 @@ def reset_launches() -> None:
 def launched(err: int, name: str, kernel: str | None = None) -> None:
     """Called by a wrapper right after its launch with the C function's
     ``cudaGetLastError()``: raises if the launch failed, else counts it
-    (and ``kernel``, a row gather's kernel, in ``PACKED_LAUNCHES`` or
-    ``RAW_LAUNCHES``)."""
+    (and ``kernel``, a gather's kernel, in ``KERNEL_TOTALS`` and in the
+    one of ``PACKED_LAUNCHES``, ``RAW_LAUNCHES`` and ``ELEMS_LAUNCHES``
+    that names it, if any)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     with _launch_lock:
         LAUNCHES[name] += 1
         if kernel is not None:
-            (PACKED_LAUNCHES if kernel in PACKED_LAUNCHES
-             else RAW_LAUNCHES)[kernel] += 1
+            KERNEL_TOTALS[kernel] = KERNEL_TOTALS.get(kernel, 0) + 1
+            for counts in _BY_KERNEL:
+                if kernel in counts:
+                    counts[kernel] += 1
 
 
 def find_nvcc() -> str:

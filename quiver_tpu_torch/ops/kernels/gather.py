@@ -78,6 +78,8 @@ def _lib():
         lib.qt_gather_q8_vec.restype = i
         lib.qt_gather_elems.argtypes = [p, i, i, p, i, ll, ll, p, p]
         lib.qt_gather_elems.restype = i
+        lib.qt_gather_segments.argtypes = [p, i, i, p, p, ll, ll, ll, p, p]
+        lib.qt_gather_segments.restype = i
         lib.qt_gather_rows_sharded.argtypes = [p, p, i, ll, i, p, ll, ll,
                                                ll, ll, ll, p, i, i, i, p]
         lib.qt_gather_rows_sharded.restype = i
@@ -307,6 +309,7 @@ def gather_rows(feat, ids, out=None):
                 data.shape[0], dim * data.element_size(), out.data_ptr(),
                 skip, RAW_DESIGNS[design], word, stream)
         else:
+            kernel = "gather_rows_q8_kernel"
             err = _lib().qt_gather_rows_q8(
                 data.data_ptr(), scale.data_ptr(), zero.data_ptr(),
                 int(on_host), ids.data_ptr(), n, data.shape[0], dim,
@@ -366,7 +369,97 @@ def gather_elems(table, ids):
             table.data_ptr(), int(on_host), table.element_size(),
             ids.data_ptr(), ids.element_size(), n, table.shape[0],
             out.data_ptr(), stream)
-    _build.launched(err, "gather_elems")
+    _build.launched(err, "gather_elems", "gather_elems_kernel")
+    return out
+
+
+def _implied_ids(start, count, width):
+    """The flat ids a span gather reads: ``start[i] + j`` where ``j <
+    count[i]``, else -1 (``[bs, width]`` int64)."""
+    j = torch.arange(width, dtype=torch.int64, device=start.device)
+    return torch.where(j < count[:, None], start[:, None] + j, -1)
+
+
+def gather_segments_plain(table, start, count, width):
+    """Plain version of :func:`gather_segments`: :func:`gather_elems_plain`
+    over the implied ids, an fp32 table read as its int32 words."""
+    if table.dtype == torch.float32:
+        return gather_segments_plain(table.view(torch.int32), start, count,
+                                     width).view(torch.float32)
+    ids = _implied_ids(start, count, width).reshape(-1)
+    return gather_elems_plain(table, ids).reshape(start.shape[0], width)
+
+
+def gather_segments(table, start, count, width, out=None):
+    """``out[i, j] = table[start[i] + j]`` for ``j < count[i]``, else -1
+    (for fp32 its bits, a NaN): each seed's span of consecutive elements
+    of a contiguous 1-D int32, int64 or fp32 ``table`` (the sampler's
+    ``indptr`` heads, the weighted pool's weights). ``start`` is a
+    contiguous 1-D int64 tensor, ``count`` an int32 one of the same
+    length on the same device (0 reads nothing for its seed); ``width``
+    the columns. It reads exactly what :func:`gather_elems` reads over
+    the ids ``where(j < count, start + j, -1)`` and returns the same
+    values, but builds no id array and reads nothing past a seed's
+    ``count``. The result, ``[bs, width]`` of the table's dtype, lies on
+    ``start``'s device (``out``, contiguous, is filled and returned). On
+    a card the table lies on that card or in pinned host memory; on CPU
+    tensors the plain version runs."""
+    if torch.is_tensor(table) and table.dtype == torch.float32:
+        if out is not None and (not torch.is_tensor(out)
+                                or out.dtype != torch.float32):
+            raise ValueError("gather_segments: out must be fp32 for an "
+                             "fp32 table")
+        return gather_segments(
+            table.view(torch.int32), start, count, width,
+            None if out is None else out.view(torch.int32)) \
+            .view(torch.float32)
+    if not torch.is_tensor(table) or table.dtype not in _ELEM_DTYPES \
+            or table.dim() != 1 or not table.is_contiguous():
+        raise ValueError(
+            "gather_segments: table must be a contiguous 1-D int32, int64 "
+            f"or fp32 tensor, got {getattr(table, 'dtype', type(table))} "
+            f"{tuple(getattr(table, 'shape', ()))}")
+    for t, name, dtype in ((start, "start", torch.int64),
+                           (count, "count", torch.int32)):
+        if not torch.is_tensor(t) or t.dtype != dtype or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise ValueError(f"gather_segments: {name} must be a contiguous "
+                             f"1-D {dtype} tensor")
+    if count.shape != start.shape or count.device != start.device:
+        raise ValueError("gather_segments: start and count differ in "
+                         "length or device")
+    width = int(width)
+    if width < 0:
+        raise ValueError(f"gather_segments: width {width} is negative")
+    dev, home = start.device, table.device
+    on_host = dev.type == "cuda" and home.type == "cpu"
+    if on_host and not table.is_pinned():
+        raise ValueError("gather_segments reads a host table from the card "
+                         "only when it lies in pinned memory")
+    if not on_host and home != dev:
+        raise ValueError(f"gather_segments: a table on {home} and spans on "
+                         f"{dev}")
+    n = start.shape[0]
+    if out is not None:
+        _check_out(out, n, width, table.dtype, dev)
+    if dev.type == "cpu":
+        got = gather_segments_plain(table, start, count, width)
+        return got if out is None else out.copy_(got)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_segments runs on cuda or cpu, not {dev}")
+    if out is None:
+        out = torch.empty((n, width), dtype=table.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if table.shape[0] < 1:
+        raise ValueError("gather_segments: spans index an empty table")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().qt_gather_segments(
+            table.data_ptr(), int(on_host), table.element_size(),
+            start.data_ptr(), count.data_ptr(), n, table.shape[0], width,
+            out.data_ptr(), stream)
+    _build.launched(err, "gather_elems", "gather_segments_kernel")
     return out
 
 

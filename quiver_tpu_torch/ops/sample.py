@@ -18,10 +18,12 @@ are ``jnp`` code, not Pallas kernels), drawing from an explicit
   sort or ``butterfly_shuffle``'s swap network), read through the rows
   views ``as_index_rows`` (pair) or ``as_index_rows_overlapping``.
 
-Every sampler reads the topology through :func:`take`: plain indexing
-when the topology lies on the seeds' device (HBM mode, or the CPU), the
-card's gather kernels (``ops/kernels/gather.py``) when it lies in
-pinned host memory and the seeds on a card (HOST mode). Both run the
+Every sampler reads the topology through :func:`take` (scattered
+reads) and :func:`take_segments` (each seed's span of consecutive
+elements: its ``indptr`` heads, the weighted pool's weights): plain
+indexing when the topology lies on the seeds' device (HBM mode, or the
+CPU), the card's gather kernels (``ops/kernels/gather.py``) when it lies
+in pinned host memory and the seeds on a card (HOST mode). Both run the
 same tensor ops on the same draws, so both give the same picks.
 
 The two packages' random streams differ, so the samplers are held to
@@ -165,17 +167,47 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         .reshape(*ids.shape, table.shape[1])
 
 
+def take_segments(table: torch.Tensor, start: torch.Tensor,
+                  count: torch.Tensor, width: int) -> torch.Tensor:
+    """``[bs, width]``: per seed, ``table[start[i] + j]`` for ``j <
+    count[i]``, the seed's span of consecutive elements of a 1-D
+    topology array (``indptr``, edge weights). A column at or past
+    ``count`` is a read the caller does not take; its value is
+    unspecified and the caller masks it.
+
+    - The table on the seeds' device (HBM mode, or the CPU): plain
+      indexing of the ids ``where(j < count, start + j, -1)`` through
+      :func:`take`.
+    - The table in pinned host memory and the seeds on a card (HOST
+      mode): the span kernel, ``gather_segments``, which builds no id
+      array and reads nothing past ``count``.
+    - Any other pairing raises, as :func:`take` does."""
+    if table.device == start.device:
+        j = torch.arange(width, device=start.device)[None, :]
+        return take(table, torch.where(j < count[:, None],
+                                       start[:, None] + j, -1))
+    if start.device.type != "cuda" or table.device.type != "cpu":
+        raise ValueError(f"cannot read a topology array on {table.device} "
+                         f"with spans on {start.device}")
+    if not table.is_pinned():
+        raise ValueError("the card reads a host topology array only when "
+                         "it lies in pinned memory (utils/placement.py: "
+                         "pinned_put)")
+    from .kernels import gather
+    return gather.gather_segments(table, start.long().contiguous(),
+                                  count.to(torch.int32).contiguous(), width)
+
+
 def _segment_heads(indptr: torch.Tensor, seeds: torch.Tensor):
-    """Per seed ``(start, deg)``, int64, read in one ``take`` of both
-    ``indptr`` entries. Invalid (-1) seeds read nothing and get start 0
-    and deg 0, which masks them downstream."""
+    """Per seed ``(start, deg)``, int64, read in one ``take_segments``
+    of both ``indptr`` entries. Invalid (-1) seeds read nothing and get
+    start 0 and deg 0, which masks them downstream."""
     n = indptr.shape[0] - 1
     valid = seeds >= 0
     safe = seeds.long().clamp(0, max(n - 1, 0))
-    both = take(indptr, torch.where(valid, torch.stack([safe, safe + 1]),
-                                    -1)).long()
-    start = torch.where(valid, both[0], 0)
-    deg = torch.where(valid, both[1] - both[0], 0)
+    both = take_segments(indptr, safe, torch.where(valid, 2, 0), 2).long()
+    start = torch.where(valid, both[:, 0], 0)
+    deg = torch.where(valid, both[:, 1] - both[:, 0], 0)
     return start, deg
 
 

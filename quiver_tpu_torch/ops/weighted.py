@@ -18,9 +18,10 @@ Two draws:
   weights (``reshuffle_csr(..., extra=(weights,))``): weight-exact for
   rows that fit the window, renormalised within the window for hubs.
 
-Weights and neighbour ids are read through ``ops/sample.py: take``, so a
-topology and weights pinned in host memory (the sampler's HOST mode) are
-read by the card's gathers, and only the slots a draw needs are read.
+Weights and neighbour ids are read through ``ops/sample.py: take`` and
+``take_segments`` (the pool's weights, a span a seed), so a topology and
+weights pinned in host memory (the sampler's HOST mode) are read by the
+card's gathers, and only the slots a draw needs are read.
 Both draws come from an explicit ``torch.Generator``: ``[bs, k]`` fp32
 uniforms, then the deterministic stage (``_pool_draw``,
 ``_window_draw``), which takes the uniforms as an argument.
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 
 from .sample import (_extract_window_cols, _gather_window, _pick_mask,
-                     _segment_heads, _window_layout, take)
+                     _segment_heads, _window_layout, take, take_segments)
 
 
 def _draw_uniforms(generator: torch.Generator, bs: int, k: int,
@@ -82,9 +83,10 @@ def _pool_draw(indptr, indices, weights, seeds, k, u, row_cap,
     offs = torch.arange(row_cap, device=seeds.device)[None, :]
     in_row = offs < pool[:, None]
     # only the live slots are read: a pinned weight array gives HOST mode
-    # one 4-byte read per neighbour, not per pool column
-    w = take(weights, torch.where(in_row, start[:, None] + offs, -1))
-    w_row = torch.where(in_row, w.to(torch.float32).clamp(min=0.0), 0.0)
+    # one read of each seed's span of live weights, and no id array
+    w = take_segments(weights, start, pool, row_cap)
+    # in place: w is the read's own [bs, row_cap] tensor
+    w_row = w.to(torch.float32).clamp_(min=0.0).masked_fill_(~in_row, 0.0)
     del w, in_row
     pos, total = _cdf_positions(w_row, u)
     del w_row

@@ -603,6 +603,66 @@ def test_gather_elems_equals_plain(card, dtype, id_dtype, where, kind,
     assert fused.LAUNCHES["gather_elems"] == before + 1
 
 
+@pytest.mark.parametrize("n_seeds", [1, 33, 4_099, 180_224])
+@pytest.mark.parametrize("where", ["host", "device"])
+@pytest.mark.parametrize("width", [1, 2, 7, 64, 2048])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+def test_gather_segments_equals_plain(card, dtype, width, where, n_seeds):
+    """The span gather against its plain version bit for bit: counts 0
+    (the -1 seeds' form) to past the width, starts at 0, unaligned, at
+    the table's end and running past it; one launch of
+    ``gather_segments_kernel``, counted under ``gather_elems``."""
+    g = np.random.default_rng(width * 7 + n_seeds)
+    n_table = 5 * N
+    if dtype == torch.float32:
+        table = torch.from_numpy(g.standard_normal(n_table)
+                                 .astype(np.float32))
+    else:
+        table = torch.from_numpy(g.integers(-2**40, 2**40, n_table)) \
+            .to(dtype)
+    table = pinned_put(table, card, "spans") if where == "host" \
+        else table.to(card)
+    start = g.integers(0, n_table, n_seeds)
+    count = g.integers(0, min(width, 40) + 1, n_seeds)
+    count[g.random(n_seeds) < 0.2] = 0
+    edge = [(0, width), (n_table, 0), (n_table - 1, width), (1, width + 5),
+            (3, width)]
+    for i, (s, c) in enumerate(edge[:n_seeds]):
+        start[i], count[i] = s, c
+    start = torch.from_numpy(start.astype(np.int64)).to(card)
+    count = torch.from_numpy(count.astype(np.int32)).to(card)
+    before = dict(_build.ELEMS_LAUNCHES)
+    n_before = fused.LAUNCHES["gather_elems"]
+    got = gather.gather_segments(table, start, count, width)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["gather_elems"] == n_before + 1
+    assert {k: v - before[k] for k, v in _build.ELEMS_LAUNCHES.items()} \
+        == {"gather_elems_kernel": 0, "gather_segments_kernel": 1}
+    words = table.view(torch.int32) if dtype == torch.float32 else table
+    want = gather.gather_segments_plain(words, start, count, width)
+    assert got.dtype == dtype and tuple(got.shape) == (n_seeds, width)
+    got_w = got.view(torch.int32) if dtype == torch.float32 else got
+    assert torch.equal(got_w, want)
+    flat = gather.gather_elems(words, gather._implied_ids(
+        start, count, width).reshape(-1).contiguous())
+    assert torch.equal(got_w.reshape(-1), flat)
+    out = torch.full((n_seeds, width), 5, dtype=dtype, device=card)
+    assert gather.gather_segments(table, start, count, width, out=out) \
+        .data_ptr() == out.data_ptr()
+    assert torch.equal(out.view(torch.uint8), got.view(torch.uint8))
+
+
+def test_take_segments_refuses_unpinned_host_tables(card):
+    from quiver_tpu_torch.ops.sample import take_segments
+    start = torch.zeros(4, dtype=torch.int64, device=card)
+    count = torch.ones(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="pinned"):
+        take_segments(torch.arange(10, dtype=torch.int32), start, count, 2)
+    with pytest.raises(ValueError, match="pinned"):
+        gather.gather_segments(torch.arange(10, dtype=torch.int32), start,
+                               count, 2)
+
+
 def test_topology_reader_refuses_unpinned_host_tables(card):
     from quiver_tpu_torch.ops.sample import take
     ids = torch.arange(4, device=card)
@@ -650,6 +710,8 @@ def test_sampler_host_equals_hbm_without_sync(graph, kw):
         out[mode] = (got, dict(fused.LAUNCHES))
         if mode == "HOST":
             assert s._placed[1].is_pinned() and s._placed[0].is_pinned()
+            # the indptr heads of every hop through the span gather
+            assert _build.ELEMS_LAUNCHES["gather_segments_kernel"] == 3
     (hbm, hbm_l), (host, host_l) = out["HBM"], out["HOST"]
     assert not any(hbm_l.values()), hbm_l
     assert host_l["gather_elems"] > 0 and host_l["fused_hot_hop"] == 0
@@ -733,6 +795,9 @@ def test_weighted_sampler_host_equals_hbm(graph, kw):
         out[mode] = (got, dict(fused.LAUNCHES))
         if mode == "HOST":
             assert s._weight_placed.is_pinned()
+            # the heads, and the pool's weights, a span a seed
+            spans = 6 if kw["sampling"] == "exact" else 3
+            assert _build.ELEMS_LAUNCHES["gather_segments_kernel"] == spans
     (hbm, hbm_l), (host, host_l) = out["HBM"], out["HOST"]
     assert not any(hbm_l.values()), hbm_l
     assert host_l["gather_elems"] > 0
