@@ -366,14 +366,53 @@ Phases:
    NCCL (mesh 1 x 1) for 32 steps with a falling loss, then 4 gloo ranks
    sharing the card (mesh 2 x 2) whose 2 steps equal the world-1 run's:
    in fp64 their losses, gradients and parameters within 1e-5, in fp32
-   the losses and the first step within 1e-5 and the second step within
-   the limits set from its readings; (d) a spawned worker
+   the losses and the first step within 1e-5, the second step's
+   gradients within 1e-2 and its parameters within 1e-4 of the exact
+   run (world size 1 in fp64); (d) a spawned worker
    opening the int8 clique store through ``share_ipc``, its lookups of
    16 served frontiers equal to the parent's, its allocated device
    memory below the hot tier's size; (e) ``ShardTensor`` with two device
    groups and a pinned host group read by one launch; (f) ``Topo`` and
    ``init_p2p`` over the cards there are. Results on ``clique`` lines;
-16. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
+   (c) also prints each ``data`` rank's frontier rows and sampled edges a
+   step beside world size 1's: each rank walks its half of the seeds
+   (draws keyed by node id and hop), so each is smaller;
+16. the serving fleet's control plane at phase 12's width, ``phase 16:
+   N s``: (a) 3 replica processes on this card (``python3 chip_smoke.py
+   --replica``: ``fleet_world``, the graph and an int8 offload store
+   from the seed, served by ``MicroBatchServer`` with a
+   ``TelemetryHub``, the default tenant classes and a ``TailSampler``,
+   behind ``RpcServer``, each with its own ``MetricsSink``) under a
+   ``ReplicaSupervisor``; this process runs ``FleetAggregator`` ->
+   ``HealthRouter`` -> ``RpcClient`` and a ``FleetExporter``, and
+   replays ``traffic.generate_scenario("flash_crowd")`` for 10 s at a
+   base of 400 requests/s (what one client process offers in pace; the
+   offered rate is printed beside the trace's), with phase 12's lookup
+   budget and SLO, while a seeded ``FaultPlan`` kills ``r0`` after its
+   400th request: every request resolves with a row or a typed
+   rejection, ``r0`` goes stale, is drained, restarted and re-admitted
+   in that order, each replica replays answers of its own batches with
+   their hop seeds (within 1e-4) and reports its launches per server
+   batch (2 ``fused_sample_hop``, 1 ``fused_hot_hop``, the cold fixup's
+   ``gather_rows``), ``/metrics`` and ``/healthz`` answer, and a kept
+   trace joins the client's ``rpc.*`` and a replica's ``serve.*``
+   spans. The replicas share one card: no speed across cards is
+   measured; (b) two numpy-placement int8 stores replay one
+   ``generate_drifting_trace`` ABBA per window, the adaptive arm's
+   ``Actuator`` rotating through its live server's engine: hit rates
+   before and after the drift, rotations, served p99; the rotated store
+   equal to one built with its hot set bit for bit, a knob swap inside
+   the lattice applied and one outside refused (WARN), the fake-clock
+   ``FleetAutoscaler`` trajectory; (c) the dispatch p50 of full
+   batches, the served batch's bytes and phase 2's gather rate into
+   ``capacity.predict``, at most 4 steady replays searching the
+   sustained rate, ``capacity.verdict`` (printed, not gated); (d) 64
+   metered batches recorded by ``TelemetryHub.observe_counters`` under
+   sync "error", its totals after ``flush`` equal to
+   ``metrics.reduce_counters``, cold-only lookups firing an ``anomaly``,
+   ``replan``'s advice and a ``FlightRecorder`` dump. Results on
+   ``fleet`` lines;
+17. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -411,7 +450,9 @@ Phases:
    phase 9's under ``metrics``, ``rotation`` and ``shard_tensor``,
    phase 10's under ``host_side``, phase 11's under ``disk_tier``,
    phase 12's under ``server``, phase 13's under ``hetero``, phase 14's
-   under ``sharded``, phase 15's under ``clique``), the script's total
+   under ``sharded``, phase 15's under ``clique``, phase 16's under
+   ``fleet`` and each kernel's ``launches_per_fleet_batch``, over the
+   replicas' server batches), the script's total
    seconds, the card's line, then the
    last line ``{"ok": true,
    "device": {...}}``.
@@ -426,6 +467,7 @@ from __future__ import annotations
 import asyncio
 import copy
 import json
+import logging
 import math
 import os
 import queue
@@ -6642,6 +6684,11 @@ TP_TOL = 1e-5                  # (c): relative, fp64 and fp32 step 1
 # and 2.83e-5, NVIDIA H100 80GB HBM3, 700 W) once the fp64 run showed the
 # same two steps within 1e-5: Adam turns gradient roundings near 0 into
 # whole steps of lr, and step 2 is taken from parameters that differ so.
+# The parameters are held against the exact run, world size 1 in fp64
+# (tp_exact_gaps), not against world 1's fp32 run: on this phase's data
+# that run itself departs from the exact one by 6.78e-4 by norm on
+# convs.0.lin_root.bias after step 2, where the ranks' fp32 run is within
+# 4.2e-5 (NVIDIA H100 80GB HBM3, 700 W).
 TP_STEP2_GRAD_TOL = 1e-2
 TP_STEP2_PARAM_TOL = 1e-4
 CLIQUE_TIMEOUT = 300.0         # (c), (d): collectives and calls, s
@@ -6959,15 +7006,18 @@ def clique_training(dev, g, stores, card):
     return rec, launches
 
 
-def _tp_steps(model, mesh, g, batches, steps, keep):
+def _tp_steps(model, mesh, g, batches, steps, keep, walks=None):
     """The TP step over ``mesh`` for ``steps`` steps of ``batches``:
     losses, step times, and for each of the first ``keep`` steps the
     full gradients the optimizer applied and the full parameters after
-    it."""
+    it. ``walks`` (a list) gains each step's frontier rows and sampled
+    edges of this rank's walk (``keyed_walk`` over the rank's slice of
+    the seeds, the walk its step took), after the step's time is
+    taken."""
     import torch
     from quiver_tpu_torch.parallel import (build_gspmd_train_step,
                                            full_parameters, init_state,
-                                           shard_state)
+                                           keyed_walk, shard_state)
     opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
                            eps=1e-8)
     st = shard_state(init_state(model, opt), mesh)
@@ -6988,6 +7038,17 @@ def _tp_steps(model, mesh, g, batches, steps, keep):
                         seeds, ys, hs, drop)
         losses.append(float(loss))
         lat.append((time.perf_counter() - t0) * 1e3)
+        if walks is not None:
+            part = len(seeds) // mesh["data"].size()
+            d = mesh["data"].get_local_rank()
+            with torch.no_grad():
+                layers = keyed_walk(
+                    g["feat"], None, g["indptr"], g["indices"],
+                    seeds[d * part:(d + 1) * part], SIZES, hs)[1]
+            walks.append({"frontier_rows": int(layers[-1].n_count),
+                          "edges": int(sum(la.edge_count
+                                           for la in layers))})
+            del layers
         if i < keep:
             params.append(full_parameters(model))
     return losses, lat, params, grads
@@ -7026,18 +7087,39 @@ def _tp_rank(ctx, dev, g, params, batches):
                             mesh_dim_names=("data", "model"))
     host = lambda steps: [{k: v.cpu() for k, v in p.items()}  # noqa: E731
                           for p in steps]
-    out = {}
+    out = {"data_rank": mesh["data"].get_local_rank()}
     for name, wide in TP_WIDTHS:
         model = tp_model(dev, params, wide)
+        walks = []
         with deterministic():
             losses, lat, full, grads = _tp_steps(
-                model, mesh, g, batches, TP_CHECK_STEPS, TP_CHECK_STEPS)
+                model, mesh, g, batches, TP_CHECK_STEPS, TP_CHECK_STEPS,
+                walks)
         out[name] = {"losses": losses, "ms": lat, "params": host(full),
-                     "grads": host(grads)}
+                     "grads": host(grads), "walks": walks}
         if not wide:
             out["local"] = {n: tuple(p.shape)
                             for n, p in model.named_parameters()}
     return out
+
+
+def tp_exact_gaps(ref, ranks, dev):
+    """fp32's second-step parameters against the exact run, world size 1
+    in fp64 (the same walk and masks; the fp64 ranks equal it within
+    TP_TOL): for each tensor, the ranks' largest difference norm over its
+    norm, and world 1's own fp32 run's."""
+    import torch
+    exact = {k.removeprefix("inner."): v
+             for k, v in ref["fp64"][2][1].items()}
+
+    def gap(got, name):
+        want = exact[name]
+        return float((torch.as_tensor(got).to(dev).double() - want).norm()
+                     / want.norm().clamp(min=1e-30))
+    return {name: {"ranks": max(gap(r["fp32"]["params"][1][name], name)
+                                for r in ranks),
+                   "world1": gap(want, name)}
+            for name, want in ref["fp32"][2][1].items()}
 
 
 def clique_tp(dev, g, card):
@@ -7048,7 +7130,8 @@ def clique_tp(dev, g, card):
     deterministic algorithms: fp64's losses, gradients and parameters of
     every step within TP_TOL; fp32's losses of every step and its first
     step's gradients and parameters within TP_TOL, its second step's
-    within TP_STEP2_GRAD_TOL and TP_STEP2_PARAM_TOL."""
+    gradients within TP_STEP2_GRAD_TOL and its parameters within
+    TP_STEP2_PARAM_TOL of the exact run (world size 1 in fp64)."""
     import torch
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
@@ -7073,12 +7156,13 @@ def clique_tp(dev, g, card):
         # the reference for the ranks: the first steps under torch's
         # deterministic algorithms (the model's index_add_ sums in one
         # order), as the ranks run them, in both widths
-        ref = {}
+        ref, ref_walks = {}, []
         for name, wide in TP_WIDTHS:
             with deterministic():
                 ref[name] = _tp_steps(tp_model(dev, params, wide), mesh, g,
                                       batches, TP_CHECK_STEPS,
-                                      TP_CHECK_STEPS)
+                                      TP_CHECK_STEPS,
+                                      ref_walks if name == "fp32" else None)
         losses, lat, _, _ = _tp_steps(tp_model(dev, params, False), mesh,
                                       g, batches, CLIQUE_STEPS, 0)
     finally:
@@ -7120,13 +7204,44 @@ def clique_tp(dev, g, card):
                     out[key] = max(out.get(key, 0.0), err)
         return out
 
+    exact = tp_exact_gaps(ref, ranks, dev)
+    print("clique (c) TP fp32 step 2 parameters against the exact run "
+          "(world size 1 in fp64), difference norm over norm by tensor, "
+          "the 2 x 2 ranks' / world size 1's own fp32 run: " + ", ".join(
+              f"{k} {v['ranks']:.2e} / {v['world1']:.2e}"
+              for k, v in exact.items()) + f"; on {card}", flush=True)
+
     def worst(errs, step=None):
         return max(v for k, v in errs.items()
                    if step is None or k.startswith(f"step {step} "))
+    # Part of the split walk: each data rank's frontier and edges a step
+    # beside world 1's (the same seeds, the whole batch)
+    walk_rows = {}
+    for r in ranks:
+        walk_rows.setdefault(r["data_rank"], r["fp32"]["walks"])
+        check(r["fp32"]["walks"] == walk_rows[r["data_rank"]],
+              "TP 2 x 2: the model ranks of one data rank walked apart")
+    for d, walks in sorted(walk_rows.items()):
+        check(all(0 < w["frontier_rows"] < v["frontier_rows"]
+                  and 0 < w["edges"] < v["edges"]
+                  for w, v in zip(walks, ref_walks)),
+              f"TP 2 x 2: data rank {d}'s walk {walks} is not a slice of "
+              f"world 1's {ref_walks}")
+    print(f"clique (c) TP walk, frontier rows and sampled edges a step: "
+          f"world size 1 {[(w['frontier_rows'], w['edges']) for w in ref_walks]}"
+          + "".join(f"; data rank {d} "
+                    f"{[(w['frontier_rows'], w['edges']) for w in ws]}"
+                    for d, ws in sorted(walk_rows.items()))
+          + f" (each data rank walks {BATCH // 2} of the {BATCH} seeds); "
+          f"on {card}", flush=True)
+    rec["walks"] = {"world1": ref_walks,
+                    **{f"data_rank_{d}": ws
+                       for d, ws in sorted(walk_rows.items())}}
     rec["ranks"] = {"ranks": TP_RANKS, "backend": "gloo", "mesh": [2, 2],
                     "spawn_s": spawn_s,
                     "local_shapes": {k: list(v) for k, v in
                                      ranks[0]["local"].items()}}
+    verdicts = {}
     for width, _ in TP_WIDTHS:
         loss_err = max(abs(a - b) / abs(b) for r in ranks
                        for a, b in zip(r[width]["losses"], ref[width][0]))
@@ -7153,16 +7268,18 @@ def clique_tp(dev, g, card):
                     "step 1 parameters": (worst(errs["param"], 1), TP_TOL),
                     "step 2 gradients": (worst(errs["grad"], 2),
                                          TP_STEP2_GRAD_TOL),
-                    "step 2 parameters": (worst(errs["param"], 2),
-                                          TP_STEP2_PARAM_TOL)}
-        check(all(v <= lim for v, lim in held.values()),
-              f"TP 2 x 2 {width} against world size 1: {held}")
+                    "step 2 parameters against the exact run": (
+                        max(v["ranks"] for v in exact.values()),
+                        TP_STEP2_PARAM_TOL)}
+        verdicts[width] = held
         rec["ranks"][width] = {
             "losses": ranks[0][width]["losses"],
             "step_ms": ranks[0][width]["ms"], "loss_rel_err": loss_err,
             "held": {k: list(v) for k, v in held.items()},
             "grad_rel_errs": errs["grad"], "param_rel_errs": errs["param"],
             "param_max_rel_errs": errs["param_max"]}
+        if width == "fp32":
+            rec["ranks"][width]["step2_param_exact_gaps"] = exact
         print(f"clique (c) TP {TP_RANKS} gloo ranks on this card (mesh 2 x "
               f"2), {width}, {TP_CHECK_STEPS} steps: losses "
               f"{ranks[0][width]['losses']}; held against world size 1 "
@@ -7177,6 +7294,9 @@ def clique_tp(dev, g, card):
     print(f"clique (c) TP ranks spawned in {spawn_s:.2f} s; rank 0's conv2 "
           f"lin_root weight {ranks[0]['local']['convs.2.lin_root.weight']} "
           f"of (47, 256); on {card}", flush=True)
+    for width, held in verdicts.items():
+        check(all(v <= lim for v, lim in held.values()),
+              f"TP 2 x 2 {width} against world size 1: {held}")
     return rec
 
 
@@ -7397,6 +7517,1046 @@ def phase_clique(dev, card):
     return rec, kernel, serve_launches, train_launches
 
 
+# -- phase 16: the serving fleet's control plane --------------------------
+
+FLEET = ("r0", "r1", "r2")     # (a): replica processes sharing the card
+FLEET_RATE = 400.0             # (a): flash_crowd's base rate in all: one
+                               # client process offers ~1,500/s at most,
+                               # and the crowd peaks at 2.8x the base
+FLEET_SECONDS = 10.0           # (a): the flash_crowd trace's length
+FLEET_BUDGET_MS = 5000.0       # (a): each lookup's budget, phase 12 (e)'s
+FLEET_KILL_AFTER = 400         # (a): r0's requests before the seeded kill
+FLEET_POLL_S = 0.5             # (a): the aggregator's interval
+FLEET_STALE_S = 1.5            # (a): with a poll, below the backoff
+FLEET_BACKOFF_S = 4.0          # (a): the supervisor's first restart wait
+FLEET_BOOT_S = 300.0           # (a): replicas answer within
+FLEET_AFTER = 256              # (a): lookups sent to r0 after its restart
+FLEET_CHECKS = 32              # (a): answers each replica replays
+FLEET_SAMPLE_EVERY = 8         # (a): a replica keeps every 8th answer
+FLEET_CFG = SERVER_CFG         # (a): the replicas' knobs, phase 12's
+FLEET_HEAD_RATE = 0.02         # (a): the tail samplers' floors
+CLIENT_HEAD_RATE = 0.1
+REPLICA_BEAT_S = 0.2           # (a): a replica's serving records
+REPLICA_SINK_BYTES = 256 << 10 # (a): the aggregator re-reads 2x this
+TELEM_BATCHES = 64             # (d): metered batches under sync "error"
+TELEM_COLLAPSE = 16            # (d): uniform, then cold-only lookups
+PLAN_HIT_RATE = 0.9            # (d): the hit rate the replan's plan wants
+ACT_WINDOW = 1024              # (b): trace ids a window, each arm
+ACT_WINDOWS = 12               # (b): the drift lands at window 4
+ACT_DRIFT_AT = 4
+ACT_ROTATE_EVERY = 2           # (b): the adaptive arm's rotation cadence
+ACT_MAX_ROWS = 8192            # (b): pairs a rotation
+ACT_SERVER_CFG = dict(SERVER_CFG, queue_depth=4096, shed_queue_frac=1.0)
+CAPACITY_BUDGET_MS = 150.0     # (c): the p99 budget predicted against
+CAPACITY_TRIAL_S = 2.0         # (c): each replay trial, at most
+CAPACITY_TRIAL_MAX = 20_000    # (c): requests, so that a trial ends
+CAPACITY_TRIALS = 4
+CAPACITY_BURST = 4 * BATCH     # (c): the staged burst for the host cost
+# (b): the fake-clock autoscaler pass (tests/test_torch_actuator.py holds
+# both packages to the same trajectory)
+AUTOSCALE_BURNS = [2.0] * 6 + [9.0] * 6 + [0.1] * 30 + [1.6] * 4 + [0.2] * 10
+AUTOSCALE_QUEUE = [None] * 20 + [0] * 26 + [50] * 4 + [0] * 6
+AUTOSCALE_TRAJECTORY = (
+    [2, 2] + [3] * 13 + [2] * 3 + [1] * 26 + [2] * 3 + [3] * 6 + [2] * 3)
+
+
+class _InertProc:
+    """A supervised child that never runs (the autoscaler pass)."""
+
+    pid = 1
+
+    def __init__(self):
+        self._rc = None
+
+    def poll(self):
+        return self._rc
+
+    def terminate(self):
+        self._rc = 0
+
+    def kill(self):
+        self._rc = -9
+
+    def send_signal(self, sig):
+        self._rc = -int(sig)
+
+    def wait(self, timeout=None):
+        return self._rc
+
+
+def autoscale_pass(act_mod, fleet_mod, **kw):
+    """A ``FleetAutoscaler`` over a ``ReplicaSupervisor`` of inert
+    children under a fake clock, fed AUTOSCALE_BURNS and AUTOSCALE_QUEUE
+    (every 7th poll one replica stale): ``(trajectory, actions, records,
+    router snapshot)``. Takes either package's modules."""
+    clk = [0.0]
+    sup = fleet_mod.ReplicaSupervisor(lambda n, i, a: _InertProc(), 2,
+                                      grace_s=0.0, clock=lambda: clk[0])
+    sup.step()
+    router = fleet_mod.HealthRouter(names=["r0", "r1"])
+    sc = act_mod.FleetAutoscaler(sup, router=router, clock=lambda: clk[0],
+                                 sustain=2, calm=3, cooldown_s=10.0,
+                                 drain_wait_s=0.0, **kw)
+    recs = []
+    for i, (b, q) in enumerate(zip(AUTOSCALE_BURNS, AUTOSCALE_QUEUE)):
+        clk[0] = float(i * 4)
+        n = sup.replica_count
+        recs.append(sc.step({"replicas": {
+            f"r{j}": {"stale": i % 7 == 0 and j == 1,
+                      "components": {"burn": b}} for j in range(n)}},
+            queue_depth=q))
+        sup.step()
+    sup.close()
+    return sc.trajectory, recs, sc.records, router.snapshot()
+
+
+def fleet_world(dev):
+    """The fleet's full-width world, the same in the parent and in every
+    replica: phase 1's graph from the seed, features from ``SEED + 16``,
+    an int8 offload store a quarter hot by degree (``dedup_cold``, the
+    cold tier pinned and packed), phase 3's GraphSAGE and a fused
+    ``ServeEngine`` over SERVER_LADDER, warmed up."""
+    import torch
+    from quiver_tpu_torch import CSRTopo, Feature, ServeEngine
+    from quiver_tpu_torch.ops import quant
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, deg = make_graph(dev, gen, NODES)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    feat = torch.randn(NODES, DIM, generator=fgen, device=dev).cpu()
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    store = Feature(
+        device_cache_size=(NODES // 4) * quant.row_bytes(DIM, "int8"),
+        csr_topo=topo, dedup_cold=True, dtype_policy="int8",
+        host_placement="offload", device=dev).from_cpu_tensor(feat)
+    model, params = sage(dev)
+    eng = ServeEngine(model, params, topo, store, SERVER_LADDER, BATCH,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP,
+                      collect_metrics=True, seed=SEED,
+                      device=dev).warmup()
+    return {"indptr": indptr, "indices": indices, "deg": deg, "feat": feat,
+            "topo": topo, "store": store, "eng": eng, "params": params}
+
+
+class AnswerTap:
+    """A replica's backend for ``RpcServer``: the server's ``submit``,
+    keeping every FLEET_SAMPLE_EVERY-th answer ``(node, row)``."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.seen = 0
+        self.sample = []
+
+    def submit(self, node, context=None, deadline=None, tenant=None):
+        fut = self.srv.submit(node, context=context, deadline=deadline,
+                              tenant=tenant)
+        self.seen += 1
+        if self.seen % FLEET_SAMPLE_EVERY == 0 and \
+                len(self.sample) < 64 * FLEET_CHECKS:
+            def keep(f, n=node):
+                if f.exception() is None:
+                    self.sample.append((n, f.result()))
+            fut.add_done_callback(keep)
+        return fut
+
+    def health(self):
+        return self.srv.health()
+
+
+def replica_check(eng, rec_eng, tap, launches):
+    """A replica's own check after its traffic: its launches per server
+    batch, and answers of nodes that sat in exactly one of its batches
+    against that batch replayed with its hop seeds."""
+    import numpy as np
+    calls = list(rec_eng.calls)
+    where = {}
+    for k, (s, _, _) in enumerate(calls):
+        for slot, nid in enumerate(s.tolist()):
+            if nid >= 0:
+                where.setdefault(nid, []).append((k, slot))
+    picked = [(n, row) for n, row in list(tap.sample)
+              if len(where.get(n, ())) == 1][:FLEET_CHECKS]
+    replay, err = {}, 0.0
+    finite = True
+    for n, row in picked:
+        k, slot = where[n][0]
+        if k not in replay:
+            s, v, hs = calls[k]
+            replay[k] = eng.run(s, v, hop_seeds=hs).cpu().numpy()
+        finite &= bool(row.shape == (CLASSES,) and np.isfinite(row).all())
+        err = max(err, float(np.abs(row - replay[k][slot]).max()))
+    return {"batches": len(calls), "requests": tap.seen,
+            "launches": launches, "checked": len(picked),
+            "replayed_batches": len(replay), "max_abs_err": err,
+            "finite": finite,
+            "fills": [int((s >= 0).sum()) for s, _, _ in calls[-8:]]}
+
+
+def replica_main(argv) -> int:
+    """A serve replica of phase 16 (a), run as ``python3 chip_smoke.py
+    --replica NAME PORT SINK DIR``: it builds ``fleet_world`` on the
+    card, serves it through ``MicroBatchServer`` (a ``TelemetryHub`` as
+    its hub, the default tenant classes) behind ``RpcServer`` on PORT, a
+    ``TailSampler`` on its tracer and its ``serving``, ``tenant`` and
+    kept ``trace`` records in the ``MetricsSink`` SINK; when DIR/check
+    appears it writes DIR/NAME.json (``replica_check``). It runs until
+    it is killed."""
+    import torch
+    if not torch.cuda.is_available():
+        print(f"replica {argv[:1]}: no CUDA device available",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from quiver_tpu_torch.ops import kernels
+    kernels.build_kernels()
+    serve_replica(torch.device("cuda"), argv[0], int(argv[1]), argv[2],
+                  argv[3])
+    return 0
+
+
+def serve_replica(dev, name, port, sink_path, ctl):
+    """The replica's body (``replica_main``) on ``dev``."""
+    from quiver_tpu_torch import (MicroBatchServer, ServeConfig,
+                                  default_tenant_classes, rpc, tracing)
+    from quiver_tpu_torch.metrics import MetricsSink
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.ops.kernels import _build
+    from quiver_tpu_torch.tailsampling import (TailSampler,
+                                               latency_source_from)
+    from quiver_tpu_torch.telemetry import TelemetryHub
+    t0 = time.perf_counter()
+    tracing.set_replica(name)
+    w = fleet_world(dev)
+    eng = w["eng"]
+    del w["feat"]
+    rec_eng = RecordingEngine(eng)
+    sink = MetricsSink(sink_path, max_bytes=REPLICA_SINK_BYTES)
+    # a kernel library built while serving is the port's recompile
+    hub = TelemetryHub(sink=sink).watch_compiles(_build.loaded_libraries)
+    srv = MicroBatchServer(rec_eng, ServeConfig(**FLEET_CFG), hub=hub,
+                           tenants=default_tenant_classes(
+                               FLEET_CFG["slo_p99_ms"]))
+    TailSampler(sink=sink, head_rate=FLEET_HEAD_RATE,
+                seed=SEED + FLEET.index(name),
+                latency_source=latency_source_from(stats=srv.stats)).attach()
+    tap = AnswerTap(srv)
+    kernels.reset_launches()
+    front = rpc.RpcServer(tap, host="127.0.0.1", port=port)
+    print(f"replica {name}: serving on {front.port} after "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    done = False
+    while True:
+        srv.emit(sink)
+        srv.emit_tenants(sink)
+        if not done and os.path.exists(os.path.join(ctl, "check")):
+            launches = dict(kernels.LAUNCHES)
+            out = replica_check(eng, rec_eng, tap, launches)
+            snap = srv.snapshot()
+            out.update(replica=name, pid=os.getpid(),
+                       hub_series=len(hub.series),
+                       anomalies=len(hub.anomalies),
+                       batch_ms=snap.get("wall"),
+                       request_ms=snap.get("request"),
+                       serving={k: snap["serving"].get(k) for k in (
+                           "requests", "completed", "rejected",
+                           "deadline_expired", "batches",
+                           "mean_batch_fill", "variant_batches")})
+            tmp = os.path.join(ctl, f"{name}.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(out, f)
+            os.replace(tmp, os.path.join(ctl, f"{name}.json"))
+            done = True
+        time.sleep(REPLICA_BEAT_S)
+
+
+class Timeline:
+    """A ``MetricsSink`` stand-in stamping each record with the host's
+    monotonic clock before passing it on."""
+
+    def __init__(self, sink):
+        self.sink = sink
+        self.events = []
+
+    def emit(self, rec, kind=None):
+        self.events.append((time.monotonic(), kind, dict(rec)))
+        return self.sink.emit(rec, kind=kind)
+
+
+def free_ports(k):
+    import socket
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for s in socks:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def fleet_start(tmp):
+    """Spawn FLEET through a ``ReplicaSupervisor`` (``r0``'s first life
+    armed with a seeded ``rpc.request`` kill after FLEET_KILL_AFTER
+    requests); returns ``(supervisor, ports, sinks, timeline)``."""
+    from quiver_tpu_torch import FaultPlan, FaultRule, fleet
+    from quiver_tpu_torch.metrics import MetricsSink
+    ports = dict(zip(FLEET, free_ports(len(FLEET))))
+    sinks = {n: os.path.join(tmp, f"{n}.jsonl") for n in FLEET}
+    plan = FaultPlan(seed=SEED + 7, rules={
+        "rpc.request": FaultRule("kill", after=FLEET_KILL_AFTER)})
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def spawn(name, index, attempt):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("QT_FAULTS", "QT_FAULTS_SEED")}
+        if name == "r0" and attempt == 0:
+            env.update(plan.env())
+        with open(os.path.join(tmp, f"{name}.{attempt}.log"), "w") as log:
+            return subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--replica", name, str(ports[name]), sinks[name], tmp],
+                env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT)
+    events = Timeline(MetricsSink(os.path.join(tmp, "events.jsonl")))
+    sup = fleet.ReplicaSupervisor(
+        spawn, len(FLEET), names=list(FLEET), backoff_s=FLEET_BACKOFF_S,
+        backoff_cap_s=2 * FLEET_BACKOFF_S, monitor_interval_s=0.05,
+        healthy_uptime_s=60.0, grace_s=5.0, sink=events).start()
+    return sup, ports, sinks, events
+
+
+def replica_logs(tmp):
+    out = []
+    for f in sorted(os.listdir(tmp)):
+        if f.endswith(".log"):
+            with open(os.path.join(tmp, f)) as fh:
+                out.append(f"--- {f}\n" + fh.read()[-2000:])
+    return "\n".join(out)
+
+
+def wait_until(cond, seconds, what, tmp=None):
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    raise SmokeFailure(f"{what} within {seconds:.0f} s"
+                       + (f"\n{replica_logs(tmp)}" if tmp else ""))
+
+
+class OutcomeTap:
+    """The fleet's client as ``traffic.replay`` drives it, tallying how
+    each request resolved: answered, or the typed error it raised
+    (``typed_rejection``); anything else is a lost request."""
+
+    def __init__(self, cli, victim):
+        import collections
+        import threading
+        self.cli, self.victim = cli, victim
+        self.outcomes = collections.Counter()
+        self._lock = threading.Lock()
+
+    def lookup_future(self, node, budget_ms=None, tenant=None):
+        fut = self.cli.lookup_future(node, budget_ms=budget_ms,
+                                     tenant=tenant)
+        fut.add_done_callback(self._done)
+        return fut
+
+    def _done(self, fut):
+        e = fut.exception()
+        key = "answered" if e is None else typed_rejection(e, self.victim)
+        with self._lock:
+            self.outcomes[key or f"lost {type(e).__name__}: {e}"[:160]] += 1
+
+
+def typed_rejection(e, victim):
+    """The kind of a typed rejection, or None: the fleet shed the request
+    (``Overloaded`` at admission, ``DeadlineExceeded`` or an attempt
+    timed out at the end of its budget), or every attempt met one of
+    those or the killed replica's closed connection
+    (``AllAttemptsFailed``)."""
+    from quiver_tpu_torch import rpc
+    shed = (rpc.Overloaded, rpc.DeadlineExceeded, rpc.AttemptTimeout)
+
+    def typed(c):
+        return isinstance(c, shed) or (
+            isinstance(c, (rpc.ReplicaUnavailable, rpc.ServerClosed))
+            and str(c).startswith(f"{victim}:"))
+    if isinstance(e, rpc.AllAttemptsFailed):
+        kinds = sorted({type(c).__name__ for c in e.causes})
+        return (f"AllAttemptsFailed ({', '.join(kinds)})"
+                if e.causes and all(typed(c) for c in e.causes) else None)
+    return type(e).__name__ if typed(e) else None
+
+
+def fleet_replay(sup, ports, sinks, events, tmp, card, hot_per_batch):
+    """(a): the aggregator, router, client and exporter over the fleet,
+    ``flash_crowd`` replayed for FLEET_SECONDS at FLEET_RATE, the seeded
+    kill of ``r0``, its restart and re-admission, then each replica's
+    own check, ``/metrics`` and ``/healthz``, and a kept trace
+    assembled across the client and a replica."""
+    import urllib.request
+    import numpy as np
+    from quiver_tpu_torch import fleet, rpc, tracing, traffic
+    from quiver_tpu_torch.metrics import MetricsSink, read_jsonl
+    from quiver_tpu_torch.tailsampling import TailSampler, TraceStore
+    t_boot = time.perf_counter()
+    agg = fleet.FleetAggregator(sinks, interval_s=FLEET_POLL_S,
+                                stale_after_s=FLEET_STALE_S, sink=events,
+                                trace_capacity=4096)
+    router = fleet.HealthRouter(list(FLEET), seed=SEED + 3)
+    polls = []                      # (time, the router's drained set)
+
+    def follow(snap):
+        router.sync(snap)
+        polls.append((time.monotonic(), set(router.snapshot()["drained"])))
+    agg.on_poll.append(follow)
+    addrs = {n: ("127.0.0.1", p) for n, p in ports.items()}
+    # an attempt may wait out the whole budget (a queued request is
+    # shed by the server's deadline, a typed answer); no hedges, which
+    # would double the flash crowd
+    cli = rpc.RpcClient(addrs, router=router, timeout_ms=FLEET_BUDGET_MS,
+                        retries=3, backoff_ms=20.0, backoff_cap_ms=200.0,
+                        hedge=False, seed=SEED + 5)
+    exporter = fleet.FleetExporter(agg, port=0)
+    client_sink = MetricsSink(os.path.join(tmp, "client.jsonl"))
+    sampler = None
+    try:
+        def pings(names):
+            ok = set()
+            for n in names:
+                try:
+                    if cli.ping(n, timeout_ms=500)["ok"]:
+                        ok.add(n)
+                except Exception:
+                    pass
+            return ok
+        up = set()
+        wait_until(lambda: up.update(pings(set(FLEET) - up)) or
+                   up == set(FLEET), FLEET_BOOT_S,
+                   "the fleet did not come up", tmp)
+        boot_s = time.perf_counter() - t_boot
+        check(all(s["restarts"] == 0 for s in sup.status().values()),
+              f"a replica restarted while booting: {sup.status()}")
+        agg.start()
+        tracing.clear()
+        sampler = TailSampler(sink=client_sink, head_rate=CLIENT_HEAD_RATE,
+                              seed=SEED).attach()
+        trace = traffic.generate_scenario("flash_crowd", FLEET_SECONDS,
+                                          FLEET_RATE, NODES, seed=SEED)
+        t_replay = time.monotonic()
+        tap = OutcomeTap(cli, "r0")
+        rep = traffic.replay(trace, tap, budget_ms=FLEET_BUDGET_MS,
+                             sink=client_sink)
+        sampler.detach()
+        tracing.disable()
+        tenants = rep["tenants"]
+        outcomes = dict(tap.outcomes)
+        lost = {k: v for k, v in outcomes.items() if k.startswith("lost")}
+        check(sum(outcomes.values()) == trace["length"] and not lost,
+              f"requests lost across the kill: {sum(outcomes.values())} of "
+              f"{trace['length']} resolved, {outcomes}")
+        wait_until(lambda: sup.status()["r0"]["restarts"] >= 1
+                   and sup.status()["r0"]["alive"], FLEET_BOOT_S,
+                   "r0 was not restarted", tmp)
+        t_back = [t for t, k, r in events.events if k == "chaos"
+                  and r.get("event") == "restart"
+                  and r.get("replica") == "r0"][0]
+        wait_until(lambda: "r0" in pings(["r0"]) and any(
+            t > t_back and "r0" not in d for t, d in polls),
+            FLEET_BOOT_S, "r0 was not re-admitted", tmp)
+        # r0's second life serves too, so that it has batches to check
+        solo = rpc.RpcClient({"r0": addrs["r0"]}, retries=2, hedge=False)
+        try:
+            futs = [solo.lookup_future(int(n), budget_ms=FLEET_BUDGET_MS)
+                    for n in np.random.default_rng(SEED + 160).integers(
+                        0, NODES, FLEET_AFTER)]
+            errs = [f.exception(timeout=60) for f in futs]
+        finally:
+            solo.close()
+        bad = [repr(e) for e in errs if e is not None]
+        check(not bad, f"r0's second life failed {len(bad)} of "
+              f"{FLEET_AFTER} lookups ({bad[:2]}); supervisor "
+              f"{sup.status()['r0']}\n{replica_logs(tmp)}")
+        check(all(f.result().shape == (CLASSES,)
+                  and np.isfinite(f.result()).all() for f in futs),
+              "r0's answers after its restart")
+        open(os.path.join(tmp, "check"), "w").close()
+        paths = {n: os.path.join(tmp, f"{n}.json") for n in FLEET}
+        wait_until(lambda: all(os.path.exists(p) for p in paths.values()),
+                   120.0, "the replicas' checks did not finish", tmp)
+        checks = {}
+        for n, p in paths.items():
+            with open(p) as f:
+                checks[n] = json.load(f)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{exporter.port}/metrics",
+                timeout=10) as r:
+            metrics_text = r.read().decode()
+            metrics_status = r.status
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{exporter.port}/healthz",
+                timeout=10) as r:
+            healthz = json.loads(r.read())
+            healthz_status = r.status
+        agg_snap = agg.poll()
+        router_snap = router.snapshot()
+        client_stats = cli.stats()
+    finally:
+        if sampler is not None:
+            sampler.detach()
+        tracing.disable()
+        tracing.clear()
+        cli.close()
+        exporter.close()
+        agg.close()
+        client_sink.close()
+    # the kill's story, in order, on the host's clock
+    t_exit = [t for t, k, r in events.events if k == "chaos"
+              and r.get("event") == "exit" and r.get("replica") == "r0"]
+    t_stale = [t for t, k, r in events.events if k == "anomaly"
+               and r.get("detector") == "staleness"
+               and r.get("replica") == "r0"]
+    t_restart = [t for t, k, r in events.events if k == "chaos"
+                 and r.get("event") == "restart" and r.get("replica") == "r0"]
+    check(t_exit and t_restart and [t for t in t_stale if t >= t_exit[0]],
+          f"r0's story: exit {t_exit}, stale {t_stale}, restart {t_restart}")
+    story = {"exit": t_exit[0],
+             "stale": min(t for t in t_stale if t >= t_exit[0])}
+    t_drain = [t for t, d in polls if t >= story["stale"] and "r0" in d]
+    check(t_drain, "r0 was not drained once stale")
+    story.update(drained=t_drain[0], restarted=min(
+        t for t in t_restart if t >= t_exit[0]))
+    story["readmitted"] = min(t for t, d in polls
+                              if t > story["restarted"] and "r0" not in d)
+    order = ["exit", "stale", "drained", "restarted", "readmitted"]
+    check(all(story[a] <= story[b] for a, b in zip(order, order[1:])),
+          f"r0's story out of order: {story}")
+    story_s = {k: round(v - t_replay, 3) for k, v in story.items()}
+    # each replica's check
+    per = {}
+    for n, c in checks.items():
+        b, la = c["batches"], c["launches"]
+        check(b > 0 and c["checked"] > 0 and c["finite"]
+              and c["max_abs_err"] <= SERVER_TOL,
+              f"replica {n}: {c['checked']} answers checked over {b} "
+              f"batches, max error {c['max_abs_err']}")
+        check(la["fused_sample_hop"] == 2 * b and la["fused_hot_hop"] == b
+              and la["gather_rows"] == hot_per_batch * b
+              and la["sample_layer"] == la["gather_elems"] == 0,
+              f"replica {n}: launches {la} over {b} server batches")
+        per[n] = {k: v / b for k, v in la.items()}
+    check(metrics_status == 200 and "qt_fleet_replicas 3" in metrics_text
+          and all(f'qt_replica_health{{replica="{n}"}}' in metrics_text
+                  for n in FLEET),
+          "/metrics did not answer the fleet's exposition")
+    check(healthz_status == 200 and set(healthz["replicas"]) == set(FLEET),
+          f"/healthz answered {healthz_status}")
+    # a kept trace: the client's rpc.* spans and a replica's serve.*
+    store = TraceStore(capacity=1 << 16)
+    for n in FLEET:
+        for r in read_jsonl(sinks[n]):
+            if r.get("kind") == "trace":
+                store.add(r, n)
+    client_kept = 0
+    for r in read_jsonl(os.path.join(tmp, "client.jsonl")):
+        if r.get("kind") == "trace":
+            store.add(r, "client")
+            client_kept += 1
+    joined = None
+    for tid in store.trace_ids():
+        t = store.get(tid)
+        roots = {s.get("root") for s in t["segments"]}
+        if {"rpc.lookup", "serve.request"} <= roots:
+            joined = t
+            break
+    check(joined is not None, f"no kept trace joins the client's and a "
+          f"replica's segments ({len(store)} traces, {client_kept} from "
+          "the client)")
+    names = sorted({s["name"] for seg in joined["segments"]
+                    for s in seg.get("spans", ())})
+    check(any(x.startswith("rpc.") for x in names)
+          and any(x.startswith("serve.") for x in names),
+          f"the joined trace's spans: {names}")
+    total = {k: sum(r[k] for r in tenants.values()) for k in (
+        "offered", "completed", "rejected", "deadline_expired", "failed")}
+    p99 = {t: r["latency"]["p99_ms"] for t, r in tenants.items()}
+    offered = trace["length"] / rep["offer_wall_s"]
+    print(f"fleet (a): {len(FLEET)} replica processes on the card (one "
+          f"card: no speed across cards is measured), up in {boot_s:.2f} "
+          f"s; flash_crowd {FLEET_SECONDS:g} s at a base of "
+          f"{FLEET_RATE:g}/s ({trace['length']} requests: "
+          f"{trace['length'] / FLEET_SECONDS:.0f}/s in the trace, "
+          f"{offered:.0f}/s offered, offer loop {rep['offer_wall_s']:.2f} "
+          f"s, wall {rep['wall_s']:.2f} s; lookup budget "
+          f"{FLEET_BUDGET_MS:g} ms, replicas' SLO "
+          f"{FLEET_CFG['slo_p99_ms']:g} ms): {total}; outcomes "
+          f"{outcomes}; p99 ms by tenant {p99}; on {card}", flush=True)
+    print(f"fleet (a): r0 killed after its {FLEET_KILL_AFTER} requests: "
+          f"seconds from the replay's start: {story_s}; router "
+          f"{router_snap['drains']} drains, {router_snap['readmits']} "
+          f"re-admits; fleet status {agg_snap['fleet']['status']}; client "
+          f"{client_stats}", flush=True)
+    for n, c in checks.items():
+        print(f"fleet (a) {n}: {c['requests']} requests in {c['batches']} "
+              f"server batches (last fills {c['fills']}); {c['checked']} "
+              f"answers against {c['replayed_batches']} replayed batches "
+              f"within {c['max_abs_err']:.3g}; launches per server batch "
+              + ", ".join(f"{k} {v:g}" for k, v in per[n].items() if v)
+              + f"; hub {c['hub_series']} series, {c['anomalies']} "
+              f"anomalies; batch ms {c['batch_ms']}; request ms "
+              f"{c['request_ms']}; {c['serving']}", flush=True)
+    print(f"fleet (a): /metrics {len(metrics_text)} bytes, /healthz "
+          f"{healthz['fleet']['status']}; trace {joined['trace_id']} joins "
+          f"{joined['replicas']}: {names}; {len(store)} kept traces",
+          flush=True)
+    launches = {k: sum(c["launches"][k] for c in checks.values())
+                for k in checks["r0"]["launches"]}
+    batches = sum(c["batches"] for c in checks.values())
+    return {"boot_s": boot_s, "requests": trace["length"], "totals": total,
+            "base_rps": FLEET_RATE, "offered_rps": offered,
+            "budget_ms": FLEET_BUDGET_MS,
+            "slo_p99_ms": FLEET_CFG["slo_p99_ms"],
+            "outcomes": outcomes, "client": client_stats,
+            "tenants": tenants, "offer_wall_s": rep["offer_wall_s"],
+            "wall_s": rep["wall_s"], "kill_story_s": story_s,
+            "router": router_snap, "replicas": checks,
+            "launches_per_batch": per, "metrics_bytes": len(metrics_text),
+            "healthz": healthz["fleet"], "joined_trace": {
+                "trace_id": joined["trace_id"],
+                "replicas": joined["replicas"], "spans": names},
+            "kept_traces": len(store)}, launches, batches
+
+
+def fleet_telemetry(dev, w, card, tmp):
+    """(d): TELEM_BATCHES metered batches with the hub recording each
+    counter vector under sync "error"; after ``flush`` the hub's totals
+    against ``metrics.reduce_counters`` of the same vectors; cold-only
+    lookups collapse the hit rate (an ``anomaly``), ``replan`` advises,
+    a ``FlightRecorder`` dump holds the spans and series. Returns the
+    record and the server batch's ``gather_rows`` launches."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import metrics, tracing
+    from quiver_tpu_torch.metrics import MetricsSink, read_jsonl
+    from quiver_tpu_torch.ops import kernels
+    from quiver_tpu_torch.telemetry import (FlightRecorder, PlanContext,
+                                            TelemetryHub)
+    eng, store = w["eng"], w["store"]
+    rng = np.random.default_rng(SEED + 161)
+    batches = [torch.from_numpy(rng.choice(NODES, BATCH, replace=False)
+                                .astype(np.int32)).to(dev)
+               for _ in range(TELEM_BATCHES)]
+    kernels.reset_launches()
+    eng.run(batches[0])
+    torch.cuda.synchronize()
+    hot_per_batch = kernels.LAUNCHES["gather_rows"]
+    path = os.path.join(tmp, "telemetry.jsonl")
+    sink = MetricsSink(path)
+    hub = TelemetryHub(sink=sink)
+    vecs = []
+    tracing.clear()
+    tracing.enable()
+
+    def serve():
+        for i, ids in enumerate(batches):
+            with tracing.span("fleet.telemetry_batch", args={"i": i}):
+                eng.run(ids)
+                hub.observe_counters(eng.last_counters)
+                vecs.append(eng.last_counters.clone())
+    t0 = time.perf_counter()
+    sync_free(serve, "the hub's recording path")
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    hub.flush()
+    want = metrics.reduce_counters(torch.stack(vecs))
+    got = hub.counters()
+    check(np.array_equal(got, want), f"the hub's counters {got.tolist()} "
+          f"differ from reduce_counters {want.tolist()}")
+    # the served batches count the cold fixup's rows only (the leaf
+    # kernel reads the hot ones): the hit rate's baseline comes from the
+    # store's metered lookups of uniform ids, then cold-only ones
+    order = store._order_host()
+    cold = np.nonzero(order >= store.cache_rows)[0]
+    for pool in (np.arange(NODES), cold):
+        for _ in range(TELEM_COLLAPSE):
+            ids = torch.from_numpy(rng.choice(pool, BATCH, replace=False)
+                                   .astype(np.int32)).to(dev)
+            _, c = store.lookup_tiered(ids, collect_metrics=True)
+            hub.observe_counters(c)
+        hub.flush()
+        if pool is not cold:
+            base = hub.series["hot_hit_rate"].window_stats(
+                TELEM_COLLAPSE)["mean"]
+    fired = [a for a in hub.anomalies if a["series"] == "hot_hit_rate"]
+    check(fired, f"the hot tier's collapse fired no anomaly "
+          f"({list(hub.anomalies)})")
+    advice = hub.replan(PlanContext(
+        hot_capacity=store.cache_rows, total_rows=NODES,
+        degree=w["deg"].cpu().numpy(), expected_hit_rate=PLAN_HIT_RATE,
+        batch_cap=BATCH, max_wait_ms=SERVER_CFG["max_wait_ms"],
+        target_p99_ms=SERVER_CFG["slo_p99_ms"]))
+    check(any(a["key"] == "hot_capacity" for a in advice),
+          f"replan gave no hot_capacity advice: {advice}")
+    pm = FlightRecorder(path=os.path.join(tmp, "postmortem.json"),
+                        hub=hub).dump(reason="phase 16 (d)")
+    tracing.disable()
+    tracing.clear()
+    sink.close()
+    with open(pm) as f:
+        doc = json.load(f)
+    check(any(s["name"] == "fleet.telemetry_batch" for s in doc["spans"])
+          and doc["series"].get("hot_hit_rate")
+          and doc["counters"] == metrics.counters_dict(hub.counters()),
+          "the flight recorder's dump lacks the spans, series or counters")
+    kinds = [r["kind"] for r in read_jsonl(path)]
+    check("anomaly" in kinds and "advice" in kinds,
+          f"the hub's sink holds {sorted(set(kinds))}")
+    hot = {a["key"]: a for a in advice}["hot_capacity"]
+    print(f"fleet (d): {TELEM_BATCHES} metered batches, each counter vector "
+          f"recorded by TelemetryHub.observe_counters under "
+          f"set_sync_debug_mode('error'): no sync, {serve_ms:.1f} ms; "
+          f"after flush the hub's totals equal reduce_counters of the same "
+          f"vectors; lookups' hit rate {base:.4f} -> 0 over "
+          f"{TELEM_COLLAPSE} cold-only lookups: anomaly {fired[0]['detector']} at step "
+          f"{fired[0]['step']}; advice {[a['key'] for a in advice]} "
+          f"(hot_capacity {hot['current']} -> {hot['recommended']}); "
+          f"postmortem {len(doc['spans'])} spans, {len(doc['series'])} "
+          f"series; on {card}", flush=True)
+    return {"batches": TELEM_BATCHES, "serve_ms": serve_ms,
+            "hit_rate": base, "anomaly": fired[0], "advice": advice,
+            "postmortem_spans": len(doc["spans"]),
+            "counters": metrics.counters_dict(got)}, hot_per_batch
+
+
+def fleet_actuation(dev, w, card, tmp):
+    """(b): two numpy-placement int8 stores (a quarter hot by degree) with
+    a fused engine and a server each replay one drifting trace, ABBA per
+    window; the adaptive arm's ``Actuator`` observes the served ids and
+    rotates through its live server's engine. Then the rotated store
+    against one built with its hot set, a knob swap inside and one
+    outside the lattice, and the fake-clock autoscaler pass."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import (Feature, MicroBatchServer, ServeConfig,
+                                  ServeEngine, actuator, fleet, metrics)
+    from quiver_tpu_torch.datasets import generate_drifting_trace
+    from quiver_tpu_torch.metrics import MetricsSink, read_jsonl
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch import GraphSAGE
+
+    def make_store():
+        return Feature(
+            device_cache_size=(NODES // 4) * quant.row_bytes(DIM, "int8"),
+            csr_topo=w["topo"], dedup_cold=True, dtype_policy="int8",
+            host_placement="numpy", device=dev).from_cpu_tensor(w["feat"])
+    t0 = time.perf_counter()
+    stores = {"static": make_store(), "adaptive": make_store()}
+    engines, servers = {}, {}
+    for name, s in stores.items():
+        engines[name] = ServeEngine(
+            GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES)), w["params"],
+            w["topo"], s, [SIZES], BATCH, fused_hot_hop=True,
+            fused_row_cap=ROW_CAP, seed=SEED, device=dev).warmup()
+        servers[name] = MicroBatchServer(engines[name],
+                                         ServeConfig(**ACT_SERVER_CFG))
+    setup_s = time.perf_counter() - t0
+    trace = generate_drifting_trace(ACT_WINDOWS * ACT_WINDOW, NODES,
+                                    skew=4.0,
+                                    rotate_every=ACT_DRIFT_AT * ACT_WINDOW,
+                                    hot_frac=0.05, seed=7)
+    clk = [0.0]
+    path = os.path.join(tmp, "actuate.jsonl")
+    sink = MetricsSink(path)
+    act = actuator.Actuator(sink=sink, clock=lambda: clk[0], cooldown_s=1.0,
+                            settle_s=0.0)
+    hits = {a: [] for a in stores}
+    rot = []
+    try:
+        for i in range(ACT_WINDOWS):
+            clk[0] = float(i)
+            ids = trace[i * ACT_WINDOW:(i + 1) * ACT_WINDOW].astype(np.int32)
+            arms = ["static", "adaptive"][::1 if i % 2 == 0 else -1]
+            for name in arms:
+                store, srv = stores[name], servers[name]
+                futs = srv.submit_many([int(v) for v in ids])
+                rows = [f.result(timeout=120) for f in futs]
+                check(all(np.isfinite(r).all() for r in rows[:8]),
+                      "(b): a served row is not finite")
+                _, c = store.lookup_tiered(torch.from_numpy(ids).to(dev),
+                                           collect_metrics=True)
+                c = np.asarray(c.cpu())
+                hits[name].append((int(c[metrics.HOT_ROWS]),
+                                   int(c[metrics.COLD_ROWS])))
+                if name == "adaptive":
+                    act.observe_ids(ids, total_rows=NODES)
+                    if i % ACT_ROTATE_EVERY == ACT_ROTATE_EVERY - 1:
+                        t1 = time.perf_counter()
+                        r = act.maybe_rotate(store, engine=engines[name],
+                                             max_rows=ACT_MAX_ROWS,
+                                             min_gain=2)
+                        if r is not None:
+                            rot.append((i, r["rotated"],
+                                        (time.perf_counter() - t1) * 1e3))
+        p99 = {a: servers[a].snapshot()["request"]["p99_ms"]
+               for a in servers}
+
+        def rate(name, lo, hi):
+            h = np.array(hits[name][lo:hi]).sum(axis=0)
+            return float(h[0] / h.sum())
+        rates = {a: {"before": rate(a, 1, ACT_DRIFT_AT),
+                     "after": rate(a, ACT_DRIFT_AT, ACT_WINDOWS),
+                     "last": rate(a, ACT_WINDOWS - 2, ACT_WINDOWS),
+                     "windows": [h / max(h + c, 1) for h, c in hits[a]]}
+                 for a in stores}
+        # the rotated store against one built with its hot set
+        ad = stores["adaptive"]
+        fresh = make_store()
+        o_ad, o_fr = ad._order_host(), fresh._order_host()
+        hot_ad, hot_fr = o_ad < ad.cache_rows, o_fr < fresh.cache_rows
+        promote = np.nonzero(hot_ad & ~hot_fr)[0]
+        demote = np.nonzero(hot_fr & ~hot_ad)[0]
+        fresh.rotate_hot_set(promote, demote)
+        check(np.array_equal(fresh._order_host() < fresh.cache_rows, hot_ad),
+              "(b): the rebuilt store's hot set differs")
+        probe = np.unique(np.concatenate([
+            promote, demote, np.random.default_rng(SEED + 162).integers(
+                0, NODES, 1 << 18)])).astype(np.int32)
+        pt = torch.from_numpy(probe).to(dev)
+        check(same_bits(ad[pt], fresh[pt]), "(b): the rotated store's rows "
+              "differ from a store built with its hot set")
+        # a swap inside the lattice applies, one outside is refused
+        act.attach_server(servers["adaptive"])
+        act.tick([{"key": "batch_cap", "recommended": BATCH // 2,
+                   "observed": {}, "reason": "phase 16 (b)"}])
+        applied = servers["adaptive"].knobs()["batch_fill_cap"]
+        refused = act.tick([{"key": "max_wait_ms", "recommended": 0.3,
+                             "observed": {}, "reason": "phase 16 (b)"}])
+        check(applied == BATCH // 2, f"(b): the batch_cap swap gave "
+              f"{applied}")
+        check(refused and refused[-1]["action"] == "refuse"
+              and refused[-1]["level"] == "WARN"
+              and servers["adaptive"].knobs()["max_wait_ms"]
+              == SERVER_CFG["max_wait_ms"],
+              f"(b): the swap outside the lattice: {refused}")
+    finally:
+        for srv in servers.values():
+            srv.close()
+        sink.close()
+    warn = [r for r in read_jsonl(path) if r.get("kind") == "actuate"
+            and r.get("level") == "WARN"]
+    check(warn and warn[-1]["action"] == "refuse",
+          "(b): no WARN actuate record on the sink")
+    traj = autoscale_pass(actuator, fleet, max_replicas=3, min_replicas=1)[0]
+    check(traj == AUTOSCALE_TRAJECTORY, f"(b): the autoscaler's trajectory "
+          f"{traj}")
+    print(f"fleet (b): two numpy-placement int8 stores ({ad.cache_rows} hot "
+          f"rows) with engines and servers, built in {setup_s:.2f} s; "
+          f"{ACT_WINDOWS} windows of {ACT_WINDOW} drifting-trace ids "
+          f"(the head moves at window {ACT_DRIFT_AT}), ABBA: hit rate before "
+          f"/ after the drift / last 2 windows: static "
+          f"{rates['static']['before']:.4f} / {rates['static']['after']:.4f}"
+          f" / {rates['static']['last']:.4f}, adaptive "
+          f"{rates['adaptive']['before']:.4f} / "
+          f"{rates['adaptive']['after']:.4f} / "
+          f"{rates['adaptive']['last']:.4f}; {len(rot)} rotations "
+          f"({sum(r[1] for r in rot)} pairs, "
+          f"{', '.join('%.1f' % r[2] for r in rot)} ms each with the "
+          f"refresh); served p99 static {p99['static']:.2f} ms, adaptive "
+          f"{p99['adaptive']:.2f} ms; on {card}", flush=True)
+    print(f"fleet (b): the rotated store's rows equal a store built with "
+          f"its hot set bit for bit ({probe.size} ids); batch_cap swap to "
+          f"{applied} applied, max_wait_ms 0.3 refused (WARN); autoscaler "
+          f"trajectory {traj}", flush=True)
+    for s in (*stores.values(), fresh):
+        s.close()
+    return {"setup_s": setup_s, "hit_rates": rates, "rotations": rot,
+            "served_p99_ms": p99, "autoscale_trajectory": traj,
+            "probe_ids": int(probe.size)}
+
+
+def served_batch_bytes(eng, seeds, hs):
+    """The least bytes one served batch moves: each hop's sampling bytes
+    (as ``sample_hop_bytes``), each distinct frontier row once from its
+    tier (hot codes and sidecars on the card, cold from the pinned
+    tier), and the fp32 rows written."""
+    import torch
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import fused
+    seeds = eng.pad_seeds(seeds)
+    n_id, layers = fused.fused_sample_multihop(
+        eng._indptr, eng._indices, seeds, SIZES, hs, ROW_CAP)
+    total, cur = 0, seeds
+    for k, layer in zip(SIZES, layers):
+        bs = cur.shape[0]
+        total += 4 * bs + 8 * int((cur >= 0).sum()) \
+            + 4 * int(layer.edge_count) + 4 * bs * k + 4 * bs
+        cur = layer.n_id
+    store = eng._store
+    live = torch.unique(n_id[n_id >= 0].long())
+    rows = store.feature_order.long()[live]
+    hot = int((rows < store.cache_rows).sum())
+    total += hot * quant.row_read_bytes(store.device_part) \
+        + (live.numel() - hot) * quant.row_read_bytes(store._host_offload) \
+        + 4 * DIM * n_id.shape[0]
+    return int(total)
+
+
+def capacity_trial(eng, rate):
+    """One steady replay at ``rate`` against a fresh server: (sustained,
+    completed rps, p99 ms)."""
+    from quiver_tpu_torch import MicroBatchServer, ServeConfig, traffic
+    rate = max(rate, 16.0 / CAPACITY_TRIAL_S)
+    seconds = min(CAPACITY_TRIAL_S, CAPACITY_TRIAL_MAX / rate)
+    trace = traffic.generate_scenario(
+        "steady", seconds, rate, NODES,
+        mix={"interactive": 1.0}, seed=SEED + int(rate) % 1000)
+    srv = MicroBatchServer(eng, ServeConfig(**dict(
+        SERVER_CFG, queue_depth=1 << 16, shed_queue_frac=1.0)))
+    try:
+        rep = traffic.replay(trace, srv, budget_ms=CAPACITY_BUDGET_MS)
+    finally:
+        srv.close()
+    r = rep["tenants"]["interactive"]
+    p99 = r["latency"]["p99_ms"]
+    ok = (r["completed"] == r["offered"] and p99 is not None
+          and p99 <= CAPACITY_BUDGET_MS
+          and rep["offer_wall_s"] <= 1.1 * seconds)
+    return ok, rate, r["completed_rps"], p99, rep["offer_wall_s"]
+
+
+def fleet_capacity(dev, w, card, tmp, gather_gbps):
+    """(c): the dispatch p50 of a full-fill ``engine.run`` loop, the
+    served batch's bytes and phase 2's gather rate into
+    ``capacity.predict``, the coalescer's per-request host cost from a
+    staged burst, then a doubling-and-bisect search of at most
+    CAPACITY_TRIALS steady replays from the predicted rate, and
+    ``capacity.verdict``."""
+    import numpy as np
+    import torch
+    from quiver_tpu_torch import (MicroBatchServer, ServeConfig, ServeEngine,
+                                  capacity, GraphSAGE)
+    from quiver_tpu_torch.metrics import MetricsSink
+    eng = ServeEngine(GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES)),
+                      w["params"], w["topo"], w["store"], [SIZES], BATCH,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP, seed=SEED,
+                      device=dev).warmup()
+    rng = np.random.default_rng(SEED + 163)
+    lat = []
+    for _ in range(16):
+        ids = torch.from_numpy(rng.choice(NODES, BATCH, replace=False)
+                               .astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(ids)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    dispatch = pcts(lat)[0]
+    cost = served_batch_bytes(eng, ids, [11, 22, 33])
+    srv = MicroBatchServer(eng, ServeConfig(**dict(
+        SERVER_CFG, queue_depth=2 * CAPACITY_BURST, shed_queue_frac=1.0)),
+        start=False)
+    futs = srv.submit_many([int(v) for v in rng.choice(
+        NODES, CAPACITY_BURST, replace=False)])
+    t0 = time.perf_counter()
+    srv.start()
+    for f in futs:
+        f.result(timeout=120)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    burst_batches = srv.snapshot()["serving"]["batches"]
+    srv.close()
+    overhead = max(0.0, burst_ms - burst_batches * dispatch) / CAPACITY_BURST
+    pred = capacity.predict(
+        batch_cap=BATCH, dispatch_ms=dispatch,
+        budget_p99_ms=CAPACITY_BUDGET_MS, replicas=1,
+        max_wait_ms=SERVER_CFG["max_wait_ms"], overhead_per_req_ms=overhead,
+        probe={"gather_gbps": gather_gbps}, cost=cost)
+    trials, good, bad = [], None, None
+    rate = pred["predicted_rps"]
+    for _ in range(CAPACITY_TRIALS):
+        ok, rate, rps, p99, offer = capacity_trial(eng, rate)
+        trials.append({"rate": rate, "sustained": ok, "completed_rps": rps,
+                       "p99_ms": p99, "offer_wall_s": offer})
+        if ok:
+            good = max(good or 0.0, rate)
+            rate = rate * 2 if bad is None else (rate + bad) / 2
+        else:
+            bad = rate if bad is None else min(bad, rate)
+            rate = rate / 2 if good is None else (good + rate) / 2
+    # the best sustained trial's rate; none sustained: the slowest
+    # trial's completions, the nearest the search came
+    measured = (max(t["completed_rps"] for t in trials if t["sustained"])
+                if good is not None else
+                min(trials, key=lambda t: t["rate"])["completed_rps"])
+    verdict = capacity.verdict(pred, measured)
+    with MetricsSink(os.path.join(tmp, "capacity.jsonl")) as sink:
+        capacity.emit(sink, {**pred, "verdict": verdict, "trials": trials})
+    print(f"fleet (c): dispatch p50 {dispatch:.3f} ms (16 full batches), "
+          f"served batch {cost} B (floor {pred['floor_ms']} ms at "
+          f"{gather_gbps:.1f} GB/s), coalescer host cost "
+          f"{overhead * 1e3:.2f} us a request ({CAPACITY_BURST} staged in "
+          f"{burst_batches} batches, {burst_ms:.1f} ms); predicted "
+          f"{pred['predicted_rps']:.1f} req/s (fill {pred['fill']}, "
+          f"utilization cap {pred['utilization_cap']}, budget p99 "
+          f"{CAPACITY_BUDGET_MS:g} ms); trials "
+          + ", ".join(f"{t['rate']:.0f}/s {'ok' if t['sustained'] else 'no'}"
+                      f" ({t['completed_rps']:.0f}/s, p99 {t['p99_ms']} ms, "
+                      f"offer {t['offer_wall_s']:.2f} s)" for t in trials)
+          + f"; verdict {verdict}; on {card}", flush=True)
+    return {"dispatch_p50_ms": dispatch, "cost_bytes": cost,
+            "overhead_per_req_ms": overhead, "prediction": pred,
+            "trials": trials, "verdict": verdict}
+
+
+def phase_fleet(dev, card, gather_gbps):
+    """Phase 16: the serving fleet's control plane (module doc). The
+    replicas boot while (d) and (b) run in this process; (c) runs after
+    the fleet has stopped. Returns the record, the replicas' launches
+    and their server batches."""
+    secs, rec = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+    tmp = tempfile.mkdtemp(prefix="qt_fleet_")
+    t_all = time.perf_counter()
+    sup = None
+    # the killed replica's torn connections: asyncio logs each abandoned
+    # frame's exception, and (a)'s outcomes count them instead
+    logging.getLogger("asyncio").setLevel(logging.CRITICAL)
+    try:
+        sup, ports, sinks, events = fleet_start(tmp)
+        import torch
+        w = part("world", fleet_world, dev)
+        rec["telemetry"], hot_per_batch = part("(d)", fleet_telemetry, dev,
+                                               w, card, tmp)
+        rec["actuation"] = part("(b)", fleet_actuation, dev, w, card, tmp)
+        rec["fleet"], launches, batches = part(
+            "(a)", fleet_replay, sup, ports, sinks, events, tmp, card,
+            hot_per_batch)
+        sup.close()
+        sup = None
+        rec["capacity"] = part("(c)", fleet_capacity, dev, w, card, tmp,
+                               gather_gbps)
+        w["store"].close()
+        del w
+        torch.cuda.empty_cache()
+    finally:
+        if sup is not None:
+            sup.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        import gc
+        gc.collect()
+        logging.getLogger("asyncio").setLevel(logging.NOTSET)
+    total = time.perf_counter() - t_all
+    print(f"phase 16: {total:.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = dict(secs, total=total)
+    return rec, launches, batches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -7552,6 +8712,13 @@ def main() -> int:
     # the clique kernel's main path is phase 15 (a): the int8 store's
     # fused route; its numbers are the fp32 store's lookup at a served
     # frontier
+    # phase 2's device gather rate: the bytes of gather_rows' bound over
+    # its own time
+    g = kern["gather_rows"]
+    gather_gbps = g["bound_ms"] * HBM_BYTES_PER_S / g["own_ms"] / 1e9
+    torch.cuda.empty_cache()
+    fleet_rec, fleet_launches, fleet_batches = phase_fleet(dev, card,
+                                                           gather_gbps)
     clique_served = clique_launches[("int8 half", "fused")]
     launches["gather_rows_sharded"] = clique_served["gather_rows_sharded"]
     k = clique_kernel["fp32 lookup"]
@@ -7582,7 +8749,9 @@ def main() -> int:
              shard_train_launches["e2e fused"][name] / SHARD_STEPS,
          "launches_per_clique_batch":
              clique_served[name] / CLIQUE_BATCHES,
-         "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS}
+         "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS,
+         "launches_per_fleet_batch":
+             fleet_launches.get(name, 0) / fleet_batches}
         for name in SOURCES]}
     line["kernels"][list(SOURCES).index("gather_rows_sharded")].update(
         kernel=k["kernel"], variants=clique_kernel,
@@ -7681,6 +8850,8 @@ def main() -> int:
             "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         "kernel": "gather_segments_kernel", "h2d_bytes_per_s": h2d,
+        "launches_per_fleet_batch":
+            fleet_launches.get("gather_elems", 0) / fleet_batches,
         "variants": {"heads int32": heads["int32"],
                      "heads int64": heads["int64"],
                      "weights pool": weight_gathers_rec["span"]}})
@@ -7792,6 +8963,7 @@ def main() -> int:
             "own_ms", "ms", "plain_ms", "bound_ms")}}
     line["sharded"] = sharded
     line["clique"] = clique
+    line["fleet"] = fleet_rec
     # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
     # its launches over the whole run, against those of phase 6's check
     q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0)
@@ -7814,4 +8986,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replica"]:
+        sys.exit(replica_main(sys.argv[2:]))
     sys.exit(main())

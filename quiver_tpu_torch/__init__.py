@@ -40,14 +40,24 @@ it with one gather kernel; ``ShardTensor`` spans cards and pinned host
 memory the same way; ``multiprocessing`` sends stores to
 ``torch.multiprocessing`` workers by CUDA IPC and shared memory; and
 ``parallel.build_gspmd_train_step`` is the data x model (DTensor)
-step.
+step. Around the request path runs the fleet's control plane:
+``traffic`` replays seeded multi-tenant scenarios against a server or a
+client, ``TelemetryHub`` watches the counters and series (``telemetry``),
+``TailSampler`` keeps the traces that matter (``tailsampling``),
+``fleet`` aggregates replica processes' sinks behind a ``HealthRouter``
+under a ``ReplicaSupervisor``, ``Actuator`` swaps knobs and rotates the
+hot set (``actuator``), and ``capacity`` predicts what a fleet sustains.
 """
 
 __version__ = "0.1.0"
 
+from .actuator import Actuator, FleetAutoscaler, Knob
 from .comm import HostRankTable, TorchComm, get_comm_id, init_distributed
+from .faults import FaultPlan, FaultRule
 from .feature import (DeviceConfig, DistFeature, ExchangeCapPlan, Feature,
                       PartitionInfo)
+from .fleet import (FleetAggregator, FleetExporter, HealthRouter,
+                    ReplicaSupervisor, health_score)
 from .hetero import HeteroCSRTopo, HeteroGraphSageSampler
 from .hetero_feature import HeteroFeature
 from .metrics import (Collector, MetricsSink, SloBudget, StepStats,
@@ -69,27 +79,35 @@ from .serving import (MicroBatchServer, OverloadError, ServeConfig,
                       build_serve_step, build_sharded_serve_step,
                       default_tenant_classes)
 from .shard_tensor import ShardTensor, ShardTensorConfig
+from .tailsampling import TailSampler, TraceStore
+from .telemetry import FlightRecorder, PlanContext, TelemetryHub
+from .traffic import generate_scenario, replay
 from .utils import CSRTopo, parse_size
 from .utils.topo import Topo, init_p2p, p2pCliqueTopo
 
-from . import comm, rpc, serving
+from . import (actuator, capacity, comm, fleet, rpc, serving, tailsampling,
+               telemetry, traffic)
 
-__all__ = ["CSRTopo", "Collector", "DeadlineExceeded", "DeviceConfig",
-           "DistFeature", "ExchangeCapPlan", "Feature", "GAT", "GraphSAGE",
-           "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
-           "HeteroGraphSageSampler", "HostRankTable", "MetricsSink",
-           "MicroBatchServer", "MixedGraphSageSampler", "OverloadError",
-           "PartitionInfo", "RpcClient", "RpcError", "RpcServer",
-           "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",
-           "ShardTensor", "ShardTensorConfig", "ShardedServeEngine",
-           "SloBudget", "StepStats", "TenantClass", "Topo", "TorchComm",
-           "build_dist_train_step", "build_e2e_train_step",
-           "build_serve_step", "build_sharded_serve_step", "comm",
-           "default_tenant_classes", "get_comm_id", "init_distributed",
-           "init_p2p",
+__all__ = ["Actuator", "CSRTopo", "Collector", "DeadlineExceeded",
+           "DeviceConfig", "DistFeature", "ExchangeCapPlan", "FaultPlan",
+           "FaultRule", "Feature", "FleetAggregator", "FleetAutoscaler",
+           "FleetExporter", "FlightRecorder", "GAT", "GraphSAGE",
+           "GraphSageSampler", "HealthRouter", "HeteroCSRTopo",
+           "HeteroFeature", "HeteroGraphSageSampler", "HostRankTable",
+           "Knob", "MetricsSink", "MicroBatchServer",
+           "MixedGraphSageSampler", "OverloadError", "PartitionInfo",
+           "PlanContext", "ReplicaSupervisor", "RpcClient", "RpcError",
+           "RpcServer", "SampleJob", "ServeConfig", "ServeEngine",
+           "ServerClosed", "ShardTensor", "ShardTensorConfig",
+           "ShardedServeEngine", "SloBudget", "StepStats", "TailSampler",
+           "TelemetryHub", "TenantClass", "Topo", "TorchComm", "TraceStore",
+           "actuator", "build_dist_train_step", "build_e2e_train_step",
+           "build_serve_step", "build_sharded_serve_step", "capacity",
+           "comm", "default_tenant_classes", "fleet", "generate_scenario",
+           "get_comm_id", "health_score", "init_distributed", "init_p2p",
            "load_partition_info", "load_quantized_feature_partition",
            "load_quiver_feature_partition", "p2pCliqueTopo", "parse_size",
            "partition_feature_without_replication", "pmerge_counters",
-           "quantize", "quiver_partition_feature", "rpc",
+           "quantize", "quiver_partition_feature", "replay", "rpc",
            "save_partition_info", "save_quantized_feature_partition",
-           "serving"]
+           "serving", "tailsampling", "telemetry", "traffic"]

@@ -45,20 +45,48 @@ class SAGEConv(nn.Module):
         return self.lin_root(x_dst) + self.lin_nbr(mean_nbr)
 
 
+class RowKeyedDropout:
+    """Dropout masks keyed by row, passed as a model's ``generator``:
+    the ``j``-th dropout of a forward keeps value ``(r, c)`` by the
+    counter hash of ``(seed, rows[j][r], j, c)``, so a node's mask at a
+    layer does not depend on its row in the block. ``rows[j]`` are the
+    node ids of the rows the ``j``-th dropout sees (for ``GraphSAGE``,
+    the targets of ``adjs[j]``; -1 rows are keyed as id ``2**32 - 1``).
+    One object serves one forward."""
+
+    def __init__(self, seed: int, rows):
+        self.seed = int(seed)
+        self.rows = list(rows)
+        self.calls = 0
+
+    def keep(self, shape, keep_prob: float) -> torch.Tensor:
+        from ..ops.kernels._rng import BLOCK, block_base, rand_bits
+        j = self.calls
+        self.calls += 1
+        node = self.rows[j].to(torch.int64)[:shape[0]] & 0xFFFFFFFF
+        base = block_base(self.seed, node // BLOCK)[:, None]
+        lane = (node % BLOCK)[:, None]
+        col = torch.arange(shape[1], dtype=torch.int64, device=node.device)
+        bits = rand_bits(base, lane, (j << 16) + col[None, :])
+        return bits < int(keep_prob * 2**32)
+
+
 def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
     """flax's ``nn.Dropout`` in train mode: keep each value with
     probability ``1 - rate`` and scale the kept ones by ``1 / (1 -
     rate)``. The keep-mask is drawn from ``generator`` (a
     ``torch.Generator`` on ``x``'s device; ``None`` takes torch's
-    default one), never from a hidden global stream the caller cannot
-    seed."""
+    default one; or a :class:`RowKeyedDropout`), never from a hidden
+    global stream the caller cannot seed."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < keep_prob
+    keep = generator.keep(x.shape, keep_prob) \
+        if hasattr(generator, "keep") else \
+        torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=x.dtype) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -146,6 +146,19 @@ def build(names) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+class _LoadedLibraries:
+    """The loaded kernel libraries seen as an executable cache:
+    ``_cache_size()`` counts them, the hook ``StepStats.watch_compiles``
+    and ``TelemetryHub.watch_compiles`` read (the JAX package hands them
+    its jitted functions)."""
+
+    def _cache_size(self) -> int:
+        return len(_loaded)
+
+
+loaded_libraries = _LoadedLibraries()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     lib = _loaded.get(name)

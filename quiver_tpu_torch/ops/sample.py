@@ -72,19 +72,91 @@ class LayerSample(NamedTuple):
     e_id: Optional[torch.Tensor] = None
 
 
-def _draw_offsets(generator: torch.Generator, bs: int,
-                  device) -> torch.Tensor:
+class StreamDraws:
+    """The draws of one ``torch.Generator``'s stream, taken in the order
+    the samplers ask for them (the split route's draws). With
+    :class:`KeyedDraws` it is the one interface every sampler draws
+    through: ``offsets`` (a windowed sampler's anchors), ``positions``
+    (one ``_fisher_yates_rows``) and ``uniforms`` (one weighted hop);
+    ``hop`` gives a walk's hop its draws (the same stream) and ``stream``
+    the generator a per-call shuffle draws from."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+
+    def offsets(self, bs: int, device) -> torch.Tensor:
+        return torch.randint(0, 2**62, (bs,), generator=self.generator,
+                             device=device, dtype=torch.int64)
+
+    def positions(self, bs: int, k: int, device) -> torch.Tensor:
+        return torch.randint(0, 2**62, (k, bs), generator=self.generator,
+                             device=device, dtype=torch.int64)
+
+    def uniforms(self, bs: int, k: int, device) -> torch.Tensor:
+        return torch.rand((bs, k), generator=self.generator, device=device,
+                          dtype=torch.float32)
+
+    def hop(self, i: int, ids: torch.Tensor) -> "StreamDraws":
+        return self
+
+    def stream(self) -> Optional[torch.Generator]:
+        return self.generator
+
+
+class KeyedDraws:
+    """Draws keyed by node id: row ``b``'s draws are a function of
+    ``(seed, ids[b], draw number)`` only, the kernels' counter hash
+    (``kernels/_rng.py``) with ``blk`` and ``lane`` taken from the node id
+    in place of the row's position. So a node's picks do not depend on
+    where it sits in the frontier or on the other rows: a walk over a
+    slice of a batch draws, for each of its seeds, the tree the walk over
+    the whole batch draws. ``ids`` are the rows' node ids (-1 rows are
+    keyed as id ``2**32 - 1``). The unweighted samplers take it as their
+    ``generator``."""
+
+    OFFSET_DRAW = 1 << 20          # the anchors' draw number
+
+    def __init__(self, seed: int, ids: torch.Tensor):
+        from .kernels._rng import BLOCK, block_base
+        node = ids.to(torch.int64) & 0xFFFFFFFF
+        self.lane = node % BLOCK
+        self.base = block_base(int(seed), node // BLOCK)
+
+    def bits62(self, draw: int) -> torch.Tensor:
+        """Draw number ``draw`` of every row: 62 bits in an int64."""
+        from .kernels._rng import rand_bits
+        hi = rand_bits(self.base, self.lane, 2 * draw) & ((1 << 30) - 1)
+        lo = rand_bits(self.base, self.lane, 2 * draw + 1)
+        return (hi << 32) | lo
+
+    def offsets(self, bs: int, device) -> torch.Tensor:
+        return self.bits62(self.OFFSET_DRAW)
+
+    def positions(self, bs: int, k: int, device) -> torch.Tensor:
+        if not k:
+            return torch.zeros((0, bs), dtype=torch.int64, device=device)
+        return torch.stack([self.bits62(i) for i in range(k)])
+
+    def uniforms(self, bs: int, k: int, device) -> torch.Tensor:
+        raise ValueError("keyed draws serve the unweighted samplers only")
+
+
+def as_draws(source) -> "StreamDraws | KeyedDraws":
+    """A sampler's ``generator`` argument as draws: a ``torch.Generator``
+    (or None, torch's default stream) becomes its :class:`StreamDraws`;
+    a draws object passes through."""
+    return source if hasattr(source, "positions") else StreamDraws(source)
+
+
+def _draw_offsets(generator, bs: int, device) -> torch.Tensor:
     """``bs`` 62-bit draws: a windowed sampler's anchors (reduced modulo
     each span by the caller)."""
-    return torch.randint(0, 2**62, (bs,), generator=generator,
-                         device=device, dtype=torch.int64)
+    return as_draws(generator).offsets(bs, device)
 
 
-def _draw_positions(generator: torch.Generator, bs: int, k: int,
-                    device) -> torch.Tensor:
+def _draw_positions(generator, bs: int, k: int, device) -> torch.Tensor:
     """The ``[k, bs]`` 62-bit draws of one ``_fisher_yates_rows``."""
-    return torch.randint(0, 2**62, (k, bs), generator=generator,
-                         device=device, dtype=torch.int64)
+    return as_draws(generator).positions(bs, k, device)
 
 
 def _uniform_below(generator: torch.Generator,

@@ -18,8 +18,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import metrics
-from .sample import (LayerSample, _draw_offsets, _draw_positions,
-                     as_index_rows, as_index_rows_overlapping,
+from .sample import (KeyedDraws, LayerSample, StreamDraws, _draw_offsets,
+                     _draw_positions, as_index_rows, as_index_rows_overlapping,
                      compact_ids, compact_layer, edge_row_ids, permute_csr,
                      sample_layer, sample_layer_exact_wide,
                      sample_layer_rotation, sample_layer_window,
@@ -27,6 +27,28 @@ from .sample import (LayerSample, _draw_offsets, _draw_positions,
 from .weighted import sample_layer_weighted, sample_layer_weighted_window
 
 _METHODS = ("exact", "rotation", "window")
+
+
+class KeyedWalk:
+    """The hops' draws keyed by node id and hop, passed to
+    :func:`sample_multihop` in place of its generator: hop ``i`` draws
+    from ``KeyedDraws(hop_seeds[i], frontier)``, so each seed's sampled
+    tree is the same in any batch that holds it (the 2-D train step's
+    ``data`` ranks each walk their slice of the batch). Unweighted hops
+    only."""
+
+    def __init__(self, hop_seeds: Sequence[int]):
+        self.hop_seeds = [int(s) for s in hop_seeds]
+
+    def hop(self, i: int, ids: torch.Tensor) -> KeyedDraws:
+        if i >= len(self.hop_seeds):
+            raise ValueError(f"a KeyedWalk needs one seed per hop: "
+                             f"{len(self.hop_seeds)} seeds")
+        return KeyedDraws(self.hop_seeds[i], ids)
+
+    def stream(self):
+        raise ValueError("a KeyedWalk cannot draw the per-call shuffle: "
+                         "pass indices_rows")
 
 
 def _check_knobs(method, edge_weight, indices_rows, weight_rows):
@@ -134,7 +156,8 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     tensor stamps ``eid[slot]`` (``CSRTopo.eid``, or the co-permuted map
     of a reshuffle). The ids land in ``LayerSample.e_id`` (-1 fill).
 
-    ``generator`` is a ``torch.Generator`` on the seeds' device; the
+    ``generator`` is a ``torch.Generator`` on the seeds' device, or a
+    :class:`KeyedWalk` (draws keyed by node id and hop); the
     topology arrays lie there or in pinned host memory. ``seeds_dense``
     promises the hop-0 seeds are valid-first (-1 fill only at the tail);
     later hops always are. ``collector`` (a ``metrics.Collector``)
@@ -142,8 +165,11 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     the card) and ``FRONTIER_CAP`` (its static capacity)."""
     _check_knobs(method, edge_weight, indices_rows, weight_rows)
     windowed = method in ("rotation", "window")
+    walk = generator if hasattr(generator, "hop") \
+        else StreamDraws(generator)
     after = None
     if windowed and indices_rows is None and edge_weight is None:
+        generator = walk.stream()
         indices_rows, eid, after = _fallback_rows(
             indptr, indices, seeds, sizes, generator, method,
             indices_stride, eid)
@@ -152,28 +178,29 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
     for i, k in enumerate(sizes):
         k = int(k)
         track = eid is not None
+        gen = walk.hop(i, cur)
         if weight_rows is not None:
             out = sample_layer_weighted_window(
-                indptr, indices_rows, weight_rows, cur, k, generator,
+                indptr, indices_rows, weight_rows, cur, k, gen,
                 stride=indices_stride, with_slots=track)
         elif edge_weight is not None:
             out = sample_layer_weighted(indptr, indices, edge_weight, cur,
-                                        k, generator, with_slots=track)
+                                        k, gen, with_slots=track)
         elif method == "rotation":
             out = sample_layer_rotation(indptr, indices_rows, cur, k,
-                                        generator, with_slots=track,
+                                        gen, with_slots=track,
                                         stride=indices_stride)
         elif method == "window":
             out = sample_layer_window(indptr, indices_rows, cur, k,
-                                      generator, with_slots=track,
+                                      gen, with_slots=track,
                                       stride=indices_stride)
         elif indices_rows is not None:
             out = sample_layer_exact_wide(
-                indptr, indices, indices_rows, cur, k, generator,
+                indptr, indices, indices_rows, cur, k, gen,
                 stride=indices_stride, with_slots=track,
                 hub_cap=suggest_hub_cap(int(cur.shape[0]), hub_frac))
         else:
-            out = sample_layer(indptr, indices, cur, k, generator,
+            out = sample_layer(indptr, indices, cur, k, gen,
                                with_slots=track)
         layer = compact_layer(cur, out[0],
                               seeds_dense=(i > 0) or seeds_dense)

@@ -34,14 +34,13 @@ from typing import Optional
 import torch
 
 from .sample import (_extract_window_cols, _gather_window, _pick_mask,
-                     _segment_heads, _window_layout, take, take_segments)
+                     _segment_heads, _window_layout, as_draws, take,
+                     take_segments)
 
 
-def _draw_uniforms(generator: torch.Generator, bs: int, k: int,
-                   device) -> torch.Tensor:
+def _draw_uniforms(generator, bs: int, k: int, device) -> torch.Tensor:
     """The ``[bs, k]`` fp32 uniforms in ``[0, 1)`` of one weighted hop."""
-    return torch.rand((bs, k), generator=generator, device=device,
-                      dtype=torch.float32)
+    return as_draws(generator).uniforms(bs, k, device)
 
 
 def _cdf_positions(w_row: torch.Tensor, u: torch.Tensor):

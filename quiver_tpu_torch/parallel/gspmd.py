@@ -18,18 +18,23 @@ the step is written out as GSPMD partitions it:
 - Adam's moments mirror the parameters (they are kept per shard), and
   scalars are replicated;
 - the topology and the features are replicated;
-- the loss is split over ``data``: every rank samples the whole global
-  batch with the same hop seeds (one stream, as JAX's one key drives
-  its whole batch), runs the model over that block, and takes the loss
-  over its ``data`` slice of the seeds; the gradients are averaged over
-  ``data``. So the step equals the single-rank ``build_train_step``
-  (split route) on the global batch up to reduction order, dropout
-  included. The ``data`` axis splits no work: each of its ranks
-  samples, runs forward and backward over the whole batch (JAX's XLA
-  partitions the sampler and the activations over it). Splitting the
-  walk needs a sampler whose draws do not depend on the frontier's
-  order (the split route's generator stream does), and dropout keyed
-  the same way.
+- the walk is split over ``data``: each ``data`` rank samples only its
+  slice of the global batch's seeds, with draws keyed by node id and hop
+  (``ops.sample_multihop.KeyedWalk``: the kernels' counter hash keyed by
+  the node, not its position), so each seed's sampled tree is its tree
+  in the walk over the whole batch; dropout is keyed by row the same way
+  (``models.sage.RowKeyedDropout``: node id and layer), so a seed's
+  logits do not depend on which slice walked it. The rank runs forward
+  and backward over its own frontier, takes the loss over its slice, and
+  the gradients and the loss are averaged over ``data``. So the step
+  equals itself at world size 1 (``mesh=None``: the whole batch in one
+  walk) up to reduction order, for a batch with no -1 fill (a padded
+  slot's logits read the row the frontier puts in its place, which
+  depends on the walk, as in the JAX package). JAX's XLA partitions
+  the sampler and the activations over ``data`` the same way; its draws
+  are keyed by position in the one program, so the two packages' trees
+  are held to each other by contract only (membership, ``min(deg,
+  k)``, distinct picks).
 
 The collectives are ``torch.distributed`` calls on the mesh's groups
 (one ``all_gather_into_tensor`` a Linear forward, one ``all_reduce``
@@ -50,8 +55,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .train import (TrainState, _check_method, _check_rows, _walk,
-                    cross_entropy_logits, layers_to_adjs)
+from ..models.sage import RowKeyedDropout
+from ..ops.sample_multihop import KeyedWalk, sample_multihop
+from .train import (TrainState, _check_method, _check_rows,
+                    cross_entropy_logits, layers_to_adjs,
+                    masked_feature_gather)
 
 
 def _chunks(n: int, parts: int):
@@ -204,6 +212,30 @@ def full_parameters(model, grad: bool = False) -> dict:
     return out
 
 
+def keyed_walk(feat, forder, indptr, indices, seeds, sizes, hop_seeds,
+               method: str = "exact", indices_rows=None,
+               indices_stride=None):
+    """One batch's ``(x, layers)`` with the draws keyed by node id and hop
+    (hop ``i`` keyed by ``hop_seeds[i]``): the split route's samplers
+    over :class:`KeyedWalk`, then the masked gather of the final
+    frontier. ``seeds`` are distinct valid ids first, -1 fill at the
+    tail."""
+    n_id, layers = sample_multihop(
+        indptr, indices, seeds, sizes, KeyedWalk(hop_seeds), method=method,
+        indices_rows=indices_rows,
+        indices_stride=indices_stride if indices_rows is not None else None,
+        seeds_dense=True)
+    return masked_feature_gather(feat, n_id, forder), layers
+
+
+def dropout_rows(seeds, layers):
+    """The node ids of the rows each of ``GraphSAGE``'s dropouts sees,
+    in forward order: the targets of ``adjs[j]`` (outermost hop first),
+    i.e. the seeds of the hops from the last to the second."""
+    fronts = [seeds] + [layer.n_id for layer in layers[:-1]]
+    return fronts[::-1][:-1]
+
+
 def build_gspmd_train_step(model, optimizer, sizes: Sequence[int], mesh,
                            data_axis: str = "data",
                            model_axis: str = "model",
@@ -215,17 +247,23 @@ def build_gspmd_train_step(model, optimizer, sizes: Sequence[int], mesh,
     every rank of ``mesh`` together, with ``state`` placed by
     :func:`shard_state` (``state.model`` is ``model``; the step steps
     ``state.optimizer``, the sharded counterpart of ``optimizer``).
-    ``seeds``/``labels`` hold the global batch (any multiple of the
-    ``data`` axis size; distinct valid ids first, -1 fill at the tail),
-    the same on every rank, as are ``hop_seeds`` (the split route's
-    generator seed is ``hop_seeds[0]``) and ``dropout_seed``. ``method``
+    ``mesh=None`` is world size 1: one process, the model unsharded, no
+    collectives. ``seeds``/``labels`` hold the global batch (any multiple
+    of the ``data`` axis size; distinct valid ids first, -1 fill at the
+    tail), the same on every rank, as are ``hop_seeds`` (hop ``i``'s
+    draws are keyed by ``hop_seeds[i]``) and ``dropout_seed``; each
+    ``data`` rank walks ``seeds[d*part:(d+1)*part]``. ``method``
     ``"rotation"``/``"window"`` require ``indices_rows``, as in JAX. The
-    loss returned is the global batch's mean."""
+    loss returned is the global batch's mean. :func:`keyed_walk` over a
+    rank's slice gives the walk that rank's step takes."""
     sizes = [int(k) for k in sizes]
     _check_method(method)
-    data_group = mesh[data_axis].get_group()
-    n_data = mesh[data_axis].size()
-    d_rank = mesh[data_axis].get_local_rank()
+    if mesh is None:
+        data_group, n_data, d_rank = None, 1, 0
+    else:
+        data_group = mesh[data_axis].get_group()
+        n_data = mesh[data_axis].size()
+        d_rank = mesh[data_axis].get_local_rank()
 
     def step(state: TrainState, feat, forder, indptr, indices, seeds,
              labels, hop_seeds, dropout_seed, indices_rows=None):
@@ -233,24 +271,26 @@ def build_gspmd_train_step(model, optimizer, sizes: Sequence[int], mesh,
             raise ValueError("the state's model must be the one the step "
                              "was built with")
         _check_rows(method, indices_rows, "gspmd")
+        if len(hop_seeds) != len(sizes):
+            raise ValueError(f"need one seed per hop: {len(sizes)} hops, "
+                             f"{len(hop_seeds)} seeds")
         b = seeds.shape[0]
         if b % n_data:
             raise ValueError(f"the global batch ({b}) must be a multiple "
                              f"of the {data_axis!r} axis size ({n_data})")
-        with torch.no_grad():
-            x, layers = _walk(None, feat, forder, indptr, indices, seeds,
-                              sizes, hop_seeds, method=method,
-                              indices_rows=indices_rows,
-                              indices_stride=indices_stride
-                              if indices_rows is not None else None)
-        adjs = layers_to_adjs(layers, b, sizes)
-        model.train()
-        gen = torch.Generator(device=x.device).manual_seed(
-            int(dropout_seed))
-        logits = model(x, adjs, generator=gen)[:b]
         part = b // n_data
         mine = slice(d_rank * part, (d_rank + 1) * part)
-        loss = loss_fn(logits[mine], labels[mine])
+        seeds, labels = seeds[mine], labels[mine]
+        with torch.no_grad():
+            x, layers = keyed_walk(feat, forder, indptr, indices, seeds,
+                                   sizes, hop_seeds, method=method,
+                                   indices_rows=indices_rows,
+                                   indices_stride=indices_stride)
+        adjs = layers_to_adjs(layers, part, sizes)
+        model.train()
+        keyed = RowKeyedDropout(dropout_seed, dropout_rows(seeds, layers))
+        logits = model(x, adjs, generator=keyed)[:part]
+        loss = loss_fn(logits, labels)
         loss.backward()
         params = [p for p in model.parameters() if p.grad is not None]
         flat = torch.cat([p.grad.reshape(-1) for p in params]

@@ -1308,6 +1308,121 @@ def test_server_failing_run_fails_its_futures_without_retry(graph):
         srv.close()
 
 
+# -- the fleet's control plane ---------------------------------------------------
+
+def _metered_engine(graph, dev):
+    topo = CSRTopo(indptr=graph["indptr"], indices=graph["indices"],
+                   device=dev)
+    store = Feature(device_cache_size=(N // 4) * quant.row_bytes(WIDE,
+                                                                "int8"),
+                    csr_topo=topo, dtype_policy="int8",
+                    host_placement="offload", device=dev) \
+        .from_cpu_tensor(graph["feat"].cpu())
+    return ServeEngine(GraphSAGE(WIDE, 16, 5, 2), None, topo, store,
+                       [[4, 3]], 64, fused_hot_hop=True,
+                       fused_row_cap=ROW_CAP, collect_metrics=True,
+                       device=dev).warmup(), store
+
+
+def test_fleet_hub_records_card_counters_without_a_sync(graph):
+    """``TelemetryHub.observe_counters`` and ``observe_step`` over the
+    metered engine's counter vectors on the card, under
+    ``set_sync_debug_mode("error")``: no host synchronisation; after
+    ``flush`` the totals equal ``metrics.reduce_counters`` of the same
+    vectors, and the newest vector was never read before it."""
+    from quiver_tpu_torch import metrics
+    from quiver_tpu_torch.telemetry import TelemetryHub
+    dev = graph["seeds"].device
+    eng, store = _metered_engine(graph, dev)
+    hub = TelemetryHub(fold_every=4, watches=())
+    vecs = []
+    seeds = [graph["seeds"][i * 64:(i + 1) * 64] for i in range(12)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, s in enumerate(seeds):
+            eng.run(s)
+            if i % 2:
+                hub.observe_step(0.001, eng.last_counters)
+            else:
+                hub.observe_counters(eng.last_counters)
+            vecs.append(eng.last_counters.clone())
+        _, c = store.lookup_tiered(graph["seeds"].clamp(min=0),
+                                   collect_metrics=True)
+        hub.observe_counters(c)
+        vecs.append(c.clone())
+        pending = len(hub._pending)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending >= 1
+    hub.flush()
+    want = metrics.reduce_counters(torch.stack(vecs))
+    np.testing.assert_array_equal(hub.counters(), want)
+    assert hub.series["step_ms"].total == 6
+
+
+def test_fleet_replica_on_the_card(graph):
+    """A replica as phase 16 runs one, at this graph's size: a metered
+    engine on the card behind ``MicroBatchServer`` (a ``TelemetryHub``
+    as its hub, the default tenant classes), ``RpcServer`` and a
+    ``TailSampler``; an ``RpcClient`` looks up 96 nodes under trace
+    contexts, every row equal to its batch replayed with the batch's
+    hop seeds, the hub's totals equal to the engine's counters, and a
+    kept trace carries the client's id."""
+    from quiver_tpu_torch import (MicroBatchServer, ServeConfig,
+                                  default_tenant_classes, rpc, tracing)
+    from quiver_tpu_torch import metrics
+    from quiver_tpu_torch.tailsampling import TailSampler
+    from quiver_tpu_torch.telemetry import TelemetryHub
+    dev = graph["seeds"].device
+    eng, _ = _metered_engine(graph, dev)
+    rec = _Recorded(eng)
+    hub = TelemetryHub(watches=())
+    kept = []
+
+    class Keep:
+        def emit(self, r, kind=None):
+            kept.append(r)
+            return r
+    srv = MicroBatchServer(rec, ServeConfig(max_wait_ms=5.0), hub=hub,
+                           tenants=default_tenant_classes(1000.0))
+    sampler = TailSampler(sink=Keep(), head_rate=1.0).attach()
+    front = rpc.RpcServer(srv, host="127.0.0.1", port=0)
+    cli = rpc.RpcClient({"r0": ("127.0.0.1", front.port)}, retries=0,
+                        hedge=False)
+    try:
+        nodes = [int(v) for v in np.arange(100, 196)]
+        futs = [cli.lookup_future(n, budget_ms=30000.0,
+                                  tenant="interactive") for n in nodes]
+        rows = [f.result(timeout=120) for f in futs]
+    finally:
+        cli.close()
+        front.close()
+        srv.close()
+        sampler.detach()
+        tracing.disable()
+        tracing.clear()
+    where = {}
+    for k, (s, _, _, _) in enumerate(rec.calls):
+        for slot, nid in enumerate(s.tolist()):
+            if nid >= 0:
+                where[nid] = (k, slot)
+    replay = {}
+    for n, row in zip(nodes, rows):
+        k, slot = where[n]
+        if k not in replay:
+            s, v, hs, _ = rec.calls[k]
+            replay[k] = eng.run(s, v, hop_seeds=hs).cpu().numpy()
+        np.testing.assert_allclose(row, replay[k][slot], atol=1e-4,
+                                   rtol=1e-4)
+    hub.flush()
+    assert hub.counters()[metrics.COLD_ROWS] > 0
+    assert any(r["root"] == "serve.request" for r in kept)
+    assert any(r["root"] == "rpc.lookup" for r in kept)
+    ids = {r["trace_id"] for r in kept if r["root"] == "serve.request"}
+    assert ids & {r["trace_id"] for r in kept if r["root"] == "rpc.lookup"}
+
+
 # -- heterogeneous graphs -------------------------------------------------------
 
 HETERO = {"paper": 3000, "author": 1000, "inst": 100}
