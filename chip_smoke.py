@@ -68,8 +68,9 @@ Phases:
    copy rate, and the own time of each of a served batch's three
    host-tier launches; a lookup at
    ``cold_budget=256`` (both fallbacks) equal to the one-table gather;
-   the store's lookup free of host synchronisation
-   (``torch.cuda.set_sync_debug_mode("error")``); and finite logits from
+   the store's lookup free of host synchronisation (the registry's
+   ``no_host_sync`` check on the card, ``op_lint.card_host_syncs``:
+   ``torch.cuda.set_sync_debug_mode``); and finite logits from
    the split route over the store and from ``dedup_gather=True`` over a
    plain table;
 7. the sampler: ``GraphSageSampler`` over the graph of phase 1 (its
@@ -84,8 +85,8 @@ Phases:
    launches per batch printed on ``sampler:`` lines. Checks: (b) equal
    to (a), (g) to (b) and (h) to (d) bit for bit on every batch; the HBM
    arms launch no kernel of the port and the HOST arms the topology
-   gathers; (b), (d), (f), (g) and (h) sample four more batches under
-   ``torch.cuda.set_sync_debug_mode("error")``; each arm's device time
+   gathers; (b), (d), (f), (g) and (h) sample four more batches with no
+   host synchronisation (``op_lint.card_host_syncs``); each arm's device time
    per batch and idle share come from ``torch.profiler`` over four
    batches; HOST mode's
    ``max_memory_allocated`` grows by less than the bytes of
@@ -329,7 +330,7 @@ Phases:
    ``DistFeature.from_partition`` serving 16 batches (p50/p99, device
    time and idle share, 3 ``fused_sample_hop`` and 2 ``gather_rows``
    launches a batch and no other, host synchronisations counted by
-   ``set_sync_debug_mode("warn")``, the dense lookup under "error"),
+   ``op_lint.card_host_syncs``, the dense lookup held to none),
    its logits equal to the single-store fused ``ServeEngine``'s bit for
    bit on every batch and its frontier rows to the fused walk's; the
    exchange's two ``gather_rows`` launches (the owner's read of raw
@@ -412,7 +413,27 @@ Phases:
    ``metrics.reduce_counters``, cold-only lookups firing an ``anomaly``,
    ``replan``'s advice and a ``FlightRecorder`` dump. Results on
    ``fleet`` lines;
-17. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
+17. profiling and the analysis contracts, ``profile (a)``..``(e)`` lines
+   and ``phase 17: N s``: (a) ``machine_probe()`` on the card (copy,
+   random-gather, pinned h2d and d2h rates) beside phase 6's h2d rate;
+   (b) ``analysis.registry.run_registry()`` over its nine entries on the
+   card: no ERROR, each spec's host synchronisations by the op recorder
+   equal to the card's sync debug mode's and to its declared count (the
+   compact exchange's one), the fused kernels launched by ``train_step``,
+   ``serve_step``, ``fused_multihop`` and ``fused_hot_hop`` and
+   ``gather_rows`` by ``lookup_tiered`` and ``dist_lookup``, and a
+   second pass that loads no kernel library; (c) ``StageProfiler`` at
+   full width (phase 1's graph, an int8 offload store a quarter hot,
+   GraphSAGE 100 -> 256 -> 256 -> 47): the served batch and the train
+   pipeline's ``sample``, ``gather``, ``step``, ``fused_hop`` and
+   ``fused_multihop`` stages, best and mean of 5 CUDA-event timings,
+   modeled bytes and FLOPs (the leaf hop's equal to ``hot_hop_cost``'s),
+   shares of the probe's peak and of the 3.35 TB/s bound, fed to a
+   ``TelemetryHub`` whose ``stage_share:*`` watch arms on every stage;
+   (d) ``host_lint`` over ``quiver_tpu_torch/``: only its documented
+   deviations; (e) ``profiling.trace`` around two served batches: the
+   Chrome trace holds the scope and the three kernels' device events;
+18. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -452,7 +473,8 @@ Phases:
    phase 12's under ``server``, phase 13's under ``hetero``, phase 14's
    under ``sharded``, phase 15's under ``clique``, phase 16's under
    ``fleet`` and each kernel's ``launches_per_fleet_batch``, over the
-   replicas' server batches), the script's total
+   replicas' server batches, phase 17's under ``profile`` and each
+   kernel's ``launches_registry_pass``), the script's total
    seconds, the card's line, then the
    last line ``{"ok": true,
    "device": {...}}``.
@@ -478,6 +500,16 @@ import tempfile
 import time
 import traceback
 from typing import NamedTuple
+
+# the byte counts of the kernels' bounds, shared with the profiler's
+# roofline (quiver_tpu_torch/analysis/costmodel.py)
+from quiver_tpu_torch.analysis.costmodel import (gather_rows_bytes,
+                                                 hot_hop_cost,
+                                                 sample_hop_bytes,
+                                                 served_batch_bytes)
+# what counts as a host synchronisation on the card: one implementation,
+# the registry's no_host_sync rule's
+from quiver_tpu_torch.analysis.op_lint import card_host_syncs
 
 SEED = 0
 NODES = 2_450_000
@@ -714,39 +746,6 @@ def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def sample_hop_bytes(seeds, k, counts) -> int:
-    """Least bytes: the seeds, each valid seed's indptr pair, each pick's
-    index entry, and the outputs."""
-    bs = seeds.shape[0]
-    valid = int((seeds >= 0).sum())
-    return 4 * bs + 8 * valid + 4 * int(counts.long().sum()) \
-        + 4 * bs * k + 4 * bs
-
-
-def hot_hop_cost(seeds, k, counts, nbrs, feat, forder, hot_rows):
-    """(bytes, fp32 ops) the leaf hop needs on this run's data: the
-    sampling bytes, each distinct hot storage row once (codes and
-    sidecars), the order entries of the distinct ids, and the fp32 rows
-    written for every seed and pick."""
-    import torch
-    from quiver_tpu_torch.ops import quant
-    ids = torch.cat([seeds, nbrs.reshape(-1)]).long()
-    ids = torch.unique(ids[ids >= 0])
-    rows = ids
-    extra = 0
-    if forder is not None:
-        rows = forder.long()[ids]
-        rows = rows[rows < hot_rows]
-        extra = 4 * ids.numel()
-    nrows = int(torch.unique(rows).numel())
-    dim = quant.tier_dim(feat)
-    bs = seeds.shape[0]
-    nbytes = sample_hop_bytes(seeds, k, counts) + extra \
-        + nrows * quant.row_read_bytes(feat) + 4 * dim * bs * (1 + k)
-    ops = 2 * dim * bs * (1 + k) if quant.is_quantized(feat) else 0
-    return nbytes, ops
-
-
 def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -765,16 +764,12 @@ def h2d_rate(dev):
 
 def host_gather_bound(tab, ids, h2d):
     """``(bound ms, by what, host bytes, device bytes, distinct rows)``
-    of a host-tier gather: each distinct row's data bytes (codes and
-    sidecars, not a packed row's padding) read once at the copy rate
-    ``h2d``, or the ids read and the fp32 rows written at 3.35 TB/s,
-    whichever is longer. Negative ids read nothing."""
-    import torch
-    from quiver_tpu_torch.ops import quant
-    live = ids[ids >= 0]
-    distinct = int(torch.unique(live).numel())
-    host_bytes = distinct * quant.row_read_bytes(tab)
-    dev_bytes = ids.shape[0] * 4 + live.shape[0] * 4 * quant.tier_dim(tab)
+    of a host-tier gather: the bytes of ``costmodel.gather_rows_bytes``
+    (each distinct row's data bytes, not a packed row's padding, read
+    once at the copy rate ``h2d``; or the ids read and the fp32 rows
+    written at 3.35 TB/s), whichever takes longer. Negative ids read
+    nothing."""
+    host_bytes, dev_bytes, distinct = gather_rows_bytes(tab, ids)
     b_host = host_bytes / h2d * 1e3
     b_dev = dev_bytes / HBM_BYTES_PER_S * 1e3
     if b_host >= b_dev:
@@ -1544,25 +1539,17 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
           "one-table gather", flush=True)
 
     # 4. no host synchronisation in the store's lookup; and the step?
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        store.lookup_tiered(fix_ids, masked=True)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng.run(requests[0], hop_seeds=hs)
-        step_note = "runs without one too"
-    except RuntimeError as e:
-        step_note = f"synchronises: {str(e).splitlines()[0][:160]}"
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    print(f"tiered check 4: the store's lookup_tiered runs under "
-          f"set_sync_debug_mode('error') without a host synchronisation; "
-          f"the whole serve step {step_note}", flush=True)
+    # (the registry's no_host_sync check on the card decides)
+    _, n_sync = card_host_syncs(store.lookup_tiered, (fix_ids,),
+                                {"masked": True})
+    check(n_sync == 0, f"the store's lookup_tiered synchronised with the "
+          f"host {n_sync} time(s)")
+    _, n_step = card_host_syncs(eng.run, (requests[0],), {"hop_seeds": hs})
+    step_note = "runs without one too" if n_step == 0 else \
+        f"synchronises {n_step} time(s)"
+    print(f"tiered check 4: the store's lookup_tiered runs under the "
+          f"card's sync debug mode without a host synchronisation; the "
+          f"whole serve step {step_note}", flush=True)
 
     # 5. the split route over the store; dedup_gather over a plain table
     split = ServeEngine(model, None, topo, store, [SIZES], BATCH, seed=SEED,
@@ -1735,14 +1722,11 @@ def run_arm(label, mode, kw, topo, batches, card, edge_weight=None,
                                 {**raw, **elems}.items()) + ")"
     sync = ""
     if label in sync_free:       # four more batches, none may synchronise
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for b in batches[1:5]:
-                s.sample(b)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        sync = "; 4 more batches sampled under set_sync_debug_mode(error)"
+        _, n_sync = card_host_syncs(lambda: [s.sample(b)
+                                             for b in batches[1:5]])
+        check(n_sync == 0, f"sampler: {name}: {n_sync} host "
+              "synchronisation(s) in 4 batches")
+        sync = "; 4 more batches sampled with no host synchronisation"
     print(f"sampler: {name}: {n} batches of {BATCH}, fanout {SIZES}: "
           f"{rec['ms_per_batch']:.3f} ms per batch (host clock + "
           f"synchronize), {edges / n:.0f} sampled edges per batch, "
@@ -2736,18 +2720,12 @@ class deterministic:
 
 
 def sync_free(fn, what):
-    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a
-    host synchronisation inside it fails the phase."""
-    import torch
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        return fn()
-    except RuntimeError as e:
-        raise SmokeFailure(f"{what} synchronised with the host: "
-                           f"{str(e).splitlines()[0][:200]}") from e
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    """``fn()``, checked by the registry's no_host_sync check on the
+    card (``op_lint.card_host_syncs``): a host synchronisation inside it
+    fails the phase."""
+    out, n = card_host_syncs(fn)
+    check(n == 0, f"{what} synchronised with the host {n} time(s)")
+    return out
 
 
 def pcts(lat):
@@ -2833,8 +2811,8 @@ def metered_serving(dev, ctx, card):
           f"{metrics.report(got[0])}", flush=True)
     sync_free(lambda: meng.run(requests[0], hop_seeds=hop_seeds[0]),
               "the metered serve step")
-    print("metrics serving: one metered batch runs under "
-          "set_sync_debug_mode('error') without a host synchronisation",
+    print("metrics serving: one metered batch runs under the card's sync "
+          "debug mode without a host synchronisation",
           flush=True)
 
     prof = {}
@@ -3010,7 +2988,7 @@ def metered_training(dev, gen, nodes, indptr, indices, card):
           f"{fmt_ms(cost)}), idle share "
           f"{prof[True].get('idle_share', float('nan')):.3f} / "
           f"{prof[False].get('idle_share', float('nan')):.3f}; one metered "
-          f"step under set_sync_debug_mode('error') without a host "
+          f"step under the card's sync debug mode without a host "
           f"synchronisation; {path} written and read back "
           f"({len(back)} records); on {card}", flush=True)
     return {"steps": METER_STEPS, "losses": losses, "frontier_fill": fills,
@@ -6176,21 +6154,9 @@ def exchange_gather_timing(calls, card, iters):
 
 
 def count_syncs(fn) -> int:
-    """The host synchronisations ``fn()`` makes, as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
-    import torch
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return sum("called a synchronizing CUDA operation" in str(w.message)
-               for w in seen)
+    """The host synchronisations ``fn()`` makes, as the registry's
+    no_host_sync check on the card counts them."""
+    return card_host_syncs(fn)[1]
 
 
 def sage(dev, dropout=0.0):
@@ -8215,7 +8181,7 @@ def fleet_telemetry(dev, w, card, tmp):
     hot = {a["key"]: a for a in advice}["hot_capacity"]
     print(f"fleet (d): {TELEM_BATCHES} metered batches, each counter vector "
           f"recorded by TelemetryHub.observe_counters under "
-          f"set_sync_debug_mode('error'): no sync, {serve_ms:.1f} ms; "
+          f"the card's sync debug mode: no sync, {serve_ms:.1f} ms; "
           f"after flush the hub's totals equal reduce_counters of the same "
           f"vectors; lookups' hit rate {base:.4f} -> 0 over "
           f"{TELEM_COLLAPSE} cold-only lookups: anomaly {fired[0]['detector']} at step "
@@ -8375,33 +8341,6 @@ def fleet_actuation(dev, w, card, tmp):
             "probe_ids": int(probe.size)}
 
 
-def served_batch_bytes(eng, seeds, hs):
-    """The least bytes one served batch moves: each hop's sampling bytes
-    (as ``sample_hop_bytes``), each distinct frontier row once from its
-    tier (hot codes and sidecars on the card, cold from the pinned
-    tier), and the fp32 rows written."""
-    import torch
-    from quiver_tpu_torch.ops import quant
-    from quiver_tpu_torch.ops.kernels import fused
-    seeds = eng.pad_seeds(seeds)
-    n_id, layers = fused.fused_sample_multihop(
-        eng._indptr, eng._indices, seeds, SIZES, hs, ROW_CAP)
-    total, cur = 0, seeds
-    for k, layer in zip(SIZES, layers):
-        bs = cur.shape[0]
-        total += 4 * bs + 8 * int((cur >= 0).sum()) \
-            + 4 * int(layer.edge_count) + 4 * bs * k + 4 * bs
-        cur = layer.n_id
-    store = eng._store
-    live = torch.unique(n_id[n_id >= 0].long())
-    rows = store.feature_order.long()[live]
-    hot = int((rows < store.cache_rows).sum())
-    total += hot * quant.row_read_bytes(store.device_part) \
-        + (live.numel() - hot) * quant.row_read_bytes(store._host_offload) \
-        + 4 * DIM * n_id.shape[0]
-    return int(total)
-
-
 def capacity_trial(eng, rate):
     """One steady replay at ``rate`` against a fresh server: (sustained,
     completed rps, p99 ms)."""
@@ -8452,7 +8391,7 @@ def fleet_capacity(dev, w, card, tmp, gather_gbps):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     dispatch = pcts(lat)[0]
-    cost = served_batch_bytes(eng, ids, [11, 22, 33])
+    cost = served_batch_bytes(eng, ids, [11, 22, 33], SIZES, ROW_CAP)
     srv = MicroBatchServer(eng, ServeConfig(**dict(
         SERVER_CFG, queue_depth=2 * CAPACITY_BURST, shed_queue_frac=1.0)),
         start=False)
@@ -8555,6 +8494,261 @@ def phase_fleet(dev, card, gather_gbps):
         f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
     rec["seconds"] = dict(secs, total=total)
     return rec, launches, batches
+
+
+PROFILE_REPS = 5               # (c): timed calls of each stage
+PROFILE_HOPS = [101, 102, 103]  # (c), (e): the walks' per-hop seeds
+
+
+def profile_world(dev):
+    """Phase 17's full-width world: phase 1's graph from the seed,
+    features from ``SEED + 17``, the int8 offload store a quarter hot by
+    degree (phase 6's configuration) and phase 3's GraphSAGE in a fused
+    ``ServeEngine``; the same features int8 on the card whole, and a
+    GraphSAGE with dropout 0.5 under Adam (phase 5's) for the train
+    pipeline."""
+    import torch
+    from types import SimpleNamespace
+    from quiver_tpu_torch import CSRTopo, Feature, GraphSAGE, ServeEngine
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.parallel import init_state
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, deg = make_graph(dev, gen, NODES)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    feat = torch.randn(NODES, DIM, generator=fgen, device=dev)
+    featq = quant.quantize(feat, "int8")
+    topo = CSRTopo(indptr=indptr, indices=indices, device=dev)
+    store = Feature(
+        device_cache_size=(NODES // 4) * quant.row_bytes(DIM, "int8"),
+        csr_topo=topo, dedup_cold=True, dtype_policy="int8",
+        host_placement="offload", device=dev).from_cpu_tensor(feat.cpu())
+    del feat
+    model, params = sage(dev)
+    eng = ServeEngine(model, params, topo, store, [SIZES], BATCH,
+                      fused_hot_hop=True, fused_row_cap=ROW_CAP, seed=SEED,
+                      device=dev).warmup()
+    torch.manual_seed(SEED + 17)
+    train_model = GraphSAGE(DIM, HIDDEN, CLASSES, len(SIZES),
+                            dropout=DROPOUT).to(dev)
+    seeds = torch.randperm(NODES, generator=fgen, device=dev)[:BATCH] \
+        .to(torch.int32)
+    labels = torch.randint(0, CLASSES, (BATCH,), generator=fgen, device=dev)
+    fx = SimpleNamespace(
+        indptr=indptr, indices=indices, feat=featq, forder=None,
+        seeds=seeds, labels=labels, sizes=SIZES, row_cap=ROW_CAP,
+        hop_seeds=PROFILE_HOPS,
+        state=init_state(train_model, torch.optim.Adam(
+            train_model.parameters(), lr=LR)))
+    return eng, store, fx
+
+
+def registry_pass(dev, card):
+    """(b): every registry entry on the card, twice; one line per spec
+    (findings by rule, host synchronisations by the recorder and the
+    card, launches by kernel). Returns the record and the first pass's
+    launches by kernel."""
+    from quiver_tpu_torch.analysis import registry
+    from quiver_tpu_torch.ops.kernels import _build
+    libs = _build.loaded_libraries._cache_size()
+    specs = []
+    t0 = time.perf_counter()
+    findings, ran = registry.run_registry(device=dev, specs_out=specs)
+    first_s = time.perf_counter() - t0
+    check(len(ran) == 9, f"the registry ran {ran}")
+    errors = [str(f) for f in findings if f.level == "ERROR"]
+    check(not errors, "registry ERROR findings on the card: "
+          + "; ".join(errors)[:800])
+    by_spec, launches = {}, {}
+    for spec in specs:
+        rec = spec.recording()
+        rules: dict = {}
+        for f in findings:
+            if f.entry == spec.name:
+                key = f"{f.rule} {f.level}"
+                rules[key] = rules.get(key, 0) + 1
+        check(spec.card_syncs == len(rec.syncs) == spec.host_syncs,
+              f"{spec.name}: the card counts {spec.card_syncs} host "
+              f"synchronisations, the recorder {len(rec.syncs)}, the "
+              f"entry declares {spec.host_syncs}")
+        for k, v in rec.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        by_spec[spec.name] = {"findings": rules, "syncs": len(rec.syncs),
+                              "card_syncs": spec.card_syncs,
+                              "launches": dict(rec.launches)}
+        rules_s = ", ".join(f"{k} x{v}" for k, v in sorted(rules.items()))
+        made_s = ", ".join(f"{k} {v}" for k, v in rec.launches.items())
+        print(f"profile (b): {spec.name}: findings {rules_s or 'none'}; "
+              f"host syncs: recorder {len(rec.syncs)}, card "
+              f"{spec.card_syncs} (declared {spec.host_syncs}); launches "
+              f"{made_s or 'none'}", flush=True)
+    for entry, want in (("train_step", ("fused_sample_hop", "fused_hot_hop")),
+                        ("serve_step", ("fused_sample_hop", "fused_hot_hop")),
+                        ("fused_multihop",
+                         ("fused_sample_hop", "fused_hot_hop")),
+                        ("fused_hot_hop", ("fused_hot_hop",)),
+                        ("lookup_tiered", ("gather_rows",)),
+                        ("dist_lookup", ("gather_rows",))):
+        for name, r in by_spec.items():
+            if name.split("[")[0] == entry:
+                check(all(r["launches"].get(k, 0) > 0 for k in want),
+                      f"{name} launched {r['launches']}, expected {want}")
+    libs_first = _build.loaded_libraries._cache_size()
+    t0 = time.perf_counter()
+    again, _ = registry.run_registry(device=dev)
+    second_s = time.perf_counter() - t0
+    libs_second = _build.loaded_libraries._cache_size()
+    check(libs_second == libs_first and not [
+        f for f in again if f.level == "ERROR"],
+          f"the second registry pass loaded {libs_second - libs_first} "
+          "kernel libraries or found errors")
+    print(f"profile (b): {len(specs)} specs of {len(ran)} entries on "
+          f"{card}: 0 ERROR; {sum(f.level == 'INFO' for f in findings)} "
+          f"INFO; kernel libraries {libs} before, {libs_first} after the "
+          f"first pass, {libs_second} after the second; passes "
+          f"{first_s:.2f} s and {second_s:.2f} s; launches in the first "
+          f"pass: {nonzero(launches)}", flush=True)
+    return {"specs": by_spec, "libraries": [libs, libs_first, libs_second],
+            "seconds": [first_s, second_s]}, launches
+
+
+def stage_profile(dev, card, eng, fx, probe):
+    """(c): the full-width stage profile: the served batch (one group)
+    and the train pipeline's five stages, best and mean of PROFILE_REPS
+    CUDA-event timings each, modeled bytes and FLOPs, shares of the
+    probe's peak; the leaf hop held to ``hot_hop_cost`` and set against
+    phase 2's 3.35 TB/s bound; the records fed to a ``TelemetryHub``."""
+    from quiver_tpu_torch import TelemetryHub
+    from quiver_tpu_torch.analysis.costmodel import cost_of_fn
+    from quiver_tpu_torch.profile import (ProfileGroup, ProfileStage,
+                                          StageProfiler, render_records)
+    hub = TelemetryHub()
+    prof = StageProfiler(reps=PROFILE_REPS, probe=probe, hub=hub)
+    served = fx.seeds[:BATCH]
+
+    def serve(seeds):
+        return eng.run(seeds, hop_seeds=PROFILE_HOPS)
+    prof.add_group(ProfileGroup("served_batch", [ProfileStage(
+        "serve", serve, (served,), cost=cost_of_fn(serve, (served,)))]))
+    prof.add_pipeline(fixture=fx)
+    records = prof.run()
+    for line in render_records(records).splitlines():
+        print(f"profile (c): {line}", flush=True)
+    pipe = prof.groups[-1]
+    hop = pipe.stages[3]
+    out = hop.fn(*hop.args)
+    want, ops = hot_hop_cost(hop.args[2], SIZES[-1], out[1], out[0],
+                             hop.args[3], None, fx.feat.data.shape[0])
+    check(hop.cost.total_bytes == want and hop.cost.flops == ops,
+          f"the fused_hop stage models {hop.cost.total_bytes} bytes, "
+          f"hot_hop_cost {want}")
+    rows = {}
+    for rec in records[1:]:
+        for st in rec["stages"]:
+            m = st["modeled"]
+            b_ms, b_by = bound(m["total_bytes"], m["flops"])
+            rows[f"{rec['entry']}/{st['stage']}"] = dict(
+                st, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / st["best_ms"])
+            print(f"profile (c): {rec['entry']}/{st['stage']}: best "
+                  f"{st['best_ms']:.4f} ms, mean {st['mean_ms']:.4f} ms "
+                  f"(CUDA events, {PROFILE_REPS} calls); modeled "
+                  f"{m['total_bytes']} bytes, {m['flops']} FLOPs; "
+                  f"{st.get('achieved_gbps', 0):.1f} GB/s = "
+                  f"{100 * st.get('efficiency', 0):.1f}% of the probe's "
+                  f"{st.get('peak')}; share {st['share']}; 3.35 TB/s "
+                  f"bound {b_ms:.4f} ms by {b_by} = "
+                  f"{100 * b_ms / st['best_ms']:.1f}% of best; on {card}",
+                  flush=True)
+    leaf = rows["train_pipeline/fused_hop"]
+    print(f"profile (c): leaf hop: modeled {want} bytes = hot_hop_cost on "
+          f"the same input; best {leaf['best_ms']:.4f} ms against the "
+          f"{leaf['bound_ms']:.4f} ms bound of phase 2's 3.35 TB/s: "
+          f"{100 * leaf['bound_share']:.1f}%", flush=True)
+    armed = sorted(n for n in hub._detectors if n.startswith("stage_share:"))
+    check(len(armed) == sum(len(g.stages) for g in prof.groups),
+          f"the hub's stage_share:* watch armed {armed}")
+    print(f"profile (c): TelemetryHub: the default stage_share:* watch "
+          f"armed on {len(armed)} series ({', '.join(armed)}); "
+          f"{len(hub.anomalies)} anomalies after one pass", flush=True)
+    return {"stages": rows, "armed": armed}
+
+
+def chrome_trace(eng, fx, card):
+    """(e): ``profiling.trace`` around two served batches: the Chrome
+    trace's event count, the scope and the kernels' device events."""
+    from quiver_tpu_torch import profiling
+    tmp = tempfile.mkdtemp(prefix="qt_trace_")
+    try:
+        with profiling.trace(tmp, "served.json"):
+            for i in range(2):
+                with profiling.scope("qt.served_batch"):
+                    eng.run(fx.seeds[:BATCH].roll(i), hop_seeds=PROFILE_HOPS)
+        with open(os.path.join(tmp, "served.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = [str(e.get("name", "")) for e in events]
+    counts = {k: sum(k in n for n in names) for k in (
+        "qt.served_batch", "fused_sample_hop_kernel", "fused_hot_hop_kernel",
+        "gather_rows")}
+    # the cold fixup's host-tier reads: any of gather.cu's row kernels
+    counts["gather_rows"] = sum("gather_rows" in n and "_kernel" in n
+                                for n in names)
+    print(f"profile (e): Chrome trace of 2 served batches: {len(events)} "
+          f"events; {counts}; on {card}", flush=True)
+    check(all(counts.values()), f"the Chrome trace lacks {counts}")
+    return {"events": len(events), "counts": counts}
+
+
+def phase_profile(dev, card, h2d):
+    """Phase 17: the machine probe (a), the registry's entry points on
+    the card (b), the full-width stage profile (c), the host lint over
+    the port (d) and a Chrome trace of two served batches (e). ``h2d``
+    is phase 6's pinned-to-device copy rate in bytes/s."""
+    import torch
+    from quiver_tpu_torch.analysis import host_lint
+    from quiver_tpu_torch.profile import machine_probe
+    secs, rec = {}, {}
+    t_all = time.perf_counter()
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+    probe = part("(a)", machine_probe, False, 3, None, dev)
+    rec["probe"] = probe
+    print(f"profile (a): machine probe on {card} "
+          f"({probe['device']}, power limit {probe['power_limit']}): memcpy "
+          f"{probe['memcpy_gbps']} GB/s, random gather {probe['gather_gbps']} "
+          f"GB/s, h2d {probe['h2d_gbps']} GB/s (phase 6's h2d_rate "
+          f"{h2d / 1e9:.3f} GB/s), d2h {probe['d2h_gbps']} GB/s "
+          f"({probe['size_mb']} MB, best of 3, CUDA events)", flush=True)
+    rec["registry"], launches = part("(b)", registry_pass, dev, card)
+    eng, store, fx = part("world", profile_world, dev)
+    rec["stages"] = part("(c)", stage_profile, dev, card, eng, fx, probe)
+    t0 = time.perf_counter()
+    lint = host_lint.run_host_lint(root=os.path.dirname(
+        os.path.abspath(__file__)))
+    secs["(d)"] = time.perf_counter() - t0
+    by_rule: dict = {}
+    for f in lint:
+        by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    bad = [str(f) for f in lint if host_lint.documented(f) is None]
+    check(not bad, "host lint: " + "; ".join(bad)[:600])
+    print(f"profile (d): host lint over quiver_tpu_torch/: {len(lint)} "
+          f"findings {by_rule or ''}, all documented deviations "
+          f"({len(host_lint.DOCUMENTED)} listed)", flush=True)
+    rec["host_lint"] = by_rule
+    rec["trace"] = part("(e)", chrome_trace, eng, fx, card)
+    store.close()
+    del eng, store, fx
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_all
+    print(f"phase 17: {total:.2f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
+    rec["seconds"] = dict(secs, total=total)
+    return rec, launches
 
 
 def breakdown(eng, requests, x, layers):
@@ -8719,6 +8913,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_rec, fleet_launches, fleet_batches = phase_fleet(dev, card,
                                                            gather_gbps)
+    torch.cuda.empty_cache()
+    prof_rec, registry_launches = phase_profile(
+        dev, card, host_tier["h2d_bytes_per_s"])
     clique_served = clique_launches[("int8 half", "fused")]
     launches["gather_rows_sharded"] = clique_served["gather_rows_sharded"]
     k = clique_kernel["fp32 lookup"]
@@ -8751,7 +8948,8 @@ def main() -> int:
              clique_served[name] / CLIQUE_BATCHES,
          "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS,
          "launches_per_fleet_batch":
-             fleet_launches.get(name, 0) / fleet_batches}
+             fleet_launches.get(name, 0) / fleet_batches,
+         "launches_registry_pass": registry_launches.get(name, 0)}
         for name in SOURCES]}
     line["kernels"][list(SOURCES).index("gather_rows_sharded")].update(
         kernel=k["kernel"], variants=clique_kernel,
@@ -8964,6 +9162,7 @@ def main() -> int:
     line["sharded"] = sharded
     line["clique"] = clique
     line["fleet"] = fleet_rec
+    line["profile"] = prof_rec
     # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
     # its launches over the whole run, against those of phase 6's check
     q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0)

@@ -47,12 +47,24 @@ client, ``TelemetryHub`` watches the counters and series (``telemetry``),
 ``fleet`` aggregates replica processes' sinks behind a ``HealthRouter``
 under a ``ReplicaSupervisor``, ``Actuator`` swaps knobs and rotates the
 hot set (``actuator``), and ``capacity`` predicts what a fleet sustains.
+``analysis`` verifies the performance contract of every registered
+entry point (``python -m quiver_tpu_torch.analysis``), ``profile``
+attributes each stage's time against the machine's probed rates
+(``StageProfiler``, ``machine_probe``; ``python -m
+quiver_tpu_torch.profile``) and ``profiling`` holds the scopes, the
+trace and the ``hot_path`` marker.
 """
 
 __version__ = "0.1.0"
 
 from .actuator import Actuator, FleetAutoscaler, Knob
+from .async_sampler import (AsyncCudaNeighborSampler, AsyncNeighborSampler,
+                            sample_ahead)
 from .comm import HostRankTable, TorchComm, get_comm_id, init_distributed
+from .datasets import (GraphDataset, from_numpy_dir, generate_drifting_trace,
+                       generate_synthetic_cold_dataset,
+                       load_synthetic_cold_dataset)
+from .debug import show_tensor_info
 from .faults import FaultPlan, FaultRule
 from .feature import (DeviceConfig, DistFeature, ExchangeCapPlan, Feature,
                       PartitionInfo)
@@ -60,17 +72,24 @@ from .fleet import (FleetAggregator, FleetExporter, HealthRouter,
                     ReplicaSupervisor, health_score)
 from .hetero import HeteroCSRTopo, HeteroGraphSageSampler
 from .hetero_feature import HeteroFeature
+from .inference import layerwise_inference
+from .io import ExtentReader, StorageModel, plan_extents
 from .metrics import (Collector, MetricsSink, SloBudget, StepStats,
                       pmerge_counters)
 from .models import GAT, GraphSAGE
-from .ops.quant import quantize
+from .ops.quant import QuantizedTensor, plan_hot_capacity, quantize
 from .parallel import build_dist_train_step, build_e2e_train_step
-from .partition import (load_partition_info,
+from .partition import (load_disk_tier, load_disk_tier_store,
+                        load_partition_info,
                         load_quantized_feature_partition,
                         load_quiver_feature_partition,
                         partition_feature_without_replication,
-                        quiver_partition_feature, save_partition_info,
+                        quiver_partition_feature, save_disk_tier,
+                        save_partition_info,
                         save_quantized_feature_partition)
+from .pipeline import Pipeline, pipelined
+from .prefetch import ColdPrefetcher, StagingRing
+from .profile import StageProfiler, machine_probe
 from .pyg import GraphSageSampler, MixedGraphSageSampler, SampleJob
 from .rpc import (DeadlineExceeded, RpcClient, RpcError, RpcServer,
                   ServerClosed)
@@ -82,32 +101,48 @@ from .shard_tensor import ShardTensor, ShardTensorConfig
 from .tailsampling import TailSampler, TraceStore
 from .telemetry import FlightRecorder, PlanContext, TelemetryHub
 from .traffic import generate_scenario, replay
-from .utils import CSRTopo, parse_size
+from .utils import CSRTopo, parse_size, reindex_by_config, reindex_feature
 from .utils.topo import Topo, init_p2p, p2pCliqueTopo
 
-from . import (actuator, capacity, comm, fleet, rpc, serving, tailsampling,
-               telemetry, traffic)
+from . import (actuator, analysis, capacity, checkpoint, comm, datasets,
+               debug, faults, fleet, metrics, profile, profiling, rpc,
+               serving, tailsampling, telemetry, tracing, traffic)
 
-__all__ = ["Actuator", "CSRTopo", "Collector", "DeadlineExceeded",
-           "DeviceConfig", "DistFeature", "ExchangeCapPlan", "FaultPlan",
-           "FaultRule", "Feature", "FleetAggregator", "FleetAutoscaler",
-           "FleetExporter", "FlightRecorder", "GAT", "GraphSAGE",
-           "GraphSageSampler", "HealthRouter", "HeteroCSRTopo",
-           "HeteroFeature", "HeteroGraphSageSampler", "HostRankTable",
-           "Knob", "MetricsSink", "MicroBatchServer",
-           "MixedGraphSageSampler", "OverloadError", "PartitionInfo",
-           "PlanContext", "ReplicaSupervisor", "RpcClient", "RpcError",
-           "RpcServer", "SampleJob", "ServeConfig", "ServeEngine",
-           "ServerClosed", "ShardTensor", "ShardTensorConfig",
-           "ShardedServeEngine", "SloBudget", "StepStats", "TailSampler",
-           "TelemetryHub", "TenantClass", "Topo", "TorchComm", "TraceStore",
-           "actuator", "build_dist_train_step", "build_e2e_train_step",
-           "build_serve_step", "build_sharded_serve_step", "capacity",
-           "comm", "default_tenant_classes", "fleet", "generate_scenario",
-           "get_comm_id", "health_score", "init_distributed", "init_p2p",
+# torch-quiver's names (the reference __init__.py exports these); the
+# JAX package's TpuComm is this port's TorchComm
+NcclComm = TorchComm
+getNcclId = get_comm_id
+
+__all__ = ["Actuator", "AsyncCudaNeighborSampler", "AsyncNeighborSampler",
+           "CSRTopo", "ColdPrefetcher", "Collector", "DeadlineExceeded",
+           "DeviceConfig", "DistFeature", "ExchangeCapPlan", "ExtentReader",
+           "FaultPlan", "FaultRule", "Feature", "FleetAggregator",
+           "FleetAutoscaler", "FleetExporter", "FlightRecorder", "GAT",
+           "GraphDataset", "GraphSAGE", "GraphSageSampler", "HealthRouter",
+           "HeteroCSRTopo", "HeteroFeature", "HeteroGraphSageSampler",
+           "HostRankTable", "Knob", "MetricsSink", "MicroBatchServer",
+           "MixedGraphSageSampler", "NcclComm", "OverloadError",
+           "PartitionInfo", "Pipeline", "PlanContext", "QuantizedTensor",
+           "ReplicaSupervisor", "RpcClient", "RpcError", "RpcServer",
+           "SampleJob", "ServeConfig", "ServeEngine", "ServerClosed",
+           "ShardTensor", "ShardTensorConfig", "ShardedServeEngine",
+           "SloBudget", "StageProfiler", "StagingRing", "StepStats",
+           "StorageModel", "TailSampler", "TelemetryHub", "TenantClass",
+           "Topo", "TorchComm", "TraceStore", "actuator", "analysis",
+           "build_dist_train_step", "build_e2e_train_step", "build_serve_step",
+           "build_sharded_serve_step", "capacity", "comm",
+           "default_tenant_classes", "fleet", "from_numpy_dir",
+           "generate_drifting_trace", "generate_scenario",
+           "generate_synthetic_cold_dataset", "getNcclId", "get_comm_id",
+           "health_score", "init_distributed", "init_p2p",
+           "layerwise_inference", "load_disk_tier", "load_disk_tier_store",
            "load_partition_info", "load_quantized_feature_partition",
-           "load_quiver_feature_partition", "p2pCliqueTopo", "parse_size",
-           "partition_feature_without_replication", "pmerge_counters",
-           "quantize", "quiver_partition_feature", "replay", "rpc",
-           "save_partition_info", "save_quantized_feature_partition",
-           "serving", "tailsampling", "telemetry", "traffic"]
+           "load_quiver_feature_partition", "load_synthetic_cold_dataset",
+           "machine_probe", "p2pCliqueTopo", "parse_size",
+           "partition_feature_without_replication", "pipelined",
+           "plan_extents", "plan_hot_capacity", "pmerge_counters", "profile",
+           "profiling", "quantize", "quiver_partition_feature",
+           "reindex_by_config", "reindex_feature", "replay", "rpc",
+           "sample_ahead", "save_disk_tier", "save_partition_info",
+           "save_quantized_feature_partition", "serving", "show_tensor_info",
+           "tailsampling", "telemetry", "traffic"]

@@ -52,7 +52,9 @@ import torch.distributed as dist
 from . import metrics
 from .ops import quant
 from .ops.dedup import I32_MAX, unique_within_budget
+from .ops.kernels._build import gated
 from .ops.kernels.gather import gather_rows, packed_row_stride
+from .profiling import hot_path
 
 
 def get_comm_id() -> bytes:
@@ -185,6 +187,7 @@ def _unwire(resp: torch.Tensor, idx: torch.Tensor, feat) -> torch.Tensor:
     return gather_rows(resp, idx, out=out)
 
 
+@hot_path
 def dist_lookup_local(ids: torch.Tensor, g2h: torch.Tensor,
                       loc: torch.Tensor, feat, group, h_count: int,
                       rows_per_host: int, dtype=None, rep=None,
@@ -293,8 +296,9 @@ def dist_lookup_local(ids: torch.Tensor, g2h: torch.Tensor,
             collector.peak(metrics.EXCH_BUCKET_MAX, counts.max())
             collector.peak(metrics.EXCH_CAP, cap)
         if bad.item():
-            req, pos, _ = bucket(owner, local, valid, batch)
-            resp, idx = exchange(req, owner, pos, batch, table)
+            with gated():
+                req, pos, _ = bucket(owner, local, valid, batch)
+                resp, idx = exchange(req, owner, pos, batch, table)
         else:
             resp, idx_u = exchange(req_u, owner_u, pos_u.clamp(max=cap - 1),
                                    cap, table)

@@ -1,5 +1,8 @@
-"""Logging for the port (the part of ``quiver_tpu/debug.py`` that
-``datasets.py`` needs, as the port's own copy).
+"""Debug and logging helpers (counterpart of ``quiver_tpu/debug.py``).
+
+``show_tensor_info`` prints a tensor's shape, dtype, placement and size
+(the reference's ``qv.show_tensor_info``); ``log`` is the package's
+logger.
 
 The handler is attached once, marked, and only when the logger has none,
 so a re-import cannot double-log and an application's own handler keeps
@@ -12,6 +15,9 @@ from __future__ import annotations
 
 import logging
 import os
+
+import numpy as np
+import torch
 
 logger = logging.getLogger("quiver_tpu_torch")
 
@@ -43,3 +49,23 @@ _configure()
 
 def log(msg: str, *args):
     logger.info(msg, *args)
+
+
+def show_tensor_info(x) -> str:
+    """Shape, dtype, placement and bytes of a tensor (its device; a
+    DTensor's mesh and placements too) or, as in the JAX package, of a
+    numpy array; printed and returned."""
+    if torch.is_tensor(x):
+        placement = f"device={x.device}"
+        if hasattr(x, "placements") and hasattr(x, "device_mesh"):
+            placement += (f" mesh={tuple(x.device_mesh.mesh.shape)} "
+                          f"placements={tuple(x.placements)}")
+        nbytes = x.numel() * x.element_size()
+        info = (f"torch.Tensor shape={tuple(x.shape)} dtype={x.dtype} "
+                f"{placement} nbytes={nbytes}")
+    else:
+        arr = np.asarray(x)
+        info = (f"numpy shape={arr.shape} dtype={arr.dtype} "
+                f"nbytes={arr.nbytes}")
+    print(info)
+    return info

@@ -82,8 +82,10 @@ from . import faults, metrics
 from .comm import (build_dist_lookup_fn, cap_for_expected_load,
                    default_exchange_cap)
 from .pipeline import Pipeline
+from .profiling import hot_path
 from .ops import quant
 from .ops.dedup import dedup_take, unique_within_budget
+from .ops.kernels._build import gated
 from .ops.kernels.gather import gather_rows, prepare_sharded
 from .parallel.mesh import Mesh, make_mesh, row_sharded
 from .utils.device import resolve_device
@@ -424,6 +426,7 @@ class Feature:
         rows = self._gather_cached(dev_part, self._translate(safe, order))
         return rows * (ids_i >= 0).to(rows.dtype)[:, None]
 
+    @hot_path
     def _lookup_tiered(self, dev_part, host_part, ids, order,
                        masked: bool = False, collector=None):
         """The offload lookup (the JAX package's ``lookup_tiered_body``):
@@ -526,7 +529,8 @@ class Feature:
                                         device=dev),
                             torch.where(live, c_ids, skip[:budget]))
             x.index_copy_(0, cpos.long(), rows)
-            put_host(x[:n], torch.where(cold & over, cold_idx, skip))
+            with gated():
+                put_host(x[:n], torch.where(cold & over, cold_idx, skip))
             return x[:n]
 
         if not dedup:
@@ -552,9 +556,11 @@ class Feature:
             rows_u = torch.cat([rows_u, rows_u.new_zeros((1, dim))])
             inv = torch.where(valid_pos, inv, budget)
         narrow = rows_u.index_select(0, inv.long())
+        with gated():
+            fallback = compacted(uover)
         if masked:
-            return torch.where(uover, finish(compacted(uover)), narrow)
-        return torch.where(uover, compacted(uover), narrow)
+            return torch.where(uover, finish(fallback), narrow)
+        return torch.where(uover, fallback, narrow)
 
     # -- lookup (reference feature.py:296-333) ------------------------------
     def __getitem__(self, node_idx):

@@ -27,6 +27,7 @@ import torch
 
 from .. import metrics
 from . import quant
+from .kernels._build import gated
 from .kernels.gather import gather_rows
 
 I32_MAX = 2**31 - 1
@@ -101,8 +102,10 @@ def dedup_take(table, ids: torch.Tensor, budget: int,
                         dtype=quant.tier_dtype(table), device=ids.device))
     x = rows_u.index_select(0, inv.long())
     ids = ids.clamp(0, last).to(torch.int32)
-    return gather_rows(table, torch.where(over, ids, torch.full_like(ids, -1)),
-                       out=x)
+    with gated():
+        return gather_rows(table, torch.where(over, ids,
+                                              torch.full_like(ids, -1)),
+                           out=x)
 
 
 def unique_np(ids, valid=None) -> np.ndarray:

@@ -7,11 +7,23 @@ first use, into ``build/quiver_tpu_torch/`` beside the package; the file
 name carries a hash of the source, the ``*.cuh`` headers beside it and
 the flags, so an edited source or header never loads a stale library.
 Importing this module builds nothing.
+
+It also holds the hook through which the wrappers report to the op
+recorder of ``analysis.op_lint``: a ``ctypes`` launch never reaches
+torch's dispatcher, so :func:`recorded` hands each wrapper call (its
+arguments and its result) to the active recorder, and the ops the
+wrapper runs inside (its plain version on the CPU, its allocations on
+the card) are not recorded one by one. A CPU run and a card run thus
+record the same calls. :func:`gated` marks a predicated branch's reads,
+the port's counterpart of a JAX ``lax.cond`` branch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -84,6 +96,47 @@ def launched(err: int, name: str, kernel: str | None = None) -> None:
             for counts in _BY_KERNEL:
                 if kernel in counts:
                     counts[kernel] += 1
+
+
+# the active op recorder (analysis.op_lint.OpRecorder), and how many
+# predicated branches enclose the current call
+_RECORDER = contextvars.ContextVar("qt_op_recorder", default=None)
+_GATE = contextvars.ContextVar("qt_gate_depth", default=0)
+
+
+@contextlib.contextmanager
+def gated():
+    """Mark the reads inside as a predicated branch's. Where the JAX
+    package branches with ``lax.cond``, the port runs both branches and
+    predicates the ids of the one not taken (-1 ids read nothing); the
+    reads inside this block are that branch's, at one more depth for the
+    op recorder's budget rule, as reads inside a ``lax.cond`` branch are
+    for the jaxpr rules."""
+    token = _GATE.set(_GATE.get() + 1)
+    try:
+        yield
+    finally:
+        _GATE.reset(token)
+
+
+def gate_depth() -> int:
+    """How many :func:`gated` blocks enclose the current call."""
+    return _GATE.get()
+
+
+def recorded(name: str):
+    """Decorator for a kernel wrapper: while an op recorder is active
+    the call is handed to it whole (``recorder.kernel_call(name, fn,
+    args, kwargs)``), else it runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            rec = _RECORDER.get()
+            if rec is None:
+                return fn(*args, **kwargs)
+            return rec.kernel_call(name, fn, args, kwargs)
+        return inner
+    return wrap
 
 
 def find_nvcc() -> str:

@@ -107,6 +107,7 @@ def hot_hop_plain(indptr, indices, seeds, feat, k: int, seed: int,
 # -- wrappers ------------------------------------------------------------------
 
 
+@_build.recorded("fused_sample_hop")
 def fused_sample_hop(indptr, indices, seeds, k: int, seed,
                      row_cap: int = 2048):
     """One sampling hop: ``(nbrs [bs, k] int32, counts [bs] int32)``.
@@ -171,6 +172,7 @@ def hot_hop_vec(feat, seed_rows, pick_rows) -> int:
         seed_rows.data_ptr(), seed_rows.stride(0), pick_rows.data_ptr())
 
 
+@_build.recorded("fused_hot_hop")
 def fused_hot_hop(indptr, indices, seeds, feat, k: int, seed,
                   row_cap: int = 2048, feature_order=None,
                   hot_rows: Optional[int] = None, seed_rows_out=None):

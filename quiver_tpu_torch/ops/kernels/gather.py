@@ -250,6 +250,7 @@ def packed_kernel(on_host: bool, sharded: bool = False) -> str:
     return f"{name}_kernel" if on_host else f"{name}_hbm_kernel"
 
 
+@_build.recorded("gather_rows")
 def gather_rows(feat, ids, out=None):
     """``out[i] = feat[ids[i]]``. ``feat`` is a contiguous ``[N, D]``
     fp32, bf16, fp16 or int8 tensor, or an int8 ``QuantizedTensor``
@@ -327,6 +328,7 @@ def gather_elems_plain(table, ids):
     return torch.where(ids >= 0, vals, -1)
 
 
+@_build.recorded("gather_elems")
 def gather_elems(table, ids):
     """``out[i] = table[ids[i]]`` for a contiguous 1-D int32, int64 or
     fp32 ``table``; ``ids`` a contiguous 1-D int32 or int64 tensor. A
@@ -390,6 +392,7 @@ def gather_segments_plain(table, start, count, width):
     return gather_elems_plain(table, ids).reshape(start.shape[0], width)
 
 
+@_build.recorded("gather_segments")
 def gather_segments(table, start, count, width, out=None):
     """``out[i, j] = table[start[i] + j]`` for ``j < count[i]``, else -1
     (for fp32 its bits, a NaN): each seed's span of consecutive elements
@@ -574,6 +577,7 @@ def gather_rows_sharded_plain(tier, ids, out=None):
     return out.copy_(torch.where((ids >= 0)[:, None], rows, out))
 
 
+@_build.recorded("gather_rows_sharded")
 def gather_rows_sharded(tier, ids, out=None):
     """``out[i] = tier[ids[i]]`` over a ``quant.ShardedTier`` in one
     launch. Its blocks lie on ``tier.device`` (the lookups' card), on

@@ -162,6 +162,7 @@ def _i32(seed) -> int:
 # -- wrapper -------------------------------------------------------------------
 
 
+@_build.recorded("sample_layer_kernel")
 def sample_layer_kernel(indptr, indices, seeds, k: int, seed,
                         row_cap: int = 2048, rng: str = "hash"):
     """One sampling layer of the split walk: ``(nbrs [bs, k] int32 -1

@@ -47,8 +47,10 @@ from .. import metrics
 from ..ops import quant
 from ..ops.dedup import unique_within_budget
 from ..ops.kernels.fused import fused_multihop, fused_sample_multihop
+from ..ops.kernels._build import gated
 from ..ops.kernels.gather import gather_rows
 from ..ops.sample_multihop import _METHODS, sample_multihop
+from ..profiling import hot_path
 from ..pyg.sage_sampler import Adj, layer_shapes
 from .mesh import axis_size
 
@@ -104,6 +106,7 @@ def layers_to_adjs(layers, batch_size: int, sizes: Sequence[int]):
     return adjs[::-1]
 
 
+@hot_path
 def masked_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
                           collector=None) -> torch.Tensor:
     """Feature rows for a -1-padded frontier, through the optional
@@ -120,6 +123,7 @@ def masked_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
     return x * (n_id >= 0).to(x.dtype)[:, None]
 
 
+@hot_path
 def dedup_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
                          budget: Optional[int] = None,
                          collector=None) -> torch.Tensor:
@@ -148,8 +152,9 @@ def dedup_feature_gather(feat, n_id: torch.Tensor, feature_order=None,
     rows_u = masked_feature_gather(feat, uniq.clamp(max=hi), feature_order)
     x = rows_u.index_select(0, inv.long())
     ids = ids.clamp(0, quant.tier_rows(feat) - 1).to(torch.int32)
-    x = gather_rows(feat, torch.where(n_uniq > budget, ids,
-                                      torch.full_like(ids, -1)), out=x)
+    with gated():
+        x = gather_rows(feat, torch.where(n_uniq > budget, ids,
+                                          torch.full_like(ids, -1)), out=x)
     return x * valid.to(x.dtype)[:, None]
 
 
@@ -328,6 +333,7 @@ def _model_loss(model, x, adjs, labels, batch_size: int,
     return cross_entropy_logits(logits[:batch_size], labels)
 
 
+@hot_path
 def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
                 seeds, labels, hop_seeds, dropout_seed, fused=None,
                 gather=None, collector=None, **sampling):

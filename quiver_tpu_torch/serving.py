@@ -66,6 +66,7 @@ import torch
 from . import faults, metrics, tracing
 from .comm import default_exchange_cap, dist_lookup_local
 from .ops import quant
+from .profiling import hot_path
 from .ops.kernels.fused import fused_sample_multihop
 from .ops.sample_multihop import sample_multihop
 from .parallel.mesh import axis_index, axis_size
@@ -131,6 +132,7 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
             "fused_hot_rows (the hot-tier row count) to route cold "
             "picks back through the tiered lookup")
 
+    @hot_path
     def step(hop_seeds, feat, forder, indptr, indices, seeds):
         col = metrics.Collector(seeds.device) if collect_metrics else None
         with torch.inference_mode():
@@ -482,6 +484,7 @@ def build_sharded_serve_step(model, sizes: Sequence[int], batch_cap: int,
     elif exchange_cap is not None:
         exchange_cap = int(exchange_cap)
 
+    @hot_path
     def step(hop_seeds, feat, g2h, g2l, indptr, indices, seeds):
         col = metrics.Collector(seeds.device) if collect_metrics else None
         # counters of the sampling every rank repeats: rank 0's only

@@ -2159,3 +2159,49 @@ def test_ipc_worker_on_the_card(graph):
         done.put(None)
         proc.join(timeout=60)
     assert status == "ok" and equal is True, equal
+
+
+# -- the verifier and the profiler on the card -------------------------------
+
+
+@pytest.mark.parametrize("name", [
+    "train_step", "lookup_tiered", "dist_lookup", "serve_step",
+    "sharded_serve_step", "fused_hot_hop", "fused_multihop"])
+def test_registry_entry_on_the_card(card, name):
+    """A quick registry entry on ``cuda:0``: no ERROR, the recorder's
+    host synchronisations equal to the card's sync debug mode's (and to
+    the entry's declared count), and the wrappers' recorded calls equal
+    to the launches counted."""
+    from quiver_tpu_torch.analysis import registry
+    specs = []
+    findings, _ = registry.run_registry([name], device="cuda",
+                                        specs_out=specs)
+    assert [str(f) for f in findings if f.level == "ERROR"] == []
+    for spec in specs:
+        rec = spec.recording()
+        assert spec.card_syncs == len(rec.syncs) == spec.host_syncs
+        named = {"gather_segments": "gather_elems",
+                 "sample_layer_kernel": "sample_layer"}
+        calls: dict = {}
+        for k, n in rec.kernel_names().items():
+            calls[named.get(k, k)] = calls.get(named.get(k, k), 0) + n
+        assert rec.launches == calls
+
+
+@pytest.mark.parametrize("has_card", [True, False])
+def test_machine_probe_on_the_card(has_card, monkeypatch):
+    """``machine_probe(device="cuda")`` measures positive rates on the
+    card, and raises where there is none (the CPU case)."""
+    from quiver_tpu_torch.profile import machine_probe
+    if not has_card:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            machine_probe(quick=True, device="cuda")
+        return
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = machine_probe(quick=True, device="cuda")
+    assert all(p[k] > 0 for k in ("memcpy_gbps", "gather_gbps",
+                                  "h2d_gbps", "d2h_gbps"))
+    assert p["platform"] == "gpu"
+    assert p["device"] == torch.cuda.get_device_name(0)
