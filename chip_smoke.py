@@ -433,7 +433,20 @@ Phases:
    (d) ``host_lint`` over ``quiver_tpu_torch/``: only its documented
    deviations; (e) ``profiling.trace`` around two served batches: the
    Chrome trace holds the scope and the three kernels' device events;
-18. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
+18. the leak check (``quiver_tpu_torch.check_leak``): its 16 phases
+   in-process on the card at full width (phase 1's graph, phase 5's
+   data, GraphSAGE 100 -> 256 -> 256 -> 47, [15, 10, 5] at batch 1024,
+   phase 12's ladder over the int8 store a quarter hot; lookups of
+   65,536 ids; phases 4 and 14 on two gloo ranks sharing the card),
+   only the cycle counts cut (16 a loop). One ``leak phase N`` line a
+   phase: the base and the end of every reading (live blocks, requested
+   bytes, allocator segments, kernel libraries, RSS), the launches per
+   unit of work by kernel, the phase's facts and the card's line; then
+   ``phase 18: N s`` with each phase's seconds. Any growth fails the
+   run; the counts, set to 0 before it, must show every kernel of the
+   path launched (``fused_sample_hop``, ``fused_hot_hop``,
+   ``sample_layer``, ``gather_rows``);
+19. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -474,7 +487,9 @@ Phases:
    under ``sharded``, phase 15's under ``clique``, phase 16's under
    ``fleet`` and each kernel's ``launches_per_fleet_batch``, over the
    replicas' server batches, phase 17's under ``profile`` and each
-   kernel's ``launches_registry_pass``), the script's total
+   kernel's ``launches_registry_pass``, phase 18's under ``leak`` and
+   each kernel's ``launches_leak_check`` and ``launches_per_leak_cycle``,
+   by leak phase and unit), the script's total
    seconds, the card's line, then the
    last line ``{"ok": true,
    "device": {...}}``.
@@ -7576,6 +7591,16 @@ def autoscale_pass(act_mod, fleet_mod, **kw):
     return sc.trajectory, recs, sc.records, router.snapshot()
 
 
+def placed(store, feat, what):
+    """Fail the run unless ``store``'s hot tier on the card holds the
+    host's encoding of its rows of ``feat`` bit for bit."""
+    from quiver_tpu_torch import check_leak
+    try:
+        check_leak.check_placed(store, feat)
+    except check_leak.LeakError as e:
+        raise SmokeFailure(f"{what}: {e}") from None
+
+
 def fleet_world(dev):
     """The fleet's full-width world, the same in the parent and in every
     replica: phase 1's graph from the seed, features from ``SEED + 16``,
@@ -7594,6 +7619,7 @@ def fleet_world(dev):
         device_cache_size=(NODES // 4) * quant.row_bytes(DIM, "int8"),
         csr_topo=topo, dedup_cold=True, dtype_policy="int8",
         host_placement="offload", device=dev).from_cpu_tensor(feat)
+    placed(store, feat, "fleet")
     model, params = sage(dev)
     eng = ServeEngine(model, params, topo, store, SERVER_LADDER, BATCH,
                       fused_hot_hop=True, fused_row_cap=ROW_CAP,
@@ -8212,10 +8238,12 @@ def fleet_actuation(dev, w, card, tmp):
     from quiver_tpu_torch import GraphSAGE
 
     def make_store():
-        return Feature(
+        store = Feature(
             device_cache_size=(NODES // 4) * quant.row_bytes(DIM, "int8"),
             csr_topo=w["topo"], dedup_cold=True, dtype_policy="int8",
             host_placement="numpy", device=dev).from_cpu_tensor(w["feat"])
+        placed(store, w["feat"], "(b)")
+        return store
     t0 = time.perf_counter()
     stores = {"static": make_store(), "adaptive": make_store()}
     engines, servers = {}, {}
@@ -8751,6 +8779,72 @@ def phase_profile(dev, card, h2d):
     return rec, launches
 
 
+LEAK_CYCLES = 16               # each leak phase's steady loop (JAX: 50)
+LEAK_REQUESTS = 200            # phases 6 and 7's waves
+LEAK_BURSTS = 8                # phase 12's bursts of 24 (JAX: 20)
+LEAK_LOOKUP = 65536            # ids a lookup batch; the dedup budget an 8th
+LEAK_DIST_BATCH = 4096         # ids each of phase 4's ranks looks up
+
+
+def phase_leak(dev, card):
+    """Phase 18: ``quiver_tpu_torch.check_leak``'s 16 phases in-process
+    on the card at full width (phase 1's graph, phase 5's data,
+    GraphSAGE 100 -> 256 -> 256 -> 47, [15, 10, 5] at batch 1024, phase
+    12's ladder over the int8 store a quarter hot), only the cycle
+    counts cut. A reading that grows raises ``SmokeFailure``. Returns
+    the record (each leak phase's readings, launches per cycle and
+    seconds) and the launches of the whole run, counted from 0."""
+    import torch
+    from quiver_tpu_torch import check_leak
+    from quiver_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    indptr, indices, _ = make_graph(dev, gen, NODES)    # phase 1's graph
+    feat, labels = make_train_data(dev, gen, NODES)
+    w = check_leak.World(
+        device=dev, indptr=indptr, indices=indices, feat=feat.cpu(),
+        labels=labels, sizes=SIZES, batch=BATCH, hidden=HIDDEN,
+        classes=CLASSES, variants=SERVER_LADDER, serve_cap=BATCH,
+        lookup=LEAK_LOOKUP, cold_budget=LEAK_LOOKUP // 8,
+        dist_batch=LEAK_DIST_BATCH, cycles=LEAK_CYCLES,
+        requests=LEAK_REQUESTS, bursts=LEAK_BURSTS, seed=SEED,
+        row_cap=ROW_CAP, card=card)
+    del feat
+    world_s = time.perf_counter() - t0
+    print(f"leak: full width: {NODES} nodes, {indices.numel()} edges, "
+          f"features {DIM} wide, GraphSAGE {DIM} -> {HIDDEN} -> {HIDDEN} -> "
+          f"{CLASSES}, fanout {SIZES} at batch {BATCH}, ladder "
+          f"{SERVER_LADDER}; {LEAK_CYCLES} cycles a loop, lookups of "
+          f"{LEAK_LOOKUP} ids; made in {world_s:.2f} s; on {card}",
+          flush=True)
+    kernels.reset_launches()
+    try:
+        recs = check_leak.run(w, log=lambda line: print(line, flush=True))
+    except check_leak.LeakError as e:
+        raise SmokeFailure(f"phase 18: {e}") from None
+    launches = dict(kernels.LAUNCHES)
+    for name in ("fused_sample_hop", "fused_hot_hop", "sample_layer",
+                 "gather_rows"):
+        check(launches[name] > 0, f"phase 18: {name} never launched")
+    secs = {r["phase"]: r["seconds"] for r in recs}
+    total = time.perf_counter() - t0
+    print(f"phase 18: {total:.2f} s: world {world_s:.2f} s, " + ", ".join(
+        f"({n}) {v:.2f} s" for n, v in secs.items()) + f"; launches "
+        f"{launches}; on {card}", flush=True)
+    per_cycle: dict = {}
+    for r in recs:
+        for unit, counts in r["launches_per_cycle"].items():
+            for name, v in counts.items():
+                per_cycle.setdefault(name, {})[f"{r['phase']} {unit}"] = v
+    rec = {"seconds": dict(secs, world=world_s, total=total),
+           "cycles": LEAK_CYCLES, "launches": launches,
+           "launches_per_cycle": per_cycle,
+           "phases": {r["phase"]: {k: v for k, v in r.items()
+                                   if k not in ("phase", "ranks")}
+                      for r in recs}}
+    return rec, launches
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -8916,6 +9010,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     prof_rec, registry_launches = phase_profile(
         dev, card, host_tier["h2d_bytes_per_s"])
+    torch.cuda.empty_cache()
+    leak_rec, leak_launches = phase_leak(dev, card)
     clique_served = clique_launches[("int8 half", "fused")]
     launches["gather_rows_sharded"] = clique_served["gather_rows_sharded"]
     k = clique_kernel["fp32 lookup"]
@@ -8949,7 +9045,10 @@ def main() -> int:
          "launches_per_clique_step": clique_train_l[name] / CLIQUE_STEPS,
          "launches_per_fleet_batch":
              fleet_launches.get(name, 0) / fleet_batches,
-         "launches_registry_pass": registry_launches.get(name, 0)}
+         "launches_registry_pass": registry_launches.get(name, 0),
+         "launches_leak_check": leak_launches[name],
+         "launches_per_leak_cycle": leak_rec["launches_per_cycle"].get(
+             name, {})}
         for name in SOURCES]}
     line["kernels"][list(SOURCES).index("gather_rows_sharded")].update(
         kernel=k["kernel"], variants=clique_kernel,
@@ -9050,6 +9149,9 @@ def main() -> int:
         "kernel": "gather_segments_kernel", "h2d_bytes_per_s": h2d,
         "launches_per_fleet_batch":
             fleet_launches.get("gather_elems", 0) / fleet_batches,
+        "launches_leak_check": leak_launches["gather_elems"],
+        "launches_per_leak_cycle": leak_rec["launches_per_cycle"].get(
+            "gather_elems", {}),
         "variants": {"heads int32": heads["int32"],
                      "heads int64": heads["int64"],
                      "weights pool": weight_gathers_rec["span"]}})
@@ -9163,6 +9265,7 @@ def main() -> int:
     line["clique"] = clique
     line["fleet"] = fleet_rec
     line["profile"] = prof_rec
+    line["leak"] = leak_rec
     # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
     # its launches over the whole run, against those of phase 6's check
     q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0)

@@ -18,6 +18,8 @@ gather reads the layout the card reads.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -65,24 +67,41 @@ def pinned_put(tier, device: torch.device, what: str):
 # host tier meant for other processes is copied once into shared pages,
 # which are then registered with CUDA (cudaHostRegister): pinned and
 # mapped for the card, and sent to a torch.multiprocessing worker by file
-# descriptor. The worker registers its own mapping of the same pages. The
-# registration lasts as long as the process.
+# descriptor. The worker registers its own mapping of the same pages.
+#
+# A registration lasts until it is undone, and the CUDA driver keeps it past
+# the unmapping of its pages: a later host allocation at the same addresses
+# would then be read from the old pages (a copy to the card lands other
+# bytes) or fail with cudaErrorInvalidValue where it overlaps the old range
+# in part. So each registration is undone when its storage is freed.
 
 _HOST_REGISTER_MAPPED = 3          # cudaHostRegisterPortable | Mapped
 
 
+def _unregister(ptr: int) -> None:
+    err = int(torch.cuda.cudart().cudaHostUnregister(ptr))
+    if err != 0:
+        raise RuntimeError(f"cudaHostUnregister of a freed shared host "
+                           f"tier failed with CUDA error {err}")
+
+
 def _register(storage) -> None:
-    """Page-lock one shared CPU storage for the cards (once)."""
+    """Page-lock one shared CPU storage for the cards (once), until the
+    storage is freed."""
     if storage.nbytes() == 0:
         return
     probe = torch.empty(0, dtype=torch.uint8).set_(storage)
     if probe.is_pinned():
         return
+    ptr = storage.data_ptr()
     err = torch.cuda.cudart().cudaHostRegister(
-        storage.data_ptr(), storage.nbytes(), _HOST_REGISTER_MAPPED)
+        ptr, storage.nbytes(), _HOST_REGISTER_MAPPED)
     if int(err) != 0:
         raise RuntimeError(f"cudaHostRegister of a shared host tier "
                            f"failed with CUDA error {int(err)}")
+    # torch keeps a storage's Python object as long as any tensor holds
+    # the storage, so this runs when the pages are freed
+    weakref.finalize(storage, _unregister, ptr).atexit = False
 
 
 def _storages(tier):

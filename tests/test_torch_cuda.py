@@ -2205,3 +2205,81 @@ def test_machine_probe_on_the_card(has_card, monkeypatch):
                                   "h2d_gbps", "d2h_gbps"))
     assert p["platform"] == "gpu"
     assert p["device"] == torch.cuda.get_device_name(0)
+
+
+# -- shared host tiers: a registration ends with its pages -------------------
+
+
+def test_a_freed_shared_tier_leaves_no_stale_registration(card):
+    """A shared host tier registered for the card (``share_host``) and
+    then freed leaves no registration behind: the CUDA driver keeps one
+    past the unmapping of its pages, so a new tier that the kernel maps
+    at the same addresses could not be registered (CUDA error 712), and
+    a copy from those addresses would read the old pages. Each new tier here
+    registers, and reaches the card with its own bytes."""
+    import gc
+    from quiver_tpu_torch.utils.placement import share_host
+    dev = torch.device("cuda", 0)
+    n = 64 << 20          # a mapping of its own, whose addresses recur
+    ptrs = []
+    for i in range(4):
+        tier = share_host(torch.full((n,), i + 1, dtype=torch.uint8), dev)
+        ptrs.append(tier.data_ptr())
+        got = tier.to(dev)
+        assert bool((got == i + 1).all()), f"tier {i} at {ptrs[-1]:#x}"
+        del tier, got
+        gc.collect()
+
+
+# -- the leak check on the card ----------------------------------------------
+
+
+def test_check_leak_quick_on_the_card(card):
+    """``python -m quiver_tpu_torch.check_leak --quick`` (the card by
+    default) runs its 16 phases there and exits 0, one line a phase."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = subprocess.run(
+        [sys.executable, "-m", "quiver_tpu_torch.check_leak", "--quick"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=1200)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = [l for l in out.stdout.splitlines() if l.startswith("leak phase ")]
+    assert len(lines) == 16 and all(
+        torch.cuda.get_device_name(0) in l for l in lines)
+
+
+def test_check_leak_segments_catch_small_blocks_on_the_card(card):
+    """Small-pool blocks kept past the base take new 2 MB segments: the
+    segment reading fails the probe beyond its one segment of slack,
+    while the live and bytes readings stay inside their bounds."""
+    from quiver_tpu_torch import check_leak
+    dev = torch.device("cuda", 0)
+    probe = check_leak.Probe(0, "planted small blocks", dev,
+                             out_bytes=1 << 30)
+    probe.base()
+    kept = [torch.empty(1 << 20, dtype=torch.uint8, device=dev)
+            for _ in range(check_leak.LIVE_SLACK)]
+    with pytest.raises(check_leak.LeakError, match=r"small pool"):
+        probe.end()
+    assert len(kept) == probe.live_bound()
+
+
+def test_check_leak_catches_a_kept_tensor_on_the_card(card, monkeypatch):
+    """A tensor kept every cycle on the card fails phase 1: its live
+    blocks and allocated bytes grow."""
+    from quiver_tpu_torch import check_leak
+    w = check_leak.make_world("cuda", quick=True)
+    kept = []
+    prefetch = Feature.prefetch
+
+    def keeping(self, node_idx):
+        fut = prefetch(self, node_idx)
+        kept.append(fut.result())
+        return fut
+
+    monkeypatch.setattr(Feature, "prefetch", keeping)
+    with pytest.raises(check_leak.LeakError, match=r"phase 1 .*live"):
+        check_leak.run(w, [1], log=lambda line: None)
+    assert all(t.is_cuda for t in kept) and len(kept) > 16

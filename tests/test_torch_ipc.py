@@ -164,3 +164,48 @@ def test_disk_store_is_refused(tmp_path):
     store.set_mmap_file(str(path), np.arange(N))
     with pytest.raises(ValueError, match="disk-tier"):
         store.share_ipc()
+
+
+class _Cudart:
+    """A stand-in for ``torch.cuda.cudart()`` that records its calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cudaHostRegister(self, ptr, nbytes, flags):
+        self.calls.append(("register", ptr, nbytes))
+        return 0
+
+    def cudaHostUnregister(self, ptr):
+        self.calls.append(("unregister", ptr))
+        return 0
+
+
+@pytest.mark.parametrize("policy", [None, "int8"])
+def test_a_shared_tier_stays_registered_while_any_view_lives(policy,
+                                                             monkeypatch):
+    """``share_host`` for a card registers each storage of the tier once,
+    and undoes that registration when the last tensor on the storage is
+    freed, not before: the CUDA driver keeps a registration past the
+    unmapping of its pages, and a later allocation at those addresses
+    would be read from the old pages."""
+    import gc
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.utils import placement
+    cudart = _Cudart()
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: cudart)
+    table = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (N, DIM)).astype(np.float32))
+    tier = placement.pinned_put(quant.quantize(table, policy),
+                                torch.device("cpu"), "the tier") \
+        if policy else table
+    shared = placement.share_host(tier, torch.device("cuda", 0))
+    regs = [c for c in cudart.calls if c[0] == "register"]
+    assert len(regs) == 1 and cudart.calls == regs
+    view = quant.tier_parts(shared)[0][5:]
+    del shared, tier
+    gc.collect()
+    assert cudart.calls == regs
+    del view
+    gc.collect()
+    assert cudart.calls == regs + [("unregister", regs[0][1])]
