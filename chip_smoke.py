@@ -72,7 +72,10 @@ Phases:
    ``no_host_sync`` check on the card, ``op_lint.card_host_syncs``:
    ``torch.cuda.set_sync_debug_mode``); and finite logits from
    the split route over the store and from ``dedup_gather=True`` over a
-   plain table;
+   plain table, where ``gather_rows_q8_kernel`` (int8 codes with fp32
+   scale and zero apart) launches: at that call, equal to its plain
+   version, its own and wrapper time against ``index_select`` of the
+   three leaves and the decode, and against its byte bound;
 7. the sampler: ``GraphSageSampler`` over the graph of phase 1 (its
    tensors, not copied), fanout [15, 10, 5], batch 1024, eight arms:
    HBM (a) exact scattered, (b) exact wide (pair layout), (c) rotation
@@ -411,8 +414,21 @@ Phases:
    metered batches recorded by ``TelemetryHub.observe_counters`` under
    sync "error", its totals after ``flush`` equal to
    ``metrics.reduce_counters``, cold-only lookups firing an ``anomaly``,
-   ``replan``'s advice and a ``FlightRecorder`` dump. Results on
-   ``fleet`` lines;
+   ``replan``'s advice and a ``FlightRecorder`` dump; (e) after (c),
+   over the fleet's own sinks, the operator CLIs as a user runs them
+   (``python -m quiver_tpu_torch.scripts.<name>``, one process each):
+   ``qt_agg --once`` over the three replica sinks (one row a replica,
+   each in the health band of (a)'s last ``/healthz``) and ``--smoke``,
+   ``qt_top --once`` over a replica sink (serving series, the SLO and
+   tenant lines) and ``--fleet`` over the aggregator's sink (the fleet
+   line, a row a replica, ``r0``'s staleness), ``qt_trace`` (the table,
+   ``--slowest 5``, ``--errors``, ``--trace-id`` of (a)'s joined trace
+   and ``--export``: a process track a segment) against a
+   ``TraceStore`` over the same files, ``qt_capacity`` over (c)'s
+   record and ``--predict`` from the replicas' ``serving`` records with
+   the probe on the card: each exits 0, its wall seconds printed, the
+   predicted rate beside (a)'s sustained one. Results on ``fleet``
+   lines;
 17. profiling and the analysis contracts, ``profile (a)``..``(e)`` lines
    and ``phase 17: N s``: (a) ``machine_probe()`` on the card (copy,
    random-gather, pinned h2d and d2h rates) beside phase 6's h2d rate;
@@ -508,6 +524,7 @@ import logging
 import math
 import os
 import queue
+import re
 import shutil
 import subprocess
 import sys
@@ -695,6 +712,80 @@ def made_once(counts: dict, run, kernel: str, what: str) -> None:
     got = nonzero({k: v - before[k] for k, v in counts.items()})
     check(set(got) == {kernel},
           f"{what}: gather launches by kernel {got}, expected {kernel}")
+
+
+class KernelArgs:
+    """An op recorder (``_build._RECORDER``) that runs each kernel
+    wrapper as it is and keeps the arguments of the calls that
+    ``keep(name, args)`` accepts."""
+
+    def __init__(self, keep):
+        self.keep = keep
+        self.calls = []
+
+    def kernel_call(self, name, fn, args, kwargs):
+        if self.keep(name, args):
+            self.calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+
+def separate_sidecars(feat) -> bool:
+    """An int8 table whose codes, scale and zero are tensors apart: what
+    ``gather_rows`` reads with ``gather_rows_q8_kernel``."""
+    from quiver_tpu_torch.ops import quant
+    from quiver_tpu_torch.ops.kernels import gather
+    if not quant.is_quantized(feat) or quant.is_sharded(feat):
+        return False
+    _, scale, _, stride = gather._leaves(feat)
+    return scale is not None and stride is None
+
+
+def q8_gather_times(call, iters, card) -> dict:
+    """``gather_rows_q8_kernel`` at one of its main-path calls, with its
+    arguments (the ``out=`` form included): own and wrapper ms against
+    the plain version, the library's form (``index_select`` of codes,
+    scale and zero at the live ids, then the decode) and the bound of
+    ``costmodel.gather_rows_bytes`` at 3.35 TB/s."""
+    from quiver_tpu_torch.ops.kernels import gather
+    args, kwargs = call
+    tab, ids = args[0], args[1]
+    out = kwargs.get("out", args[2] if len(args) > 2 else None)
+    scratch = None if out is None else out.clone()
+    run = lambda: gather.gather_rows(tab, ids, out)               # noqa: E731
+    plain = lambda: gather.gather_rows_plain(tab, ids, scratch)   # noqa: E731
+    live = ids >= 0
+    idx = ids[live].long()
+
+    def library():
+        return tab.data.index_select(0, idx).to(tab.scale.dtype) \
+            * tab.scale.index_select(0, idx) + tab.zero.index_select(0, idx)
+    got, want = run(), plain()
+    check(same_bits(got, want) and same_bits(library(), want[live]),
+          "gather_rows_q8_kernel or index_select + decode differs from the "
+          "plain version at phase 6's check 5")
+    table_bytes, dev_bytes, distinct = gather_rows_bytes(tab, ids)
+    b_ms = (table_bytes + dev_bytes) / HBM_BYTES_PER_S * 1e3
+    rec = {"ids": int(ids.shape[0]), "live": int(idx.shape[0]),
+           "distinct": distinct, "dim": int(tab.data.shape[1]),
+           "on_card": bool(tab.data.is_cuda), "out": out is not None,
+           "max_abs_err": 0.0, "ms": cuda_ms(run, iters),
+           "own_ms": own_ms(run, "gather_rows_q8_kernel", iters),
+           "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms,
+           "bound_by": "bytes", "library_ms": cuda_ms(library, iters),
+           "kernel": "gather_rows_q8_kernel"}
+    share = "" if rec["own_ms"] is None else \
+        f" (bound / own {b_ms / rec['own_ms']:.0%})"
+    print(f"tiered check 5: gather_rows_q8_kernel at {rec['ids']} ids "
+          f"({rec['live']} live, {distinct} distinct"
+          f"{', out=' if rec['out'] else ''}) x {rec['dim']} int8 "
+          f"with fp32 sidecars, table on the "
+          f"{'card' if rec['on_card'] else 'host'}: own "
+          f"{fmt_ms(rec['own_ms'])}{share}, wrapper {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, index_select + decode "
+          f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({table_bytes + dev_bytes} B at 3.35 TB/s); equal to its plain "
+          f"version; on {card}", flush=True)
+    return rec
 
 
 def fmt_ms(ms) -> str:
@@ -1575,14 +1666,27 @@ def phase_tiered(dev, gen, nodes, indptr, indices, card, batches, iters):
     from quiver_tpu_torch.ops.kernels import _build
     q8 = "gather_rows_q8_kernel"
     q8_before = _build.KERNEL_TOTALS.get(q8, 0)
-    for name, e in (("split route over the store", split),
-                    ("dedup_gather over one table", dedup)):
-        o = e.run(requests[1])
-        check(bool(torch.isfinite(o).all()), f"{name}: non-finite logits")
-        print(f"tiered check 5: {name}: finite logits {tuple(o.shape)}",
-              flush=True)
+    taken = KernelArgs(lambda name, args: name == "gather_rows"
+                       and separate_sidecars(args[0]))
+    token = _build._RECORDER.set(taken)
+    try:
+        for name, e in (("split route over the store", split),
+                        ("dedup_gather over one table", dedup)):
+            o = e.run(requests[1])
+            check(bool(torch.isfinite(o).all()),
+                  f"{name}: non-finite logits")
+            print(f"tiered check 5: {name}: finite logits {tuple(o.shape)}",
+                  flush=True)
+    finally:
+        _build._RECORDER.reset(token)
     # the int8 gather over separate sidecars: the one-table dedup read
     rec["q8_launches_check5"] = _build.KERNEL_TOTALS.get(q8, 0) - q8_before
+    check(len(taken.calls) == rec["q8_launches_check5"] > 0,
+          f"{len(taken.calls)} gather_rows calls over separate sidecars, "
+          f"{rec['q8_launches_check5']} {q8} launches")
+    before = _build.KERNEL_TOTALS.get(q8, 0)
+    rec["q8"] = [q8_gather_times(a, iters, card) for a in taken.calls]
+    rec["q8_timing_launches"] = _build.KERNEL_TOTALS.get(q8, 0) - before
     ctx = dict(store=store, eng=eng, topo=topo, requests=requests,
                hop_seeds=hop_seeds, stats=stats)
     return rec, launches, ctx
@@ -7533,6 +7637,7 @@ CAPACITY_TRIAL_S = 2.0         # (c): each replay trial, at most
 CAPACITY_TRIAL_MAX = 20_000    # (c): requests, so that a trial ends
 CAPACITY_TRIALS = 4
 CAPACITY_BURST = 4 * BATCH     # (c): the staged burst for the host cost
+CLI_TIMEOUT_S = 120            # (e): each operator CLI's process, at most
 # (b): the fake-clock autoscaler pass (tests/test_torch_actuator.py holds
 # both packages to the same trajectory)
 AUTOSCALE_BURNS = [2.0] * 6 + [9.0] * 6 + [0.1] * 30 + [1.6] * 4 + [0.2] * 10
@@ -8114,7 +8219,11 @@ def fleet_replay(sup, ports, sinks, events, tmp, card, hot_per_batch):
             "wall_s": rep["wall_s"], "kill_story_s": story_s,
             "router": router_snap, "replicas": checks,
             "launches_per_batch": per, "metrics_bytes": len(metrics_text),
-            "healthz": healthz["fleet"], "joined_trace": {
+            "healthz": healthz["fleet"],
+            "healthz_replicas": {n: {k: r.get(k) for k in ("health",
+                                                          "stale")}
+                                 for n, r in healthz["replicas"].items()},
+            "joined_trace": {
                 "trace_id": joined["trace_id"],
                 "replicas": joined["replicas"], "spans": names},
             "kept_traces": len(store)}, launches, batches
@@ -8475,6 +8584,185 @@ def fleet_capacity(dev, w, card, tmp, gather_gbps):
             "trials": trials, "verdict": verdict}
 
 
+def health_band(h, stale=False) -> str:
+    """The band ``qt_agg`` and ``qt_top`` color a replica's health by."""
+    return ("red" if stale or h is None or h < 0.4
+            else "yellow" if h < 0.75 else "green")
+
+
+def fleet_cli(name, *args):
+    """``python -m quiver_tpu_torch.scripts.NAME ARGS`` from the checkout
+    (no color), checked to exit 0; returns its output and wall seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FORCE_COLOR", "QT_METRICS_JSONL")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        f"quiver_tpu_torch.scripts.{name}", *args,
+                        "--no-color"], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"{name} {' '.join(args)} exited "
+          f"{r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, secs
+
+
+def fleet_clis(tmp, sinks, rec, card):
+    """(e): the four operator CLIs over the fleet's own sinks, after (a)
+    and (c) (module doc)."""
+    from quiver_tpu_torch.metrics import read_jsonl
+    from quiver_tpu_torch.tailsampling import TraceStore
+    a, c = rec["fleet"], rec["capacity"]
+    secs, notes = {}, []
+    spec = ",".join(f"{n}={sinks[n]}" for n in FLEET)
+
+    # qt_agg: one pass over the replica sinks, then its own probe
+    out, secs["qt_agg --once"] = fleet_cli(
+        "qt_agg", "--once", "--replicas", spec, "--interval",
+        str(FLEET_POLL_S), "--stale-after", str(FLEET_STALE_S), "--jsonl",
+        os.path.join(tmp, "agg_once.jsonl"))
+    rows = {}
+    for ln in out.splitlines():
+        m = re.match(r"^  (\S+): health ([0-9.]+)(  STALE)?", ln)
+        if m:
+            rows[m.group(1)] = (float(m.group(2)), bool(m.group(3)))
+    check(sorted(rows) == sorted(FLEET), f"qt_agg --once rows {rows}")
+    for n in FLEET:
+        hz = a["healthz_replicas"][n]
+        got, want = health_band(*rows[n]), health_band(hz["health"],
+                                                       hz["stale"])
+        check(got == want, f"qt_agg --once: {n} health {rows[n]} ({got}); "
+              f"(a)'s /healthz {hz} ({want})")
+    notes.append("qt_agg --once: " + ", ".join(
+        f"{n} {rows[n][0]:.2f} ({health_band(*rows[n])}; /healthz "
+        f"{a['healthz_replicas'][n]['health']:.2f})" for n in FLEET))
+    out, secs["qt_agg --smoke"] = fleet_cli("qt_agg", "--smoke")
+    check("status ok" in out and "format OK" in out,
+          f"qt_agg --smoke: {out[-800:]}")
+
+    # qt_top: a replica's sink, then the aggregator's
+    out, secs["qt_top"] = fleet_cli("qt_top", "--once", "--jsonl",
+                                    sinks["r1"])
+    for needle in ("batch_p50_ms", "request_p99_ms", "queue_depth",
+                   "slo: burn", "tenant interactive"):
+        check(needle in out, f"qt_top over r1's sink lacks {needle!r}:\n"
+              f"{out[-3000:]}")
+    n_recs = re.search(r"\((\d+) records", out)
+    events = os.path.join(tmp, "events.jsonl")
+    out, secs["qt_top --fleet"] = fleet_cli("qt_top", "--once", "--fleet",
+                                            "--jsonl", events)
+    # the panel shows the window's last 6 anomalies: r0's staleness, or
+    # the fleet hub's detectors that fired after it
+    shown = [r for r in read_jsonl(events)[-4096:]
+             if r.get("kind") == "anomaly"][-6:]
+    check(f"fleet: {len(FLEET)} replicas, status" in out
+          and all(re.search(rf"^  {n} ", out, re.M) for n in FLEET)
+          and shown and all(f"ANOMALY [{r.get('detector')}] "
+                            f"{r.get('series')}:" in out for r in shown),
+          f"qt_top --fleet:\n{out[-3000:]}")
+    stale_r0 = any(r.get("detector") == "staleness"
+                   and r.get("replica") == "r0" for r in shown)
+    notes.append(f"qt_top: r1's sink ({n_recs.group(1) if n_recs else '?'} "
+                 "records) with its serving, SLO and tenant lines; --fleet: "
+                 f"{len(FLEET)} rows and {len(shown)} anomalies (r0's "
+                 f"staleness {'among' if stale_r0 else 'before'} them)")
+
+    # qt_trace: the client's sink and the replicas', against a TraceStore
+    # filled in the CLI's order
+    targs = ["--jsonl", os.path.join(tmp, "client.jsonl"), "--replicas",
+             spec]
+    store = TraceStore(capacity=4096)
+    for src, path in [("sink", os.path.join(tmp, "client.jsonl"))] + \
+            [(n, sinks[n]) for n in FLEET]:
+        for r in read_jsonl(path):
+            if r.get("kind") == "trace":
+                store.add(r, src)
+    traces = store.assembled()
+    out, secs["qt_trace"] = fleet_cli("qt_trace", *targs)
+    check(f"{len(traces)} kept traces from {len(FLEET) + 1} sink(s)" in out,
+          f"qt_trace: {out[:400]} against {len(traces)} traces")
+    out, secs["qt_trace --slowest"] = fleet_cli("qt_trace", *targs,
+                                                "--slowest", "5")
+    slow = sorted(traces, key=lambda t: -t["duration_ms"])[:5]
+    got = [int(ln.split()[0]) for ln in out.splitlines()[1:]]
+    check(got == [t["trace_id"] for t in slow],
+          f"qt_trace --slowest 5: {got}, expected "
+          f"{[t['trace_id'] for t in slow]}")
+    out, secs["qt_trace --errors"] = fleet_cli("qt_trace", *targs,
+                                               "--errors")
+    bad = [t for t in traces if set(t["policies"])
+           & {"error", "deadline_exceeded"}][:20]
+    got = [int(ln.split()[0]) for ln in out.splitlines()[1:]
+           if ln.split() and ln.split()[0].isdigit()]
+    check(got == [t["trace_id"] for t in bad],
+          f"qt_trace --errors: {got}, expected {len(bad)} traces")
+    tid = a["joined_trace"]["trace_id"]
+    joined = store.get(tid)
+    check(joined is not None, f"(a)'s joined trace {tid} is not among the "
+          "4096 newest the CLI keeps")
+    export = os.path.join(tmp, "trace.json")
+    out, secs["qt_trace --trace-id --export"] = fleet_cli(
+        "qt_trace", *targs, "--trace-id", str(tid), "--export", export)
+    n_seg = len(joined["segments"])
+    check(out.count("\n  segment ") == n_seg and f"trace {tid} [" in out
+          and "critical path" in out,
+          f"qt_trace --trace-id {tid}: {out[-2000:]}")
+    with open(export) as f:
+        events = json.load(f)["traceEvents"]
+    pids = {e["pid"] for e in events}
+    check(len(pids) == n_seg, f"qt_trace --export: {len(pids)} process "
+          f"tracks for {n_seg} segments")
+    notes.append(f"qt_trace: {len(traces)} traces from {len(FLEET) + 1} "
+                 f"sinks, the 5 slowest, {len(bad)} error-kept, trace {tid} "
+                 f"({n_seg} segments: {'+'.join(joined['replicas'])}) "
+                 f"exported as {len(events)} events on {len(pids)} process "
+                 "tracks")
+
+    # qt_capacity: (c)'s record, then a prediction from the replicas'
+    # serving records with the probe on the card
+    pred = c["prediction"]["predicted_rps"]
+    out, secs["qt_capacity"] = fleet_cli(
+        "qt_capacity", "--jsonl", os.path.join(tmp, "capacity.jsonl"))
+    check(out.startswith(f"capacity: 1 replica(s) sustain {pred:.0f} "
+                         "req/s") and "replay verdict" in out,
+          f"qt_capacity over (c)'s record: {out[:600]}")
+    served = sorted((r for n in FLEET for r in read_jsonl(sinks[n])
+                     if r.get("kind") == "serving"),
+                    key=lambda r: r.get("ts", 0.0))
+    history = os.path.join(tmp, "serving.jsonl")
+    with open(history, "w") as f:
+        for r in served:
+            f.write(json.dumps(r) + "\n")
+    out, secs["qt_capacity --predict"] = fleet_cli(
+        "qt_capacity", "--jsonl", history, "--predict", "--replicas",
+        str(len(FLEET)), "--budget-ms", str(FLEET_CFG["slo_p99_ms"]))
+    caps = [r for r in read_jsonl(history) if r.get("kind") == "capacity"]
+    check(len(caps) == 1 and f"sustain {caps[0]['predicted_rps']:.0f} "
+          "req/s" in out, f"qt_capacity --predict: {out[:600]}")
+    predicted = caps[0]
+    sustained = a["totals"]["completed"] / a["wall_s"]
+    notes.append(
+        f"qt_capacity: (c)'s {pred:.1f} req/s; --predict (probe on the "
+        f"card) from {len(served)} serving records: {len(FLEET)} replicas "
+        f"sustain {predicted['predicted_rps']:.1f} req/s within p99 "
+        f"{FLEET_CFG['slo_p99_ms']:g} ms (dispatch "
+        f"{predicted['dispatch_ms']:.3f} ms, fill {predicted['fill']}/"
+        f"{predicted['batch_cap']}) beside (a)'s sustained "
+        f"{sustained:.1f} req/s ({a['totals']['completed']} completed in "
+        f"{a['wall_s']:.2f} s; {a['offered_rps']:.1f}/s offered)")
+    for note in notes:
+        print(f"fleet (e): {note}; on {card}", flush=True)
+    print("fleet (e): seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + f"; on {card}",
+        flush=True)
+    return {"seconds": secs, "agg_health": {n: rows[n][0] for n in FLEET},
+            "traces": len(traces), "error_traces": len(bad),
+            "joined_segments": n_seg, "export_tracks": len(pids),
+            "predicted_rps": predicted["predicted_rps"],
+            "prediction": predicted, "sustained_rps": sustained,
+            "offered_rps": a["offered_rps"]}
+
+
 def phase_fleet(dev, card, gather_gbps):
     """Phase 16: the serving fleet's control plane (module doc). The
     replicas boot while (d) and (b) run in this process; (c) runs after
@@ -8510,6 +8798,7 @@ def phase_fleet(dev, card, gather_gbps):
         w["store"].close()
         del w
         torch.cuda.empty_cache()
+        rec["clis"] = part("(e)", fleet_clis, tmp, sinks, rec, card)
     finally:
         if sup is not None:
             sup.close()
@@ -9268,15 +9557,25 @@ def main() -> int:
     line["leak"] = leak_rec
     # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
     # its launches over the whole run, against those of phase 6's check
-    q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0)
-    gather_entry["q8"] = {"kernel": "gather_rows_q8_kernel",
-                          "launches_whole_run": q8_all,
-                          "launches_phase6_check5":
-                              host_tier["q8_launches_check5"]}
+    q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0) \
+        - host_tier["q8_timing_launches"]
+    gather_entry["q8"] = {
+        "name": "gather_rows_q8_kernel: int8 rows with fp32 scale and zero "
+                "apart, phase 6's check 5 (its first call there)",
+        "route": "cuda", "source": SOURCES["gather_rows"],
+        "replaces": REPLACES["gather_rows"], "kernel": "gather_rows_q8_kernel",
+        "launches": host_tier["q8_launches_check5"],
+        "launches_whole_run": q8_all,
+        "launches_phase6_check5": host_tier["q8_launches_check5"],
+        **{k: host_tier["q8"][0][k] for k in (
+            "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "calls": host_tier["q8"]}
     print(f"gather_rows_q8_kernel: {q8_all} launches in the whole run, "
           f"{host_tier['q8_launches_check5']} of them in phase 6's check 5 "
           "(the split route over the store and dedup_gather over the int8 "
-          f"one-table); on {card}", flush=True)
+          f"one-table), besides {host_tier['q8_timing_launches']} to time "
+          f"it; on {card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all",
           flush=True)
     print(card, flush=True)

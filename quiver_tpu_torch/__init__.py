@@ -57,61 +57,91 @@ trace and the ``hot_path`` marker.
 
 __version__ = "0.1.0"
 
-from .actuator import Actuator, FleetAutoscaler, Knob
-from .async_sampler import (AsyncCudaNeighborSampler, AsyncNeighborSampler,
-                            sample_ahead)
-from .comm import HostRankTable, TorchComm, get_comm_id, init_distributed
-from .datasets import (GraphDataset, from_numpy_dir, generate_drifting_trace,
-                       generate_synthetic_cold_dataset,
-                       load_synthetic_cold_dataset)
-from .debug import show_tensor_info
-from .faults import FaultPlan, FaultRule
-from .feature import (DeviceConfig, DistFeature, ExchangeCapPlan, Feature,
-                      PartitionInfo)
-from .fleet import (FleetAggregator, FleetExporter, HealthRouter,
-                    ReplicaSupervisor, health_score)
-from .hetero import HeteroCSRTopo, HeteroGraphSageSampler
-from .hetero_feature import HeteroFeature
-from .inference import layerwise_inference
-from .io import ExtentReader, StorageModel, plan_extents
-from .metrics import (Collector, MetricsSink, SloBudget, StepStats,
-                      pmerge_counters)
-from .models import GAT, GraphSAGE
-from .ops.quant import QuantizedTensor, plan_hot_capacity, quantize
-from .parallel import build_dist_train_step, build_e2e_train_step
-from .partition import (load_disk_tier, load_disk_tier_store,
-                        load_partition_info,
-                        load_quantized_feature_partition,
-                        load_quiver_feature_partition,
-                        partition_feature_without_replication,
-                        quiver_partition_feature, save_disk_tier,
-                        save_partition_info,
-                        save_quantized_feature_partition)
-from .pipeline import Pipeline, pipelined
-from .prefetch import ColdPrefetcher, StagingRing
-from .profile import StageProfiler, machine_probe
-from .pyg import GraphSageSampler, MixedGraphSageSampler, SampleJob
-from .rpc import (DeadlineExceeded, RpcClient, RpcError, RpcServer,
-                  ServerClosed)
-from .serving import (MicroBatchServer, OverloadError, ServeConfig,
-                      ServeEngine, ShardedServeEngine, TenantClass,
-                      build_serve_step, build_sharded_serve_step,
-                      default_tenant_classes)
-from .shard_tensor import ShardTensor, ShardTensorConfig
-from .tailsampling import TailSampler, TraceStore
-from .telemetry import FlightRecorder, PlanContext, TelemetryHub
-from .traffic import generate_scenario, replay
-from .utils import CSRTopo, parse_size, reindex_by_config, reindex_feature
-from .utils.topo import Topo, init_p2p, p2pCliqueTopo
+import importlib
 
-from . import (actuator, analysis, capacity, checkpoint, comm, datasets,
-               debug, faults, fleet, metrics, profile, profiling, rpc,
-               serving, tailsampling, telemetry, tracing, traffic)
-
+# each exported name and the submodule that defines it: imported on
+# first use (PEP 562), so that a light entry point such as
+# ``python -m quiver_tpu_torch.scripts.qt_top`` loads neither torch nor
+# the kernels
+_EXPORTS = {
+    "actuator": ("Actuator", "FleetAutoscaler", "Knob"),
+    "async_sampler": ("AsyncCudaNeighborSampler", "AsyncNeighborSampler",
+                      "sample_ahead"),
+    "comm": ("HostRankTable", "TorchComm", "get_comm_id",
+             "init_distributed"),
+    "datasets": ("GraphDataset", "from_numpy_dir", "generate_drifting_trace",
+                 "generate_synthetic_cold_dataset",
+                 "load_synthetic_cold_dataset"),
+    "debug": ("show_tensor_info",),
+    "faults": ("FaultPlan", "FaultRule"),
+    "feature": ("DeviceConfig", "DistFeature", "ExchangeCapPlan", "Feature",
+                "PartitionInfo"),
+    "fleet": ("FleetAggregator", "FleetExporter", "HealthRouter",
+              "ReplicaSupervisor", "health_score"),
+    "hetero": ("HeteroCSRTopo", "HeteroGraphSageSampler"),
+    "hetero_feature": ("HeteroFeature",),
+    "inference": ("layerwise_inference",),
+    "io": ("ExtentReader", "StorageModel", "plan_extents"),
+    "metrics": ("Collector", "MetricsSink", "SloBudget", "StepStats",
+                "pmerge_counters"),
+    "models": ("GAT", "GraphSAGE"),
+    "ops.quant": ("QuantizedTensor", "plan_hot_capacity", "quantize"),
+    "parallel": ("build_dist_train_step", "build_e2e_train_step"),
+    "partition": ("load_disk_tier", "load_disk_tier_store",
+                  "load_partition_info", "load_quantized_feature_partition",
+                  "load_quiver_feature_partition",
+                  "partition_feature_without_replication",
+                  "quiver_partition_feature", "save_disk_tier",
+                  "save_partition_info", "save_quantized_feature_partition"),
+    "pipeline": ("Pipeline", "pipelined"),
+    "prefetch": ("ColdPrefetcher", "StagingRing"),
+    "profile": ("StageProfiler", "machine_probe"),
+    "pyg": ("GraphSageSampler", "MixedGraphSageSampler", "SampleJob"),
+    "rpc": ("DeadlineExceeded", "RpcClient", "RpcError", "RpcServer",
+            "ServerClosed"),
+    "serving": ("MicroBatchServer", "OverloadError", "ServeConfig",
+                "ServeEngine", "ShardedServeEngine", "TenantClass",
+                "build_serve_step", "build_sharded_serve_step",
+                "default_tenant_classes"),
+    "shard_tensor": ("ShardTensor", "ShardTensorConfig"),
+    "tailsampling": ("TailSampler", "TraceStore"),
+    "telemetry": ("FlightRecorder", "PlanContext", "TelemetryHub"),
+    "traffic": ("generate_scenario", "replay"),
+    "utils": ("CSRTopo", "parse_size", "reindex_by_config",
+              "reindex_feature"),
+    "utils.topo": ("Topo", "init_p2p", "p2pCliqueTopo"),
+}
 # torch-quiver's names (the reference __init__.py exports these); the
 # JAX package's TpuComm is this port's TorchComm
-NcclComm = TorchComm
-getNcclId = get_comm_id
+_ALIASES = {"NcclComm": ("comm", "TorchComm"),
+            "getNcclId": ("comm", "get_comm_id")}
+_WHERE = dict(_ALIASES, **{name: (mod, name)
+                           for mod, names in _EXPORTS.items()
+                           for name in names})
+
+
+def __getattr__(name):
+    """An exported name, or a submodule, imported on first use."""
+    if name in _WHERE:
+        mod, attr = _WHERE[name]
+        value = getattr(importlib.import_module(f".{mod}", __name__), attr)
+    elif name.startswith("__"):
+        raise AttributeError(name)
+    else:
+        try:
+            value = importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
+
 
 __all__ = ["Actuator", "AsyncCudaNeighborSampler", "AsyncNeighborSampler",
            "CSRTopo", "ColdPrefetcher", "Collector", "DeadlineExceeded",

@@ -104,7 +104,11 @@ four times looks up the replicate store's bits in one kernel launch per
 hot read, free of host synchronisation, and its engine serves the same
 logits; with two cards, a clique over both reads the peer's block (skips
 on one card); a spawned worker opens a clique store from ``share_ipc``
-and looks up the parent's bits."""
+and looks up the parent's bits.
+
+The operator CLIs: ``qt_capacity --predict`` probes the card by default
+and appends the prediction it prints; a ``qt_agg --once`` pass leaves
+CUDA uninitialised in its process."""
 
 import numpy as np
 import pytest
@@ -2283,3 +2287,62 @@ def test_check_leak_catches_a_kept_tensor_on_the_card(card, monkeypatch):
     with pytest.raises(check_leak.LeakError, match=r"phase 1 .*live"):
         check_leak.run(w, [1], log=lambda line: None)
     assert all(t.is_cuda for t in kept) and len(kept) > 16
+
+
+# -- the operator CLIs beside the card ---------------------------------------
+
+
+def _cli(*argv, code=None, timeout=300):
+    import subprocess
+    import sys
+    from pathlib import Path
+    cmd = [sys.executable, "-c", code, *argv] if code else \
+        [sys.executable, "-m", *argv]
+    return subprocess.run(cmd, cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_qt_capacity_predicts_with_the_probe_on_the_card(card, tmp_path):
+    """``qt_capacity --predict`` runs the machine probe on the card (its
+    default device) and appends the prediction it prints."""
+    from quiver_tpu_torch import metrics as qm
+    p = str(tmp_path / "h.jsonl")
+    with qm.MetricsSink(p) as sink:
+        sink.emit({"wall": {"p50_ms": 4.0},
+                   "serving": {"mean_batch_fill": 12.0,
+                               "knobs": {"max_wait_ms": 2.0,
+                                         "batch_fill_cap": 64}}},
+                  kind="serving")
+    out = _cli("quiver_tpu_torch.scripts.qt_capacity", "--jsonl", p,
+               "--predict", "--replicas", "3", "--no-color")
+    assert out.returncode == 0, out.stderr[-4000:]
+    (rec,) = [r for r in qm.read_jsonl(p) if r["kind"] == "capacity"]
+    assert f"sustain {rec['predicted_rps']:.0f} req/s" in out.stdout
+    assert rec["replicas"] == 3 and rec["batch_cap"] == 64
+
+
+_AGG_ONCE = """
+import sys, torch
+from quiver_tpu_torch.scripts import qt_agg
+rc = qt_agg.main(sys.argv[1:])
+print("CUDA_INITIALIZED", torch.cuda.is_initialized())
+sys.exit(rc)
+"""
+
+
+def test_qt_agg_once_leaves_cuda_uninitialised(card, tmp_path):
+    """The aggregator never touches the card: a ``qt_agg --once`` pass
+    over replica sinks leaves CUDA uninitialised in its process."""
+    from quiver_tpu_torch import metrics as qm
+    specs = []
+    for name in ("r0", "r1"):
+        p = str(tmp_path / f"{name}.jsonl")
+        with qm.MetricsSink(p, replica=name) as sink:
+            sink.emit({"counters": {"hot_rows": 10, "cold_rows": 5},
+                       "wall": {"p50_ms": 2.0}}, kind="step_stats")
+        specs.append(f"{name}={p}")
+    out = _cli("--once", "--no-color", "--replicas", ",".join(specs),
+               "--jsonl", str(tmp_path / "fleet.jsonl"), code=_AGG_ONCE)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "fleet: 2 replicas" in out.stdout
+    assert "CUDA_INITIALIZED False" in out.stdout
