@@ -462,7 +462,32 @@ Phases:
    run; the counts, set to 0 before it, must show every kernel of the
    path launched (``fused_sample_hop``, ``fused_hot_hop``,
    ``sample_layer``, ``gather_rows``);
-19. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
+19. the examples (``quiver_tpu_torch.examples``), each through
+   ``main(argv)`` in this process on the card (``gat_weighted
+   --sampling rotation`` as ``python -m`` in a process of its own), the counts
+   set to 0 just before each run and read just after (``EXAMPLE_RUNS``):
+   (a) ``train_products_synthetic`` at 2.45M nodes with a 256 MB cache
+   (tiered: ``gather_rows_kernel`` on the pinned cold tier at least
+   once a step; test accuracy at least 0.5), (b) at its defaults (loss
+   falls), (c) rotation + butterfly with ``--trace`` (the trace holds
+   ``train.step`` and ``train.epoch``), (d) ``--data-parallel`` (one
+   NCCL rank, this process), (e) ``--cache-policy p2p_clique_replicate
+   --cache 64MB`` over phase 15's mesh, the card named 4 times
+   (``gather_rows_sharded`` at least once a step); (f)
+   ``graph_sage_unsup`` at 50k nodes (last link-AUC above 0.6); (g)
+   ``gat_weighted`` at 2.45M nodes, D 100, 47 classes, batch 1024, and
+   (g2) rotation at its defaults (losses finite and falling); (h)
+   ``hetero_rgcn`` at MAG240M's widths with 400k papers, 200k authors,
+   10k institutions (the paper store's cold ``gather_rows_kernel`` at
+   least once a step), (h2) ``--weighted``; (i) ``serve_sage`` at 2.45M
+   nodes, D 100, 47 classes, 3 s (served + shed = offered, p99
+   printed, ``gather_rows_kernel`` at least once a server batch); (j)
+   ``dist_feature_demo`` and ``dist_train_demo`` at world 1 over NCCL
+   (their verified lines, the exchange's ``gather_rows`` at least once
+   a lookup). The example's lines, prefixed ``example (x) |``, then one
+   ``example (x):`` line a run (seconds, figures, launches by kernel)
+   and ``phase 19: N s`` with the script's seconds so far;
+20. a JSON line of the five kernels (``ms`` the wrapper's time, ``own_ms``
    the kernel's own, ``launches_per_train_step`` from phase 5,
    ``launches_per_tiered_batch`` from phase 6, and for ``gather_rows``
    its host-tier variant under ``host_tier``, with the fp32 host tier
@@ -505,7 +530,9 @@ Phases:
    replicas' server batches, phase 17's under ``profile`` and each
    kernel's ``launches_registry_pass``, phase 18's under ``leak`` and
    each kernel's ``launches_leak_check`` and ``launches_per_leak_cycle``,
-   by leak phase and unit), the script's total
+   by leak phase and unit, phase 19's under ``examples`` and the
+   launches of each run under ``examples_phase19`` of ``gather_rows``
+   and ``gather_rows_sharded``), the script's total
    seconds, the card's line, then the
    last line ``{"ok": true,
    "device": {...}}``.
@@ -9134,6 +9161,271 @@ def phase_leak(dev, card):
     return rec, launches
 
 
+EX_HETERO = ["--papers", "400000", "--authors", "200000",
+             "--institutions", "10000"]   # (h): fp32 host features ~1.8 GB
+EX_SERVE_SECONDS = 3.0                    # (i)
+EX_PROCESS_TIMEOUT_S = 600                # (g2): the `python -m` run
+# the runs of phase 19: label, example, argv (the card by default)
+EXAMPLE_RUNS = [
+    ("a", "train_products_synthetic",
+     ["--nodes", str(NODES), "--cache", "256MB", "--epochs", "1",
+      "--eval-batches", "20"]),
+    ("b", "train_products_synthetic", ["--epochs", "2"]),
+    ("c", "train_products_synthetic",
+     ["--sampling", "rotation", "--shuffle", "butterfly", "--epochs", "2",
+      "--trace", "TRACE"]),
+    ("d", "train_products_synthetic", ["--data-parallel", "--epochs", "1"]),
+    ("e", "train_products_synthetic",
+     ["--cache-policy", "p2p_clique_replicate", "--cache", "64MB",
+      "--epochs", "1"]),
+    # (f): 50,000 nodes, not 100,000: the script's time (phase 19 took
+    # 139 s, the whole script 945.5 s of its 1,200 on a slow host)
+    ("f", "graph_sage_unsup", ["--nodes", "50000", "--epochs", "2"]),
+    ("g", "gat_weighted",
+     ["--nodes", str(NODES), "--dim", str(DIM), "--classes", str(CLASSES),
+      "--batch", str(BATCH), "--epochs", "2"]),
+    ("g2", "gat_weighted",                         # as `python -m`
+     ["--sampling", "rotation", "--epochs", "2"]),
+    ("h", "hetero_rgcn",
+     EX_HETERO + ["--dim", "768", "--classes", "153", "--batch", "1024",
+                  "--epochs", "1"]),
+    ("h2", "hetero_rgcn", ["--weighted"]),
+    ("i", "serve_sage",
+     ["--nodes", str(NODES), "--dim", str(DIM), "--classes", str(CLASSES),
+      "--seconds", str(EX_SERVE_SECONDS), "--trace", "TRACE"]),
+    ("j", "dist_feature_demo", []),
+    ("j2", "dist_train_demo", []),
+]
+EX_FIGURES = {
+    "loss": re.compile(r"^epoch \d+: loss (\S+)"),
+    "seeds_per_s": re.compile(r"\((\d+) seeds/s\)"),
+    "accuracy": re.compile(r"^test accuracy: (\S+) "),
+    "auc": re.compile(r"link-AUC (\S+) "),
+    "served": re.compile(r"^served (\d+) requests \((\d+) shed at"),
+    "request_ms": re.compile(r"^per-request latency \(\d+ requests\): "
+                             r"p50 (\S+) ms, p95 \S+ ms, p99 (\S+) ms"),
+    "batches": re.compile(r"^serving: \d+ requests .*?, (\d+) batches,"),
+    "verified": re.compile(r"(all verified|verified against ground truth)"),
+}
+
+
+class _Prefixed:
+    """A stdout that passes every complete line on with a prefix and
+    keeps the lines."""
+
+    def __init__(self, prefix, out):
+        self.prefix, self.out, self.lines, self._part = prefix, out, [], ""
+
+    def write(self, s):
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        for line in done:
+            self.lines.append(line)
+            self.out.write(f"{self.prefix}{line}\n")
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def close(self):
+        if self._part:
+            self.write("\n")
+
+
+def _number(text):
+    try:
+        return float(text)
+    except ValueError:
+        return text
+
+
+def example_figures(lines) -> dict:
+    """The numbers an example printed, by ``EX_FIGURES``' names: one
+    list a figure (each match's groups, as floats)."""
+    figs: dict = {}
+    for line in lines:
+        for name, pat in EX_FIGURES.items():
+            m = pat.search(line)
+            if m:
+                vals = [_number(g) for g in m.groups()]
+                figs.setdefault(name, []).append(
+                    vals[0] if len(vals) == 1 else vals)
+    return figs
+
+
+def example_launches() -> dict:
+    """The kernel counts since the last reset: by wrapper, and by the
+    gather kernel a wrapper launched; zeros left out."""
+    from quiver_tpu_torch.ops import kernels
+    return {k: v for counts in (kernels.LAUNCHES, kernels.RAW_LAUNCHES,
+                                kernels.PACKED_LAUNCHES,
+                                kernels.ELEMS_LAUNCHES)
+            for k, v in counts.items() if v}
+
+
+def example_run(label, name, argv):
+    """One example through ``main(argv)`` in this process, the counts
+    set to 0 just before it and read just after. Returns its record."""
+    import importlib
+    from quiver_tpu_torch.ops import kernels
+    mod = importlib.import_module(f"quiver_tpu_torch.examples.{name}")
+    out = _Prefixed(f"example ({label}) | ", sys.stdout)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    saved = sys.stdout
+    sys.stdout = out
+    try:
+        rc = mod.main(list(argv))
+    finally:
+        sys.stdout = saved
+        out.close()
+    secs = time.perf_counter() - t0
+    launches = example_launches()
+    check(rc == 0, f"phase 19 ({label}): {name} exited {rc}")
+    return {"example": name, "argv": list(argv), "seconds": secs,
+            "figures": example_figures(out.lines), "launches": launches}
+
+
+def example_process(label, name, argv):
+    """One example as ``python -m quiver_tpu_torch.examples.<name>`` in
+    a process of its own (the module entry)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"quiver_tpu_torch.examples.{name}", *argv],
+        capture_output=True, text=True, timeout=EX_PROCESS_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"example ({label}) | {line}", flush=True)
+    check(proc.returncode == 0,
+          f"phase 19 ({label}): python -m quiver_tpu_torch.examples.{name} "
+          f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return {"example": name, "argv": list(argv), "seconds": secs,
+            "process": True, "figures": example_figures(lines),
+            "launches": {}}
+
+
+def finite_falling(label, losses):
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"phase 19 ({label}): losses {losses} not all finite")
+    check(len(losses) >= 2 and losses[-1] < losses[0],
+          f"phase 19 ({label}): loss did not fall: {losses}")
+
+
+def per_unit(rec, label, kernel, units, what):
+    """Check that ``kernel`` launched at least once per unit of work."""
+    n = rec["launches"].get(kernel, 0)
+    check(n >= units, f"phase 19 ({label}): {kernel} launched {n} times "
+                      f"over {units} {what}")
+    rec.setdefault("per_unit", {})[kernel] = {"units": units, "what": what,
+                                              "per_unit": n / units}
+
+
+def phase_examples(dev, card, t_main):
+    """Phase 19: the seven examples (``quiver_tpu_torch.examples``) on
+    the card, through ``main(argv)`` in this process and one as ``python
+    -m``; each run's figures checked, and the launches of the gathers
+    they reach (the tiered store's pinned cold tier, the clique's
+    sharded hot tier, the exchange) counted from 0 around the run.
+    Returns the record by run."""
+    import torch
+    from quiver_tpu_torch import tracing
+    from quiver_tpu_torch.examples import train_products_synthetic as tps
+    from quiver_tpu_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="qt_examples_")
+    recs = {}
+    try:
+        for label, name, argv in EXAMPLE_RUNS:
+            trace = os.path.join(tmp, f"trace_{label}.json")
+            argv = [trace if a == "TRACE" else a for a in argv]
+            if label == "g2":
+                rec = example_process(label, name, argv)
+            elif label == "e":
+                # one card makes the example's clique a replicated store:
+                # hand it phase 15's mesh, the card named CLIQUE times, so
+                # the hot tier is sharded and read by gather_rows_sharded
+                keep = tps.cache_mesh
+                tps.cache_mesh = lambda d: make_mesh(("cache",),
+                                                     devices=[d] * CLIQUE)
+                try:
+                    rec = example_run(label, name, argv)
+                finally:
+                    tps.cache_mesh = keep
+            else:
+                rec = example_run(label, name, argv)
+            if "--trace" in argv:
+                tracing.disable()
+                tracing.clear()
+                with open(trace) as f:
+                    names = {e.get("name") for e in json.load(f)[
+                        "traceEvents"]}
+                rec["trace_span_names"] = sorted(n for n in names if n)
+            recs[label] = rec
+            torch.cuda.empty_cache()
+            check_example(label, rec)
+            print(f"example ({label}): {name} {' '.join(argv)}: "
+                  f"{rec['seconds']:.2f} s, figures {rec['figures']}, "
+                  f"launches {rec['launches']}; on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    print(f"phase 19: {total:.2f} s: " + ", ".join(
+        f"({k}) {v['seconds']:.2f} s" for k, v in recs.items())
+        + f"; chip_smoke {time.perf_counter() - t_main:.1f} s so far; on "
+        f"{card}", flush=True)
+    return {"seconds": total, "runs": recs}
+
+
+def check_example(label, rec):
+    """Phase 19's check of one run (see ``EXAMPLE_RUNS``)."""
+    import torch
+    figs = rec["figures"]
+    losses = figs.get("loss", [])
+    train = NODES // 10
+    if label in ("a", "b", "c", "d", "e", "g", "g2", "h", "h2", "j2"):
+        check(losses and all(math.isfinite(v) for v in losses),
+              f"phase 19 ({label}): losses {losses} not all finite")
+    if label == "a":
+        acc = figs.get("accuracy", [0.0])[0]
+        check(acc >= 0.5, f"phase 19 (a): test accuracy {acc} < 0.5")
+        steps = len(range(0, train - BATCH + 1, BATCH))
+        per_unit(rec, label, "gather_rows_kernel", steps, "train steps")
+    elif label == "b":
+        finite_falling(label, losses)
+    elif label == "c":
+        names = rec["trace_span_names"]
+        check("train.step" in names and "train.epoch" in names,
+              f"phase 19 (c): the trace holds {names}")
+    elif label == "d":
+        check(torch.cuda.device_count() == 1,
+              "phase 19 (d): one NCCL rank a card, one card expected")
+    elif label == "e":
+        per_unit(rec, label, "gather_rows_sharded",
+                 len(range(0, 20_000 - BATCH + 1, BATCH)), "train steps")
+    elif label == "f":
+        auc = figs.get("auc", [0.0])[-1]
+        check(auc > 0.6, f"phase 19 (f): link-AUC {auc} <= 0.6")
+    elif label in ("g", "g2"):
+        finite_falling(label, losses)
+    elif label == "h":
+        per_unit(rec, label, "gather_rows_kernel", 30, "train steps")
+    elif label == "i":
+        served, shed = figs["served"][0]
+        offered = int(float(EX_SERVE_SECONDS) * 2000.0)
+        check(served + shed == offered,
+              f"phase 19 (i): served {served} + shed {shed} != {offered}")
+        check("request_ms" in figs, "phase 19 (i): no p99 printed")
+        per_unit(rec, label, "gather_rows_kernel", int(figs["batches"][0]),
+                 "server batches")
+    elif label in ("j", "j2"):
+        check("verified" in figs, f"phase 19 ({label}): no verified line")
+        lookups = 2 if label == "j" else 3 * len(
+            range(0, 24_000 // 5 - 128 + 1, 128)) + 1
+        per_unit(rec, label, "gather_rows", lookups, "exchange lookups")
+
+
 def breakdown(eng, requests, x, layers):
     """Where a served batch spends its time: the walk and the model
     timed apart with CUDA events, then a ``torch.profiler`` trace of
@@ -9301,6 +9593,8 @@ def main() -> int:
         dev, card, host_tier["h2d_bytes_per_s"])
     torch.cuda.empty_cache()
     leak_rec, leak_launches = phase_leak(dev, card)
+    torch.cuda.empty_cache()
+    examples_rec = phase_examples(dev, card, t_main)
     clique_served = clique_launches[("int8 half", "fused")]
     launches["gather_rows_sharded"] = clique_served["gather_rows_sharded"]
     k = clique_kernel["fp32 lookup"]
@@ -9555,6 +9849,13 @@ def main() -> int:
     line["fleet"] = fleet_rec
     line["profile"] = prof_rec
     line["leak"] = leak_rec
+    line["examples"] = examples_rec
+    for name in ("gather_rows", "gather_rows_sharded"):
+        line["kernels"][list(SOURCES).index(name)]["examples_phase19"] = {
+            label: {k: v for k, v in r["launches"].items()
+                    if k.startswith("gather_rows")
+                    and ("sharded" in k) == ("sharded" in name)}
+            for label, r in examples_rec["runs"].items()}
     # gather_rows_q8_kernel (int8 rows with separate sidecar arrays):
     # its launches over the whole run, against those of phase 6's check
     q8_all = _build.KERNEL_TOTALS.get("gather_rows_q8_kernel", 0) \

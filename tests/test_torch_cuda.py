@@ -2346,3 +2346,46 @@ def test_qt_agg_once_leaves_cuda_uninitialised(card, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "fleet: 2 replicas" in out.stdout
     assert "CUDA_INITIALIZED False" in out.stdout
+
+
+# -- the examples on the card --------------------------------------------------
+
+
+def _example(name, argv, capsys):
+    """``quiver_tpu_torch.examples.<name>.main(argv)`` on the card (its
+    default device), the launch counts set to 0 just before: ``(stdout,
+    {kernel: launches})``."""
+    import importlib
+    mod = importlib.import_module(f"quiver_tpu_torch.examples.{name}")
+    _build.reset_launches()
+    assert mod.main(list(argv)) == 0
+    counts = {**_build.LAUNCHES, **_build.RAW_LAUNCHES,
+              **_build.PACKED_LAUNCHES}
+    return capsys.readouterr().out, counts
+
+
+def test_examples_reach_the_host_tier_gather_on_the_card(card, capsys):
+    """``train_products_synthetic`` with a cache below the table (the
+    tiered route: each batch's rows through ``Feature.prefetch``) and
+    ``serve_sage`` (a quarter of the rows hot): the pinned fp32 cold
+    tier is read by ``gather_rows_kernel``, at least once a train step
+    and once a server batch."""
+    import re
+    out, counts = _example(
+        "train_products_synthetic",
+        ["--nodes", "20000", "--batch", "256", "--epochs", "1",
+         "--sizes", "5", "3", "--cache", "1MB", "--eval-batches", "2"],
+        capsys)
+    steps = len(range(0, 2000 - 256 + 1, 256))
+    assert re.search(r"^feature store: 2621/20000 rows cached in HBM$", out,
+                     re.M)
+    assert re.search(r"^test accuracy: ", out, re.M)
+    assert counts["gather_rows_kernel"] >= steps + 2
+    out, counts = _example(
+        "serve_sage", ["--nodes", "20000", "--seconds", "0.5"], capsys)
+    batches = int(re.search(r"^serving: \d+ requests .*?, (\d+) batches,",
+                            out, re.M)[1])
+    m = re.search(r"^served (\d+) requests \((\d+) shed at admission\)",
+                  out, re.M)
+    assert int(m[1]) + int(m[2]) == 1000
+    assert counts["gather_rows_kernel"] >= batches

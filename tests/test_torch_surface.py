@@ -70,13 +70,20 @@ def test_show_tensor_info_on_numpy_as_jax(capsys):
         "numpy shape=(2, 5) dtype=int8 nbytes=10"
 
 
-_IMPORT = re.compile(r"^\s*(import\s+(jax|flax|optax|quiver_tpu)\b|"
-                     r"from\s+(jax|flax|optax|quiver_tpu)\b[\w.]*\s+import)",
-                     re.M)
+_IMPORT = re.compile(r"^\s*(import\s+(jax|flax|optax|quiver_tpu|examples)\b|"
+                     r"from\s+(jax|flax|optax|quiver_tpu|examples)\b[\w.]*"
+                     r"\s+import)", re.M)
+EXAMPLES = ("dist_feature_demo", "dist_train_demo", "gat_weighted",
+            "graph_sage_unsup", "hetero_rgcn", "serve_sage",
+            "train_products_synthetic")
 
 
 def test_no_module_of_the_port_imports_jax():
+    """No module of the port (its examples included) imports JAX, the
+    JAX package or the JAX package's ``examples/``."""
     sources = sorted((ROOT / "quiver_tpu_torch").rglob("*.py"))
+    assert {p.stem for p in sources
+            if p.parent.name == "examples"} >= set(EXAMPLES)
     sources += [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
     bad = [str(p.relative_to(ROOT)) for p in sources
            if _IMPORT.search(p.read_text())]
