@@ -71,6 +71,7 @@ through an event that the reader's stream waits for.
 
 from __future__ import annotations
 
+import functools
 from concurrent.futures import Future
 from typing import NamedTuple, Optional, Sequence
 
@@ -78,7 +79,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import faults, metrics
+from . import faults, metrics, tracing
 from .comm import (build_dist_lookup_fn, cap_for_expected_load,
                    default_exchange_cap)
 from .pipeline import Pipeline
@@ -137,6 +138,14 @@ def _resolve_cold_budget(dedup_cold, cold_budget, n: int) -> int:
     if cold_budget is not None:
         return cold_budget
     return quant.default_cold_budget(n)
+
+
+def _dedup_counts(budget: int, raw: dict) -> dict:
+    """The dedup path's span counters from the raw ones it staged: on
+    unique overflow the compaction reads every cold slot."""
+    over = raw["unique"] > budget
+    return {"cold_slots": raw["cold_slots"], "dedup_overflow": int(over),
+            "host_rows": raw["cold_slots"] if over else raw["live_rows"]}
 
 
 class _StagedRows(Future):
@@ -437,7 +446,24 @@ class Feature:
         records one lookup and its valid hot and cold slots (padding
         excluded), and the dedup table's statistics where JAX records
         them: once, when ``dedup_cold`` is on and the budget is below
-        the batch; the compaction fallback records nothing."""
+        the batch; the compaction fallback records nothing.
+
+        The call is the span ``feature.lookup``, its dedup
+        ``feature.dedup`` and each host-tier read ``feature.host_gather``.
+        While it records, the span counts ``cold_slots`` (valid cold
+        slots), ``host_rows`` (rows read from the host tier: the live
+        distinct cold rows on the dedup path, else the cold slots) and
+        ``dedup_overflow`` (1 when the distinct rows overflowed the
+        budget), from device scalars the lookup has (the dedup path adds
+        one sum, of its live distinct cold rows) and, there, worked out
+        on the host when the span is read (:func:`_dedup_counts`)."""
+        with tracing.span("feature.lookup") as sp:
+            return self._tiered(sp, dev_part, host_part, ids, order,
+                                masked, collector)
+
+    @hot_path
+    def _tiered(self, sp, dev_part, host_part, ids, order, masked,
+                collector):
         ids_raw = ids.to(torch.int32)
         cache_rows = self.cache_rows
         cold_total = quant.tier_rows(host_part)
@@ -454,13 +480,14 @@ class Feature:
 
         def put_host(x, hids):
             """Host rows over ``x`` where ``hids`` is not -1, in place."""
-            if quant.tier_dtype(host_part) == out_dt:
-                return gather_rows(host_part, hids, out=x)
-            rows = gather_rows(host_part, hids, out=torch.zeros(
-                (hids.shape[0], dim), dtype=quant.tier_dtype(host_part),
-                device=dev))
-            return x.copy_(torch.where((hids >= 0)[:, None],
-                                       rows.to(out_dt), x))
+            with tracing.span("feature.host_gather"):
+                if quant.tier_dtype(host_part) == out_dt:
+                    return gather_rows(host_part, hids, out=x)
+                rows = gather_rows(host_part, hids, out=torch.zeros(
+                    (hids.shape[0], dim), dtype=quant.tier_dtype(host_part),
+                    device=dev))
+                return x.copy_(torch.where((hids >= 0)[:, None],
+                                           rows.to(out_dt), x))
 
         def finish(rows):
             if not masked:
@@ -486,16 +513,26 @@ class Feature:
         budget = _resolve_cold_budget(self.dedup_cold, self.cold_budget, n)
         dedup = bool(self.dedup_cold)
         if dev_part is None:
+            if sp.active:
+                sp.count(cold_slots=(ids_raw >= 0).sum(dtype=torch.int32)
+                         if masked else n)
             if dedup and budget < n:
                 # no hot tier: every slot is cold, dedup still bounds the
                 # host read to unique rows
                 return finish(dedup_take(host_part, cold_idx, budget,
                                          collector=collector).to(out_dt))
-            return finish(gather_rows(host_part, cold_idx).to(out_dt))
+            if sp.active:
+                sp.count(host_rows=n, dedup_overflow=0)
+            with tracing.span("feature.host_gather"):
+                return finish(gather_rows(host_part, cold_idx).to(out_dt))
         zero = torch.zeros_like(t)
         if budget >= n:
             # the budget cannot beat a full gather: one read of every
             # cold slot (also the tiny-batch path)
+            if sp.active:
+                cold_slots = (~hot).sum(dtype=torch.int32)
+                sp.count(cold_slots=cold_slots, host_rows=cold_slots,
+                         dedup_overflow=0)
             x = take_hot(torch.where(hot, t, zero))
             return finish(put_host(x, torch.where(hot, skip, cold_idx)))
 
@@ -531,18 +568,23 @@ class Feature:
             x.index_copy_(0, cpos.long(), rows)
             with gated():
                 put_host(x[:n], torch.where(cold & over, cold_idx, skip))
-            return x[:n]
+            return x[:n], n_cold
 
         if not dedup:
-            return finish(compacted(None))
+            x, n_cold = compacted(None)
+            if sp.active:
+                sp.count(cold_slots=n_cold, host_rows=n_cold,
+                         dedup_overflow=0)
+            return finish(x)
         # the deduplicated narrow path: unique over the whole translated
         # frontier, each unique cold row read once ([budget, dim], the
         # only host read), positions expanded from the unique rows; on
         # unique overflow, the compaction path (which keeps its own
         # traffic bound) is taken instead
         valid_pos = (ids_raw >= 0) if masked else None
-        uniq, inv, n_uniq = unique_within_budget(t, budget, valid=valid_pos,
-                                                 collector=collector)
+        with tracing.span("feature.dedup"):
+            uniq, inv, n_uniq = unique_within_budget(
+                t, budget, valid=valid_pos, collector=collector)
         uover = n_uniq > budget
         safe_u = uniq.clamp(0, total - 1)
         hot_u = safe_u < cache_rows
@@ -557,7 +599,11 @@ class Feature:
             inv = torch.where(valid_pos, inv, budget)
         narrow = rows_u.index_select(0, inv.long())
         with gated():
-            fallback = compacted(uover)
+            fallback, n_cold = compacted(uover)
+        if sp.active:
+            sp.count(cold_slots=n_cold, unique=n_uniq,
+                     live_rows=live_u.sum(dtype=torch.int32))
+            sp.derive(functools.partial(_dedup_counts, budget))
         if masked:
             return torch.where(uover, finish(fallback), narrow)
         return torch.where(uover, fallback, narrow)
@@ -629,11 +675,16 @@ class Feature:
                                rows.to(self.device, out_dt))
 
     def getitem_masked(self, node_idx):
-        """``feature[clip(ids)]`` with -1 ids giving zero rows."""
+        """``feature[clip(ids)]`` with -1 ids giving zero rows. The call
+        is the span ``feature.lookup`` (the tiered lookup's own)."""
         ids = self._ids(node_idx)
         if self._host_offload is not None and self.mmap_array is None:
             return self._lookup_tiered(self.device_part, self._host_offload,
                                        ids, self.feature_order, True)
+        with tracing.span("feature.lookup"):
+            return self._masked_untiered(ids)
+
+    def _masked_untiered(self, ids):
         if self.host_part is None and self._host_offload is None \
                 and self.mmap_array is None:
             return self._lookup_cached_masked(self.device_part, ids,

@@ -17,7 +17,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .. import metrics
+from .. import metrics, tracing
+from .. import profiling  # noqa: F401  (the torch side of the spans)
 from .sample import (KeyedDraws, LayerSample, StreamDraws, _draw_offsets,
                      _draw_positions, as_index_rows, as_index_rows_overlapping,
                      compact_ids, compact_layer, edge_row_ids, permute_csr,
@@ -175,36 +176,16 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
             indices_stride, eid)
     cur = seeds.to(torch.int32)
     layers: List[LayerSample] = []
+    drawn = "weighted" if edge_weight is not None else method
     for i, k in enumerate(sizes):
-        k = int(k)
-        track = eid is not None
-        gen = walk.hop(i, cur)
-        if weight_rows is not None:
-            out = sample_layer_weighted_window(
-                indptr, indices_rows, weight_rows, cur, k, gen,
-                stride=indices_stride, with_slots=track)
-        elif edge_weight is not None:
-            out = sample_layer_weighted(indptr, indices, edge_weight, cur,
-                                        k, gen, with_slots=track)
-        elif method == "rotation":
-            out = sample_layer_rotation(indptr, indices_rows, cur, k,
-                                        gen, with_slots=track,
-                                        stride=indices_stride)
-        elif method == "window":
-            out = sample_layer_window(indptr, indices_rows, cur, k,
-                                      gen, with_slots=track,
-                                      stride=indices_stride)
-        elif indices_rows is not None:
-            out = sample_layer_exact_wide(
-                indptr, indices, indices_rows, cur, k, gen,
-                stride=indices_stride, with_slots=track,
-                hub_cap=suggest_hub_cap(int(cur.shape[0]), hub_frac))
-        else:
-            out = sample_layer(indptr, indices, cur, k, gen,
-                               with_slots=track)
-        layer = compact_layer(cur, out[0],
-                              seeds_dense=(i > 0) or seeds_dense)
-        if track:
+        with tracing.span("sample.draw", args={"hop": i, "method": drawn}):
+            out = _draw(indptr, indices, edge_weight, method, indices_rows,
+                        weight_rows, indices_stride, hub_frac, cur, int(k),
+                        walk.hop(i, cur), eid is not None)
+        with tracing.span("sample.compact", args={"hop": i}):
+            layer = compact_layer(cur, out[0],
+                                  seeds_dense=(i > 0) or seeds_dense)
+        if eid is not None:
             flat = out[2].reshape(-1)
             ids = flat if eid is True else take(eid, flat)
             layer = layer._replace(e_id=torch.where(flat >= 0, ids, -1))
@@ -217,6 +198,30 @@ def sample_multihop(indptr: torch.Tensor, indices: torch.Tensor,
                       (cur >= 0).sum(dtype=torch.int32))
         collector.add(metrics.FRONTIER_CAP, int(cur.shape[0]))
     return cur, layers
+
+
+def _draw(indptr, indices, edge_weight, method, indices_rows, weight_rows,
+          indices_stride, hub_frac, cur, k, gen, track):
+    """One hop's draw from ``cur`` by the sampler the knobs pick."""
+    if weight_rows is not None:
+        return sample_layer_weighted_window(
+            indptr, indices_rows, weight_rows, cur, k, gen,
+            stride=indices_stride, with_slots=track)
+    if edge_weight is not None:
+        return sample_layer_weighted(indptr, indices, edge_weight, cur, k,
+                                     gen, with_slots=track)
+    if method == "rotation":
+        return sample_layer_rotation(indptr, indices_rows, cur, k, gen,
+                                     with_slots=track, stride=indices_stride)
+    if method == "window":
+        return sample_layer_window(indptr, indices_rows, cur, k, gen,
+                                   with_slots=track, stride=indices_stride)
+    if indices_rows is not None:
+        return sample_layer_exact_wide(
+            indptr, indices, indices_rows, cur, k, gen,
+            stride=indices_stride, with_slots=track,
+            hub_cap=suggest_hub_cap(int(cur.shape[0]), hub_frac))
+    return sample_layer(indptr, indices, cur, k, gen, with_slots=track)
 
 
 def sample_multihop_dedup(indptr: torch.Tensor, indices: torch.Tensor,

@@ -43,7 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .. import metrics
+from .. import metrics, tracing
 from ..ops import quant
 from ..ops.dedup import unique_within_budget
 from ..ops.kernels.fused import fused_multihop, fused_sample_multihop
@@ -328,9 +328,11 @@ def _model_loss(model, x, adjs, labels, batch_size: int,
     dropout drawn from a generator seeded with ``dropout_seed`` on
     ``x``'s device, and the loss over the first ``batch_size`` rows:
     every batch slot counts, the -1 padded seeds included, as in the JAX
-    package."""
-    logits = model(x, adjs, generator=_generator(x.device, dropout_seed))
-    return cross_entropy_logits(logits[:batch_size], labels)
+    package. The call is the span ``train.forward``."""
+    with tracing.span("train.forward"):
+        logits = model(x, adjs,
+                       generator=_generator(x.device, dropout_seed))
+        return cross_entropy_logits(logits[:batch_size], labels)
 
 
 @hot_path
@@ -353,12 +355,16 @@ def _fused_loss(model, sizes, batch_size, feat, forder, indptr, indices,
 
 
 def _update(state: TrainState, model, optimizer, loss) -> TrainState:
+    """The backward pass (span ``train.backward``) and the optimizer's
+    step (span ``train.optimizer``)."""
     if state.model is not model or state.optimizer is not optimizer:
         raise ValueError("the state's model and optimizer must be the "
                          "ones the step was built with")
-    loss.backward()
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
+    with tracing.span("train.backward"):
+        loss.backward()
+    with tracing.span("train.optimizer"):
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
     return TrainState(model, optimizer, state.step + 1)
 
 
@@ -474,24 +480,26 @@ def _build_step(model, sizes, batch_size, method, indices_stride, hub_frac,
 
     def step(state: TrainState, feat, forder, indptr, indices, seeds,
              labels, hop_seeds, dropout_seed, indices_rows=None):
-        if fused is not None and indices_rows is not None:
-            raise TypeError(
-                "fused_hot_hop does not take indices_rows (the fused "
-                "walk does its own in-kernel CSR reads every hop)")
-        sampling = {}
-        if fused is None:
-            _check_rows(method, indices_rows, kind)
-            sampling = dict(method=method, indices_rows=indices_rows,
-                            indices_stride=indices_stride,
-                            hub_frac=hub_frac)
-        model.train()
-        col = metrics.Collector(seeds.device) if collect_metrics else None
-        loss = _fused_loss(model, sizes, batch_size, feat, forder, indptr,
-                           indices, seeds, labels, hop_seeds, dropout_seed,
-                           fused=fused,
-                           gather=store_gather if _is_store(feat) else gather,
-                           collector=col, **sampling)
-        return finish(state, loss, col)
+        with tracing.span("train.step"):
+            if fused is not None and indices_rows is not None:
+                raise TypeError(
+                    "fused_hot_hop does not take indices_rows (the fused "
+                    "walk does its own in-kernel CSR reads every hop)")
+            sampling = {}
+            if fused is None:
+                _check_rows(method, indices_rows, kind)
+                sampling = dict(method=method, indices_rows=indices_rows,
+                                indices_stride=indices_stride,
+                                hub_frac=hub_frac)
+            model.train()
+            col = metrics.Collector(seeds.device) if collect_metrics \
+                else None
+            loss = _fused_loss(
+                model, sizes, batch_size, feat, forder, indptr, indices,
+                seeds, labels, hop_seeds, dropout_seed, fused=fused,
+                gather=store_gather if _is_store(feat) else gather,
+                collector=col, **sampling)
+            return finish(state, loss, col)
 
     return step
 
@@ -589,9 +597,10 @@ def build_split_train_step(model, optimizer, sizes: Sequence[int],
         return n_id, layers_to_adjs(layers, batch_size, sizes)
 
     def step_fn(state: TrainState, x, adjs, labels, dropout_seed):
-        model.train()
-        loss = _model_loss(model, x, adjs, labels, batch_size,
-                           dropout_seed)
-        return _update(state, model, optimizer, loss), loss.detach()
+        with tracing.span("train.step"):
+            model.train()
+            loss = _model_loss(model, x, adjs, labels, batch_size,
+                               dropout_seed)
+            return _update(state, model, optimizer, loss), loss.detach()
 
     return sample_fn, step_fn

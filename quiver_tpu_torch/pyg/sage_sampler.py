@@ -56,7 +56,7 @@ import torch
 from ..ops.sample import (as_index_rows, as_index_rows_overlapping,
                           compact_layer, compose_slot_map, edge_row_ids,
                           reshuffle_csr, sample_layer, sample_prob)
-from .. import metrics, native
+from .. import metrics, native, tracing
 from ..ops.sample_multihop import sample_multihop
 from ..utils.device import resolve_device
 from ..utils.placement import pinned_put
@@ -387,7 +387,11 @@ class GraphSageSampler:
         """Returns ``(n_id, batch_size, adjs)``, the adjs outermost hop
         first, ready for layer-wise message passing (PyG's order). With
         ``collect_metrics`` the batch's counter vector lands on
-        ``last_counters``."""
+        ``last_counters``. The call is the span ``sampler.sample``."""
+        with tracing.span("sampler.sample"):
+            return self._sample(input_nodes)
+
+    def _sample(self, input_nodes):
         self.lazy_init_quiver()
         if self.mode == "CPU":
             return self._sample_cpu(input_nodes)

@@ -159,10 +159,15 @@ def export(ts_mod, tracing_mod, traces, out_path):
     pid = 1
     for t in traces:
         for seg in t["segments"]:
-            events = ts_mod.trace_record_to_chrome_events(seg, pid=pid)
+            doc = {"traceEvents": ts_mod.trace_record_to_chrome_events(
+                seg, pid=pid)}
+            if "base_ns" in seg:
+                # the segment's clock base: the merge lines segments of
+                # one host up on it
+                doc["baseTimeNanoseconds"] = seg["base_ns"]
             p = os.path.join(d, f"seg{pid}.json")
             with open(p, "w") as f:
-                json.dump({"traceEvents": events}, f)
+                json.dump(doc, f)
             paths.append(p)
             pid += 1
     n = tracing_mod.merge_chrome_traces(paths, out_path)

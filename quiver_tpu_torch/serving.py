@@ -136,16 +136,17 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
     def step(hop_seeds, feat, forder, indptr, indices, seeds):
         col = metrics.Collector(seeds.device) if collect_metrics else None
         with torch.inference_mode():
-            if fused is None:
-                x, layers = _walk(None, feat, forder, indptr, indices,
-                                  seeds, sizes, hop_seeds, gather=gather,
-                                  collector=col, method=method)
-            else:
-                hot = feat[0] if gather is not None else feat
-                if quant.is_sharded(hot):
-                    # a clique's hot tier: the sample-only walk, then the
-                    # store's lookup (or the sharded gather) of the
-                    # frontier
+            hot = None if fused is None else \
+                feat[0] if gather is not None else feat
+            # a clique's hot tier takes the sample-only walk, then the
+            # store's lookup (or the sharded gather) of the frontier
+            sharded = hot is not None and quant.is_sharded(hot)
+            with tracing.span("serve.walk"):
+                if fused is None:
+                    x, layers = _walk(None, feat, forder, indptr, indices,
+                                      seeds, sizes, hop_seeds, gather=gather,
+                                      collector=col, method=method)
+                elif sharded:
                     x, layers = _walk(fused, feat, forder, indptr, indices,
                                       seeds, sizes, hop_seeds, gather=gather,
                                       collector=col)
@@ -153,12 +154,13 @@ def build_serve_step(model, sizes: Sequence[int], batch_cap: int,
                     x, layers = _walk(fused, hot, forder, indptr, indices,
                                       seeds, sizes, hop_seeds,
                                       hot_rows=fused_hot_rows, collector=col)
-                    if gather is not None:
-                        x = _cold_fixup(gather, feat, forder,
-                                        layers[-1].n_id, x, fused_hot_rows,
-                                        col)
-            adjs = layers_to_adjs(layers, batch_cap, sizes)
-            logits = model(x, adjs)[:batch_cap]
+            if hot is not None and not sharded and gather is not None:
+                with tracing.span("serve.cold_fixup"):
+                    x = _cold_fixup(gather, feat, forder, layers[-1].n_id, x,
+                                    fused_hot_rows, col)
+            with tracing.span("serve.model"):
+                adjs = layers_to_adjs(layers, batch_cap, sizes)
+                logits = model(x, adjs)[:batch_cap]
             if col is None:
                 return logits
             return logits, col.counters()
@@ -394,13 +396,16 @@ class ServeEngine:
         synchronising. ``hop_seeds`` (one int32 per hop) replaces the
         generator's draw, e.g. to replay the JAX package's seeds. With
         ``collect_metrics`` the batch's counter vector lands on
-        ``last_counters``."""
-        sizes = self.variants[variant]
-        if hop_seeds is None:
-            hop_seeds = self.draw_hop_seeds(len(sizes))
-        out = self._steps[variant](
-            list(hop_seeds), self._feat, self._forder, self._indptr,
-            self._indices, self.pad_seeds(seeds))
+        ``last_counters``. The call is the span ``serve.run``, with
+        ``serve.walk``, ``serve.cold_fixup`` (over a tiered store's
+        ``feature.lookup``) and ``serve.model`` under it."""
+        with tracing.span("serve.run"):
+            sizes = self.variants[variant]
+            if hop_seeds is None:
+                hop_seeds = self.draw_hop_seeds(len(sizes))
+            out = self._steps[variant](
+                list(hop_seeds), self._feat, self._forder, self._indptr,
+                self._indices, self.pad_seeds(seeds))
         if not self.collect_metrics:
             return out
         logits, self.last_counters = out

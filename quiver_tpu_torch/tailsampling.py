@@ -36,6 +36,11 @@ fleet aggregator joins a client's ``rpc.*`` spans and a replica's
   process): correlation is by id, never by clock.
 - :func:`trace_record_to_chrome_events` turns one kept segment into
   Chrome trace events (``tracing.merge_chrome_traces`` joins them).
+  A kept record's ``base_ns`` is its first span's start in Unix
+  nanoseconds (``tracing.unix_ns``): the events' ``ts`` are Unix
+  microseconds less that base, the profiler's clock convention, so a
+  file of them that names it as ``baseTimeNanoseconds`` merges onto
+  the host's other traces.
 
 Standard library only. The sampler never emits under its own lock, and
 a span costs one append under one lock.
@@ -281,7 +286,7 @@ class TailSampler:
         rec = {"trace_id": int(trace_id), "policy": policy,
                "root": root_name,
                "duration_ms": round(root_dur * 1e3, 3),
-               "spans": out_spans}
+               "spans": out_spans, "base_ns": tracing.unix_ns(base)}
         replica = tracing.get_replica()
         if replica is not None:
             rec["replica"] = replica

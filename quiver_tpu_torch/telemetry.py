@@ -1258,8 +1258,8 @@ class FlightRecorder:
             doc["spans"] = [
                 {"name": n, "tid": tid, "t0": round(t0, 6),
                  "dur": round(dur, 6), "trace_id": trace_id,
-                 "args": args}
-                for n, tid, t0, dur, trace_id, args in recs]
+                 "args": args, "span": sid, "parent": parent}
+                for n, tid, t0, dur, trace_id, args, sid, parent, _ in recs]
         except Exception as e:
             doc["spans_error"] = repr(e)
         if self.hub is not None:

@@ -104,6 +104,11 @@ def test_keep_decisions_and_records_equal_jaxs(seed, kw):
     spans = stream(seed)
     got = run(tailsampling, tracing, spans, 150, **kw)
     want = run(jtail, jtracing, spans, 150, **kw)
+    # the port's records also name their clock base: the first kept
+    # span's start in Unix nanoseconds (tracing.unix_ns)
+    lo, hi = tracing.unix_ns(0.0), tracing.unix_ns(spans[-1][1])
+    assert all(isinstance(b, int) and lo <= b <= hi
+               for b in (r.pop("base_ns") for r in got[0]))
     assert got[0] == want[0]
     assert got[1] == want[1]
     assert got[1]["kept"] == len(got[0]) > 0
@@ -135,7 +140,8 @@ def test_attach_enables_and_detach_unhooks():
 def _kept(seed):
     recs, _ = run(tailsampling, tracing, stream(seed), 10, head_rate=0.3,
                   seed=seed)
-    return [{k: v for k, v in r.items() if k != "kind"} for r in recs]
+    return [{k: v for k, v in r.items() if k not in ("kind", "base_ns")}
+            for r in recs]
 
 
 @pytest.mark.parametrize("seed", range(3))
